@@ -4,18 +4,30 @@
     python3 chip_smoke.py            # the contract run
     python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of
                                      # one request by device kernel
+    python3 chip_smoke.py --kernels  # phases 1-4 only: the short loop for
+                                     # work on a kernel
 
 Phases, in order; any failure exits non-zero and no phase is skipped:
 
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them. TF32 is switched off, so float32
    products are full float32 on both sides of every comparison.
-2. build: compiles every kernel of the path from ``paddle_tpu_torch/csrc``.
+2. build: compiles every kernel of the path from ``paddle_tpu_torch/csrc``
+   and prints each kernel's registers, stack frame (where spills go) and
+   tensor-core (``HMMA``) instructions, all read from the built library;
+   fails on a kernel with no ``HMMA`` or, at the model path's head width,
+   with a stack frame.
 3. kernels against their plain versions on the card, at the model path's
-   shape [8, 8, 256, 64] in float32 and bfloat16 and at ragged shapes.
-4. kernel timing at [8, 8, 256, 64]: kernel, plain version, one library
+   shape [8, 8, 256, 64] in float32 and bfloat16 and at shapes that reach
+   every head-dim tier, ragged KV stages and unaligned rows.
+4. kernel timing at [8, 8, 256, 64], each the card's time per call from
+   a CUDA-graph replay of 30 calls (the kernel's eager back-to-back time,
+   host cost included, beside it): kernel, plain version, one library
    call (``scaled_dot_product_attention``, timed as a yardstick and never
-   called by the port) and the bound from the card's data-sheet rates.
+   called by the port) and the bound from the card's data-sheet rates:
+   float32 takes three TF32 tensor-core products per product
+   (3 * flops at 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s is kept
+   beside it), bfloat16 one (flops at 495 TFLOP/s; 989 TFLOP/s beside it).
 5. the main path: Transformer-base (the bench_transformer widths, random
    weights from a seed) built with the port's layers, initialized on the
    card, saved as an inference model and served by
@@ -24,7 +36,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    through a CPU predictor on the same directory.
 
 The line before the last lists every ported kernel with its launches on
-the main path; the last line is the device record.
+the main path (null under ``--kernels``); the last line is the device
+record.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,7 +71,11 @@ LAUNCHES_PER_REQUEST = 18        # 6 encoder self + 6 decoder self + 6 cross
 
 # H100 SXM data-sheet rates (dense), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+CUDA_CORE_FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+# tensor-core products per product the kernel runs: 3xTF32 for float32
+TF32_PRODUCTS = {torch.float32: 3, torch.bfloat16: 1}
 
 # fp32: the kernel and the plain version differ only in summation order
 # (online softmax with rescaling against one softmax), TF32 off.
@@ -84,6 +102,59 @@ def nvidia_smi_line() -> str:
     if not out:
         raise RuntimeError("nvidia-smi printed nothing")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the compiler made of each kernel
+# ---------------------------------------------------------------------------
+
+def _kernel_name(mangled):
+    """flash_fwd_kernel<float, 64> from its mangled name."""
+    m = re.search(r"(\w+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if not m:
+        return mangled[:60]
+    name = re.sub(r"^.*\d(?=[a-z])", "", m.group(1))  # drop the namespace
+    return f"{name}<{'float' if m.group(2) == 'f' else 'bf16'}, {m.group(3)}>"
+
+
+def kernel_report(name):
+    """{kernel: {registers, stack_bytes, hmma, opcodes}} of one library,
+    read from the library itself (so also from one an earlier run built):
+    registers and stack frame, where spilled registers go, from
+    ``cuobjdump -res-usage``; opcodes (static SASS instruction count by
+    opcode) from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, _build.library_path(name)],
+                              check=True, capture_output=True, text=True,
+                              timeout=300).stdout
+
+    rows, cur = {}, None
+    new = lambda: {"registers": None, "stack_bytes": None, "hmma": 0,
+                   "opcodes": {}}
+    for line in dump("-res-usage").splitlines():
+        m = re.match(r"\s*Function (\w+):", line)
+        if m:
+            cur = rows.setdefault(_kernel_name(m.group(1)), new())
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)
+        if cur is not None and m:
+            cur["registers"] = int(m.group(1))
+            cur["stack_bytes"] = int(m.group(2)) + int(m.group(3))
+    cur = None
+    for line in dump("-sass").splitlines():
+        m = re.match(r"\s*Function : (\w+)", line)
+        if m:
+            cur = rows.setdefault(_kernel_name(m.group(1)), new())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if cur is not None and m:
+            op = m.group(1)
+            cur["opcodes"][op] = cur["opcodes"].get(op, 0) + 1
+            cur["hmma"] += op == "HMMA"
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -142,31 +213,70 @@ def kernel_cases(dtype):
     yield "Tq=300 Tk=100 causal", make_case(2, 3, 300, 100, 64, dtype, None, 7), True
     yield "fully masked row", make_case(2, 2, 128, 128, 64, dtype, [0, 128], 8), False
     yield "D=128", make_case(2, 4, 200, 200, 128, dtype, [200, 99], 9), False
+    yield "Tk=1", make_case(2, 3, 70, 1, 64, dtype, [1, 1], 21), False
+    yield "Tk=65 (ragged 2nd stage)", make_case(2, 3, 100, 65, 64, dtype, [65, 40], 22), False
+    yield "Tk=129 (ragged 3rd stage)", make_case(2, 3, 129, 129, 64, dtype, [129, 100], 23), True
+    yield "Tq=70 Tk=129", make_case(2, 3, 70, 129, 64, dtype, [129, 66], 24), False
+    yield "D=32", make_case(2, 4, 150, 150, 32, dtype, [150, 77], 25), True
+    yield "D=80", make_case(2, 4, 150, 150, 80, dtype, [150, 77], 26), False
+    yield "D=96", make_case(2, 4, 150, 150, 96, dtype, [150, 77], 27), True
+    yield "causal T=300 (5 q tiles)", make_case(2, 3, 300, 300, 64, dtype, [300, 211], 28), True
+    yield "B*H=512", make_case(32, 16, 64, 64, 64, dtype, lens(32, 64), 29), False
+    yield "D=33 (unaligned rows)", make_case(2, 3, 90, 90, 33, dtype, [90, 45], 30), True
 
 
-def time_ms(fn, iters=30, warmup=5):
-    for _ in range(warmup):
-        fn()
+def time_ms(fn, iters=30, warmup=5, graph=True):
+    """Milliseconds per call of ``fn``. graph=True: ``iters`` calls
+    captured in a CUDA graph and replayed, so the time is the card's and
+    the host's per-call cost (Python, allocation, launch) is not in it;
+    graph=False: eager calls back to back, host cost included where it
+    exceeds the card's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        run, reps = g.replay, 5
+        run()
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
+        reps = 1
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        run()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return start.elapsed_time(stop) / (iters * reps)
 
 
 def bound(q, k, v, kb, causal):
+    """(bound_ms, bound_by, other_ms): the kernel's bound on the TF32
+    tensor cores, and beside it the bound at float32's CUDA-core rate
+    (float32) or at the bf16 tensor-core rate (bfloat16)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + b * h * tq * 4 + (kb.numel() * 4 if kb is not None else 0)
     flops = 4 * b * h * tq * tk * d / (2 if causal else 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_ops = TF32_PRODUCTS[q.dtype] * flops / TF32_FLOPS * 1e3
+    other = flops / (CUDA_CORE_FP32_FLOPS if q.dtype == torch.float32
+                     else BF16_FLOPS) * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, other))
 
 
 def time_kernel(dtype, causal):
@@ -178,12 +288,15 @@ def time_kernel(dtype, causal):
         tri = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
         mask = mask.masked_fill(~tri, -1e30)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    kernel = lambda: fa.flash_attention_fwd(q, k, v, kb, causal, scale)
     row = {
-        "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, kb, causal, scale)),
         "plain_ms": time_ms(lambda: fa.plain_attention(q, k, v, kb, causal, scale)),
         "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale)),
+        "eager_ms": time_ms(kernel, graph=False),
+        "ms": time_ms(kernel),
     }
-    row["bound_ms"], row["bound_by"] = bound(q, k, v, kb, causal)
+    row["bound_ms"], row["bound_by"], row["bound_other_ms"] = bound(
+        q, k, v, kb, causal)
     return row
 
 
@@ -311,7 +424,7 @@ def profile_request(pred, feed, model_dir, steady_ms):
         f"kernel; median steady request {steady_ms:.3f} ms wall, so the "
         f"card is idle {max(0.0, 1 - busy / steady_ms):.1%} of it")
     log(f"request operations {flops / 1e9:.1f} GFLOP: fp32 bound "
-        f"{flops / PEAK_FLOPS[torch.float32] * 1e3:.3f} ms at the data-sheet "
+        f"{flops / CUDA_CORE_FP32_FLOPS * 1e3:.3f} ms at the data-sheet "
         f"67 TFLOP/s")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% "
@@ -321,6 +434,8 @@ def profile_request(pred, feed, model_dir, steady_ms):
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
+    args.add_argument("--kernels", action="store_true",
+                      help="phases 1-4 only, then the closing lines")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -337,10 +452,25 @@ def main(argv=None):
     t0 = time.perf_counter()
     info = _build.build()
     log(f"built {sorted(info)} in {time.perf_counter() - t0:.1f} s")
-    for name, rec in info.items():
-        for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    for name in _build.SOURCES:
+        report = kernel_report(name)
+        for kname, row in sorted(report.items()):
+            log(f"  {name}: {kname}: {row['registers']} registers, "
+                f"{row['stack_bytes']} bytes of stack frame, {row['hmma']} "
+                f"HMMA of {sum(row['opcodes'].values())} SASS instructions")
+            if f", {MAIN_SHAPE[3]}>" in kname:
+                top = sorted(row["opcodes"].items(), key=lambda x: -x[1])[:10]
+                log("    most frequent: " + ", ".join(f"{o} {n}" for o, n in top))
+        if not report or any(r["hmma"] == 0 for r in report.values()):
+            raise AssertionError(f"{name}: a kernel runs no tensor-core "
+                                 "instruction (HMMA count 0 in its SASS)")
+        if any(r["registers"] is None for r in report.values()):
+            raise AssertionError(f"{name}: cuobjdump -res-usage gave no "
+                                 "registers for a kernel")
+        if any(r["stack_bytes"] for k, r in report.items()
+               if f", {MAIN_SHAPE[3]}>" in k):
+            raise AssertionError(f"{name}: a stack frame (spills) at "
+                                 f"D = {MAIN_SHAPE[3]}")
 
     phase("kernels against their plain versions")
     errs = {}
@@ -355,18 +485,28 @@ def main(argv=None):
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
             row = timing[dtype, causal] = time_kernel(dtype, causal)
+            other = ("fp32 CUDA cores 67" if dtype == torch.float32
+                     else "bf16 tensor cores 989")
             log(f"{str(dtype)[6:]:<8} causal={int(causal)} kernel "
-                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"{row['ms']:.4f} ms (eager calls {row['eager_ms']:.4f} ms), "
+                f"plain {row['plain_ms']:.4f} ms, "
                 f"sdpa {row['library_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}, TF32 495 "
+                f"TFLOP/s), {row['bound_other_ms']:.4f} ms at the {other} "
+                f"TFLOP/s")
 
-    phase("main path: Transformer-base through NativePredictor")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_model_",
-                                     dir=_build.BUILD_DIR) as model_dir:
-        launches = main_path(model_dir, args.profile)
+    launches = None
+    if not args.kernels:
+        phase("main path: Transformer-base through NativePredictor")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_model_",
+                                         dir=_build.BUILD_DIR) as model_dir:
+            launches = main_path(model_dir, args.profile)
 
-    fp32 = timing[torch.float32, False]
-    bf16 = timing[torch.bfloat16, False]
+    fp32 = dict(timing[torch.float32, False])
+    bf16 = dict(timing[torch.bfloat16, False])
+    fp32_cuda_cores = fp32.pop("bound_other_ms")
+    bf16["bound_ms_bf16_rate"] = bf16.pop("bound_other_ms")
+    bf16["causal_ms"] = timing[torch.bfloat16, True]["ms"]
     kernel = {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -375,6 +515,8 @@ def main(argv=None):
         "ms": fp32["ms"], "kernel_ms": fp32["ms"],
         "plain_ms": fp32["plain_ms"], "bound_ms": fp32["bound_ms"],
         "bound_by": fp32["bound_by"], "library_ms": fp32["library_ms"],
+        "bound_ms_cuda_cores": fp32_cuda_cores, "eager_ms": fp32["eager_ms"],
+        "causal_ms": timing[torch.float32, True]["ms"],
         "dtype": "float32", "shape": list(MAIN_SHAPE),
         "bf16": dict(bf16, max_abs_err=errs[torch.bfloat16]),
     }

@@ -5,91 +5,214 @@
 // Same function: O = softmax(Q K^T * scale + key_bias [+ causal mask]) V and
 // lse = logsumexp of the same scores, over [B, H, T, D] heads, fp32 or bf16
 // inputs, fp32 accumulation. Not carried over block by block:
-//   * one CUDA block per (query tile of BM rows, b*h); a loop inside the
-//     block walks the KV tiles through shared memory, since blocks run in
-//     parallel and no order carries across them (the TPU grid ran its KV
-//     axis in order and kept m/l/acc in VMEM scratch between steps);
-//   * no head-dim padding to 128 and no multiple-of-128 rule: any D up to
-//     128, any Tq and Tk, ragged tails masked;
+//   * one CUDA block per (b*h, query tile of BM rows); a loop inside the
+//     block walks the KV tiles, since blocks run in parallel and no order
+//     carries across them (the TPU grid ran its KV axis in order and kept
+//     m/l/acc in VMEM scratch between steps);
+//   * no head-dim padding to 128 and no multiple-of-128 rule: D is padded
+//     to the next of the tiers 32, 64, 128 in shared memory only, any Tq
+//     and Tk, ragged tails masked;
 //   * causal masking is bottom-right aligned (row r sees keys c <= r + Tk - Tq),
 //     the alignment of _plain_attention (pallas_attention.py:37); the Pallas
 //     body is top-left aligned (:60, :71-75). The two agree when Tq == Tk,
 //     as on every causal use of the model path.
 //
-// Bound on an H100 SXM (data-sheet rates: 3.35 TB/s, 67 TFLOP/s fp32 outside
-// the tensor cores, 989 TFLOP/s bf16 dense) at the model path's shape
-// [8, 8, 256, 64] with a key bias: it moves Q, K, V, O once (16.8 MB fp32,
-// 8.4 MB bf16, plus 8 KB of key bias and 64 KB of lse) and does
-// 4*B*H*Tq*Tk*D = 1.07 GFLOP (half that causal). fp32 is bound by the
-// operations, bf16 by the bytes.
+// The design: 4 warps per block, each owning 16 query rows; KV tiles of
+// BN = 64 keys, double-buffered in shared memory with cp.async so that
+// tile j+1 loads while tile j computes (one __syncthreads per tile). Both
+// products run on the tensor cores as mma.sync m16n8k8 TF32 with fp32
+// accumulation. fp32 inputs are split x = big + small, both TF32 (rounded
+// with cvt.rna), and each product is big*big + big*small + small*big
+// ("3xTF32", about 2^-22 relative error per product). bf16 inputs are
+// exact in TF32 and take one product; their P (fp32 in the kernel) is
+// rounded to TF32 once. The softmax stays in registers: a thread holds 2
+// rows x 16 keys of S, reduces across the 4 lanes of its quad, and keeps
+// m, l and the O accumulator in registers, in base 2 (exp2f, with
+// scale*log2(e) folded into the score). P goes from the C fragment to the
+// A fragment of P.V without moving: the key order inside each k-step is
+// permuted (logical k = t -> key 2t, k = t+4 -> key 2t+1), and V's B
+// fragment is read in the same order. Q and K are read in pairs along D
+// under the same kind of permutation. Row paddings of 8 (Q, K) and 4 (fp32
+// V) or 8 (bf16 V) elements keep every fragment read free of bank
+// conflicts. Under causal masking, KV tiles wholly above a query tile's
+// diagonal are skipped (by the block, and by each warp for its 16 rows),
+// and the query tiles that see the most keys are launched first.
 //
-// This first version is simple and correct, not fast: scores and the P.V
-// product run as fp32 FMAs on the CUDA cores from shared-memory tiles, for
-// both input types. wgmma on the tensor cores, TMA loads and warp
-// specialisation come in later work.
+// Bound on an H100 SXM (data-sheet rates: 3.35 TB/s; 495 TFLOP/s TF32 and
+// 989 TFLOP/s bf16 dense on the tensor cores; 67 TFLOP/s fp32 outside
+// them) at the model path's shape [8, 8, 256, 64] with a key bias: it
+// moves Q, K, V, O once (16.8 MB fp32, 8.4 MB bf16, plus 8 KB of key bias
+// and 64 KB of lse) and does 4*B*H*Tq*Tk*D = 1.07 GFLOP (half that
+// causal). fp32-accurate products take three TF32 products, so fp32 is
+// bound by 3 * 1.07 GFLOP / 495 TFLOP/s = 6.5 us of operations against
+// 5.0 us of bytes (on the CUDA cores it was 16 us); bf16 is bound by its
+// bytes, 2.5 us. Left for later work: wgmma with TMA loads and warp
+// specialisation (the only way to the full tensor-core rate), a bf16
+// m16n8k16 product for bf16 serving, and split-KV for grids that do not
+// fill the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BM = 64;        // query rows per block
-constexpr int BN = 64;        // keys per KV tile
-constexpr int THREADS = 256;  // a 16 x 16 thread grid; 4 threads per softmax row
+constexpr int BM = 64;         // query rows per block, 16 per warp
+constexpr int BN = 64;         // keys per KV tile
+constexpr int NT = BN / 8;     // 8-key column tiles of S
+constexpr int THREADS = 128;   // 4 warps
 constexpr int MAX_D = 128;
-constexpr int DJ = MAX_D / 16;  // accumulator columns per thread
-constexpr float MASKED = -1e30f;  // the causal fill of the JAX kernels
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// the causal fill of the JAX kernels, -1e30, in the base-2 score domain
+constexpr float MASKED = -1e30f * LOG2E;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// shared-memory layout of one block: row strides in elements
+template <typename T, int DT>
+struct Smem {
+  static constexpr int QK = DT + 8;  // Q and K rows: 8-byte pair reads
+  static constexpr int V = std::is_same<T, float>::value ? DT + 4 : DT + 8;
+  static constexpr size_t q_elems = (size_t)BM * QK;
+  static constexpr size_t k_elems = (size_t)BN * QK;  // per stage
+  static constexpr size_t v_elems = (size_t)BN * V;   // per stage
+  static constexpr size_t bytes =
+      sizeof(T) * (q_elems + 2 * k_elems + 2 * v_elems) + sizeof(float) * 2 * BN;
+};
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as TF32 terms: big = tf32(x), small = tf32(x - big) when SPLIT; an
+// exact TF32 value (bf16 data) passes as its own bits.
+template <bool SPLIT>
+__device__ __forceinline__ void terms(float x, uint32_t& big, uint32_t& small) {
+  if (SPLIT) {
+    big = tf32(x);
+    small = tf32(x - __uint_as_float(big));
+  } else {
+    big = __float_as_uint(x);
+  }
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b with a, b as TF32 terms: small products first, then big*big
+template <bool SPLIT>
+__device__ __forceinline__ void mma_terms(float (&c)[4], const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4], uint32_t bb0,
+                                          uint32_t bb1, uint32_t bs0,
+                                          uint32_t bs1) {
+  if (SPLIT) {
+    mma(c, as, bb0, bb1);
+    mma(c, ab, bs0, bs1);
+  }
+  mma(c, ab, bb0, bb1);
+}
+
+// two neighbouring elements of a shared-memory row as fp32
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float ld_one(const float* p) { return *p; }
+__device__ __forceinline__ float ld_one(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
 }
-
-size_t smem_bytes(int d) {
-  return sizeof(float) * ((size_t)BM * d + (size_t)BN * (d + 1) +
-                          (size_t)BN * d + (size_t)BM * (BN + 1) + BN +
-                          3 * BM);
+template <typename T>
+__device__ __forceinline__ T zero() { return T(0.f); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
 }
 
-template <typename T>
+// cp.async of 16 (or 4) bytes; src_bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [0, 64) x cols [0, DT) of a [rows][D] global tile into a [64][STRIDE]
+// shared tile; rows >= n_rows and cols >= D are zero. vec: 16-byte cp.async
+// (rows 16-byte aligned); otherwise element loads and stores.
+template <typename T, int DT, int STRIDE>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int n_rows,
+                                          int D, bool vec, int tid) {
+  if (vec) {
+    constexpr int EPC = 16 / sizeof(T);    // elements per copy
+    constexpr int CPR = DT / EPC;          // copies per row
+    constexpr int RPP = THREADS / CPR;     // rows per pass of the block
+    const int r0 = tid / CPR, c = (tid % CPR) * EPC;
+#pragma unroll
+    for (int j = 0; j < 64 / RPP; ++j) {
+      const int r = r0 + j * RPP;
+      const bool ok = r < n_rows && c < D;
+      cp_async16(dst + r * STRIDE + c, ok ? src + r * D + c : src, ok);
+    }
+  } else {
+    for (int i = tid; i < 64 * DT; i += THREADS) {
+      const int r = i / DT, c = i % DT;
+      dst[r * STRIDE + c] =
+          r < n_rows && c < D ? src[(size_t)r * D + c] : zero<T>();
+    }
+  }
+}
+
+template <typename T, int DT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ key_bias,
                  T* __restrict__ o, float* __restrict__ lse, int H, int tq,
-                 int tk, int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ks = D + 1;                 // padded K row: no bank conflicts
-  float* q_s = smem;                    // [BM][D]
-  float* k_s = q_s + BM * D;            // [BN][D + 1]
-  float* v_s = k_s + BN * ks;           // [BN][D]
-  float* p_s = v_s + BN * D;            // [BM][BN + 1]: scores, then P
-  float* kb_s = p_s + BM * (BN + 1);    // [BN]
-  float* m_s = kb_s + BN;               // [BM] running max
-  float* l_s = m_s + BM;                // [BM] running sum
-  float* a_s = l_s + BM;                // [BM] this tile's rescale factor
+                 int tk, int D, float scale_log2, int causal, int vec) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  using L = Smem<T, DT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);         // [BM][QK]
+  T* k_s = q_s + L::q_elems;                       // 2 x [BN][QK]
+  T* v_s = k_s + 2 * L::k_elems;                   // 2 x [BN][V]
+  float* kb_s = reinterpret_cast<float*>(v_s + 2 * L::v_elems);  // 2 x [BN]
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BM;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  // causal: the query tiles that see the most keys start first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BM;
   const int b = bh / H;
-  const size_t q_base = (size_t)bh * tq * D;
-  const size_t k_base = (size_t)bh * tk * D;
-
-  for (int i = tid; i < BM * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    q_s[i] = q0 + r < tq ? to_float(q[q_base + (size_t)(q0 + r) * D + d])
-                         : 0.f;
-  }
-  if (tid < BM) {
-    m_s[tid] = MASKED;
-    l_s[tid] = 0.f;
-  }
+  const T* qg = q + ((size_t)bh * tq + q0) * D;
+  const T* kg = k + (size_t)bh * tk * D;
+  const T* vg = v + (size_t)bh * tk * D;
+  const float* kbg = key_bias != nullptr ? key_bias + (size_t)b * tk : nullptr;
 
   // Causal: key c is visible to query row r when c <= r + shift. KV tiles
   // wholly above the diagonal of this query tile are skipped. A tile that
@@ -97,153 +220,199 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // tile, so that row comes out uniform over all keys, as the plain
   // version's softmax over -1e30 does.
   const int shift = tk - tq;
-  int kv_end = tk;
-  if (causal && q0 + shift >= 0) kv_end = min(tk, q0 + BM + shift);
+  const bool skip_ok = causal && q0 + shift >= 0;
+  const int kv_end = skip_ok ? min(tk, q0 + BM + shift) : tk;
+  const int n_tiles = (kv_end + BN - 1) / BN;
 
-  const int ty = tid / 16, tx = tid % 16;
-  const int srow = tid / 4, spart = tid % 4;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BN * D; i += THREADS) {
-      const int c = i / D, d = i - c * D;
-      float kv = 0.f, vv = 0.f;
-      if (k0 + c < tk) {
-        const size_t off = k_base + (size_t)(k0 + c) * D + d;
-        kv = to_float(k[off]);
-        vv = to_float(v[off]);
-      }
-      k_s[c * ks + d] = kv;
-      v_s[c * D + d] = vv;
-    }
+  auto load_kv = [&](int tile, int st) {
+    const int k0 = tile * BN;
+    const int n = min(BN, tk - k0);
+    load_tile<T, DT, L::QK>(k_s + st * L::k_elems, kg + (size_t)k0 * D, n, D,
+                            vec, tid);
+    load_tile<T, DT, L::V>(v_s + st * L::v_elems, vg + (size_t)k0 * D, n, D,
+                           vec, tid);
     if (tid < BN) {
-      kb_s[tid] = (key_bias != nullptr && k0 + tid < tk)
-                      ? key_bias[(size_t)b * tk + k0 + tid]
-                      : 0.f;
+      float* dst = kb_s + st * BN + tid;
+      if (kbg != nullptr)
+        cp_async4(dst, tid < n ? kbg + k0 + tid : kbg, tid < n);
+      else
+        *dst = 0.f;
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  load_tile<T, DT, L::QK>(q_s, qg, min(BM, tq - q0), D, vec, tid);
+  load_kv(0, 0);
 
-    // S = Q K^T: each thread owns rows ty + 16i and keys tx + 16j
-    float s[4][4];
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + warp * 16;           // the warp's first query row
+  const int r0 = wrow + g, r1 = wrow + g + 8;  // this thread's two rows
+  const T* q_w = q_s + (warp * 16 + g) * L::QK + 2 * t;
+
+  float acc[DT / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DT / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {MASKED, MASKED};  // running max, base 2
+  float l[2] = {0.f, 0.f};        // this thread's part of the running sum
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, k0 = it * BN;
+    cp_async_wait_all();  // tile it (and Q) landed
+    __syncthreads();      // ... for every thread; tile it-1 is consumed
+    if (it + 1 < n_tiles) load_kv(it + 1, st ^ 1);
+    // every row of this warp sees none of the tile: it adds exactly 0
+    if (skip_ok && k0 > wrow + 15 + shift) continue;
+
+    const T* k_t = k_s + st * L::k_elems + g * L::QK + 2 * t;
+    const T* v_t = v_s + st * L::v_elems + 2 * t * L::V + g;
+    const float* kb_t = kb_s + st * BN + 2 * t;
+
+    // S = Q K^T, 16 rows x 64 keys per warp. Logical k = t holds d = 2t,
+    // k = t + 4 holds d = 2t + 1, in both operands.
+    float s[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty + 16 * i) * D + d];
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * ks + d];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < DT / 8; ++kk) {
+      const float2 x0 = ld_pair(q_w + 8 * kk);
+      const float2 x1 = ld_pair(q_w + 8 * L::QK + 8 * kk);
+      uint32_t ab[4], as[4];
+      terms<SPLIT>(x0.x, ab[0], as[0]);  // (g, t)
+      terms<SPLIT>(x1.x, ab[1], as[1]);  // (g + 8, t)
+      terms<SPLIT>(x0.y, ab[2], as[2]);  // (g, t + 4)
+      terms<SPLIT>(x1.y, ab[3], as[3]);  // (g + 8, t + 4)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        float val;
-        if (k0 + c >= tk) {
-          val = -INFINITY;  // past the last key: not part of the softmax
-        } else {
-          val = s[i][j] * scale + kb_s[c];  // key bias in fp32 after scale
-          if (causal && k0 + c > q0 + r + shift) val = MASKED;
-        }
-        p_s[r * (BN + 1) + c] = val;
+      for (int n = 0; n < NT; ++n) {
+        const float2 y = ld_pair(k_t + 8 * n * L::QK + 8 * kk);
+        uint32_t bb0, bs0, bb1, bs1;
+        terms<SPLIT>(y.x, bb0, bs0);
+        terms<SPLIT>(y.y, bb1, bs1);
+        mma_terms<SPLIT>(s[n], ab, as, bb0, bb1, bs0, bs1);
       }
     }
-    __syncthreads();
 
-    // online softmax: 4 neighbouring lanes share a row
-    {
-      float* row = p_s + srow * (BN + 1);
-      float mx = -INFINITY;
-      for (int c = spart; c < BN; c += 4) mx = fmaxf(mx, row[c]);
+    // scale, key bias and masks, in base 2; this thread holds rows r0
+    // (s[n][0..1]) and r1 (s[n][2..3]), keys k0 + 8n + 2t + {0, 1}
+    const bool masking = k0 + BN > tk || (causal && k0 + BN - 1 > wrow + shift);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 kb = *reinterpret_cast<const float2*>(kb_t + 8 * n);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + 8 * n + 2 * t + (e & 1);
+        const int r = e < 2 ? r0 : r1;
+        float val = fmaf(s[n][e], scale_log2, ((e & 1) ? kb.y : kb.x) * LOG2E);
+        if (masking) {
+          if (c >= tk)
+            val = -INFINITY;  // past the last key: not part of the softmax
+          else if (causal && c > r + shift)
+            val = MASKED;
+        }
+        s[n][e] = val;
+      }
+    }
+
+    // online softmax in registers; a row's 64 keys lie on one quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[srow];
-      const float m_new = fmaxf(m_prev, mx);  // finite: m starts at -1e30
+      const float alpha = exp2f(m[i] - mx);  // m starts finite: no NaN
+      m[i] = mx;
       float sum = 0.f;
-      for (int c = spart; c < BN; c += 4) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        s[n][2 * i] = exp2f(s[n][2 * i] - mx);
+        s[n][2 * i + 1] = exp2f(s[n][2 * i + 1] - mx);
+        sum += s[n][2 * i] + s[n][2 * i + 1];
       }
-      // the shuffles also order every lane's read of m_s before the write
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (spart == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[srow] = alpha;
-        m_s[srow] = m_new;
-        l_s[srow] = l_s[srow] * alpha + sum;
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < DT / 8; ++n) {
+        acc[n][2 * i] *= alpha;
+        acc[n][2 * i + 1] *= alpha;
       }
     }
-    __syncthreads();
 
-    // acc = acc * alpha + P V: each thread owns rows ty + 16i, dims tx + 16j
+    // O += P V. The C fragment of S's column tile j is the A fragment of
+    // k-step j with logical k = t -> key 2t, k = t + 4 -> key 2t + 1;
+    // V's B fragment is read in the same key order.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty + 16 * i];
+    for (int j = 0; j < NT; ++j) {
+      uint32_t pb[4], ps[4];
+      const float p[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    const int n_keys = min(BN, tk - k0);
-#pragma unroll 2
-    for (int c = 0; c < n_keys; ++c) {
-      float pv[4];
+      for (int e = 0; e < 4; ++e) {
+        if (SPLIT)
+          terms<true>(p[e], pb[e], ps[e]);
+        else
+          pb[e] = tf32(p[e]);  // bf16 inputs: P rounded to TF32 once
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * (BN + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        const float vv = d < D ? v_s[c * D + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+      for (int n = 0; n < DT / 8; ++n) {
+        const T* vp = v_t + 8 * j * L::V + 8 * n;
+        uint32_t bb0, bs0, bb1, bs1;
+        terms<SPLIT>(ld_one(vp), bb0, bs0);
+        terms<SPLIT>(ld_one(vp + L::V), bb1, bs1);
+        mma_terms<SPLIT>(acc[n], pb, ps, bb0, bb1, bs0, bs1);
       }
     }
   }
-  __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= tq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = o + q_base + (size_t)(q0 + r) * D;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = i ? r1 : r0;
+    if (r >= tq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* orow = o + ((size_t)bh * tq + r) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(acc[i][j] / l, orow + d);
+    for (int n = 0; n < DT / 8; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (d < D) store(acc[n][2 * i] * inv, orow + d);
+      if (d + 1 < D) store(acc[n][2 * i + 1] * inv, orow + d + 1);
     }
+    if (t == 0)
+      lse[(size_t)bh * tq + r] = (m[i] + log2f(fmaxf(l[i], 1e-30f))) * LN2;
   }
-  if (tid < BM && q0 + tid < tq)
-    lse[(size_t)bh * tq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-template <typename T>
+template <typename T, int DT>
 int launch(const void* q, const void* k, const void* v, const float* kb,
            void* o, float* lse, int B, int H, int tq, int tk, int D,
            float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  const size_t smem = Smem<T, DT>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + BM - 1) / BM, B * H);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  const bool vec = (D * sizeof(T)) % 16 == 0 && (uintptr_t)q % 16 == 0 &&
+                   (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const dim3 grid(B * H, (tq + BM - 1) / BM);
+  flash_fwd_kernel<T, DT><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, kb, (T*)o, lse, H, tq, tk, D,
-      scale, causal);
+      scale * LOG2E, causal, (int)vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tier(const void* q, const void* k, const void* v, const float* kb,
+                void* o, float* lse, int B, int H, int tq, int tk, int D,
+                float scale, int causal, cudaStream_t s) {
+  if (D <= 32)
+    return launch<T, 32>(q, k, v, kb, o, lse, B, H, tq, tk, D, scale, causal, s);
+  if (D <= 64)
+    return launch<T, 64>(q, k, v, kb, o, lse, B, H, tq, tk, D, scale, causal, s);
+  return launch<T, 128>(q, k, v, kb, o, lse, B, H, tq, tk, D, scale, causal, s);
 }
 
 }  // namespace
@@ -258,14 +427,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int tq, int tk, int D, float scale,
                                    int causal, int is_bf16, void* stream) {
   if (D < 1 || D > MAX_D || tq < 1 || tk < 1 || B < 1 || H < 1 ||
-      (long long)B * H > 65535)
+      (long long)B * H > 0x7fffffff || (tq + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, key_bias, o, lse, B, H, tq, tk, D,
-                                 scale, causal, s);
-  return launch<float>(q, k, v, key_bias, o, lse, B, H, tq, tk, D, scale,
-                       causal, s);
+    return launch_tier<__nv_bfloat16>(q, k, v, key_bias, o, lse, B, H, tq, tk,
+                                      D, scale, causal, s);
+  return launch_tier<float>(q, k, v, key_bias, o, lse, B, H, tq, tk, D, scale,
+                            causal, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -4,9 +4,11 @@ against the JAX package's.
 On the CPU the port's wrapper computes its plain version, which is held
 here against the Pallas kernel run in interpret mode (the real kernel
 body, as tests/test_pallas_interpret.py runs it) and against
-``_plain_attention`` at ragged shapes. The CUDA kernel itself runs only on
-a card: its case is marked ``cuda`` and skips elsewhere; chip_smoke.py
-holds it against the plain version at the model path's shapes.
+``_plain_attention`` at ragged shapes. The kernel's TF32 arithmetic is
+emulated on the CPU (``emulated_attention``) and held against
+``_plain_attention`` too. The CUDA kernel itself runs only on a card: its
+case is marked ``cuda`` and skips elsewhere; chip_smoke.py holds it
+against the plain version at the model path's shapes.
 """
 
 import numpy as np
@@ -94,6 +96,61 @@ def test_plain_matches_jax_plain_at_ragged_shapes(b, h, tq, tk, d, causal,
                                rtol=1e-6, atol=1e-5)
 
 
+def _jax_plain(q, k, v, kb, causal, scale):
+    return np.asarray(pa._plain_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if kb is None else jnp.asarray(kb), causal, scale))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_emulated_tf32_kernel_arithmetic_matches_jax_plain(dtype, atol,
+                                                           causal):
+    """The kernel's products (TF32 mma.sync: 3 split products for fp32
+    inputs, 1 for bf16 inputs with P rounded to TF32) at the model's
+    head shape against _plain_attention on the same values in fp32."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt)
+               for a in _qkv(2, 8, 256, 256, 64, seed=17 + int(causal)))
+    kb = _key_bias(2, 256, [256, 141])
+    scale = 64 ** -0.5
+    out, lse = fa.emulated_attention(q, k, v, torch.from_numpy(kb), causal,
+                                     scale)
+    assert out.dtype == dt
+    qf, kf, vf = (a.float().numpy() for a in (q, k, v))
+    ref = _jax_plain(qf, kf, vf, kb, causal, scale)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=atol)
+    np.testing.assert_allclose(lse.numpy(), _ref_lse(qf, kf, kb, causal,
+                                                     scale), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+def test_one_tf32_product_misses_the_fp32_tolerance(causal):
+    """Why the kernel splits fp32 operands: one TF32 product per operand
+    pair misses the card's fp32 tolerance of 1e-4, three meet it."""
+    q, k, v = _qkv(2, 8, 256, 256, 64, seed=17 + int(causal))
+    kb = _key_bias(2, 256, [256, 141])
+    scale = 64 ** -0.5
+    ref = _jax_plain(q, k, v, kb, causal, scale)
+    err = {n: np.abs(fa.emulated_attention(*_torch(q, k, v, kb), causal,
+                                           scale, products=n)[0].numpy()
+                     - ref).max() for n in (1, 3)}
+    assert err[1] > 1e-4 > 1e-5 > err[3]
+
+
+@pytest.mark.parametrize("x,want", [
+    (1.0, 1.0),
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),        # a tie rounds away
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -12, 1.0),                     # below the tie
+    (1.0 + 3 * 2.0 ** -12, 1.0 + 2.0 ** -10),
+], ids=["exact", "tie_up", "tie_negative", "below_tie", "above_tie"])
+def test_tf32_round_is_round_to_nearest_away(x, want):
+    got = fa.tf32_round(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == want
+
+
 def test_causal_alignment_is_bottom_right():
     """Tq != Tk causal: query r sees keys c <= r + Tk - Tq, the alignment
     of _plain_attention (pallas_attention.py:37), not the Pallas body's
@@ -147,6 +204,20 @@ def test_wrapper_does_not_fall_back_for_other_devices():
         fa.flash_attention_fwd(q, q, q, None, False, 1.0)
 
 
+@pytest.mark.parametrize("shape,match", [
+    ((1, 1, 64 * 65535 + 1, 8), "query tiles"),
+    ((70000, 1, 8, 8), "neither on the CPU nor on a CUDA"),
+], ids=["too_many_query_tiles", "bh_past_65535"])
+def test_wrapper_checks_the_kernel_grid_limits(shape, match):
+    """The kernel's grid is (B*H, ceil(Tq / 64)), capped at 2^31 - 1 and
+    65535: Tq past 65535 query tiles is refused by the shape checks, B*H
+    past 65535 passes them (and on a meta tensor stops at the device
+    check). Meta tensors hold no memory."""
+    q = torch.empty(shape, device="meta")
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_fwd(q, q, q, None, False, 1.0)
+
+
 def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     path = _build.library_path("flash_attention_fwd")
@@ -165,7 +236,10 @@ def test_cuda_kernel_matches_plain(dtype):
     for (b, h, tq, tk, d, causal) in [(2, 2, 256, 256, 64, False),
                                       (2, 2, 256, 256, 64, True),
                                       (1, 3, 77, 77, 48, True),
-                                      (1, 2, 100, 300, 64, False)]:
+                                      (1, 2, 100, 300, 64, False),
+                                      (1, 2, 100, 65, 32, False),
+                                      (1, 2, 300, 300, 80, True),
+                                      (1, 2, 90, 90, 33, True)]:
         q, k, v = (torch.from_numpy(a).cuda().to(dt)
                    for a in _qkv(b, h, tq, tk, d, seed=d))
         kb = torch.from_numpy(_key_bias(b, tk, [tk // 2] + [tk] * (b - 1)))
