@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (``paddle_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # the contract run
-    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of
-                                     # one request by device kernel
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one
+                                     # request and one train step by device
+                                     # kernel
     python3 chip_smoke.py --kernels  # phases 1-4 only: the short loop for
                                      # work on a kernel
 
@@ -12,32 +13,50 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them. TF32 is switched off, so float32
    products are full float32 on both sides of every comparison.
-2. build: compiles every kernel of the path from ``paddle_tpu_torch/csrc``
-   and prints each kernel's registers, stack frame (where spills go) and
-   tensor-core (``HMMA``) instructions, all read from the built library;
-   fails on a kernel with no ``HMMA`` or, at the model path's head width,
-   with a stack frame.
-3. kernels against their plain versions on the card, at the model path's
-   shape [8, 8, 256, 64] in float32 and bfloat16 and at shapes that reach
-   every head-dim tier, ragged KV stages and unaligned rows.
+2. build: compiles every kernel from ``paddle_tpu_torch/csrc`` (one nvcc
+   per source, all at once) and prints each kernel's registers, stack
+   frame (where spills go), tensor-core (``HMMA``) instructions and SASS
+   mix, all read from the built library; fails on a forward kernel with
+   no ``HMMA`` or, at the model path's head width, with a stack frame.
+   The backward kernels run fp32 FMAs on the CUDA cores by design and
+   are only reported.
+3. kernels against their plain versions on the card: the forward at the
+   model path's shape [8, 8, 256, 64] in float32 and bfloat16 and at
+   shapes that reach every head-dim tier, ragged KV stages and unaligned
+   rows; the backward (dQ, dK, dV, dKeyBias against
+   ``plain_attention_bwd``) the same way, causal and not, with key-bias
+   tails and ragged Tq != Tk.
 4. kernel timing at [8, 8, 256, 64], each the card's time per call from
-   a CUDA-graph replay of 30 calls (the kernel's eager back-to-back time,
-   host cost included, beside it): kernel, plain version, one library
-   call (``scaled_dot_product_attention``, timed as a yardstick and never
-   called by the port) and the bound from the card's data-sheet rates:
-   float32 takes three TF32 tensor-core products per product
-   (3 * flops at 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s is kept
-   beside it), bfloat16 one (flops at 495 TFLOP/s; 989 TFLOP/s beside it).
-5. the main path: Transformer-base (the bench_transformer widths, random
+   a CUDA-graph replay of 30 calls (the eager back-to-back time, host
+   cost included, beside it): kernel, plain version, one library call
+   (``scaled_dot_product_attention``, forward; its backward as graph
+   replays of forward + backward less forward; timed as a yardstick and
+   never called by the port) and the bound from the card's data-sheet
+   rates. Forward: float32 takes three TF32 tensor-core products per
+   product (3 * flops at 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s
+   beside it), bfloat16 one (flops at 495 TFLOP/s; 989 beside it).
+   Backward: 5 products of 2*B*H*Tq*Tk*D; float32 as 3xTF32 at 495
+   TFLOP/s (67 TFLOP/s beside it), bfloat16 at 989 TFLOP/s, each against
+   the bytes read and written once at 3.35 TB/s.
+5. serving: Transformer-base (the bench_transformer widths, random
    weights from a seed) built with the port's layers, initialized on the
    card, saved as an inference model and served by
    ``create_paddle_predictor(NativeConfig(dir))``: 4 requests of batch 8
-   with mixed source and target lengths, then a batch-1 request replayed
-   through a CPU predictor on the same directory.
+   with mixed source and target lengths (18 forward launches each, no
+   backward), then a batch-1 request replayed through a CPU predictor on
+   the same directory.
+6. training: the same model's train program (noam schedule with warmup
+   8000, Adam) on ``Executor()``: 5 fp32 steps and 5 bf16-AMP steps
+   (``mixed_precision.decorate``) at batch 16, T 256, from the same
+   initial weights, each step 36 forward and 18 * 3 backward kernel
+   launches, losses finite and the AMP losses within 1e-2 relative of the
+   fp32 ones; then one batch-2 step replayed through
+   ``Executor(CPUPlace())`` from the same weights: loss, the gradients of
+   proj.w, enc0_att_q.w, dec5_catt_v.w and src_word_emb, and their
+   updated parameters against the card's and against the Adam formula.
 
 The line before the last lists every ported kernel with its launches on
-the main path (null under ``--kernels``); the last line is the device
-record.
+the paths (null under ``--kernels``); the last line is the device record.
 """
 
 from __future__ import annotations
@@ -56,6 +75,7 @@ import torch
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core.desc import ProgramDesc
+from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.inference import NativeConfig, create_paddle_predictor
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops import _build
@@ -63,11 +83,19 @@ from paddle_tpu_torch.ops import flash_attention as fa
 
 SEED = 2024
 FEEDS = ["src_word", "src_pos", "trg_word", "trg_pos", "src_len", "trg_len"]
+TRAIN_FEEDS = FEEDS + ["lbl_word"]
 # bench_transformer widths: 6 + 6 layers, d_model 512, 8 heads, seq 256
 MODEL = dict(src_vocab=32000, tgt_vocab=32000, max_len=256, n_layer=6,
              n_head=8, d_model=512, d_inner_hid=2048, dropout_rate=0.0)
 MAIN_SHAPE = (8, 8, 256, 64)     # [B, H, T, D] of every attention per request
 LAUNCHES_PER_REQUEST = 18        # 6 encoder self + 6 decoder self + 6 cross
+TRAIN_BATCH = 16                 # the JAX build's default batch
+TRAIN_STEPS = 5
+# per train step: each attention's forward, and its recompute inside the
+# grad op, then the backward's delta, dK/dV and dQ kernels
+FWD_PER_STEP = 2 * LAUNCHES_PER_REQUEST
+BWD_PER_STEP = LAUNCHES_PER_REQUEST * fa.BWD_KERNELS
+REPLAY_GRADS = ["proj.w", "enc0_att_q.w", "dec5_catt_v.w", "src_word_emb"]
 
 # H100 SXM data-sheet rates (dense), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -84,6 +112,13 @@ TF32_PRODUCTS = {torch.float32: 3, torch.bfloat16: 1}
 # so the bound is bf16's half-ulp of |O| < 4 (2^-7 = 7.8e-3) with margin.
 TOL = {torch.float32: {"out": 1e-4, "lse": 1e-4},
        torch.bfloat16: {"out": 2e-2, "lse": 1e-3}}
+# backward, relative to each gradient's largest magnitude. fp32: FMAs in
+# another order than the plain version's products, TF32 off (about 1e-6
+# measured on CPU-scale cases). bf16: dQ, dK, dV are rounded to bf16 once
+# (half an ulp, 2^-8 of the largest) and held against the plain version
+# on the same values in fp32; dKeyBias stays fp32.
+BWD_TOL = {torch.float32: {"grad": 1e-4, "dkb": 1e-4},
+           torch.bfloat16: {"grad": 1e-2, "dkb": 1e-4}}
 
 
 def log(msg=""):
@@ -109,12 +144,14 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 def _kernel_name(mangled):
-    """flash_fwd_kernel<float, 64> from its mangled name."""
-    m = re.search(r"(\w+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    """flash_fwd_kernel<float, 64> (or flash_bwd_delta_kernel<bf16>) from
+    its mangled name."""
+    m = re.search(r"(\w+_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled[:60]
     name = re.sub(r"^.*\d(?=[a-z])", "", m.group(1))  # drop the namespace
-    return f"{name}<{'float' if m.group(2) == 'f' else 'bf16'}, {m.group(3)}>"
+    dtype = "float" if m.group(2) == "f" else "bf16"
+    return f"{name}<{dtype}, {m.group(3)}>" if m.group(3) else f"{name}<{dtype}>"
 
 
 def kernel_report(name):
@@ -300,6 +337,107 @@ def time_kernel(dtype, causal):
     return row
 
 
+def check_bwd_case(name, q, k, v, kb, causal):
+    """The backward kernels against plain_attention_bwd on the same
+    inputs (the kernel's own forward output and lse, a seeded dO); the
+    largest absolute error over dQ, dK, dV and dKeyBias."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, kb, causal, scale)
+    gen = torch.Generator(device="cuda").manual_seed(q.shape[2] + k.shape[2])
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    got = fa.flash_attention_bwd(q, k, v, kb, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    want = fa.plain_attention_bwd(q.float(), k.float(), v.float(), kb,
+                                  out.float(), lse, do.float(), causal, scale)
+    tol = BWD_TOL[q.dtype]
+    errs, worst = [], 0.0
+    for gname, g, w in zip(("dQ", "dK", "dV", "dKB"), got, want):
+        if w is None:
+            continue
+        err = (g.float() - w).abs().max().item()
+        top = w.abs().max().item()
+        worst = max(worst, err)
+        errs.append(f"{gname} {err:.2e}/{top:.2e}")
+        limit = tol["dkb" if gname == "dKB" else "grad"] * top + 1e-6
+        if not (torch.isfinite(g).all() and err <= limit):
+            raise AssertionError(f"{name}: backward {gname} disagrees with "
+                                 f"the plain version ({err:.3e} > {limit:.3e})")
+    log(f"{name:<28} {str(q.dtype)[6:]:<8} q{list(q.shape)} "
+        f"k{list(k.shape)} causal={int(causal)} max|err|/max|grad|: "
+        + ", ".join(errs))
+    return worst
+
+
+def bwd_cases(dtype):
+    """Every head-dim tier, causal and not, key-bias tails, ragged Tq !=
+    Tk; no row sees no key (the backward of such a row is undefined, the
+    _fa_bwd docstring)."""
+    b, h, t, d = MAIN_SHAPE
+    rng = np.random.RandomState(SEED + 1)
+    lens = lambda n, hi: [int(x) for x in rng.randint(hi // 4, hi + 1, n)]
+    yield "enc self (key bias)", make_case(b, h, t, t, d, dtype, lens(b, t), 31), False
+    yield "dec self (causal, bias)", make_case(b, h, t, t, d, dtype, lens(b, t), 32), True
+    yield "cross (key bias)", make_case(b, h, t, t, d, dtype, lens(b, t), 33), False
+    yield "ragged T=77 D=48", make_case(2, 3, 77, 77, 48, dtype, [77, 50], 34), True
+    yield "Tq=100 Tk=300", make_case(2, 3, 100, 300, 64, dtype, [300, 123], 35), False
+    yield "Tq=100 Tk=300 causal", make_case(2, 3, 100, 300, 64, dtype, [300, 250], 36), True
+    yield "Tq=300 Tk=100", make_case(2, 3, 300, 100, 64, dtype, [100, 61], 37), False
+    yield "Tk=65 no bias", make_case(2, 3, 100, 65, 64, dtype, None, 38), False
+    yield "D=32", make_case(2, 4, 150, 150, 32, dtype, [150, 77], 39), True
+    yield "D=80", make_case(2, 4, 150, 150, 80, dtype, [150, 77], 40), False
+    yield "D=128", make_case(2, 4, 200, 200, 128, dtype, [200, 99], 41), True
+    yield "D=33 (unaligned rows)", make_case(2, 3, 90, 90, 33, dtype, [90, 45], 42), True
+
+
+def bwd_bound(q, k, v, kb, causal):
+    """(bound_ms, bound_by, cuda_core_ms) of the backward: 5 products of
+    2*B*H*Tq*Tk*D (half that causal), fp32 as three TF32 products each at
+    495 TFLOP/s (at 67 TFLOP/s on the CUDA cores beside it), bf16 at 989
+    TFLOP/s; against Q, K, V, O, dO read and dQ, dK, dV written once,
+    plus lse, the key bias and its gradient."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    es = q.element_size()
+    nbytes = (3 * q.numel() + 2 * k.numel()) * es \
+        + (q.numel() + 2 * k.numel()) * es + b * h * tq * 4 \
+        + (2 * kb.numel() * 4 if kb is not None else 0)
+    flops = 5 * 2 * b * h * tq * tk * d / (2 if causal else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if q.dtype == torch.float32:
+        t_ops = TF32_PRODUCTS[q.dtype] * flops / TF32_FLOPS * 1e3
+    else:
+        t_ops = flops / BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, flops / CUDA_CORE_FP32_FLOPS * 1e3))
+
+
+def time_bwd(dtype, causal):
+    b, h, t, d = MAIN_SHAPE
+    q, k, v, kb = make_case(b, h, t, t, d, dtype, [t] * (b // 2) + [t // 2] * (b // 2), 11)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, kb, causal, scale)
+    do = torch.randn(q.shape, device="cuda").to(dtype)
+    mask = kb[:, None, None, :].to(dtype)
+    if causal:
+        tri = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+        mask = mask.masked_fill(~tri, -1e30)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_fwd = lambda: sdpa(qr, kr, vr, attn_mask=mask, scale=scale)
+    sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), do)
+    kernel = lambda: fa.flash_attention_bwd(q, k, v, kb, out, lse, do, causal, scale)
+    row = {
+        "plain_ms": time_ms(lambda: fa.plain_attention_bwd(
+            q, k, v, kb, out, lse, do, causal, scale)),
+        "library_ms": time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
+        "eager_ms": time_ms(kernel, graph=False),
+        "ms": time_ms(kernel),
+    }
+    row["bound_ms"], row["bound_by"], row["bound_other_ms"] = bwd_bound(
+        q, k, v, kb, causal)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
@@ -330,7 +468,7 @@ def serve(pred, feed, cfg):
 
 
 def main_path(model_dir, profile):
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     m = transformer.build(**MODEL)
     cfg = m["config"]
     m["startup"].random_seed = SEED
@@ -341,9 +479,10 @@ def main_path(model_dir, profile):
         exe.run(m["startup"])
         pt.io.save_inference_model(model_dir, FEEDS, [m["logits"]], exe,
                                    main_program=m["test"])
-    n_params = sum(t.numel() for t in scope._vars.values())
+    n_params = sum(scope.find_var(p.name).numel()
+                   for p in m["test"].all_parameters())
     log(f"startup on {exe.device} + save: {time.perf_counter() - t0:.2f} s, "
-        f"{n_params} parameters")
+        f"{n_params} parameter elements")
 
     pred = create_paddle_predictor(NativeConfig(model_dir))
     steady_ms = []
@@ -359,8 +498,9 @@ def main_path(model_dir, profile):
     one = {k: v[:1] for k, v in make_request(cfg, 8, SEED + 10).items()}
     gpu_logits, _ = serve(pred, one, cfg)
     launches = fa.launches
-    if launches != 5 * LAUNCHES_PER_REQUEST:
-        raise AssertionError(f"{launches} launches on the main path")
+    if launches != 5 * LAUNCHES_PER_REQUEST or fa.bwd_launches:
+        raise AssertionError(f"{launches} forward and {fa.bwd_launches} "
+                             "backward launches on the serving path")
 
     t0 = time.perf_counter()
     cpu_pred = create_paddle_predictor(NativeConfig(model_dir, use_gpu=False))
@@ -399,22 +539,8 @@ def request_flops(blk, batch):
 
 def profile_request(pred, feed, model_dir, steady_ms):
     """Device time of one request by kernel, against the request's
-    unprofiled wall time and its operations bound. Only the device-side
-    rows are summed: the aten op that launched a kernel carries the same
-    time again as its own self device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        pred.run(feed)
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
-    busy = sum(r[1] for r in rows) / 1e3
-    if not busy:
-        raise RuntimeError("the profiler recorded no device time")
+    unprofiled wall time and its operations bound."""
+    rows, busy = device_rows(lambda: pred.run(feed))
     with open(os.path.join(model_dir, "__model__"), "rb") as f:
         blk = ProgramDesc.from_bytes(f.read()).blocks[0]
     n_ops = sum(op.type not in ("feed", "fetch") for op in blk.ops)
@@ -429,6 +555,214 @@ def profile_request(pred, feed, model_dir, steady_ms):
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% "
             f"x{count:<4} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, batch, seed):
+    """A seeded batch with source and target lengths in [64, T]."""
+    rng = np.random.RandomState(seed)
+    feed = transformer.make_fake_batch(batch, cfg, seed=seed)
+    feed["src_len"] = rng.randint(64, cfg["max_len"] + 1, batch).astype(np.int32)
+    feed["trg_len"] = rng.randint(64, cfg["max_len"] + 1, batch).astype(np.int32)
+    return {k: feed[k] for k in TRAIN_FEEDS}
+
+
+def copy_state(state, device):
+    scope = pt.Scope()
+    for name, t in state.items():
+        scope.set_var(name, t.to(device, copy=True))
+    return scope
+
+
+def train_steps(exe, program, scope, loss_name, cfg, label):
+    """TRAIN_STEPS steps at TRAIN_BATCH; checks each step's launches and
+    loss. Returns (losses, step ms)."""
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        feed = train_batch(cfg, TRAIN_BATCH, SEED + 100 + i)
+        fwd0, bwd0 = fa.launches, fa.bwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss,) = exe.run(program, feed=feed, fetch_list=[loss_name],
+                          scope=scope, return_numpy=False)
+        loss = float(loss.reshape(-1)[0].item())
+        ms = (time.perf_counter() - t0) * 1e3
+        fwd, bwd = fa.launches - fwd0, fa.bwd_launches - bwd0
+        tokens = int(feed["trg_len"].sum())
+        log(f"{label} step {i}: loss {loss:.6f}, {ms:.1f} ms, {tokens} target "
+            f"tokens, {tokens / ms * 1e3:.0f} target tokens/s, launches "
+            f"{fwd} forward + {bwd} backward")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{label} step {i}: loss {loss}")
+        if (fwd, bwd) != (FWD_PER_STEP, BWD_PER_STEP):
+            raise AssertionError(f"{label} step {i}: {fwd} forward and {bwd} "
+                                 f"backward launches, want {FWD_PER_STEP} "
+                                 f"and {BWD_PER_STEP}")
+        losses.append(loss)
+        step_ms.append(ms)
+    return losses, step_ms
+
+
+def adam_first_update(grad, lr):
+    """The first Adam step of the model's optimizer (beta1 0.9, beta2 0.98,
+    epsilon 1e-9; the power accumulators start at the betas), in float64
+    on the host: lr * sqrt(1 - 0.98) / (1 - 0.9) * m1 / (sqrt(m2) + 1e-9)."""
+    g = grad.double()
+    m1, m2 = 0.1 * g, 0.02 * g * g
+    return lr * 0.02 ** 0.5 / 0.1 * m1 / (m2.sqrt() + 1e-9)
+
+
+def replay_on_cpu(m, state, lr):
+    """One batch-2 step from the same weights on the card and through
+    Executor(CPUPlace()): loss, the REPLAY_GRADS gradients and their
+    updated parameters, fp32 on both sides with TF32 off. The loss within
+    1e-4 relative. Each gradient within 1e-3 relative in L2 and within
+    1e-2 of its largest magnitude elementwise: the backward recomputes P
+    from the forward kernel's lse and takes delta from its O, which its 3
+    TF32 products leave about 1e-6 off fp32, and dSoft = P (dP - delta)
+    cancels where attention is near uniform (at initialization), so the
+    gradients through Q and K, and the word embeddings below them, lose
+    about three digits (the CPU, with the kernel's TF32 forward emulated,
+    loses two: 1.5e-4 of the largest magnitude). Adam's first step is
+    about +-lr wherever |g| >> 1e-8, so
+    where the two gradients differ near 0 the two parameters may move
+    apart by up to 2 lr. So each side's new parameters are held against
+    the Adam formula on its own gradient (within 1e-3 lr plus an fp32
+    spacing of the parameter), and the two sides against each other
+    within 2 lr plus that spacing."""
+    feed = train_batch(m["config"], 2, SEED + 50)
+    fetch = [m["loss"].name] + [n + "@GRAD" for n in REPLAY_GRADS]
+    results = {}
+    t0 = time.perf_counter()
+    for where, exe in (("card", pt.Executor()),
+                       ("cpu", pt.Executor(pt.CPUPlace()))):
+        scope = copy_state(state, exe.device)
+        out = exe.run(m["main"], feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        params = [scope.find_var(n).cpu() for n in REPLAY_GRADS]
+        results[where] = ([t.cpu() for t in out], params)
+    (gpu, gpu_p), (cpu, cpu_p) = results["card"], results["cpu"]
+    loss_gpu, loss_cpu = gpu[0].item(), cpu[0].item()
+    log(f"batch-2 step replayed on the CPU ({time.perf_counter() - t0:.1f} s "
+        f"for both): loss {loss_gpu:.7f} on the card, {loss_cpu:.7f} on the "
+        f"CPU, lr {lr:.4e}")
+    if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        raise AssertionError("train step: card and CPU losses disagree")
+    for name, g, c, pg, pc in zip(REPLAY_GRADS, gpu[1:], cpu[1:], gpu_p,
+                                  cpu_p):
+        err, top = (g - c).abs().max().item(), c.abs().max().item()
+        rel_l2 = (torch.linalg.norm(g - c) / torch.linalg.norm(c)).item()
+        p0 = state[name].cpu().double()
+        spacing = torch.finfo(torch.float32).eps * p0.abs()
+        formula = [((p1.double() - (p0 - adam_first_update(grad, lr))).abs()
+                    - spacing).max().item() / lr
+                   for p1, grad in ((pg, g), (pc, c))]
+        apart = (pg.double() - pc.double()).abs()
+        log(f"  {name}: max|dgrad| {err:.3e} of max|grad| {top:.3e} "
+            f"(L2 {rel_l2:.3e} relative); new "
+            f"parameters past the Adam formula by {formula[0]:.2e} lr (card) "
+            f"and {formula[1]:.2e} lr (CPU); card and CPU apart by up to "
+            f"{apart.max().item() / lr:.3f} lr, by more than 1e-3 lr in "
+            f"{(apart > 1e-3 * lr).double().mean().item():.4%} of elements")
+        if not (torch.isfinite(g).all() and err <= 1e-2 * top
+                and rel_l2 <= 1e-3):
+            raise AssertionError(f"train step: {name} gradients disagree")
+        if not (max(formula) <= 1e-3
+                and bool(((apart - spacing) <= 2 * lr).all())):
+            raise AssertionError(f"train step: {name} updates disagree")
+
+
+def training_path(profile):
+    """Transformer-base training on the card: fp32 and AMP steps from the
+    same initial weights, then the CPU replay. Returns (fwd, bwd) kernel
+    launches of the fp32 and AMP steps."""
+    m = transformer.build(**MODEL)
+    m["startup"].random_seed = SEED
+    exe = pt.Executor()
+    init = pt.Scope()
+    t0 = time.perf_counter()
+    exe.run(m["startup"], scope=init)
+    state = {n: init.find_var(n) for n in init.var_names()}
+    n_params = sum(state[p.name].numel() for p in m["main"].all_parameters())
+    log(f"train startup on {exe.device}: {time.perf_counter() - t0:.2f} s, "
+        f"{len(state)} persistables, {n_params} parameter elements")
+    loss_name = m["loss"].name
+    amp_main = mixed_precision.decorate(m["main"].clone())
+
+    fa.launches = fa.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fp32_scope = copy_state(state, exe.device)
+    fp32_losses, fp32_ms = train_steps(exe, m["main"], fp32_scope, loss_name,
+                                       m["config"], "fp32")
+    peak = torch.cuda.max_memory_allocated()
+    amp_losses, amp_ms = train_steps(exe, amp_main, copy_state(state, exe.device),
+                                     loss_name, m["config"], "bf16 AMP")
+    launches = (fa.launches, fa.bwd_launches)
+    if launches != (2 * TRAIN_STEPS * FWD_PER_STEP,
+                    2 * TRAIN_STEPS * BWD_PER_STEP):
+        raise AssertionError(f"{launches} launches on the training path")
+    rel = max(abs(a - f) / abs(f) for a, f in zip(amp_losses, fp32_losses))
+    log(f"fp32 median step {np.median(fp32_ms[1:]):.1f} ms, AMP "
+        f"{np.median(amp_ms[1:]):.1f} ms (steps 1-{TRAIN_STEPS - 1}); peak "
+        f"memory {peak / 2 ** 30:.2f} GiB over the fp32 steps; AMP losses "
+        f"within {rel:.3e} relative of fp32")
+    if not rel <= 1e-2:
+        raise AssertionError("AMP losses disagree with fp32 beyond 1e-2")
+    # the noam rate of the first step: d_model^-0.5 * min(1, warmup^-1.5)
+    lr = MODEL["d_model"] ** -0.5 * min(1.0, 8000 ** -1.5)
+    replay_on_cpu(m, state, lr)
+    if profile:
+        profile_step(exe, m, fp32_scope, float(np.median(fp32_ms[1:])))
+    return launches
+
+
+def device_rows(fn):
+    """(rows [(kernel, device us, count)], busy ms) of one call of fn under
+    torch.profiler: device-side rows only (the aten op that launched a
+    kernel carries the same time again as its own device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows) / 1e3
+    if not busy:
+        raise RuntimeError("the profiler recorded no device time")
+    return rows, busy
+
+
+def profile_step(exe, m, scope, steady_ms):
+    """Device time of one fp32 train step by kernel against its unprofiled
+    wall time; the forward alone (the test clone's loss) beside it, which
+    is what the generic vjp grad ops run again; the step's operations (3x
+    the forward's products) against the fp32 bound."""
+    feed = train_batch(m["config"], TRAIN_BATCH, SEED + 200)
+    rows, busy = device_rows(lambda: exe.run(
+        m["main"], feed=feed, fetch_list=[m["loss"].name], scope=scope,
+        return_numpy=False))
+    _, fwd_busy = device_rows(lambda: exe.run(
+        m["test"], feed=feed, fetch_list=[m["loss"].name], scope=scope,
+        return_numpy=False))
+    blk = m["main"].desc.blocks[0]
+    fwd_flops = request_flops(blk, TRAIN_BATCH)
+    log(f"profile of one fp32 train step (batch {TRAIN_BATCH}): {busy:.3f} ms "
+        f"of device time by kernel; median steady step {steady_ms:.3f} ms "
+        f"wall, so the card is idle {max(0.0, 1 - busy / steady_ms):.1%} of "
+        f"it; the forward alone {fwd_busy:.3f} ms of device time")
+    log(f"step operations {3 * fwd_flops / 1e9:.1f} GFLOP (3 x the forward's "
+        f"{fwd_flops / 1e9:.1f}): fp32 bound {3 * fwd_flops / CUDA_CORE_FP32_FLOPS * 1e3:.3f} "
+        f"ms at the data-sheet 67 TFLOP/s")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:16]:
+        log(f"  {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% "
+            f"x{count:<5} {key[:90]}")
 
 
 def main(argv=None):
@@ -451,77 +785,120 @@ def main(argv=None):
     phase("build")
     t0 = time.perf_counter()
     info = _build.build()
-    log(f"built {sorted(info)} in {time.perf_counter() - t0:.1f} s")
+    log(f"built {sorted(info)} in {time.perf_counter() - t0:.1f} s "
+        + ", ".join(f"({n}: {i['seconds']:.1f} s)" for n, i in sorted(info.items())))
     for name in _build.SOURCES:
         report = kernel_report(name)
         for kname, row in sorted(report.items()):
             log(f"  {name}: {kname}: {row['registers']} registers, "
                 f"{row['stack_bytes']} bytes of stack frame, {row['hmma']} "
                 f"HMMA of {sum(row['opcodes'].values())} SASS instructions")
-            if f", {MAIN_SHAPE[3]}>" in kname:
+            if f", {MAIN_SHAPE[3]}>" in kname or "delta" in kname:
                 top = sorted(row["opcodes"].items(), key=lambda x: -x[1])[:10]
                 log("    most frequent: " + ", ".join(f"{o} {n}" for o, n in top))
-        if not report or any(r["hmma"] == 0 for r in report.values()):
-            raise AssertionError(f"{name}: a kernel runs no tensor-core "
-                                 "instruction (HMMA count 0 in its SASS)")
         if any(r["registers"] is None for r in report.values()):
             raise AssertionError(f"{name}: cuobjdump -res-usage gave no "
                                  "registers for a kernel")
+        if name == "flash_attention_bwd":
+            # fp32 FMAs on the CUDA cores by design (a later PR moves it
+            # onto the tensor cores): no HMMA or spill rule
+            if not report:
+                raise AssertionError(f"{name}: no kernel in the library")
+            continue
+        if not report or any(r["hmma"] == 0 for r in report.values()):
+            raise AssertionError(f"{name}: a kernel runs no tensor-core "
+                                 "instruction (HMMA count 0 in its SASS)")
         if any(r["stack_bytes"] for k, r in report.items()
                if f", {MAIN_SHAPE[3]}>" in k):
             raise AssertionError(f"{name}: a stack frame (spills) at "
                                  f"D = {MAIN_SHAPE[3]}")
 
     phase("kernels against their plain versions")
-    errs = {}
+    errs, bwd_errs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, (q, k, v, kb), causal) in enumerate(kernel_cases(dtype)):
             err = check_case(name, q, k, v, kb, causal)
             if i < 3:
                 errs[dtype] = max(errs.get(dtype, 0.0), err)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, (q, k, v, kb), causal) in enumerate(bwd_cases(dtype)):
+            err = check_bwd_case(f"bwd {name}", q, k, v, kb, causal)
+            if i < 3:
+                bwd_errs[dtype] = max(bwd_errs.get(dtype, 0.0), err)
 
     phase("kernel timing at [8, 8, 256, 64]")
-    timing = {}
+    timing, bwd_timing = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
             row = timing[dtype, causal] = time_kernel(dtype, causal)
             other = ("fp32 CUDA cores 67" if dtype == torch.float32
                      else "bf16 tensor cores 989")
-            log(f"{str(dtype)[6:]:<8} causal={int(causal)} kernel "
+            log(f"fwd {str(dtype)[6:]:<8} causal={int(causal)} kernel "
                 f"{row['ms']:.4f} ms (eager calls {row['eager_ms']:.4f} ms), "
                 f"plain {row['plain_ms']:.4f} ms, "
                 f"sdpa {row['library_ms']:.4f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}, TF32 495 "
                 f"TFLOP/s), {row['bound_other_ms']:.4f} ms at the {other} "
                 f"TFLOP/s")
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            row = bwd_timing[dtype, causal] = time_bwd(dtype, causal)
+            rate = ("3xTF32 495" if dtype == torch.float32
+                    else "bf16 989")
+            log(f"bwd {str(dtype)[6:]:<8} causal={int(causal)} kernels "
+                f"{row['ms']:.4f} ms (eager calls {row['eager_ms']:.4f} ms), "
+                f"plain {row['plain_ms']:.4f} ms, sdpa backward "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}, {rate} TFLOP/s), "
+                f"{row['bound_other_ms']:.4f} ms at the fp32 CUDA cores 67 "
+                f"TFLOP/s")
 
-    launches = None
+    serving = training = (None, None)
     if not args.kernels:
-        phase("main path: Transformer-base through NativePredictor")
+        phase("serving: Transformer-base through NativePredictor")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_model_",
                                          dir=_build.BUILD_DIR) as model_dir:
-            launches = main_path(model_dir, args.profile)
+            serving = (main_path(model_dir, args.profile), 0)
+        phase("training: Transformer-base train steps on Executor()")
+        training = training_path(args.profile)
 
-    fp32 = dict(timing[torch.float32, False])
-    bf16 = dict(timing[torch.bfloat16, False])
-    fp32_cuda_cores = fp32.pop("bound_other_ms")
-    bf16["bound_ms_bf16_rate"] = bf16.pop("bound_other_ms")
-    bf16["causal_ms"] = timing[torch.bfloat16, True]["ms"]
-    kernel = {
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas_attention.py:43",
-        "launches": launches, "max_abs_err": errs[torch.float32],
-        "ms": fp32["ms"], "kernel_ms": fp32["ms"],
-        "plain_ms": fp32["plain_ms"], "bound_ms": fp32["bound_ms"],
-        "bound_by": fp32["bound_by"], "library_ms": fp32["library_ms"],
-        "bound_ms_cuda_cores": fp32_cuda_cores, "eager_ms": fp32["eager_ms"],
-        "causal_ms": timing[torch.float32, True]["ms"],
-        "dtype": "float32", "shape": list(MAIN_SHAPE),
-        "bf16": dict(bf16, max_abs_err=errs[torch.bfloat16]),
-    }
+    def entry(name, source, replaces, rows, errors, launches, per):
+        fp32 = dict(rows[torch.float32, False])
+        bf16 = dict(rows[torch.bfloat16, False])
+        cuda_cores = fp32.pop("bound_other_ms")
+        bf16["bound_ms_other"] = bf16.pop("bound_other_ms")
+        bf16["causal_ms"] = rows[torch.bfloat16, True]["ms"]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errors[torch.float32],
+            "ms": fp32["ms"], "plain_ms": fp32["plain_ms"],
+            "bound_ms": fp32["bound_ms"], "bound_by": fp32["bound_by"],
+            "library_ms": fp32["library_ms"],
+            "bound_ms_cuda_cores": cuda_cores, "eager_ms": fp32["eager_ms"],
+            "causal_ms": rows[torch.float32, True]["ms"],
+            "dtype": "float32", "shape": list(MAIN_SHAPE), **per,
+            "bf16": dict(bf16, max_abs_err=errors[torch.bfloat16]),
+        }
+
+    kernels = [
+        entry("flash_attention_fwd",
+              "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+              "paddle_tpu/ops/pallas_attention.py:43", timing, errs,
+              training[0],
+              {"launches_serving": serving[0],
+               "launches_per_request": LAUNCHES_PER_REQUEST,
+               "launches_per_step": FWD_PER_STEP}),
+        entry("flash_attention_bwd",
+              "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+              "paddle_tpu/ops/pallas_attention.py:213", bwd_timing, bwd_errs,
+              training[1],
+              {"launches_serving": serving[1],
+               "launches_per_request": 0,
+               "launches_per_step": BWD_PER_STEP}),
+    ]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,15 +2,18 @@
 PyTorch and CUDA for an NVIDIA H100.
 
 The same surface as the JAX package: build a Program with the layers DSL,
-run its startup on an Executor, save it as an inference model and serve
-it through ``inference.create_paddle_predictor``. Programs and parameter
+train it with an optimizer's ``minimize`` on an Executor, save it as an
+inference model and serve it through
+``inference.create_paddle_predictor``. Programs and parameter
 files are byte-compatible with the JAX package's. Entry points run on the
 card (``CUDAPlace(0)``) unless the caller asks for ``CPUPlace()``; the
-``flash_attention`` op runs a hand-written CUDA kernel on the card.
+``flash_attention`` op and its grad run hand-written CUDA kernels on the
+card.
 """
 
 from . import core, ops, registry  # noqa: F401  (ops registers emitters)
-from . import initializer, io, layers  # noqa: F401
+from . import initializer, io, layers, optimizer  # noqa: F401
+from . import backward, contrib  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .framework import (Parameter, Program, Variable,  # noqa: F401
                         default_main_program, default_startup_program,

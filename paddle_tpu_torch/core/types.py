@@ -136,3 +136,5 @@ class OpRole(enum.IntEnum):
 
 
 OP_ROLE_ATTR_NAME = "op_role"
+OP_ROLE_VAR_ATTR_NAME = "op_role_var"
+GRAD_SUFFIX = "@GRAD"

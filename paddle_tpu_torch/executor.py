@@ -3,9 +3,10 @@
 Counterpart of ``paddle_tpu/executor.py``. Where the JAX package traces a
 whole block into one XLA executable, this executor walks the block's ops
 in order and calls each op's emitter on tensors, with sequential name
-rebinding (reference executor.cc:432 is the same loop). Ops that neither
-feed a fetch nor write a persistable variable are skipped, so a test
-clone runs without its label feeds.
+rebinding (reference executor.cc:432 is the same loop). Grad op types
+resolve through ``registry.resolve_grad_emitter``. Ops that neither feed
+a fetch nor write a persistable variable are skipped, so a test clone
+runs without its label feeds and a train step drops dead grad branches.
 
 State contract: persistable variables live in the Scope across runs as
 tensors on the executor's device. ``Executor()`` with no place runs on
@@ -106,14 +107,21 @@ def _coerce_feed(value, name: str, block: Block, device: torch.device):
     return value.to(device=device, dtype=want or value.dtype)
 
 
+def _emitter(op_type: str):
+    """The op's emitter; a ``<type>_grad`` without one of its own takes
+    the generic vjp."""
+    try:
+        return registry.resolve_grad_emitter(op_type)
+    except KeyError:
+        raise NotImplementedError(f"operator {op_type!r} has no emitter in "
+                                  "paddle_tpu_torch yet") from None
+
+
 def run_ops(op_list: List[OpDesc], env: Dict[str, Any], ctx: EmitContext):
     """Run ``op_list`` in order; inputs come from ``env`` or the scope,
     outputs are bound into ``env``."""
     for op in op_list:
-        info = registry.lookup(op.type)
-        if info.emitter is None:
-            raise NotImplementedError(
-                f"operator {op.type!r} has no emitter in paddle_tpu_torch yet")
+        emitter = _emitter(op.type)
         ins = {}
         for slot, names in op.inputs.items():
             vals = []
@@ -129,7 +137,7 @@ def run_ops(op_list: List[OpDesc], env: Dict[str, Any], ctx: EmitContext):
                                    "neither fed nor in the scope")
                 vals.append(val)
             ins[slot] = vals
-        outs = info.emitter(ctx, ins, op.attrs)
+        outs = emitter(ctx, ins, op.attrs)
         for slot, names in op.outputs.items():
             for n, v in zip(names, (outs or {}).get(slot) or ()):
                 if n and v is not None:
@@ -166,11 +174,14 @@ class Executor:
                          if op.type not in ("feed", "fetch")],
                         fetch_names, block)
         generator = None
-        if any(registry.lookup(op.type).needs_rng for op in ops):
+        if any(registry.has_op(op.type) and registry.lookup(op.type).needs_rng
+               for op in ops):
             generator = scope.generator(self.device,
                                         program.random_seed or FLAGS.seed)
         ctx = EmitContext(self.device, generator=generator, amp=program._amp,
                           scope=scope)
+        # grad ops differentiate with torch.func.vjp, which records its
+        # forward under no_grad too
         with torch.no_grad():
             run_ops(ops, env, ctx)
         for name, val in env.items():

@@ -148,6 +148,9 @@ class Operator:
     def attr(self, name):
         return self.desc.attrs.get(name)
 
+    def set_attr(self, name, val):
+        self.desc.attrs[name] = val
+
     def __repr__(self):
         return f"Operator({self.desc!r})"
 
@@ -210,16 +213,23 @@ class Block:
 
     def append_op(self, type: str, inputs=None, outputs=None,
                   attrs=None) -> Operator:
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
         desc = OpDesc(type, _to_name_map(inputs), _to_name_map(outputs),
                       dict(attrs or {}))
         desc.callstack = _capture_callstack()
         if OP_ROLE_ATTR_NAME not in desc.attrs:
             desc.attrs[OP_ROLE_ATTR_NAME] = int(self.program._current_role)
         op = Operator(self, desc)
-        self.desc.append_op(desc)
-        self.ops.append(op)
+        self.desc.ops.insert(index, desc)
+        self.ops.insert(index, op)
         self._infer_shape(desc)
         return op
+
+    def _prepend_op(self, **kwargs) -> Operator:
+        return self._insert_op(0, **kwargs)
 
     def _infer_shape(self, desc: OpDesc):
         if registry.has_op(desc.type):
@@ -289,6 +299,28 @@ class Program:
 
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
+
+    @contextlib.contextmanager
+    def _role_guard(self, role: OpRole):
+        """Ops appended inside carry ``role`` (unless they set one)."""
+        old = self._current_role
+        self._current_role = role
+        try:
+            yield
+        finally:
+            self._current_role = old
+
+    def _optimized_guard(self, param_and_grads):
+        """The optimizer's update ops for ``param_and_grads``: OPTIMIZE
+        role. (Their op_role_var stamp is the backward's, on the grad's
+        producer.)"""
+        return self._role_guard(OpRole.OPTIMIZE)
+
+    def _lr_schedule_guard(self):
+        return self._role_guard(OpRole.LRSCHED)
+
+    def _backward_role_guard(self):
+        return self._role_guard(OpRole.BACKWARD)
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]

@@ -92,6 +92,23 @@ class LayerHelper:
             name=unique_name.generate(f"{self.name}.tmp"),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, name=None, persistable=False,
+                               dtype="float32", shape=None,
+                               stop_gradient=True) -> Variable:
+        """A variable of the main program's global block (learning rate,
+        optimizer state, step counter)."""
+        return self.main_program.global_block().create_var(
+            name=name or unique_name.generate(f"{self.name}.global"),
+            dtype=dtype, shape=shape, persistable=persistable,
+            stop_gradient=stop_gradient)
+
+    def set_variable_initializer(self, var: Variable, initializer):
+        """Initialize ``var`` in the startup program."""
+        sb = self.startup_program.global_block()
+        sv = sb.create_var(name=var.name, dtype=var.dtype, shape=var.shape,
+                           persistable=True, stop_gradient=True)
+        initializer(sv, sb)
+
     def append_op(self, **kwargs):
         return self.block.append_op(**kwargs)
 

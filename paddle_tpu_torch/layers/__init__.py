@@ -1,4 +1,6 @@
-from . import io, nn, tensor  # noqa: F401
+from . import io, nn, ops, tensor  # noqa: F401
+from . import learning_rate_scheduler  # noqa: F401
 from .io import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403

@@ -13,7 +13,7 @@ __all__ = [
     "fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
     "reshape", "transpose", "squeeze", "reduce_sum", "scale",
     "elementwise_add", "elementwise_mul", "elementwise_div",
-    "sequence_mask", "fused_attention",
+    "elementwise_min", "sequence_mask", "fused_attention",
 ]
 
 
@@ -162,6 +162,10 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
 
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):

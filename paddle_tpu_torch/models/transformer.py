@@ -5,16 +5,15 @@ the two packages build serialize to the same bytes.
 
 Static [batch, max_len] shapes with length-derived key masks; every
 attention (encoder self, decoder causal self, cross) lowers to the
-``flash_attention`` op. This slice serves: ``build`` stops at the test
-clone (dropout 0, so attention takes the fused path), and the noam
-schedule with Adam ``minimize`` is not yet ported.
+``flash_attention`` op. ``build`` trains with the noam schedule and Adam
+(dropout 0, so attention takes the fused path).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .. import layers
+from .. import layers, optimizer
 from ..framework import Program, program_guard
 from ..initializer import NormalInitializer
 from ..layer_helper import ParamAttr
@@ -120,14 +119,14 @@ def _length_key_bias(length, max_len):
 
 def build(batch_size=16, src_vocab=10000, tgt_vocab=10000, max_len=64,
           n_layer=6, n_head=8, d_model=512, d_inner_hid=2048,
-          dropout_rate=0.0):
-    """Transformer-base programs: ``main`` (forward and loss), ``startup``
-    (parameter initializers) and ``test`` (the inference clone), with
-    ``logits``, ``loss``, ``feeds`` and ``config``. Adam ``minimize`` and
-    the noam schedule are not yet ported, so ``main`` holds no backward
-    or optimizer ops. Dropout is not ported either: ``dropout_rate`` must
-    be 0, the setting under which the JAX package lowers every attention
-    to ``flash_attention``."""
+          dropout_rate=0.0, lr=2.0, warmup_steps=8000):
+    """Transformer-base programs: ``main`` (forward, loss, backward and the
+    Adam update under the noam schedule of ``warmup_steps``), ``startup``
+    (parameter and optimizer-state initializers) and ``test`` (the
+    inference clone), with ``logits``, ``loss``, ``feeds`` and ``config``.
+    ``lr`` is unused, as in the JAX package (noam sets the rate). Dropout
+    is not ported: ``dropout_rate`` must be 0, the setting under which the
+    JAX package lowers every attention to ``flash_attention``."""
     if dropout_rate:
         raise ValueError(f"build(dropout_rate={dropout_rate}): dropout is "
                          "not ported yet; pass dropout_rate=0")
@@ -167,6 +166,10 @@ def build(batch_size=16, src_vocab=10000, tgt_vocab=10000, max_len=64,
         avg_cost = layers.elementwise_div(layers.reduce_sum(loss),
                                           layers.reduce_sum(tok_mask))
         test_program = main.clone(for_test=True)
+        sched = layers.learning_rate_scheduler.noam_decay(d_model,
+                                                          warmup_steps)
+        optimizer.AdamOptimizer(learning_rate=sched, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9).minimize(avg_cost)
     return {"main": main, "startup": startup, "test": test_program,
             "feeds": ["src_word", "src_pos", "trg_word", "trg_pos",
                       "lbl_word", "src_len", "trg_len"],

@@ -1,5 +1,5 @@
-"""Flash attention: the hand-written CUDA kernel, its plain version, and
-the ``flash_attention`` op.
+"""Flash attention: the hand-written CUDA kernels, their plain versions,
+the ``flash_attention`` op and its grad.
 
 Counterpart of ``paddle_tpu/ops/pallas_attention.py``. The forward kernel
 is ``csrc/flash_attention_fwd.cu`` (blocked online softmax with both
@@ -8,9 +8,18 @@ fp32 inputs, fp32 accumulation, O and the logsumexp out).
 ``flash_attention_fwd`` launches it for tensors on the card and raises
 on anything it does not take; for tensors on the CPU it computes
 ``plain_attention``, the torch transcription of ``_plain_attention``.
-There is no fallback from the card to the plain version, and no
-key-length gate. ``emulated_attention`` repeats the kernel's TF32
-arithmetic on the CPU for the tests.
+``emulated_attention`` repeats the kernel's TF32 arithmetic on the CPU
+for the tests.
+
+The backward is ``csrc/flash_attention_bwd.cu`` (the counterpart of
+``_fa_bwd``: P recomputed from the saved logsumexp, a dK/dV pass and a
+dQ pass with fp32 FMAs, no atomics), launched by ``flash_attention_bwd``
+on the card; on the CPU it computes ``plain_attention_bwd``. The
+``flash_attention_grad`` op recomputes O and the logsumexp with the
+forward kernel and then runs the backward, as the JAX package's generic
+vjp recomputes the forward. ``flash_attention`` wraps the pair as a
+``torch.autograd.Function``. There is no fallback from the card to a
+plain version, and no key-length gate.
 
 Causal masking is bottom-right aligned (key c visible to query r when
 c <= r + Tk - Tq) in both versions, as ``_plain_attention`` computes it.
@@ -22,12 +31,17 @@ import ctypes
 
 import torch
 
+from ..core.types import GRAD_SUFFIX
 from ..registry import register_op
 from . import _build
 from .common import amp_cast, opt, same_shape_infer
 
 # kernel launches by flash_attention_fwd since the count was last reset
 launches = 0
+# kernel launches by flash_attention_bwd since the count was last reset;
+# each call launches BWD_KERNELS kernels (delta, dK/dV, dQ)
+bwd_launches = 0
+BWD_KERNELS = 3
 
 _MAX_D = 128
 # the kernel's grid: (B*H, query tiles of _BM rows); CUDA caps gridDim.x at
@@ -94,55 +108,70 @@ def emulated_attention(q, k, v, key_bias=None, causal=False, scale=1.0,
     return out.to(v.dtype), lse
 
 
-def _bind():
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
+def _bind(name):
+    """The kernel library ``name`` with its C entry point typed: pointers
+    first (``n_ptrs``), then the ints B, H, tq, tk, D, the float scale,
+    the ints causal and is_bf16, and the stream."""
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        n_ptrs = 6 if name == "flash_attention_fwd" else 12
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, _ERROR_STRING[name])
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k, v, key_bias):
+_ERROR_STRING = {"flash_attention_fwd": "flash_attention_error_string",
+                 "flash_attention_bwd": "flash_attention_bwd_error_string"}
+
+
+def _check(q, k, v, key_bias, who="flash_attention_fwd"):
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention_fwd: dtype {q.dtype} "
-                        "(float32 or bfloat16 only)")
+        raise TypeError(f"{who}: dtype {q.dtype} (float32 or bfloat16 only)")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"flash_attention_fwd: {name} is {t.dtype} on "
-                             f"{t.device}, q is {q.dtype} on {q.device}")
+            raise ValueError(f"{who}: {name} is {t.dtype} on {t.device}, q "
+                             f"is {q.dtype} on {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash_attention_fwd: q, k, v must be [B, H, T, D] "
-                         f"with k and v alike; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"{who}: q, k, v must be [B, H, T, D] with k and v "
+                         f"alike; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, tq, d = q.shape
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k "
+        raise ValueError(f"{who}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree on B, H or D")
     if (not 1 <= d <= _MAX_D or tq < 1 or k.shape[2] < 1
             or b * h > _MAX_GRID_X or -(-tq // _BM) > _MAX_GRID_Y):
-        raise ValueError(f"flash_attention_fwd: unsupported shape "
-                         f"{tuple(q.shape)} x {tuple(k.shape)} (D <= "
-                         f"{_MAX_D}, T >= 1, B*H <= {_MAX_GRID_X}, at most "
-                         f"{_MAX_GRID_Y} query tiles of {_BM} rows)")
+        raise ValueError(f"{who}: unsupported shape {tuple(q.shape)} x "
+                         f"{tuple(k.shape)} (D <= {_MAX_D}, T >= 1, B*H <= "
+                         f"{_MAX_GRID_X}, at most {_MAX_GRID_Y} query tiles "
+                         f"of {_BM} rows)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd: q, k, v must be contiguous")
+        raise ValueError(f"{who}: q, k, v must be contiguous")
     if key_bias is not None:
         if (key_bias.dtype != torch.float32 or key_bias.device != q.device
                 or tuple(key_bias.shape) != (b, k.shape[2])
                 or not key_bias.is_contiguous()):
             raise ValueError(
-                "flash_attention_fwd: key_bias must be a contiguous float32 "
+                f"{who}: key_bias must be a contiguous float32 "
                 f"[{b}, {k.shape[2]}] tensor on {q.device}; got "
                 f"{key_bias.dtype} {tuple(key_bias.shape)} on "
                 f"{key_bias.device}")
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: tensors on {q.device} are "
-                         "neither on the CPU nor on a CUDA device")
+        raise ValueError(f"{who}: tensors on {q.device} are neither on the "
+                         "CPU nor on a CUDA device")
+
+
+def _raise_on(rc, lib, name):
+    if rc != 0:
+        msg = getattr(lib, _ERROR_STRING[name])(rc).decode()
+        raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
+                           f"({msg})")
 
 
 def flash_attention_fwd(q, k, v, key_bias=None, causal=False, scale=1.0):
@@ -156,7 +185,7 @@ def flash_attention_fwd(q, k, v, key_bias=None, causal=False, scale=1.0):
     b, h, tq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    lib = _bind()
+    lib = _bind("flash_attention_fwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -164,12 +193,112 @@ def flash_attention_fwd(q, k, v, key_bias=None, causal=False, scale=1.0):
             out.data_ptr(), lse.data_ptr(), b, h, tq, k.shape[2], d,
             float(scale), int(bool(causal)), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention_fwd: launch failed with CUDA "
-                           f"error {rc} ({msg})")
+    _raise_on(rc, lib, "flash_attention_fwd")
     launches += 1
     return out, lse
+
+
+def plain_attention_bwd(q, k, v, key_bias, out, lse, do, causal=False,
+                        scale=1.0):
+    """(dq, dk, dv, dkey_bias) of ``plain_attention``: ``_fa_bwd``'s
+    formulas over the whole [Tq, Tk] in fp32, P recomputed from ``lse``.
+    dq, dk, dv come back in the inputs' dtypes, dkey_bias [B, Tk] in fp32
+    (None without a key bias)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.float()
+    s = _mask(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale, key_bias,
+              causal)
+    p = torch.exp(s - lse[..., None])
+    delta = (dof * out.float()).sum(dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    dsoft = p * (dp - delta[..., None])
+    ds = dsoft * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dkb = dsoft.sum(dim=(1, 2)) if key_bias is not None else None
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dkb
+
+
+def flash_attention_bwd(q, k, v, key_bias, out, lse, do, causal=False,
+                        scale=1.0):
+    """(dq, dk, dv, dkey_bias) of attention from the forward's ``out`` and
+    ``lse`` and the output gradient ``do``. Tensors on a CUDA device run
+    the hand kernels (or raise); tensors on the CPU run
+    ``plain_attention_bwd``."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return plain_attention_bwd(q, k, v, key_bias, out, lse, do, causal,
+                                   scale)
+    who = "flash_attention_bwd"
+    _check(q, k, v, key_bias, who)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if -(-tk // _BM) > _MAX_GRID_Y:  # the dK/dV pass has a block per key tile
+        raise ValueError(f"{who}: at most {_MAX_GRID_Y} key tiles of {_BM} "
+                         f"rows; got Tk = {tk}")
+    for name, t in (("out", out), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{who}: {name} must be a contiguous "
+                             f"{q.dtype} {tuple(q.shape)} tensor on "
+                             f"{q.device}; got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, tq)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{who}: lse must be a contiguous float32 "
+                         f"[{b}, {h}, {tq}] tensor on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    dkb_part = (torch.empty((b, h, tk), dtype=torch.float32, device=q.device)
+                if key_bias is not None else None)
+    lib = _bind(who)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            key_bias.data_ptr() if key_bias is not None else None,
+            out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dkb_part.data_ptr() if dkb_part is not None else None,
+            b, h, tq, tk, d, float(scale), int(bool(causal)),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, lib, who)
+    bwd_launches += BWD_KERNELS
+    return dq, dk, dv, (dkb_part.sum(dim=1) if dkb_part is not None
+                        else None)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward and backward kernels as one differentiable function
+    (``torch.func`` transforms it too). The logsumexp output carries no
+    gradient."""
+
+    @staticmethod
+    def forward(q, k, v, key_bias, causal, scale):
+        return flash_attention_fwd(q, k, v, key_bias, causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, key_bias, causal, scale = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, dkb = flash_attention_bwd(
+            q, k, v, key_bias, out, lse, dout.contiguous(), ctx.causal,
+            ctx.scale)
+        return dq, dk, dv, dkb, None, None
+
+
+def flash_attention(q, k, v, key_bias=None, causal=False, scale=1.0):
+    """Differentiable attention over contiguous [B, H, T, D] heads (the
+    JAX package's ``flash_attention``); key_bias [B, Tk] additive."""
+    return FlashAttention.apply(q, k, v, key_bias, causal, scale)[0]
 
 
 @register_op("flash_attention", infer=same_shape_infer("Out", "Q"))
@@ -184,3 +313,27 @@ def flash_attention_op(ctx, ins, attrs):
         q.contiguous(), k.contiguous(), v.contiguous(), kb,
         bool(attrs.get("causal", False)), float(attrs.get("scale", 1.0)))
     return {"Out": [out]}
+
+
+@register_op("flash_attention_grad", no_grad=True)
+def flash_attention_grad(ctx, ins, attrs):
+    """The grad op the default maker writes for ``flash_attention``. Its
+    inputs are Q, K, V, KeyBias and Out@GRAD, so O and the logsumexp are
+    recomputed with the forward kernel before the backward kernels run.
+    Under AMP the gradients go back to the dtypes of the op's inputs, as
+    the JAX package's vjp through ``amp_cast`` returns them."""
+    q0, k0, v0 = ins["Q"][0], ins["K"][0], ins["V"][0]
+    q, k, v = (t.contiguous() for t in amp_cast(ctx, q0, k0, v0))
+    kb0 = opt(ins, "KeyBias")
+    kb = kb0.float().contiguous() if kb0 is not None else None
+    causal = bool(attrs.get("causal", False))
+    scale = float(attrs.get("scale", 1.0))
+    out, lse = flash_attention_fwd(q, k, v, kb, causal, scale)
+    do = ins["Out" + GRAD_SUFFIX][0].to(out.dtype).contiguous()
+    dq, dk, dv, dkb = flash_attention_bwd(q, k, v, kb, out, lse, do, causal,
+                                          scale)
+    grads = {"Q@GRAD": [dq.to(q0.dtype)], "K@GRAD": [dk.to(k0.dtype)],
+             "V@GRAD": [dv.to(v0.dtype)]}
+    if kb0 is not None:
+        grads["KeyBias@GRAD"] = [dkb.to(kb0.dtype)]
+    return grads

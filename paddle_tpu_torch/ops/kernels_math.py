@@ -1,7 +1,12 @@
 """Math ops (counterpart of ``paddle_tpu/ops/kernels_math.py``): the
-elementwise family with Fluid's axis broadcast, the fc product ``mul``,
-``scale``, ``relu``, and the ``reduce_sum`` shape rule. Large products go
-to ``torch.matmul``, as the JAX package left them to XLA."""
+elementwise family with Fluid's axis broadcast, ``reduce_sum``, the fc
+product ``mul``, ``scale``, ``relu`` and ``pow``. Large products go to
+``torch.matmul``, as the JAX package left them to XLA.
+
+Under AMP a bf16 activation meeting an fp32 operand (a bias, the residual
+stream) promotes to fp32, as the JAX package computes it: its
+``amp_harmonize`` compares dtypes against the ``jnp.bfloat16`` scalar type
+in a set, which never matches, so it leaves both operands as they are."""
 
 from __future__ import annotations
 
@@ -9,7 +14,7 @@ import numpy as np
 import torch
 
 from ..core.desc import OpDesc
-from ..registry import register_infer_shape, register_op
+from ..registry import register_op
 from .common import (amp_cast, fluid_broadcast, in_dtype, in_shape,
                      normalize_reduce_dims, same_shape_infer, set_out_var, x)
 
@@ -27,9 +32,9 @@ def _make_elementwise(name, fn):
 _make_elementwise("elementwise_add", torch.add)
 _make_elementwise("elementwise_mul", torch.mul)
 _make_elementwise("elementwise_div", torch.div)
+_make_elementwise("elementwise_min", torch.minimum)
 
 
-@register_infer_shape("reduce_sum")
 def _reduce_infer(op: OpDesc, block):
     shp = in_shape(block, op, "X")
     dt = in_dtype(block, op, "X")
@@ -43,6 +48,17 @@ def _reduce_infer(op: OpDesc, block):
         out = [s for i, s in enumerate(shp) if i not in dims] or [1]
     for n in op.output("Out"):
         set_out_var(block, n, out, dt)
+
+
+@register_op("reduce_sum", infer=_reduce_infer)
+def reduce_sum(ctx, ins, attrs):
+    xv = x(ins)
+    dims = normalize_reduce_dims(xv.dim(), attrs.get("dim"),
+                                 attrs.get("reduce_all", False))
+    out = xv.sum(dim=dims, keepdim=attrs.get("keep_dim", False))
+    if out.dim() == 0:
+        out = out.reshape(1)  # Fluid convention: a full reduce is [1]
+    return {"Out": [out]}
 
 
 def _mul_infer(op: OpDesc, block):
@@ -84,3 +100,8 @@ def scale(ctx, ins, attrs):
 @register_op("relu", infer=same_shape_infer())
 def relu(ctx, ins, attrs):
     return {"Out": [torch.relu(x(ins))]}
+
+
+@register_op("pow", infer=same_shape_infer())
+def pow_op(ctx, ins, attrs):
+    return {"Out": [x(ins) ** attrs.get("factor", 1.0)]}

@@ -21,7 +21,7 @@ def _seqmask_infer(op: OpDesc, block):
                         op.attrs.get("out_dtype", "int64"))
 
 
-@register_op("sequence_mask", infer=_seqmask_infer)
+@register_op("sequence_mask", no_grad=True, infer=_seqmask_infer)
 def sequence_mask(ctx, ins, attrs):
     """lengths [B] -> [B, maxlen] 0/1 mask in ``out_dtype``."""
     xv = ins["X"][0].reshape(-1)

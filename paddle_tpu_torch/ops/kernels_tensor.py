@@ -1,8 +1,9 @@
 """Tensor creation / manipulation ops (counterpart of
-``paddle_tpu/ops/kernels_tensor.py``). Random ops draw from the run's
-``torch.Generator``; the JAX package's threefry stream gives other
-numbers from the same seed, so cross-package tests move parameters over
-as arrays.
+``paddle_tpu/ops/kernels_tensor.py``), with the grads of ``cast`` and
+``lookup_table`` and the backward's bookkeeping ops ``sum`` and
+``fill_zeros_like``. Random ops draw from the run's ``torch.Generator``;
+the JAX package's threefry stream gives other numbers from the same seed,
+so cross-package tests move parameters over as arrays.
 
 Integer policy: ids and lengths keep the dtype the program declares
 (int64 ids stay ``torch.long`` for indexing); nothing is narrowed to
@@ -15,9 +16,9 @@ import numpy as np
 import torch
 
 from ..core.desc import OpDesc
-from ..core.types import DataType, dtype_to_torch
-from ..registry import register_infer_shape, register_op
-from .common import in_dtype, in_shape, set_out_var, x
+from ..core.types import GRAD_SUFFIX, DataType, dtype_to_torch
+from ..registry import register_op
+from .common import in_dtype, in_shape, same_shape_infer, set_out_var, x
 
 
 def _attr_dtype(attrs, key="dtype"):
@@ -34,13 +35,19 @@ def _shape_attr_infer(op: OpDesc, block):
                     op.attrs.get("dtype", DataType.FP32))
 
 
-@register_op("fill_constant", infer=_shape_attr_infer)
+@register_op("fill_constant", no_grad=True, infer=_shape_attr_infer)
 def fill_constant(ctx, ins, attrs):
     return {"Out": [torch.full(tuple(attrs["shape"]), attrs.get("value", 0.0),
                                dtype=_attr_dtype(attrs), device=ctx.device)]}
 
 
-@register_op("uniform_random", needs_rng=True, infer=_shape_attr_infer)
+@register_op("fill_zeros_like", no_grad=True, infer=same_shape_infer())
+def fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(x(ins))]}
+
+
+@register_op("uniform_random", no_grad=True, needs_rng=True,
+             infer=_shape_attr_infer)
 def uniform_random(ctx, ins, attrs):
     out = torch.empty(tuple(attrs["shape"]), dtype=_attr_dtype(attrs),
                       device=ctx.device)
@@ -49,7 +56,8 @@ def uniform_random(ctx, ins, attrs):
     return {"Out": [out]}
 
 
-@register_op("gaussian_random", needs_rng=True, infer=_shape_attr_infer)
+@register_op("gaussian_random", no_grad=True, needs_rng=True,
+             infer=_shape_attr_infer)
 def gaussian_random(ctx, ins, attrs):
     out = torch.empty(tuple(attrs["shape"]), dtype=_attr_dtype(attrs),
                       device=ctx.device)
@@ -64,9 +72,37 @@ def _cast_infer(op: OpDesc, block):
         set_out_var(block, n, shp, op.attrs.get("out_dtype", DataType.FP32))
 
 
-@register_op("cast", infer=_cast_infer)
+def _cast_grad_maker(op: OpDesc, no_grad_set, grad_sub_block=None):
+    """The grad casts back to the input's dtype (a ``cast`` op)."""
+    xn = op.input("X")[0]
+    if xn in no_grad_set:
+        return [], {}
+    g = OpDesc("cast", {"X": [op.output("Out")[0] + GRAD_SUFFIX]},
+               {"Out": [xn + GRAD_SUFFIX]},
+               {"out_dtype": op.attrs.get("in_dtype", DataType.FP32)})
+    return [g], {xn + GRAD_SUFFIX: xn}
+
+
+@register_op("cast", infer=_cast_infer, grad_maker=_cast_grad_maker)
 def cast(ctx, ins, attrs):
     return {"Out": [x(ins).to(_attr_dtype(attrs, "out_dtype"))]}
+
+
+def _sum_infer(op: OpDesc, block):
+    shp = in_shape(block, op, "X")
+    dt = in_dtype(block, op, "X")
+    for n in op.output("Out"):
+        set_out_var(block, n, shp, dt)
+
+
+@register_op("sum", infer=_sum_infer)
+def sum_op(ctx, ins, attrs):
+    """Sum of the X list (the backward adds gradient contributions)."""
+    vals = [v for v in ins["X"] if v is not None]
+    out = vals[0]
+    for v in vals[1:]:
+        out = out + v
+    return {"Out": [out]}
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +162,8 @@ def _reshape_infer(op: OpDesc, block):
         set_out_var(block, n, [0] + (in_shp or []), dt)
 
 
-@register_op("reshape2", infer=_reshape_infer)
+@register_op("reshape2", intermediate_outputs=("XShape",),
+             infer=_reshape_infer)
 def reshape2(ctx, ins, attrs):
     xv = x(ins)
     shp = _resolve_reshape(attrs["shape"], list(xv.shape))
@@ -144,26 +181,39 @@ def _transpose_infer(op: OpDesc, block):
             set_out_var(block, n, [0] + in_shp, dt)
 
 
-@register_op("transpose2", infer=_transpose_infer)
+@register_op("transpose2", intermediate_outputs=("XShape",),
+             infer=_transpose_infer)
 def transpose2(ctx, ins, attrs):
     """A strided view; the consumer that needs dense memory copies."""
     xv = x(ins)
     return {"Out": [xv.permute(*attrs["axis"])], "XShape": [_xshape(xv)]}
 
 
-@register_infer_shape("squeeze2")
+def _squeeze_axes(shape, axes):
+    if axes:
+        axes = [a % len(shape) for a in axes]
+        return [s for i, s in enumerate(shape) if i not in axes]
+    return [s for s in shape if s != 1]
+
+
 def _squeeze_infer(op: OpDesc, block):
     in_shp = in_shape(block, op, "X")
     dt = in_dtype(block, op, "X")
     if in_shp is None:
         return
-    axes = [a % len(in_shp) for a in op.attrs.get("axes", [])]
-    shp = ([s for i, s in enumerate(in_shp) if i not in axes] if axes
-           else [s for s in in_shp if s != 1])
     for n in op.output("Out"):
-        set_out_var(block, n, shp, dt)
+        set_out_var(block, n, _squeeze_axes(in_shp, op.attrs.get("axes", [])),
+                    dt)
     for n in op.output("XShape"):
         set_out_var(block, n, [0] + in_shp, dt)
+
+
+@register_op("squeeze2", intermediate_outputs=("XShape",),
+             infer=_squeeze_infer)
+def squeeze2(ctx, ins, attrs):
+    xv = x(ins)
+    shp = _squeeze_axes(list(xv.shape), attrs.get("axes", []))
+    return {"Out": [xv.reshape(shp)], "XShape": [_xshape(xv)]}
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +232,19 @@ def _lookup_infer(op: OpDesc, block):
             set_out_var(block, n, shp + [ws[1]], dt)
 
 
-@register_op("lookup_table", infer=_lookup_infer)
+def _lookup_grad_maker(op: OpDesc, no_grad_set, grad_sub_block=None):
+    wn = op.input("W")[0]
+    if wn in no_grad_set:
+        return [], {}
+    g = OpDesc("lookup_table_grad",
+               {"Ids": op.input("Ids"), "W": [wn],
+                "Out@GRAD": [op.output("Out")[0] + GRAD_SUFFIX]},
+               {"W@GRAD": [wn + GRAD_SUFFIX]}, dict(op.attrs))
+    return [g], {wn + GRAD_SUFFIX: wn}
+
+
+@register_op("lookup_table", infer=_lookup_infer,
+             grad_maker=_lookup_grad_maker)
 def lookup_table(ctx, ins, attrs):
     """Embedding lookup. Ids carry a trailing [,1] dim per the reference
     convention; padding_idx rows read 0."""
@@ -196,3 +258,21 @@ def lookup_table(ctx, ins, attrs):
     if pad is not None and pad >= 0:
         out = out.masked_fill((ids == pad).unsqueeze(-1), 0.0)
     return {"Out": [out]}
+
+
+@register_op("lookup_table_grad", no_grad=True)
+def lookup_table_grad(ctx, ins, attrs):
+    """Dense scatter-add of the output gradient into W's rows
+    (``index_add_``; on the card its atomics sum in no fixed order);
+    padding_idx rows get none."""
+    w = ins["W"][0]
+    ids = ins["Ids"][0]
+    og = ins["Out@GRAD"][0]
+    if ids.dim() > 1 and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    flat_ids = ids.reshape(-1).long()
+    flat_g = og.reshape(-1, og.shape[-1]).to(w.dtype)
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        flat_g = flat_g.masked_fill((flat_ids == pad).unsqueeze(-1), 0.0)
+    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, flat_ids, flat_g)]}

@@ -6,9 +6,19 @@ here against the Pallas kernel run in interpret mode (the real kernel
 body, as tests/test_pallas_interpret.py runs it) and against
 ``_plain_attention`` at ragged shapes. The kernel's TF32 arithmetic is
 emulated on the CPU (``emulated_attention``) and held against
-``_plain_attention`` too. The CUDA kernel itself runs only on a card: its
-case is marked ``cuda`` and skips elsewhere; chip_smoke.py holds it
-against the plain version at the model path's shapes.
+``_plain_attention`` too.
+
+The backward's plain version ``plain_attention_bwd`` is held against the
+JAX package's ``_fa_bwd`` behind the Pallas forward in interpret mode (as
+tests/test_pallas_interpret.py::test_flash_custom_vjp_grads drives it),
+key-bias cotangent included, at atol 5e-5 (that test allows 5e-4; the
+largest error measured here is 7.6e-6), and against torch autograd of ``plain_attention`` at ragged
+shapes within 1e-5 of each gradient's largest magnitude (at least 1; the
+same products in another order).
+
+The CUDA kernels run only on a card: their cases are marked ``cuda`` and
+skip elsewhere; chip_smoke.py holds them against the plain versions at
+the model path's shapes.
 """
 
 import numpy as np
@@ -223,7 +233,8 @@ def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     path = _build.library_path("flash_attention_fwd")
     assert path.startswith(str(tmp_path))
     assert path.endswith(".so") and "libflash_attention_fwd-" in path
-    assert set(_build.SOURCES) == {"flash_attention_fwd"}
+    assert set(_build.SOURCES) == {"flash_attention_fwd",
+                                   "flash_attention_bwd"}
 
 
 @pytest.mark.cuda
@@ -250,3 +261,137 @@ def test_cuda_kernel_matches_plain(dtype):
         torch.cuda.synchronize()
         assert (out.float() - ref).abs().max().item() <= atol
         assert ((lse - ref_lse).abs() - 1e-6 * ref_lse.abs()).max() <= 1e-3
+
+
+def _jax_flash_vjp(q, k, v, kb, do, causal, scale):
+    """dq, dk, dv, dkb of the JAX package's flash_attention (custom_vjp:
+    Pallas forward, _fa_bwd backward)."""
+    import jax
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    if kb is None:
+        _, vjp = jax.vjp(lambda a, b, c: pa.flash_attention(
+            a, b, c, causal, scale), *args)
+        return [np.asarray(g) for g in vjp(jnp.asarray(do))] + [None]
+    _, vjp = jax.vjp(lambda a, b, c, d: pa.flash_attention(
+        a, b, c, causal, scale, key_bias=d), *args, jnp.asarray(kb))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("b,h,t,causal,tail", [
+    (1, 2, 128, False, None),
+    (1, 2, 256, True, None),
+    (2, 2, 128, False, 100),
+    (2, 2, 256, True, 200),
+], ids=["noncausal", "causal", "key_bias_tail", "causal_key_bias_tail"])
+def test_plain_bwd_matches_jax_fa_bwd(monkeypatch, b, h, t, causal, tail):
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_TK", "128")
+    q, k, v = _qkv(b, h, t, t, 64, seed=3 * t + int(causal))
+    do = np.random.RandomState(t).randn(b, h, t, 64).astype(np.float32)
+    kb = None if tail is None else _key_bias(b, t, [tail] + [t] * (b - 1))
+    assert pa._supported(jnp.asarray(q), jnp.asarray(k))  # Pallas runs
+    want = _jax_flash_vjp(q, k, v, kb, do, causal, 0.125)
+    tq, tk, tv, tkb, tdo = _torch(q, k, v, kb, do)
+    out, lse = fa.plain_attention(tq, tk, tv, tkb, causal, 0.125)
+    got = fa.plain_attention_bwd(tq, tk, tv, tkb, out, lse, tdo, causal,
+                                 0.125)
+    for name, w, g in zip(("dq", "dk", "dv", "dkey_bias"), want, got):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), w, atol=5e-5, rtol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,lens", [
+    (2, 3, 77, 77, 48, True, [77, 50]),
+    (2, 2, 100, 300, 64, False, [300, 123]),
+    (2, 2, 100, 300, 64, True, [300, 250]),
+    (1, 2, 65, 129, 32, False, None),
+    (2, 2, 40, 40, 128, True, [40, 1]),
+], ids=["ragged_causal", "tq_lt_tk", "tq_lt_tk_causal", "no_bias", "d128"])
+def test_plain_bwd_matches_torch_autograd(b, h, tq, tk, d, causal, lens):
+    q, k, v = _torch(*_qkv(b, h, tq, tk, d, seed=tq + tk + d))
+    kb = None if lens is None else torch.from_numpy(_key_bias(b, tk, lens))
+    do = torch.from_numpy(np.random.RandomState(d).randn(
+        b, h, tq, d).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if kb is not None:
+        leaves.append(kb.clone().requires_grad_())
+    out, lse = fa.plain_attention(*leaves[:3], leaves[3] if kb is not None
+                                  else None, causal, d ** -0.5)
+    want = torch.autograd.grad(out, leaves, do)
+    got = fa.plain_attention_bwd(q, k, v, kb, out.detach(), lse.detach(), do,
+                                 causal, d ** -0.5)
+    for name, w, g in zip(("dq", "dk", "dv", "dkey_bias"), want, got):
+        np.testing.assert_allclose(
+            g.numpy(), w.numpy(), rtol=0,
+            atol=1e-5 * max(1.0, w.abs().max().item()), err_msg=name)
+    assert got[3] is None if kb is None else got[3].dtype == torch.float32
+
+
+def test_flash_attention_function_under_torch_func():
+    """The autograd.Function pair differentiates under torch.func.vjp as
+    autograd differentiates the plain version."""
+    q, k, v = _torch(*_qkv(2, 2, 33, 33, 16, seed=5))
+    kb = torch.from_numpy(_key_bias(2, 33, [33, 20]))
+    do = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 2, 33, 16).astype(np.float32))
+    out, vjp = torch.func.vjp(lambda a, b, c, e: fa.flash_attention(
+        a, b, c, e, True, 0.25), q, k, v, kb)
+    got = vjp(do)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, kb)]
+    ref, _ = fa.plain_attention(*leaves, True, 0.25)
+    want = torch.autograd.grad(ref, leaves, do)
+    torch.testing.assert_close(out, ref.detach())
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5)
+
+
+def test_bwd_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
+    q, k, v = _torch(*_qkv(1, 2, 20, 20, 8, seed=2))
+    out, lse = fa.plain_attention(q, k, v, None, True, 0.3)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, None, out, lse, out, True, 0.3)
+    want = fa.plain_attention_bwd(q, k, v, None, out, lse, out, True, 0.3)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert fa.bwd_launches == before
+
+
+def test_bwd_wrapper_does_not_fall_back_for_other_devices():
+    q = torch.empty(1, 1, 8, 8, device="meta")
+    lse = torch.empty(1, 1, 8, device="meta")
+    with pytest.raises(ValueError, match="neither on the CPU nor on a CUDA"):
+        fa.flash_attention_bwd(q, q, q, None, q, lse, q, False, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_kernel_matches_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    for (b, h, tq, tk, d, causal) in [(2, 2, 256, 256, 64, False),
+                                      (2, 2, 256, 256, 64, True),
+                                      (1, 3, 77, 77, 48, True),
+                                      (1, 2, 100, 300, 64, False),
+                                      (1, 2, 100, 65, 32, False),
+                                      (1, 2, 130, 130, 128, True)]:
+        q, k, v = (torch.from_numpy(a).cuda().to(dt)
+                   for a in _qkv(b, h, tq, tk, d, seed=d))
+        do = torch.randn(b, h, tq, d, device="cuda").to(dt)
+        kb = torch.from_numpy(_key_bias(b, tk, [tk // 2] + [tk] * (b - 1)))
+        kb = kb.cuda()
+        out, lse = fa.flash_attention_fwd(q, k, v, kb, causal, d ** -0.5)
+        got = fa.flash_attention_bwd(q, k, v, kb, out, lse, do, causal,
+                                     d ** -0.5)
+        want = fa.plain_attention_bwd(q.float(), k.float(), v.float(), kb,
+                                      out.float(), lse, do.float(), causal,
+                                      d ** -0.5)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = (g.float() - w).abs().max().item()
+            assert err <= rel * w.abs().max().item() + 1e-6

@@ -32,6 +32,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch, chip_smoke\n"
         "import paddle_tpu_torch.models.transformer\n"
         "import paddle_tpu_torch.inference.api\n"
+        "import paddle_tpu_torch.optimizer, paddle_tpu_torch.backward\n"
+        "import paddle_tpu_torch.contrib.mixed_precision\n"
+        "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

@@ -1,7 +1,8 @@
-"""Each op emitter of the port's inference path against the JAX package's
-emitter on the same inputs and attrs (fp32 at atol 1e-6; integer and
-mask outputs exact), plus the startup's random ops and the host ops'
-tensor files."""
+"""Each op emitter of the port's inference and training paths against the
+JAX package's emitter on the same inputs and attrs (fp32 at atol 1e-6;
+integer and mask outputs exact), the grad emitters (custom and the
+generic vjp) against the JAX package's, plus the startup's random ops and
+the host ops' tensor files."""
 
 import numpy as np
 import pytest
@@ -76,6 +77,49 @@ CASES = {
     "scale_before": ("scale", {"X": [f32(3, 4)]},
                      {"scale": 0.5, "bias": 2.0, "bias_after_scale": False}),
     "relu": ("relu", {"X": [f32(4, 7)]}, {}),
+    "elementwise_min": ("elementwise_min",
+                        {"X": [f32(2, 5, 8)], "Y": [f32(8)]}, {"axis": -1}),
+    "pow_neg_half": ("pow", {"X": [np.abs(f32(3, 4)) + 0.5]},
+                     {"factor": -0.5}),
+    "reduce_sum_all": ("reduce_sum", {"X": [f32(2, 5, 8)]},
+                       {"dim": [], "keep_dim": False, "reduce_all": True}),
+    "reduce_sum_dim_keep": ("reduce_sum", {"X": [f32(2, 5, 8)]},
+                            {"dim": [1], "keep_dim": True,
+                             "reduce_all": False}),
+    "sum": ("sum", {"X": [f32(3, 4), f32(3, 4), f32(3, 4)]}, {}),
+    "squeeze2": ("squeeze2", {"X": [f32(2, 5, 1)]}, {"axes": [2]}),
+    "fill_zeros_like": ("fill_zeros_like", {"X": [f32(3, 4)]}, {}),
+    "increment": ("increment", {"X": [np.array([3.0], np.float32)]},
+                  {"step": 1.0}),
+    "adam": ("adam", {"Param": [f32(4, 3)], "Grad": [f32(4, 3)],
+                      "Moment1": [f32(4, 3) * 0.1],
+                      "Moment2": [np.abs(f32(4, 3)) * 0.01],
+                      "Beta1Pow": [np.array([0.9 ** 3], np.float32)],
+                      "Beta2Pow": [np.array([0.98 ** 3], np.float32)],
+                      "LearningRate": [np.array([0.01], np.float32)]},
+             {"beta1": 0.9, "beta2": 0.98, "epsilon": 1e-9}),
+    "softmax_with_cross_entropy": (
+        "softmax_with_cross_entropy",
+        {"Logits": [f32(2, 5, 10) * 3],
+         "Label": [RNG.randint(0, 10, (2, 5, 1)).astype(np.int64)]},
+        {"soft_label": False, "ignore_index": -100}),
+    "softmax_with_cross_entropy_soft_label": (
+        "softmax_with_cross_entropy",
+        {"Logits": [f32(2, 5, 10)],
+         "Label": [np.abs(f32(2, 5, 10)) / 10]},
+        {"soft_label": True, "ignore_index": -100}),
+    "softmax_with_cross_entropy_grad_soft_label": (
+        "softmax_with_cross_entropy_grad",
+        {"Logits": [f32(2, 5, 10)], "Label": [np.abs(f32(2, 5, 10)) / 10],
+         "Loss@GRAD": [f32(2, 5, 1)]},
+        {"soft_label": True, "ignore_index": -100}),
+    "softmax_with_cross_entropy_grad": (
+        "softmax_with_cross_entropy_grad",
+        {"Logits": [f32(2, 5, 10) * 3],
+         "Label": [np.where(RNG.rand(2, 5, 1) < 0.3, -100, RNG.randint(
+             0, 10, (2, 5, 1))).astype(np.int64)],
+         "Loss@GRAD": [f32(2, 5, 1)]},
+        {"soft_label": False, "ignore_index": -100}),
 }
 
 
@@ -190,10 +234,10 @@ def test_every_inference_op_has_an_emitter():
                     "uniform_random", "gaussian_random", "save", "load",
                     "save_combine", "load_combine"):
         assert preg.lookup(op_type).emitter is not None, op_type
-    # loss ops carry shape rules only until the training slice
+    # the loss ops, which had shape rules only until the training slice
     for op_type in ("softmax_with_cross_entropy", "squeeze2", "reduce_sum"):
         info = preg.lookup(op_type)
-        assert info.emitter is None and info.infer_shape is not None
+        assert info.emitter is not None and info.infer_shape is not None
 
 
 @pytest.mark.parametrize("direction", ["jax_writes", "port_writes"])
@@ -219,3 +263,152 @@ def test_tensor_files_cross_load(tmp_path, direction, dtype):
         assert got.dtype == np_arr.dtype
         np.testing.assert_array_equal(got.astype(np.float32),
                                       np_arr.astype(np.float32))
+
+
+@pytest.mark.parametrize("padding_idx", [-1, 3])
+def test_lookup_table_grad_matches_jax(padding_idx):
+    """Dense scatter-add; repeated ids sum, padding rows get nothing."""
+    w, og = f32(10, 6), f32(2, 7, 6)
+    ids = RNG.randint(0, 10, (2, 7, 1)).astype(np.int64)
+    ids[0, :3, 0] = 3
+    ids[1, :4, 0] = 5
+    attrs = {"is_sparse": False, "is_distributed": False,
+             "padding_idx": padding_idx}
+    jouts = jreg.lookup("lookup_table_grad").emitter(
+        jreg.EmitContext(), {"W": [jnp.asarray(w)],
+                             "Ids": [jnp.asarray(ids.astype(np.int32))],
+                             "Out@GRAD": [jnp.asarray(og)]}, attrs)
+    pouts = preg.lookup("lookup_table_grad").emitter(
+        preg.EmitContext(torch.device("cpu")),
+        {"W": [torch.from_numpy(w)], "Ids": [torch.from_numpy(ids)],
+         "Out@GRAD": [torch.from_numpy(og)]}, attrs)
+    np.testing.assert_allclose(pouts["W@GRAD"][0].numpy(),
+                               np.asarray(jouts["W@GRAD"][0]), atol=1e-6)
+
+
+def _generic_grad_both(fwd_type, ins, attrs, amp=False):
+    """The generic vjp grad emitter of each package on one grad op."""
+    attrs = dict(attrs, __fwd_type__=fwd_type)
+    jouts = jreg.generic_vjp_grad_emitter(
+        jreg.EmitContext(amp=amp),
+        {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}, attrs)
+    pouts = preg.generic_vjp_grad_emitter(
+        preg.EmitContext(torch.device("cpu"), amp=amp),
+        {s: [torch.from_numpy(a) for a in v] for s, v in ins.items()}, attrs)
+    return jouts, pouts
+
+
+GRAD_CASES = {
+    "mul": ("mul", {"X": [f32(2, 5, 8)], "Y": [f32(8, 6)],
+                    "Out@GRAD": [f32(2, 5, 6)]},
+            {"x_num_col_dims": 2, "y_num_col_dims": 1}),
+    "layer_norm": ("layer_norm",
+                   {"X": [LN_X], "Scale": [f32(8)], "Bias": [f32(8)],
+                    "Y@GRAD": [f32(2, 5, 8)], "Mean": [f32(10)],
+                    "Variance": [f32(10)]},
+                   {"epsilon": 1e-5, "begin_norm_axis": 2}),
+    "reshape2": ("reshape2", {"X": [f32(2, 5, 8)],
+                              "Out@GRAD": [f32(2, 5, 2, 4)],
+                              "XShape": [np.zeros((0, 2, 5, 8), np.float32)]},
+                 {"shape": [0, 0, 2, 4]}),
+    "elementwise_add_bias": ("elementwise_add",
+                             {"X": [f32(2, 5, 8)], "Y": [f32(8)],
+                              "Out@GRAD": [f32(2, 5, 8)]}, {"axis": 2}),
+    "reduce_sum": ("reduce_sum", {"X": [f32(2, 5)], "Out@GRAD": [f32(1)]},
+                   {"dim": [], "keep_dim": False, "reduce_all": True}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_generic_vjp_grad_matches_jax(name):
+    """The grad op re-runs the forward under torch.func.vjp (jax.vjp in
+    the JAX package); saved intermediates (Mean, Variance, XShape) are
+    inputs the vjp leaves alone."""
+    fwd_type, ins, attrs = GRAD_CASES[name]
+    jouts, pouts = _generic_grad_both(fwd_type, ins, attrs)
+    assert set(pouts) == set(jouts)
+    for slot in jouts:
+        for j, p in zip(jouts[slot], pouts[slot]):
+            assert p.dtype == torch.float32 and tuple(p.shape) == j.shape
+            np.testing.assert_allclose(p.numpy(), np.asarray(j), atol=2e-6,
+                                       rtol=1e-5, err_msg=slot)
+
+
+def test_generic_vjp_grad_under_amp_returns_input_dtypes():
+    """Under AMP mul computes in bf16; its grads come back in the dtypes
+    of the op's fp32 inputs, as jax.vjp through the bf16 cast gives."""
+    x, y, g = f32(4, 8), f32(8, 6), f32(4, 6)
+    jouts, pouts = _generic_grad_both(
+        "mul", {"X": [x], "Y": [y], "Out@GRAD": [g]},
+        {"x_num_col_dims": 1, "y_num_col_dims": 1}, amp=True)
+    for slot in ("X@GRAD", "Y@GRAD"):
+        j, p = np.asarray(jouts[slot][0]), pouts[slot][0]
+        assert p.dtype == torch.float32 and j.dtype == np.float32
+        np.testing.assert_allclose(p.numpy(), j, rtol=0,
+                                   atol=2 ** -7 * np.abs(j).max())
+
+
+def test_amp_elementwise_dtypes_match_jax():
+    """Under AMP a bf16 activation plus an fp32 bias: the JAX package's
+    emitter returns fp32 (its amp_harmonize never matches, see
+    ops/kernels_math.py), and so does the port's; bf16 with bf16 stays
+    bf16. The values agree exactly (one fp32 addition of the same
+    numbers)."""
+    import ml_dtypes
+    act = f32(2, 5, 8).astype(ml_dtypes.bfloat16)
+    bias = f32(8)
+    cases = [(act, bias), (act, act.copy())]
+    for xa, ya in cases:
+        jout = jreg.lookup("elementwise_add").emitter(
+            jreg.EmitContext(amp=True),
+            {"X": [jnp.asarray(xa)], "Y": [jnp.asarray(ya)]}, {"axis": -1})
+        pt_in = [torch.from_numpy(a.astype(np.float32)).to(
+            torch.bfloat16 if a.dtype == ml_dtypes.bfloat16 else
+            torch.float32) for a in (xa, ya)]
+        pout = preg.lookup("elementwise_add").emitter(
+            preg.EmitContext(torch.device("cpu"), amp=True),
+            {"X": [pt_in[0]], "Y": [pt_in[1]]}, {"axis": -1})
+        j, p = np.asarray(jout["Out"][0]), pout["Out"][0]
+        assert str(p.dtype).replace("torch.", "") == j.dtype.name
+        np.testing.assert_array_equal(p.float().numpy(), j.astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["cross", "causal"])
+def test_flash_attention_grad_op_matches_jax(causal):
+    """The port's custom grad emitter (forward recompute, then the
+    backward) against the JAX package's generic vjp of flash_attention,
+    KeyBias cotangent included."""
+    q, k, v, g = (f32(2, 2, 12, 8) for _ in range(4))
+    kb = np.zeros((2, 12), np.float32)
+    kb[1, 7:] = -1e9
+    ins = {"Q": [q], "K": [k], "V": [v], "KeyBias": [kb], "Out@GRAD": [g]}
+    attrs = {"causal": causal, "scale": 8 ** -0.5,
+             "__fwd_type__": "flash_attention"}
+    jouts = jreg.generic_vjp_grad_emitter(
+        jreg.EmitContext(), {s: [jnp.asarray(a) for a in v]
+                             for s, v in ins.items()}, attrs)
+    pouts = preg.lookup("flash_attention_grad").emitter(
+        preg.EmitContext(torch.device("cpu")),
+        {s: [torch.from_numpy(a) for a in v] for s, v in ins.items()}, attrs)
+    assert set(pouts) == set(jouts)
+    for slot in jouts:
+        np.testing.assert_allclose(pouts[slot][0].numpy(),
+                                   np.asarray(jouts[slot][0]), atol=2e-6,
+                                   err_msg=slot)
+
+
+def test_grad_flags_match_jax():
+    """no_grad and intermediate_outputs decide the grad descs
+    append_backward writes; the port's are the JAX package's."""
+    for op_type in ("mul", "reshape2", "transpose2", "squeeze2",
+                    "elementwise_add", "elementwise_mul", "elementwise_div",
+                    "elementwise_min", "layer_norm", "scale", "lookup_table",
+                    "flash_attention", "sequence_mask", "cast", "relu",
+                    "fill_constant", "uniform_random", "gaussian_random",
+                    "softmax_with_cross_entropy", "reduce_sum", "sum", "pow",
+                    "increment", "adam", "lookup_table_grad",
+                    "softmax_with_cross_entropy_grad", "fill_zeros_like"):
+        j, p = jreg.lookup(op_type), preg.lookup(op_type)
+        assert p.no_grad == j.no_grad, op_type
+        assert p.intermediate_outputs == j.intermediate_outputs, op_type
+        assert (p.grad_maker is None) == (j.grad_maker is None), op_type

@@ -1,13 +1,8 @@
 """The port's layer DSL and ``transformer.build`` against the JAX
-package's: at a tiny width the programs the two packages build serialize
-to the same bytes (op_callstack off in both, though it is kept out of
-the serialized desc anyway).
-
-Differences by design: the port's ``build`` stops before Adam
-``minimize``, so its startup program lacks the optimizer state that the
-JAX package's appends after the parameters, and its main program lacks
-the backward and optimizer ops. The test clone is taken before
-``minimize`` in both, so it matches whole.
+package's: at a tiny width the programs the two packages build (train
+program with its backward, noam schedule and Adam ops; startup with the
+optimizer state; test clone) serialize to the same bytes (op_callstack
+off in both, though it is kept out of the serialized desc anyway).
 """
 
 import numpy as np
@@ -60,33 +55,34 @@ def test_pruned_inference_program_bytes_identical(built):
 
 
 def test_startup_program_is_the_jax_parameter_prefix(built):
-    """Same parameters, initializers and order; the JAX startup then goes
-    on with the optimizer state the port does not build yet."""
+    """The whole startup program: parameters, their initializers, then
+    the learning-rate counter and Adam's state, in the same order."""
     j, p = built
     jblk, pblk = j["startup"].desc.blocks[0], p["startup"].desc.blocks[0]
-    n_vars, n_ops = len(pblk.vars), len(pblk.ops)
-    assert list(jblk.vars)[:n_vars] == list(pblk.vars)
+    assert list(jblk.vars) == list(pblk.vars)
     for name in pblk.vars:
         assert pblk.vars[name].to_dict() == jblk.vars[name].to_dict()
-    assert [o.to_dict() for o in jblk.ops[:n_ops]] == \
-        [o.to_dict() for o in pblk.ops]
-    extra = list(jblk.vars)[n_vars:]
-    assert extra and all("moment" in n or "pow_acc" in n or "LR" in n
-                         or "learning_rate" in n for n in extra)
+    assert [o.to_dict() for o in jblk.ops] == [o.to_dict() for o in pblk.ops]
+    assert p["startup"].desc.to_bytes() == j["startup"].desc.to_bytes()
+    names = list(pblk.vars)
+    assert "@LR_DECAY_COUNTER@" in names
+    assert any(n.endswith("_moment1_0") for n in names)
 
 
 def test_main_program_is_the_jax_forward(built):
-    """The port's main program is the JAX main program's model forward
-    and loss; the JAX one goes on with the noam schedule's forward ops
-    and adds lr-schedule, backward and optimizer ops."""
+    """The whole main program: the increment prepended by the noam
+    schedule, the model forward and loss, the schedule's forward ops, the
+    backward (grad ops, sums, op_role_var stamps) and one adam per
+    parameter."""
     j, p = built
-    jfwd = [o.to_dict() for o in j["main"].desc.blocks[0].ops
-            if o.attrs["op_role"] == 0]
+    jops = [o.to_dict() for o in j["main"].desc.blocks[0].ops]
     pops = [o.to_dict() for o in p["main"].desc.blocks[0].ops]
-    assert pops == jfwd[:len(pops)]
-    assert pops[-1]["type"] == "elementwise_div"  # the averaged loss
-    assert {o["type"] for o in jfwd[len(pops):]} <= {
-        "pow", "elementwise_mul", "elementwise_min", "scale", "fill_constant"}
+    assert pops == jops
+    assert p["main"].desc.to_bytes() == j["main"].desc.to_bytes()
+    assert pops[0]["type"] == "increment"
+    types = {o["type"] for o in pops}
+    assert {"flash_attention_grad", "lookup_table_grad", "adam", "sum",
+            "softmax_with_cross_entropy_grad"} <= types
 
 
 def test_saved_model_files_identical(built, tmp_path):
