@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # the contract run
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one
-                                     # request and one train step by device
-                                     # kernel
+                                     # backward call, one request and one
+                                     # fp32 and one AMP train step by
+                                     # device kernel
     python3 chip_smoke.py --kernels  # phases 1-4 only: the short loop for
                                      # work on a kernel
 
@@ -16,28 +17,32 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 2. build: compiles every kernel from ``paddle_tpu_torch/csrc`` (one nvcc
    per source, all at once) and prints each kernel's registers, stack
    frame (where spills go), tensor-core (``HMMA``) instructions and SASS
-   mix, all read from the built library; fails on a forward kernel with
-   no ``HMMA`` or, at the model path's head width, with a stack frame.
-   The backward kernels run fp32 FMAs on the CUDA cores by design and
-   are only reported.
+   mix, all read from the built library; fails on a kernel with no
+   ``HMMA`` or, at the model path's head width, with a stack frame: the
+   forward and the backward's dK/dV and dQ kernels, each in float32 and
+   bfloat16. The backward's delta kernel (one reduction per row) is
+   exempt.
 3. kernels against their plain versions on the card: the forward at the
    model path's shape [8, 8, 256, 64] in float32 and bfloat16 and at
    shapes that reach every head-dim tier, ragged KV stages and unaligned
    rows; the backward (dQ, dK, dV, dKeyBias against
    ``plain_attention_bwd``) the same way, causal and not, with key-bias
-   tails and ragged Tq != Tk.
-4. kernel timing at [8, 8, 256, 64], each the card's time per call from
-   a CUDA-graph replay of 30 calls (the eager back-to-back time, host
-   cost included, beside it): kernel, plain version, one library call
-   (``scaled_dot_product_attention``, forward; its backward as graph
-   replays of forward + backward less forward; timed as a yardstick and
-   never called by the port) and the bound from the card's data-sheet
-   rates. Forward: float32 takes three TF32 tensor-core products per
-   product (3 * flops at 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s
-   beside it), bfloat16 one (flops at 495 TFLOP/s; 989 beside it).
-   Backward: 5 products of 2*B*H*Tq*Tk*D; float32 as 3xTF32 at 495
-   TFLOP/s (67 TFLOP/s beside it), bfloat16 at 989 TFLOP/s, each against
-   the bytes read and written once at 3.35 TB/s.
+   tails and ragged Tq != Tk, and at the train step's [16, 8, 256, 64],
+   the grid that the training path launches.
+4. kernel timing at [8, 8, 256, 64] (the shape of a request), the
+   backward also at [16, 8, 256, 64] (the shape of a train step), each
+   the card's time per call from a CUDA-graph replay of 30 calls (the
+   eager back-to-back time, host cost included, beside it): kernel,
+   plain version, one library call (``scaled_dot_product_attention``,
+   forward; its backward as graph replays of forward + backward less
+   forward; timed as a yardstick and never called by the port) and the
+   bound from the card's data-sheet rates. Forward: float32 takes three
+   TF32 tensor-core products per product (3 * flops at 495 TFLOP/s; the
+   CUDA-core bound at 67 TFLOP/s beside it), bfloat16 one (flops at 495
+   TFLOP/s; 989 beside it). Backward: 5 products of 2*B*H*Tq*Tk*D;
+   float32 as 3xTF32 at 495 TFLOP/s (67 TFLOP/s beside it), bfloat16 at
+   989 TFLOP/s, each against the bytes read and written once at 3.35
+   TB/s.
 5. serving: Transformer-base (the bench_transformer widths, random
    weights from a seed) built with the port's layers, initialized on the
    card, saved as an inference model and served by
@@ -88,6 +93,7 @@ TRAIN_FEEDS = FEEDS + ["lbl_word"]
 MODEL = dict(src_vocab=32000, tgt_vocab=32000, max_len=256, n_layer=6,
              n_head=8, d_model=512, d_inner_hid=2048, dropout_rate=0.0)
 MAIN_SHAPE = (8, 8, 256, 64)     # [B, H, T, D] of every attention per request
+TRAIN_SHAPE = (16, 8, 256, 64)   # ... and per train step
 LAUNCHES_PER_REQUEST = 18        # 6 encoder self + 6 decoder self + 6 cross
 TRAIN_BATCH = 16                 # the JAX build's default batch
 TRAIN_STEPS = 5
@@ -112,11 +118,13 @@ TF32_PRODUCTS = {torch.float32: 3, torch.bfloat16: 1}
 # so the bound is bf16's half-ulp of |O| < 4 (2^-7 = 7.8e-3) with margin.
 TOL = {torch.float32: {"out": 1e-4, "lse": 1e-4},
        torch.bfloat16: {"out": 2e-2, "lse": 1e-3}}
-# backward, relative to each gradient's largest magnitude. fp32: FMAs in
-# another order than the plain version's products, TF32 off (about 1e-6
-# measured on CPU-scale cases). bf16: dQ, dK, dV are rounded to bf16 once
-# (half an ulp, 2^-8 of the largest) and held against the plain version
-# on the same values in fp32; dKeyBias stays fp32.
+# backward, relative to each gradient's largest magnitude. fp32: every
+# product is 3xTF32 with the small term truncated, about 2^-21 relative
+# per product (6.3e-6 measured at most); one TF32 product would give
+# 8.4e-4 to 1.3e-3 (CPU emulation), which 1e-4 rejects. bf16: P and
+# dSoft are rounded to bf16 as operands and dQ, dK, dV once on output
+# (half an ulp, 2^-8 of the largest), held against the plain version on
+# the same values in fp32; dKeyBias is summed in fp32.
 BWD_TOL = {torch.float32: {"grad": 1e-4, "dkb": 1e-4},
            torch.bfloat16: {"grad": 1e-2, "dkb": 1e-4}}
 
@@ -370,8 +378,10 @@ def check_bwd_case(name, q, k, v, kb, causal):
 
 def bwd_cases(dtype):
     """Every head-dim tier, causal and not, key-bias tails, ragged Tq !=
-    Tk; no row sees no key (the backward of such a row is undefined, the
-    _fa_bwd docstring)."""
+    Tk, and the train step's shape, whose grid takes several waves per
+    pass (so dQ, launched dependent on dK/dV, starts behind them); no row
+    sees no key (the backward of such a row is undefined, the _fa_bwd
+    docstring)."""
     b, h, t, d = MAIN_SHAPE
     rng = np.random.RandomState(SEED + 1)
     lens = lambda n, hi: [int(x) for x in rng.randint(hi // 4, hi + 1, n)]
@@ -387,6 +397,9 @@ def bwd_cases(dtype):
     yield "D=80", make_case(2, 4, 150, 150, 80, dtype, [150, 77], 40), False
     yield "D=128", make_case(2, 4, 200, 200, 128, dtype, [200, 99], 41), True
     yield "D=33 (unaligned rows)", make_case(2, 3, 90, 90, 33, dtype, [90, 45], 42), True
+    b, h, t, d = TRAIN_SHAPE
+    yield "train (key bias)", make_case(b, h, t, t, d, dtype, lens(b, t), 43), False
+    yield "train (causal, bias)", make_case(b, h, t, t, d, dtype, lens(b, t), 44), True
 
 
 def bwd_bound(q, k, v, kb, causal):
@@ -411,8 +424,8 @@ def bwd_bound(q, k, v, kb, causal):
             max(t_bytes, flops / CUDA_CORE_FP32_FLOPS * 1e3))
 
 
-def time_bwd(dtype, causal):
-    b, h, t, d = MAIN_SHAPE
+def time_bwd(dtype, causal, shape=MAIN_SHAPE):
+    b, h, t, d = shape
     q, k, v, kb = make_case(b, h, t, t, d, dtype, [t] * (b // 2) + [t // 2] * (b // 2), 11)
     scale = d ** -0.5
     out, lse = fa.flash_attention_fwd(q, k, v, kb, causal, scale)
@@ -436,6 +449,33 @@ def time_bwd(dtype, causal):
     row["bound_ms"], row["bound_by"], row["bound_other_ms"] = bwd_bound(
         q, k, v, kb, causal)
     return row
+
+
+def profile_bwd(dtype, shape, calls=10):
+    """Device time per backward call by kernel (delta, dK/dV, dQ) under
+    torch.profiler, key bias, non-causal. The dQ kernel starts while the
+    dK/dV kernel runs (a programmatic dependent launch) and ends after it,
+    so the kernels' times overlap and sum to more than the call's."""
+    b, h, t, d = shape
+    q, k, v, kb = make_case(b, h, t, t, d, dtype, [t] * (b // 2) + [t // 2] * (b // 2), 11)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, kb, False, scale)
+    do = torch.randn(q.shape, device="cuda").to(dtype)
+
+    def run():
+        for _ in range(calls):
+            fa.flash_attention_bwd(q, k, v, kb, out, lse, do, False, scale)
+    run()
+    rows, busy = device_rows(run)
+    log(f"bwd {list(shape)} {str(dtype)[6:]}: kernel times per call (they "
+        f"overlap), {busy / calls:.4f} ms in all: " + ", ".join(
+            f"{_kernel_label(key)} {us / 1e3 / calls:.4f} ms"
+            for key, us, _ in sorted(rows, key=lambda r: -r[1])))
+
+
+def _kernel_label(key):
+    m = re.search(r"flash_bwd_\w+_kernel", key)
+    return m.group(0) if m else key[:40]
 
 
 # ---------------------------------------------------------------------------
@@ -698,8 +738,9 @@ def training_path(profile):
     fp32_losses, fp32_ms = train_steps(exe, m["main"], fp32_scope, loss_name,
                                        m["config"], "fp32")
     peak = torch.cuda.max_memory_allocated()
-    amp_losses, amp_ms = train_steps(exe, amp_main, copy_state(state, exe.device),
-                                     loss_name, m["config"], "bf16 AMP")
+    amp_scope = copy_state(state, exe.device)
+    amp_losses, amp_ms = train_steps(exe, amp_main, amp_scope, loss_name,
+                                     m["config"], "bf16 AMP")
     launches = (fa.launches, fa.bwd_launches)
     if launches != (2 * TRAIN_STEPS * FWD_PER_STEP,
                     2 * TRAIN_STEPS * BWD_PER_STEP):
@@ -715,7 +756,10 @@ def training_path(profile):
     lr = MODEL["d_model"] ** -0.5 * min(1.0, 8000 ** -1.5)
     replay_on_cpu(m, state, lr)
     if profile:
-        profile_step(exe, m, fp32_scope, float(np.median(fp32_ms[1:])))
+        profile_step(exe, m, m["main"], fp32_scope,
+                     float(np.median(fp32_ms[1:])), "fp32")
+        profile_step(exe, m, amp_main, amp_scope,
+                     float(np.median(amp_ms[1:])), "bf16 AMP")
     return launches
 
 
@@ -739,27 +783,38 @@ def device_rows(fn):
     return rows, busy
 
 
-def profile_step(exe, m, scope, steady_ms):
-    """Device time of one fp32 train step by kernel against its unprofiled
-    wall time; the forward alone (the test clone's loss) beside it, which
-    is what the generic vjp grad ops run again; the step's operations (3x
-    the forward's products) against the fp32 bound."""
+def profile_step(exe, m, program, scope, steady_ms, label):
+    """Device time of one train step of ``program`` by kernel against its
+    unprofiled wall time, and the flash kernels' share of it; for fp32
+    the forward alone (the test clone's loss) beside it, which is what
+    the generic vjp grad ops run again, and the step's operations (3x the
+    forward's products) against the fp32 bound."""
     feed = train_batch(m["config"], TRAIN_BATCH, SEED + 200)
     rows, busy = device_rows(lambda: exe.run(
-        m["main"], feed=feed, fetch_list=[m["loss"].name], scope=scope,
+        program, feed=feed, fetch_list=[m["loss"].name], scope=scope,
         return_numpy=False))
-    _, fwd_busy = device_rows(lambda: exe.run(
-        m["test"], feed=feed, fetch_list=[m["loss"].name], scope=scope,
-        return_numpy=False))
-    blk = m["main"].desc.blocks[0]
-    fwd_flops = request_flops(blk, TRAIN_BATCH)
-    log(f"profile of one fp32 train step (batch {TRAIN_BATCH}): {busy:.3f} ms "
-        f"of device time by kernel; median steady step {steady_ms:.3f} ms "
-        f"wall, so the card is idle {max(0.0, 1 - busy / steady_ms):.1%} of "
-        f"it; the forward alone {fwd_busy:.3f} ms of device time")
-    log(f"step operations {3 * fwd_flops / 1e9:.1f} GFLOP (3 x the forward's "
-        f"{fwd_flops / 1e9:.1f}): fp32 bound {3 * fwd_flops / CUDA_CORE_FP32_FLOPS * 1e3:.3f} "
-        f"ms at the data-sheet 67 TFLOP/s")
+    log(f"profile of one {label} train step (batch {TRAIN_BATCH}): "
+        f"{busy:.3f} ms of device time by kernel; median steady step "
+        f"{steady_ms:.3f} ms wall, so the card is idle "
+        f"{max(0.0, 1 - busy / steady_ms):.1%} of it")
+    for kind, tag in (("forward", "flash_fwd_kernel"),
+                      ("backward", "flash_bwd_")):
+        mine = [r for r in rows if tag in r[0]]
+        ms = sum(r[1] for r in mine) / 1e3
+        log(f"  flash {kind} kernels: {ms:.3f} ms ({ms / busy:.1%}) over "
+            f"{sum(r[2] for r in mine)} launches"
+            + (" (dQ overlaps dK/dV: summed kernel times)"
+               if kind == "backward" else ""))
+    if program is m["main"]:
+        _, fwd_busy = device_rows(lambda: exe.run(
+            m["test"], feed=feed, fetch_list=[m["loss"].name], scope=scope,
+            return_numpy=False))
+        fwd_flops = request_flops(m["main"].desc.blocks[0], TRAIN_BATCH)
+        log(f"  the forward alone: {fwd_busy:.3f} ms of device time; step "
+            f"operations {3 * fwd_flops / 1e9:.1f} GFLOP (3 x the forward's "
+            f"{fwd_flops / 1e9:.1f}): fp32 bound "
+            f"{3 * fwd_flops / CUDA_CORE_FP32_FLOPS * 1e3:.3f} ms at the "
+            f"data-sheet 67 TFLOP/s")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:16]:
         log(f"  {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% "
             f"x{count:<5} {key[:90]}")
@@ -799,22 +854,19 @@ def main(argv=None):
         if any(r["registers"] is None for r in report.values()):
             raise AssertionError(f"{name}: cuobjdump -res-usage gave no "
                                  "registers for a kernel")
-        if name == "flash_attention_bwd":
-            # fp32 FMAs on the CUDA cores by design (a later PR moves it
-            # onto the tensor cores): no HMMA or spill rule
-            if not report:
-                raise AssertionError(f"{name}: no kernel in the library")
-            continue
-        if not report or any(r["hmma"] == 0 for r in report.values()):
+        # every kernel but the backward's delta (one reduction per row)
+        # runs its products on the tensor cores
+        products = {k: r for k, r in report.items() if "delta" not in k}
+        if not products or any(r["hmma"] == 0 for r in products.values()):
             raise AssertionError(f"{name}: a kernel runs no tensor-core "
                                  "instruction (HMMA count 0 in its SASS)")
-        if any(r["stack_bytes"] for k, r in report.items()
+        if any(r["stack_bytes"] for k, r in products.items()
                if f", {MAIN_SHAPE[3]}>" in k):
             raise AssertionError(f"{name}: a stack frame (spills) at "
                                  f"D = {MAIN_SHAPE[3]}")
 
     phase("kernels against their plain versions")
-    errs, bwd_errs = {}, {}
+    errs, bwd_errs, bwd_train_errs = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, (q, k, v, kb), causal) in enumerate(kernel_cases(dtype)):
             err = check_case(name, q, k, v, kb, causal)
@@ -825,9 +877,13 @@ def main(argv=None):
             err = check_bwd_case(f"bwd {name}", q, k, v, kb, causal)
             if i < 3:
                 bwd_errs[dtype] = max(bwd_errs.get(dtype, 0.0), err)
+            if name.startswith("train"):
+                bwd_train_errs[dtype] = max(bwd_train_errs.get(dtype, 0.0),
+                                            err)
 
-    phase("kernel timing at [8, 8, 256, 64]")
-    timing, bwd_timing = {}, {}
+    phase(f"kernel timing at {list(MAIN_SHAPE)} (the backward also at "
+          f"{list(TRAIN_SHAPE)})")
+    timing, bwd_timing, bwd_train = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
             row = timing[dtype, causal] = time_kernel(dtype, causal)
@@ -840,18 +896,25 @@ def main(argv=None):
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}, TF32 495 "
                 f"TFLOP/s), {row['bound_other_ms']:.4f} ms at the {other} "
                 f"TFLOP/s")
-    for dtype in (torch.float32, torch.bfloat16):
-        for causal in (False, True):
-            row = bwd_timing[dtype, causal] = time_bwd(dtype, causal)
-            rate = ("3xTF32 495" if dtype == torch.float32
-                    else "bf16 989")
-            log(f"bwd {str(dtype)[6:]:<8} causal={int(causal)} kernels "
-                f"{row['ms']:.4f} ms (eager calls {row['eager_ms']:.4f} ms), "
-                f"plain {row['plain_ms']:.4f} ms, sdpa backward "
-                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}, {rate} TFLOP/s), "
-                f"{row['bound_other_ms']:.4f} ms at the fp32 CUDA cores 67 "
-                f"TFLOP/s")
+    for shape, rows in ((MAIN_SHAPE, bwd_timing), (TRAIN_SHAPE, bwd_train)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                row = rows[dtype, causal] = time_bwd(dtype, causal, shape)
+                rate = ("3xTF32 495" if dtype == torch.float32
+                        else "bf16 989")
+                log(f"bwd {list(shape)} {str(dtype)[6:]:<8} "
+                    f"causal={int(causal)} kernels {row['ms']:.4f} ms (eager "
+                    f"calls {row['eager_ms']:.4f} ms), plain "
+                    f"{row['plain_ms']:.4f} ms, sdpa backward "
+                    f"{row['library_ms']:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {rate} "
+                    f"TFLOP/s), {row['bound_other_ms']:.4f} ms at the fp32 "
+                    f"CUDA cores 67 TFLOP/s")
+
+    if args.profile:
+        for shape in (MAIN_SHAPE, TRAIN_SHAPE):
+            for dtype in (torch.float32, torch.bfloat16):
+                profile_bwd(dtype, shape)
 
     serving = training = (None, None)
     if not args.kernels:
@@ -895,7 +958,13 @@ def main(argv=None):
               training[1],
               {"launches_serving": serving[1],
                "launches_per_request": 0,
-               "launches_per_step": BWD_PER_STEP}),
+               "launches_per_step": BWD_PER_STEP,
+               "train_shape": dict(
+                   shape=list(TRAIN_SHAPE),
+                   max_abs_err={str(dt)[6:]: e
+                                for dt, e in bwd_train_errs.items()},
+                   **{f"{str(dt)[6:]}{'_causal' if c else ''}": row
+                      for (dt, c), row in bwd_train.items()})}),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

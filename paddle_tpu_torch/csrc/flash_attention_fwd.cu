@@ -58,7 +58,11 @@
 
 #include <type_traits>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+using namespace tc;
 
 constexpr int BM = 64;         // query rows per block, 16 per warp
 constexpr int BN = 64;         // keys per KV tile
@@ -82,46 +86,6 @@ struct Smem {
       sizeof(T) * (q_elems + 2 * k_elems + 2 * v_elems) + sizeof(float) * 2 * BN;
 };
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x as TF32 terms: big = tf32(x), small = tf32(x - big) when SPLIT; an
-// exact TF32 value (bf16 data) passes as its own bits.
-template <bool SPLIT>
-__device__ __forceinline__ void terms(float x, uint32_t& big, uint32_t& small) {
-  if (SPLIT) {
-    big = tf32(x);
-    small = tf32(x - __uint_as_float(big));
-  } else {
-    big = __float_as_uint(x);
-  }
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b with a, b as TF32 terms: small products first, then big*big
-template <bool SPLIT>
-__device__ __forceinline__ void mma_terms(float (&c)[4], const uint32_t (&ab)[4],
-                                          const uint32_t (&as)[4], uint32_t bb0,
-                                          uint32_t bb1, uint32_t bs0,
-                                          uint32_t bs1) {
-  if (SPLIT) {
-    mma(c, as, bb0, bb1);
-    mma(c, ab, bs0, bs1);
-  }
-  mma(c, ab, bb0, bb1);
-}
-
 // two neighbouring elements of a shared-memory row as fp32
 __device__ __forceinline__ float2 ld_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -129,64 +93,6 @@ __device__ __forceinline__ float2 ld_pair(const float* p) {
 __device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
   const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
   return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
-__device__ __forceinline__ float ld_one(const float* p) { return *p; }
-__device__ __forceinline__ float ld_one(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float v, float* p) { *p = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16(v);
-}
-template <typename T>
-__device__ __forceinline__ T zero() { return T(0.f); }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-// cp.async of 16 (or 4) bytes; src_bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [0, 64) x cols [0, DT) of a [rows][D] global tile into a [64][STRIDE]
-// shared tile; rows >= n_rows and cols >= D are zero. vec: 16-byte cp.async
-// (rows 16-byte aligned); otherwise element loads and stores.
-template <typename T, int DT, int STRIDE>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int n_rows,
-                                          int D, bool vec, int tid) {
-  if (vec) {
-    constexpr int EPC = 16 / sizeof(T);    // elements per copy
-    constexpr int CPR = DT / EPC;          // copies per row
-    constexpr int RPP = THREADS / CPR;     // rows per pass of the block
-    const int r0 = tid / CPR, c = (tid % CPR) * EPC;
-#pragma unroll
-    for (int j = 0; j < 64 / RPP; ++j) {
-      const int r = r0 + j * RPP;
-      const bool ok = r < n_rows && c < D;
-      cp_async16(dst + r * STRIDE + c, ok ? src + r * D + c : src, ok);
-    }
-  } else {
-    for (int i = tid; i < 64 * DT; i += THREADS) {
-      const int r = i / DT, c = i % DT;
-      dst[r * STRIDE + c] =
-          r < n_rows && c < D ? src[(size_t)r * D + c] : zero<T>();
-    }
-  }
 }
 
 template <typename T, int DT>
@@ -227,10 +133,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_kv = [&](int tile, int st) {
     const int k0 = tile * BN;
     const int n = min(BN, tk - k0);
-    load_tile<T, DT, L::QK>(k_s + st * L::k_elems, kg + (size_t)k0 * D, n, D,
-                            vec, tid);
-    load_tile<T, DT, L::V>(v_s + st * L::v_elems, vg + (size_t)k0 * D, n, D,
-                           vec, tid);
+    load_tile<T, DT, L::QK, BN, THREADS>(k_s + st * L::k_elems,
+                                         kg + (size_t)k0 * D, n, D, vec, tid);
+    load_tile<T, DT, L::V, BN, THREADS>(v_s + st * L::v_elems,
+                                        vg + (size_t)k0 * D, n, D, vec, tid);
     if (tid < BN) {
       float* dst = kb_s + st * BN + tid;
       if (kbg != nullptr)
@@ -240,7 +146,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     cp_async_commit();
   };
-  load_tile<T, DT, L::QK>(q_s, qg, min(BM, tq - q0), D, vec, tid);
+  load_tile<T, DT, L::QK, BM, THREADS>(q_s, qg, min(BM, tq - q0), D, vec,
+                                       tid);
   load_kv(0, 0);
 
   const int warp = tid / 32, lane = tid % 32;

@@ -2,9 +2,11 @@
 
 Each source in ``csrc/`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds). Libraries go to ``_build/`` beside this package
-(ignored by git), named by a hash of their source, and are built at first
-use. ``build()`` starts one ``nvcc`` per source, all at once.
+build takes seconds); the sources share the device helpers of
+``csrc/tensor_core.cuh``. Libraries go to ``_build/`` beside this package
+(ignored by git), named by a hash of their source and the headers, and
+are built at first use. ``build()`` starts one ``nvcc`` per source, all at
+once.
 """
 
 from __future__ import annotations
@@ -46,8 +48,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, every header in
+    ``csrc/`` (the sources include them) and the nvcc flags, so that an
+    edit to any of them builds anew."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

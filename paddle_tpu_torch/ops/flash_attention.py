@@ -13,8 +13,12 @@ for the tests.
 
 The backward is ``csrc/flash_attention_bwd.cu`` (the counterpart of
 ``_fa_bwd``: P recomputed from the saved logsumexp, a dK/dV pass and a
-dQ pass with fp32 FMAs, no atomics), launched by ``flash_attention_bwd``
-on the card; on the CPU it computes ``plain_attention_bwd``. The
+dQ pass, no atomics), launched by ``flash_attention_bwd`` on the card;
+on the CPU it computes ``plain_attention_bwd``. Its products run on the
+tensor cores with fp32 accumulation: 3xTF32 ``mma.sync`` for fp32
+inputs, bf16 ``mma.sync`` for bf16 inputs with P and dSoft rounded to
+bf16 once; ``emulated_attention_bwd`` repeats that arithmetic on the CPU
+for the tests. The
 ``flash_attention_grad`` op recomputes O and the logsumexp with the
 forward kernel and then runs the backward, as the JAX package's generic
 vjp recomputes the forward. ``flash_attention`` wraps the pair as a
@@ -80,15 +84,23 @@ def tf32_round(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _tf32_product(eq, a, b, products):
-    """einsum of a and b as the kernel's TF32 ``mma.sync`` computes it:
+def tf32_trunc(x):
+    """fp32 -> TF32 by dropping the low 13 mantissa bits, as the tensor
+    core reads an fp32 operand of a TF32 ``mma.sync``."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def _tf32_product(eq, a, b, products, small=tf32_round):
+    """einsum of a and b as a kernel's TF32 ``mma.sync`` computes it:
     1 product of the rounded operands, or 3 (big*big + big*small +
-    small*big with big = tf32(x), small = tf32(x - big))."""
+    small*big with big = tf32(x) and small = ``small(x - big)``: rounded
+    in the forward kernel, truncated in the backward's)."""
     ab, bb = tf32_round(a), tf32_round(b)
     out = torch.einsum(eq, ab, bb)
     if products == 3:
-        out = (out + torch.einsum(eq, ab, tf32_round(b - bb))
-               + torch.einsum(eq, tf32_round(a - ab), bb))
+        out = (out + torch.einsum(eq, ab, small(b - bb))
+               + torch.einsum(eq, small(a - ab), bb))
     return out
 
 
@@ -106,6 +118,41 @@ def emulated_attention(q, k, v, key_bias=None, causal=False, scale=1.0,
     p = torch.softmax(s, dim=-1)
     out = _tf32_product("bhqk,bhkd->bhqd", p, v.float(), products)
     return out.to(v.dtype), lse
+
+
+def emulated_attention_bwd(q, k, v, key_bias, out, lse, do, causal=False,
+                           scale=1.0, products=None):
+    """The backward kernels' arithmetic on CPU tensors, for the tests.
+    fp32 inputs: every product as ``products`` TF32 products (3 by
+    default: 3xTF32 with the small terms truncated) with fp32 sums. bf16
+    inputs: bf16 operands, whose products are exact, with fp32 sums, and
+    P and dSoft rounded to bf16 once before dV = P^T dO, dK = dSoft^T Q
+    and dQ = dSoft K (``products`` does not apply). Same outputs as
+    ``plain_attention_bwd``."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    if q.dtype == torch.bfloat16:
+        def mm(eq, a, b):
+            return torch.einsum(eq, a, b)
+
+        def low(x):
+            return x.to(torch.bfloat16).float()
+    else:
+        n = 3 if products is None else products
+
+        def mm(eq, a, b):
+            return _tf32_product(eq, a, b, n, small=tf32_trunc)
+
+        def low(x):
+            return x
+    s = _mask(mm("bhqd,bhkd->bhqk", qf, kf) * scale, key_bias, causal)
+    p = torch.exp(s - lse[..., None])
+    delta = (dof * out.float()).sum(dim=-1)
+    dv = mm("bhqk,bhqd->bhkd", low(p), dof)
+    dsoft = p * (mm("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])
+    dq = mm("bhqk,bhkd->bhqd", low(dsoft), kf) * scale
+    dk = mm("bhqk,bhqd->bhkd", low(dsoft), qf) * scale
+    dkb = dsoft.sum(dim=(1, 2)) if key_bias is not None else None
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dkb
 
 
 def _bind(name):

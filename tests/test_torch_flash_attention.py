@@ -14,12 +14,17 @@ tests/test_pallas_interpret.py::test_flash_custom_vjp_grads drives it),
 key-bias cotangent included, at atol 5e-5 (that test allows 5e-4; the
 largest error measured here is 7.6e-6), and against torch autograd of ``plain_attention`` at ragged
 shapes within 1e-5 of each gradient's largest magnitude (at least 1; the
-same products in another order).
+same products in another order). The backward kernels' tensor-core
+arithmetic (3xTF32 for fp32; bf16 operands with P and dSoft rounded to
+bf16) is emulated on the CPU (``emulated_attention_bwd``) and held against
+``_fa_bwd`` and ``plain_attention_bwd`` the same way.
 
 The CUDA kernels run only on a card: their cases are marked ``cuda`` and
 skip elsewhere; chip_smoke.py holds them against the plain versions at
 the model path's shapes.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -229,12 +234,32 @@ def test_wrapper_checks_the_kernel_grid_limits(shape, match):
 
 
 def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
-    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    """A library is named by a hash of its source and of every header in
+    csrc/, so an edit to the shared header builds both kernels anew."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     path = _build.library_path("flash_attention_fwd")
-    assert path.startswith(str(tmp_path))
+    assert path.startswith(str(tmp_path / "build"))
     assert path.endswith(".so") and "libflash_attention_fwd-" in path
     assert set(_build.SOURCES) == {"flash_attention_fwd",
                                    "flash_attention_bwd"}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert before["flash_attention_fwd"] == path  # same files, same name
+    header = csrc / "tensor_core.cuh"
+    assert header.exists()
+    for src in _build.SOURCES.values():
+        assert '#include "tensor_core.cuh"' in (csrc / src).read_text()
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    (csrc / "flash_attention_bwd.cu").write_text(
+        (csrc / "flash_attention_bwd.cu").read_text() + "\n")
+    assert _build.library_path("flash_attention_bwd") != after[
+        "flash_attention_bwd"]
+    assert _build.library_path("flash_attention_fwd") == after[
+        "flash_attention_fwd"]
 
 
 @pytest.mark.cuda
@@ -328,6 +353,105 @@ def test_plain_bwd_matches_torch_autograd(b, h, tq, tk, d, causal, lens):
             g.numpy(), w.numpy(), rtol=0,
             atol=1e-5 * max(1.0, w.abs().max().item()), err_msg=name)
     assert got[3] is None if kb is None else got[3].dtype == torch.float32
+
+
+@pytest.mark.parametrize("b,h,t,causal,tail", [
+    (1, 2, 128, False, None),
+    (1, 2, 256, True, None),
+    (2, 2, 128, False, 100),
+    (2, 2, 256, True, 200),
+], ids=["noncausal", "causal", "key_bias_tail", "causal_key_bias_tail"])
+def test_emulated_bwd_matches_jax_fa_bwd(monkeypatch, b, h, t, causal, tail):
+    """The backward kernels' 3xTF32 arithmetic (fp32 inputs) against the
+    JAX package's _fa_bwd behind the Pallas forward in interpret mode, at
+    the plain version's tolerance (atol 5e-5): three TF32 products leave
+    about 2^-21 of each product, so the emulation sits within 3.4e-6 of
+    the plain version's largest gradient (measured below)."""
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_TK", "128")
+    q, k, v = _qkv(b, h, t, t, 64, seed=3 * t + int(causal))
+    do = np.random.RandomState(t).randn(b, h, t, 64).astype(np.float32)
+    kb = None if tail is None else _key_bias(b, t, [tail] + [t] * (b - 1))
+    assert pa._supported(jnp.asarray(q), jnp.asarray(k))  # Pallas runs
+    want = _jax_flash_vjp(q, k, v, kb, do, causal, 0.125)
+    tq, tk, tv, tkb, tdo = _torch(q, k, v, kb, do)
+    out, lse = fa.plain_attention(tq, tk, tv, tkb, causal, 0.125)
+    got = fa.emulated_attention_bwd(tq, tk, tv, tkb, out, lse, tdo, causal,
+                                    0.125)
+    for name, w, g in zip(("dq", "dk", "dv", "dkey_bias"), want, got):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), w, atol=5e-5, rtol=1e-5,
+                                   err_msg=name)
+
+
+def _bwd_case(b, h, tq, tk, d, causal, lens, dtype):
+    """Inputs in ``dtype``, the plain forward's out (rounded to ``dtype``)
+    and lse, and the plain backward on the same values in fp32."""
+    q, k, v = _qkv(b, h, tq, tk, d, seed=tq + tk + d)
+    do = np.random.RandomState(d).randn(b, h, tq, d).astype(np.float32)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
+    kb = None if lens is None else torch.from_numpy(_key_bias(b, tk, lens))
+    scale = d ** -0.5
+    out, lse = fa.plain_attention(q.float(), k.float(), v.float(), kb, causal,
+                                  scale)
+    out = out.to(dtype)
+    want = fa.plain_attention_bwd(q.float(), k.float(), v.float(), kb,
+                                  out.float(), lse, do.float(), causal, scale)
+    return (q, k, v, kb, out, lse, do, causal, scale), want
+
+
+_BWD_CASES = [
+    (2, 8, 256, 256, 64, False, [256, 141]),
+    (2, 8, 256, 256, 64, True, [256, 141]),
+    (2, 3, 77, 77, 48, True, [77, 50]),
+    (2, 2, 100, 300, 64, False, [300, 123]),
+    (2, 2, 100, 300, 64, True, [300, 250]),
+    (2, 2, 300, 100, 64, True, None),
+]
+_BWD_IDS = ["model_shape", "model_shape_causal", "ragged_causal_d48",
+            "tq_lt_tk", "tq_lt_tk_causal", "tq_gt_tk_causal_no_bias"]
+
+
+@pytest.mark.parametrize("case", _BWD_CASES, ids=_BWD_IDS)
+@pytest.mark.parametrize("dtype,rel", [("float32", 1e-5),
+                                       ("bfloat16", 1e-2)])
+def test_emulated_bwd_matches_plain_bwd(dtype, rel, case):
+    """The backward kernels' arithmetic against plain_attention_bwd on the
+    same values in fp32, relative to each gradient's largest magnitude.
+    fp32 (3xTF32) within 1e-5: measured 3.4e-6 at most. bf16 within the
+    card's tolerance, 1e-2: dQ, dK and dV come back in bf16 (half an ulp
+    is 2^-9 of a value) and P and dSoft are rounded to bf16 before their
+    products; measured 5.1e-3 at most. dKeyBias sums dSoft in fp32 and
+    stays within 1e-4."""
+    args, want = _bwd_case(*case, getattr(torch, dtype))
+    got = fa.emulated_attention_bwd(*args)
+    for name, g, w in zip(("dq", "dk", "dv", "dkey_bias"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == (torch.float32 if name == "dkey_bias"
+                           else getattr(torch, dtype))
+        limit = (1e-4 if name == "dkey_bias" and dtype == "bfloat16"
+                 else rel) * w.abs().max().item()
+        err = (g.float() - w).abs().max().item()
+        assert err <= limit, f"{name}: {err:.3e} > {limit:.3e}"
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+def test_one_tf32_product_misses_the_bwd_fp32_tolerance(causal):
+    """Why the backward kernels split fp32 operands: one TF32 product per
+    operand pair misses the card's fp32 tolerance (1e-4 of each
+    gradient's largest magnitude; measured 8.4e-4 and 1.3e-3), three
+    meet it with room (3.4e-6 at most)."""
+    args, want = _bwd_case(*_BWD_CASES[int(causal)], torch.float32)
+    err = {}
+    for n in (1, 3):
+        got = fa.emulated_attention_bwd(*args, products=n)
+        err[n] = max(((g - w).abs().max() / w.abs().max()).item()
+                     for g, w in zip(got, want))
+    assert err[1] > 1e-4 > 1e-5 > err[3]
 
 
 def test_flash_attention_function_under_torch_func():
