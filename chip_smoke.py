@@ -58,10 +58,36 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    fp32 ones; then one batch-2 step replayed through
    ``Executor(CPUPlace())`` from the same weights: loss, the gradients of
    proj.w, enc0_att_q.w, dec5_catt_v.w and src_word_emb, and their
-   updated parameters against the card's and against the Adam formula.
+   updated parameters against the card's and against the Adam formula;
+   and one batch-2 AMP step replayed the same way on the AMP program, at
+   the CPU AMP tests' tolerances.
+7. training through ``CompiledProgram``: the same model built with
+   ``attention_impl="unfused"`` (the matmul/softmax chain) under
+   bench.py's BuildStrategy (fuse_all_optimizer_ops,
+   fuse_elewise_add_act_ops, memory_optimize, fuse_conv_ops,
+   fuse_attention_ops). The rewritten op list must hold 18
+   ``flash_attention``, 18 ``flash_attention_grad``, no ``softmax`` and
+   a ``fused_adam`` before any step runs (the dense chain never runs);
+   the pipeline's time, its ops removed per stage and the memo hits are
+   printed. 3 fp32 and 3 AMP steps from phase 6's weights, 36 forward
+   and 54 backward launches each; the fp32 steps against phase 6's fused
+   build on a plain ``Executor()`` at the JAX package's fused-vs-unfused
+   tolerances; a batch-2 AMP step replayed on the CPU; and one step of
+   phase 6's program with and without ``fuse_all_optimizer_ops`` alone,
+   on a batch whose ids do not repeat (so no atomics reorder the
+   embedding gradient), bitwise equal in every persistable. Then the
+   fused build and the compiled program, fp32 and AMP, timed in turns.
+8. serving through ``AnalysisPredictor``: phase 5's model directory and
+   its 4 batch-8 requests through
+   ``create_paddle_predictor(AnalysisConfig(dir).enable_bf16())``: 18
+   forward launches per request, every one on bf16 inputs; the logits
+   against phase 5's fp32 ``NativePredictor`` logits within 2^-5 of the
+   largest |logit| (arg-max agreement printed); with ``enable_bf16(False)``
+   within phase 5's 1e-3 of it; and a batch-1 bf16 request replayed
+   through a CPU ``AnalysisPredictor``.
 
 The line before the last lists every ported kernel with its launches on
-the paths (null under ``--kernels``); the last line is the device record.
+each path (null under ``--kernels``); the last line is the device record.
 """
 
 from __future__ import annotations
@@ -81,10 +107,12 @@ import torch
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core.desc import ProgramDesc
 from paddle_tpu_torch.contrib import mixed_precision
-from paddle_tpu_torch.inference import NativeConfig, create_paddle_predictor
+from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
+                                        create_paddle_predictor)
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.utils import unique_name
 
 SEED = 2024
 FEEDS = ["src_word", "src_pos", "trg_word", "trg_pos", "src_len", "trg_len"]
@@ -102,6 +130,29 @@ TRAIN_STEPS = 5
 FWD_PER_STEP = 2 * LAUNCHES_PER_REQUEST
 BWD_PER_STEP = LAUNCHES_PER_REQUEST * fa.BWD_KERNELS
 REPLAY_GRADS = ["proj.w", "enc0_att_q.w", "dec5_catt_v.w", "src_word_emb"]
+# AMP replay tolerances, those the CPU AMP tests hold the port's AMP step
+# to against the JAX package's (tests/test_torch_training.py): the loss
+# within 1e-2 relative, the checked gradients together within 0.1
+# relative in L2 and each within 0.5. The card and the CPU round to bf16
+# at the same points (one program, the same amp_cast); they differ in the
+# fp32 accumulation order inside each product (cuBLAS and the flash
+# kernels against the CPU's GEMMs and the plain attention), which flips
+# the last bf16 bit of some outputs, and a ReLU whose input lies within a
+# bf16 ulp of 0 passes its gradient on one side only: the two sources of
+# drift those tests bound.
+AMP_REPLAY_TOL = {"loss": 1e-2, "grads_l2": 0.1, "grad_l2": 0.5}
+# phase 7: steps per arm, and the JAX package's tolerances for its own
+# fused-vs-unfused attention parity (tests/test_attention_fusion.py:99-102;
+# the rewrite reassociates the scale), as (rtol, atol)
+COMPILED_STEPS = 3
+FUSION_LOSS_TOL = (2e-4, 1e-5)
+FUSION_PARAM_TOL = (2e-3, 2e-5)
+# phase 8: bf16 logits against fp32 within this fraction of the largest
+# |logit|. tests/test_torch_analysis.py holds the tiny model (2 + 2
+# layers) at 2^-6 and measures 0.85 bf16 ulp there; rounding drift grows
+# about as the square root of depth, 1.7x for 6 + 6 layers, so twice the
+# CPU bound (4 bf16 ulps at the largest magnitude)
+BF16_SERVE_REL = 2.0 ** -5
 
 # H100 SXM data-sheet rates (dense), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -490,13 +541,19 @@ def make_request(cfg, batch, seed):
     return {k: feed[k] for k in FEEDS}
 
 
-def serve(pred, feed, cfg):
-    before = fa.launches
+def serve(pred, feed, cfg, dtype="float32"):
+    """One request: the logits, checked finite and of the right shape,
+    after LAUNCHES_PER_REQUEST forward launches all on ``dtype`` inputs;
+    and its milliseconds."""
+    before, before_dtype = fa.launches, fa.launch_dtypes.get(dtype, 0)
     t0 = time.perf_counter()
     logits = pred.run(feed)[0].as_tensor()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launched = fa.launches - before
+    if fa.launch_dtypes.get(dtype, 0) - before_dtype != launched:
+        raise AssertionError(f"forward launches of the request not all on "
+                             f"{dtype} inputs: {fa.launch_dtypes}")
     want = [len(feed["src_word"]), cfg["max_len"], cfg["tgt_vocab"]]
     if list(logits.shape) != want or not torch.isfinite(logits).all():
         raise AssertionError(f"logits {list(logits.shape)} (want {want}) "
@@ -508,7 +565,10 @@ def serve(pred, feed, cfg):
 
 
 def main_path(model_dir, profile):
+    """Phase 5. Returns the path's forward launches, its requests, their
+    logits and the steady request times, for phase 8."""
     fa.launches = fa.bwd_launches = 0
+    fa.launch_dtypes.clear()
     m = transformer.build(**MODEL)
     cfg = m["config"]
     m["startup"].random_seed = SEED
@@ -525,10 +585,12 @@ def main_path(model_dir, profile):
         f"{n_params} parameter elements")
 
     pred = create_paddle_predictor(NativeConfig(model_dir))
-    steady_ms = []
+    steady_ms, requests, request_logits = [], [], []
     for i in range(4):
         feed = make_request(cfg, 8, SEED + i)
-        _, ms = serve(pred, feed, cfg)
+        logits, ms = serve(pred, feed, cfg)
+        requests.append(feed)
+        request_logits.append(logits)
         if i:
             steady_ms.append(ms)
         tokens = int(feed["trg_len"].sum())
@@ -554,7 +616,8 @@ def main_path(model_dir, profile):
     if profile:
         profile_request(pred, make_request(cfg, 8, SEED + 1), model_dir,
                         float(np.median(steady_ms)))
-    return launches
+    return {"launches": launches, "cfg": cfg, "requests": requests,
+            "logits": request_logits, "steady_ms": steady_ms, "one": one}
 
 
 def request_flops(blk, batch):
@@ -577,16 +640,17 @@ def request_flops(blk, batch):
     return flops
 
 
-def profile_request(pred, feed, model_dir, steady_ms):
+def profile_request(pred, feed, model_dir, steady_ms, label="fp32"):
     """Device time of one request by kernel, against the request's
-    unprofiled wall time and its operations bound."""
+    unprofiled wall time and its operations bound (from the saved
+    program, the same function whatever the passes made of it)."""
     rows, busy = device_rows(lambda: pred.run(feed))
     with open(os.path.join(model_dir, "__model__"), "rb") as f:
         blk = ProgramDesc.from_bytes(f.read()).blocks[0]
-    n_ops = sum(op.type not in ("feed", "fetch") for op in blk.ops)
+    n_ops = len(pred._program.global_block().desc.ops)
     flops = request_flops(blk, len(feed["src_word"]))
-    log(f"profile of one batch-8 request through the {n_ops} ops of the "
-        f"saved program: {busy:.3f} ms of device time by "
+    log(f"profile of one {label} batch-8 request through the predictor's "
+        f"{n_ops} ops: {busy:.3f} ms of device time by "
         f"kernel; median steady request {steady_ms:.3f} ms wall, so the "
         f"card is idle {max(0.0, 1 - busy / steady_ms):.1%} of it")
     log(f"request operations {flops / 1e9:.1f} GFLOP: fp32 bound "
@@ -617,11 +681,12 @@ def copy_state(state, device):
     return scope
 
 
-def train_steps(exe, program, scope, loss_name, cfg, label):
-    """TRAIN_STEPS steps at TRAIN_BATCH; checks each step's launches and
+def train_steps(exe, program, scope, loss_name, cfg, label,
+                steps=TRAIN_STEPS):
+    """``steps`` steps at TRAIN_BATCH; checks each step's launches and
     loss. Returns (losses, step ms)."""
     losses, step_ms = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         feed = train_batch(cfg, TRAIN_BATCH, SEED + 100 + i)
         fwd0, bwd0 = fa.launches, fa.bwd_launches
         torch.cuda.synchronize()
@@ -655,24 +720,27 @@ def adam_first_update(grad, lr):
     return lr * 0.02 ** 0.5 / 0.1 * m1 / (m2.sqrt() + 1e-9)
 
 
-def replay_on_cpu(m, state, lr):
-    """One batch-2 step from the same weights on the card and through
-    Executor(CPUPlace()): loss, the REPLAY_GRADS gradients and their
-    updated parameters, fp32 on both sides with TF32 off. The loss within
-    1e-4 relative. Each gradient within 1e-3 relative in L2 and within
-    1e-2 of its largest magnitude elementwise: the backward recomputes P
-    from the forward kernel's lse and takes delta from its O, which its 3
-    TF32 products leave about 1e-6 off fp32, and dSoft = P (dP - delta)
-    cancels where attention is near uniform (at initialization), so the
-    gradients through Q and K, and the word embeddings below them, lose
-    about three digits (the CPU, with the kernel's TF32 forward emulated,
-    loses two: 1.5e-4 of the largest magnitude). Adam's first step is
-    about +-lr wherever |g| >> 1e-8, so
-    where the two gradients differ near 0 the two parameters may move
-    apart by up to 2 lr. So each side's new parameters are held against
-    the Adam formula on its own gradient (within 1e-3 lr plus an fp32
-    spacing of the parameter), and the two sides against each other
-    within 2 lr plus that spacing."""
+def replay_on_cpu(m, program, state, lr, label, amp=False):
+    """One batch-2 step of ``program`` from the same weights on the card
+    and through Executor(CPUPlace()): loss, the REPLAY_GRADS gradients and
+    their updated parameters.
+
+    fp32 (TF32 off on both sides): the loss within 1e-4 relative; each
+    gradient within 1e-3 relative in L2 and within 1e-2 of its largest
+    magnitude elementwise: the backward recomputes P from the forward
+    kernel's lse and takes delta from its O, which its 3 TF32 products
+    leave about 1e-6 off fp32, and dSoft = P (dP - delta) cancels where
+    attention is near uniform (at initialization), so the gradients
+    through Q and K, and the word embeddings below them, lose about three
+    digits (the CPU, with the kernel's TF32 forward emulated, loses two:
+    1.5e-4 of the largest magnitude). AMP: AMP_REPLAY_TOL.
+
+    Adam's first step is about +-lr wherever |g| >> 1e-8, so where the
+    two gradients differ near 0 the two parameters may move apart by up
+    to 2 lr. So each side's new parameters are held against the Adam
+    formula on its own gradient (within 1e-3 lr plus an fp32 spacing of
+    the parameter), and the two sides against each other within 2 lr
+    plus that spacing."""
     feed = train_batch(m["config"], 2, SEED + 50)
     fetch = [m["loss"].name] + [n + "@GRAD" for n in REPLAY_GRADS]
     results = {}
@@ -680,17 +748,27 @@ def replay_on_cpu(m, state, lr):
     for where, exe in (("card", pt.Executor()),
                        ("cpu", pt.Executor(pt.CPUPlace()))):
         scope = copy_state(state, exe.device)
-        out = exe.run(m["main"], feed=feed, fetch_list=fetch, scope=scope,
+        out = exe.run(program, feed=feed, fetch_list=fetch, scope=scope,
                       return_numpy=False)
         params = [scope.find_var(n).cpu() for n in REPLAY_GRADS]
-        results[where] = ([t.cpu() for t in out], params)
+        results[where] = ([t.cpu().float() for t in out], params)
     (gpu, gpu_p), (cpu, cpu_p) = results["card"], results["cpu"]
     loss_gpu, loss_cpu = gpu[0].item(), cpu[0].item()
-    log(f"batch-2 step replayed on the CPU ({time.perf_counter() - t0:.1f} s "
-        f"for both): loss {loss_gpu:.7f} on the card, {loss_cpu:.7f} on the "
-        f"CPU, lr {lr:.4e}")
-    if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
-        raise AssertionError("train step: card and CPU losses disagree")
+    log(f"{label}: batch-2 step replayed on the CPU "
+        f"({time.perf_counter() - t0:.1f} s for both): loss {loss_gpu:.7f} "
+        f"on the card, {loss_cpu:.7f} on the CPU, lr {lr:.4e}")
+    loss_tol = AMP_REPLAY_TOL["loss"] if amp else 1e-4
+    if not abs(loss_gpu - loss_cpu) <= loss_tol * abs(loss_cpu):
+        raise AssertionError(f"{label}: card and CPU losses disagree")
+    if amp:
+        all_l2 = (torch.linalg.norm(torch.cat([(g - c).reshape(-1)
+                                               for g, c in zip(gpu[1:], cpu[1:])]))
+                  / torch.linalg.norm(torch.cat([c.reshape(-1)
+                                                 for c in cpu[1:]]))).item()
+        log(f"  the gradients together: {all_l2:.3e} relative in L2 "
+            f"(bound {AMP_REPLAY_TOL['grads_l2']})")
+        if not all_l2 <= AMP_REPLAY_TOL["grads_l2"]:
+            raise AssertionError(f"{label}: AMP gradients disagree")
     for name, g, c, pg, pc in zip(REPLAY_GRADS, gpu[1:], cpu[1:], gpu_p,
                                   cpu_p):
         err, top = (g - c).abs().max().item(), c.abs().max().item()
@@ -707,19 +785,22 @@ def replay_on_cpu(m, state, lr):
             f"and {formula[1]:.2e} lr (CPU); card and CPU apart by up to "
             f"{apart.max().item() / lr:.3f} lr, by more than 1e-3 lr in "
             f"{(apart > 1e-3 * lr).double().mean().item():.4%} of elements")
-        if not (torch.isfinite(g).all() and err <= 1e-2 * top
-                and rel_l2 <= 1e-3):
-            raise AssertionError(f"train step: {name} gradients disagree")
+        ok = (rel_l2 <= AMP_REPLAY_TOL["grad_l2"] if amp
+              else err <= 1e-2 * top and rel_l2 <= 1e-3)
+        if not (torch.isfinite(g).all() and ok):
+            raise AssertionError(f"{label}: {name} gradients disagree")
         if not (max(formula) <= 1e-3
                 and bool(((apart - spacing) <= 2 * lr).all())):
-            raise AssertionError(f"train step: {name} updates disagree")
+            raise AssertionError(f"{label}: {name} updates disagree")
 
 
 def training_path(profile):
     """Transformer-base training on the card: fp32 and AMP steps from the
-    same initial weights, then the CPU replay. Returns (fwd, bwd) kernel
-    launches of the fp32 and AMP steps."""
-    m = transformer.build(**MODEL)
+    same initial weights, then the CPU replays. Returns the path's (fwd,
+    bwd) kernel launches, the model, its initial state, the noam rate of
+    the first step and the step times."""
+    with unique_name.guard():  # names phase 7's build repeats
+        m = transformer.build(**MODEL)
     m["startup"].random_seed = SEED
     exe = pt.Executor()
     init = pt.Scope()
@@ -733,6 +814,7 @@ def training_path(profile):
     amp_main = mixed_precision.decorate(m["main"].clone())
 
     fa.launches = fa.bwd_launches = 0
+    fa.launch_dtypes.clear()
     torch.cuda.reset_peak_memory_stats()
     fp32_scope = copy_state(state, exe.device)
     fp32_losses, fp32_ms = train_steps(exe, m["main"], fp32_scope, loss_name,
@@ -754,12 +836,286 @@ def training_path(profile):
         raise AssertionError("AMP losses disagree with fp32 beyond 1e-2")
     # the noam rate of the first step: d_model^-0.5 * min(1, warmup^-1.5)
     lr = MODEL["d_model"] ** -0.5 * min(1.0, 8000 ** -1.5)
-    replay_on_cpu(m, state, lr)
+    replay_on_cpu(m, m["main"], state, lr, "fp32")
+    replay_on_cpu(m, amp_main, state, lr, "bf16 AMP", amp=True)
     if profile:
         profile_step(exe, m, m["main"], fp32_scope,
                      float(np.median(fp32_ms[1:])), "fp32")
         profile_step(exe, m, amp_main, amp_scope,
                      float(np.median(amp_ms[1:])), "bf16 AMP")
+    return {"launches": launches, "m": m, "amp_main": amp_main,
+            "state": state, "lr": lr, "fp32_ms": fp32_ms, "amp_ms": amp_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training through CompiledProgram
+# ---------------------------------------------------------------------------
+
+def bench_build_strategy():
+    """bench.py:316-326's BuildStrategy (the bench's fusion arm)."""
+    bs = pt.BuildStrategy()
+    bs.fuse_all_optimizer_ops = True
+    bs.fuse_elewise_add_act_ops = True
+    bs.memory_optimize = True
+    bs.fuse_conv_ops = True
+    bs.fuse_attention_ops = True
+    return bs
+
+
+def _close(got, want, tol):
+    rtol, atol = tol
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def unique_id_batch(cfg, batch, seed):
+    """A train batch whose source and target ids do not repeat, so the
+    embedding gradients' index_add_ has no two atomics on one element and
+    the step is deterministic on the card."""
+    feed = train_batch(cfg, batch, seed)
+    rng = np.random.RandomState(seed)
+    n = batch * cfg["max_len"]
+    for key, vocab in (("src_word", cfg["src_vocab"]),
+                       ("trg_word", cfg["tgt_vocab"])):
+        feed[key] = (rng.permutation(vocab - 1)[:n] + 1).reshape(
+            batch, cfg["max_len"], 1).astype(np.int64)
+    return feed
+
+
+def fused_adam_bitwise(exe, m, state):
+    """One step of ``m["main"]`` with and without fuse_all_optimizer_ops
+    alone, from the same weights on a deterministic batch: the gradients
+    bitwise equal (the batch is deterministic), then every persistable
+    (parameters, moments, beta powers) bitwise equal."""
+    bs = pt.BuildStrategy()
+    bs.fuse_all_optimizer_ops = True
+    feed = unique_id_batch(m["config"], TRAIN_BATCH, SEED + 300)
+    block = m["main"].global_block()
+    params = [p.name for p in m["main"].all_parameters()
+              if block.has_var(p.name + "@GRAD")]
+    fetch = [m["loss"].name] + [n + "@GRAD" for n in params]
+    sides = []
+    for target in (m["main"], pt.CompiledProgram(m["main"],
+                                                 build_strategy=bs)):
+        types = [o.type for o in exe.lowered_ops(target, fetch)]
+        scope = copy_state(state, exe.device)
+        out = exe.run(target, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        sides.append((types, out, {n: scope.find_var(n)
+                                   for n in scope.var_names()}))
+    (types0, out0, vars0), (types1, out1, vars1) = sides
+    log(f"fused Adam: {types0.count('adam')} adam ops against "
+        f"{types1.count('fused_adam')} fused_adam ops "
+        f"({types1.count('adam')} adam left) over {len(params)} parameters")
+    if types1.count("fused_adam") < 1 or types1.count("adam"):
+        raise AssertionError("fuse_all_optimizer_ops did not fuse the adam ops")
+    if not all(torch.equal(a, b) for a, b in zip(out0, out1)):
+        raise AssertionError("the unique-id step is not deterministic")
+    differ = [n for n in sorted(vars0) if not torch.equal(vars0[n], vars1[n])]
+    moved = sum(not torch.equal(vars0[n], state[n].to(vars0[n].device))
+                for n in vars0)
+    log(f"  {len(vars0)} persistables after the step, {moved} moved, "
+        f"{len(differ)} differ bitwise")
+    if differ or sorted(vars0) != sorted(vars1):
+        raise AssertionError(f"fused_adam differs from adam in {differ[:5]}")
+
+
+def steps_in_turns(exe, state, cfg, arms, rounds=4):
+    """Step times of ``arms`` [(label, program, loss name)] taken in
+    turns, each arm from its own copy of ``state``: round r runs the arms
+    in order when r is even and in reverse when it is odd, so drift on
+    the host (the steps of one phase can run 1.5x slower than those of an
+    earlier one) reaches every arm alike. Prints each arm's median over
+    rounds 1 onward."""
+    scopes = [copy_state(state, exe.device) for _ in arms]
+    ms = [[] for _ in arms]
+    for r in range(rounds):
+        feed = train_batch(cfg, TRAIN_BATCH, SEED + 400 + r)
+        order = range(len(arms)) if r % 2 == 0 else reversed(range(len(arms)))
+        for i in order:
+            _, program, loss_name = arms[i]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (loss,) = exe.run(program, feed=feed, fetch_list=[loss_name],
+                              scope=scopes[i], return_numpy=False)
+            if not bool(torch.isfinite(loss).all()):
+                raise AssertionError(f"{arms[i][0]}: loss {loss}")
+            ms[i].append((time.perf_counter() - t0) * 1e3)
+    log(f"steps in turns ({rounds} rounds, medians of rounds 1-"
+        f"{rounds - 1}): " + ", ".join(
+            f"{label} {np.median(t[1:]):.1f} ms"
+            for (label, _, _), t in zip(arms, ms)))
+
+
+def compiled_training_path(trained, profile):
+    """Phase 7. Returns the path's (fwd, bwd) launches and its times."""
+    fused_m, state, lr = trained["m"], trained["state"], trained["lr"]
+    with unique_name.guard():  # the names of phase 6's build
+        m = transformer.build(attention_impl="unfused", **MODEL)
+    cfg, loss_name = m["config"], m["loss"].name
+    names = sorted(v.name for v in m["main"].list_vars() if v.persistable)
+    if names != sorted(state):
+        raise AssertionError("the unfused build's persistables are not the "
+                             "fused build's")
+    exe = pt.Executor()
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    n_raw = len(m["main"].global_block().desc.ops)
+    t0 = time.perf_counter()
+    ops = exe.lowered_ops(target, [loss_name])
+    pipeline_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    exe.lowered_ops(target, [loss_name])
+    memo_ms = (time.perf_counter() - t0) * 1e3
+    types = [o.type for o in ops]
+    counts = {t: types.count(t) for t in (
+        "flash_attention", "flash_attention_grad", "softmax", "fused_adam",
+        "adam", "fused_elemwise_activation", "pt_const", "matmul")}
+    log(f"unfused program {n_raw} ops; rewritten live list {len(ops)} ops "
+        f"in {pipeline_ms:.1f} ms (first run, live-op slice included; a "
+        f"memo hit takes {memo_ms:.3f} ms): {counts}")
+    for name, row in exe.pipeline_stats["stages"].items():
+        log(f"  stage {name}: {row['ops_removed']} ops removed, "
+            f"{row['seconds'] * 1e3:.1f} ms")
+    want = {"flash_attention": LAUNCHES_PER_REQUEST,
+            "flash_attention_grad": LAUNCHES_PER_REQUEST, "softmax": 0}
+    if any(counts[k] != v for k, v in want.items()) \
+            or counts["fused_adam"] < 1:
+        raise AssertionError(f"the pipeline left {counts}, want {want} and "
+                             "a fused_adam")
+
+    amp_main = mixed_precision.decorate(m["main"].clone())
+    amp_target = pt.CompiledProgram(amp_main,
+                                    build_strategy=bench_build_strategy())
+    fa.launches = fa.bwd_launches = 0
+    fa.launch_dtypes.clear()
+    scope = copy_state(state, exe.device)
+    losses, step_ms = train_steps(exe, target, scope, loss_name, cfg,
+                                  "compiled fp32", COMPILED_STEPS)
+    amp_scope = copy_state(state, exe.device)
+    amp_losses, amp_ms = train_steps(exe, amp_target, amp_scope, loss_name,
+                                     cfg, "compiled bf16 AMP", COMPILED_STEPS)
+    launches = (fa.launches, fa.bwd_launches)
+    stats = exe.pipeline_stats
+    log(f"pipeline runs {stats['runs']} (fp32 and AMP programs), memo hits "
+        f"{stats['memo_hits']}, {stats['seconds'] * 1e3:.1f} ms in all")
+    if launches != (2 * COMPILED_STEPS * FWD_PER_STEP,
+                    2 * COMPILED_STEPS * BWD_PER_STEP):
+        raise AssertionError(f"{launches} launches on the compiled path")
+    if stats["runs"] != 2:
+        raise AssertionError("the pipeline ran again on a memoized program")
+
+    # the reference: phase 6's fused build on a plain Executor()
+    ref_scope = copy_state(state, exe.device)
+    ref_losses, ref_ms = train_steps(exe, fused_m["main"], ref_scope,
+                                     fused_m["loss"].name, cfg,
+                                     "fused build, plain Executor",
+                                     COMPILED_STEPS)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    params = [p.name for p in fused_m["main"].all_parameters()]
+    worst = max(((scope.find_var(n) - ref_scope.find_var(n)).abs()
+                 / (FUSION_PARAM_TOL[1] + FUSION_PARAM_TOL[0]
+                    * ref_scope.find_var(n).abs())).max().item()
+                for n in params)
+    log(f"compiled fp32 against the fused build: losses within "
+        f"{loss_err:.3e} relative; parameters at {worst:.3f} of the "
+        f"tolerance (rtol {FUSION_PARAM_TOL[0]}, atol {FUSION_PARAM_TOL[1]})")
+    if not all(abs(a - b) <= FUSION_LOSS_TOL[1] + FUSION_LOSS_TOL[0] * abs(b)
+               for a, b in zip(losses, ref_losses)):
+        raise AssertionError("compiled losses disagree with the fused build")
+    if not all(_close(scope.find_var(n), ref_scope.find_var(n),
+                      FUSION_PARAM_TOL) for n in params):
+        raise AssertionError("compiled parameters disagree with the fused "
+                             "build")
+    rel = max(abs(a - f) / abs(f) for a, f in zip(amp_losses, losses))
+    log(f"compiled AMP losses within {rel:.3e} relative of compiled fp32")
+    replay_on_cpu(m, amp_target, state, lr, "compiled bf16 AMP", amp=True)
+    fused_adam_bitwise(exe, fused_m, state)
+    steps_in_turns(exe, state, cfg, [
+        ("fused build fp32", fused_m["main"], fused_m["loss"].name),
+        ("compiled fp32", target, loss_name),
+        ("fused build AMP", trained["amp_main"], fused_m["loss"].name),
+        ("compiled AMP", amp_target, loss_name)])
+    log(f"median steps on this host: phase 6 fp32 "
+        f"{np.median(trained['fp32_ms'][1:]):.1f} ms, AMP "
+        f"{np.median(trained['amp_ms'][1:]):.1f} ms (steps 1-"
+        f"{TRAIN_STEPS - 1}); compiled fp32 {np.median(step_ms[1:]):.1f} "
+        f"ms, AMP {np.median(amp_ms[1:]):.1f} ms, fused build on plain "
+        f"Executor {np.median(ref_ms[1:]):.1f} ms (steps 1-"
+        f"{COMPILED_STEPS - 1})")
+    if profile:
+        profile_step(exe, m, target, scope, float(np.median(step_ms[1:])),
+                     "compiled fp32")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serving through AnalysisPredictor
+# ---------------------------------------------------------------------------
+
+def analysis_serving_path(model_dir, served, profile):
+    """Phase 8. Returns the path's forward launches."""
+    cfg = served["cfg"]
+    t0 = time.perf_counter()
+    pred = create_paddle_predictor(AnalysisConfig(model_dir).enable_bf16())
+    types = [o.type for o in pred._program.global_block().desc.ops]
+    log(f"AnalysisPredictor (bf16) in {time.perf_counter() - t0:.2f} s: "
+        f"{len(types)} ops after the passes, {types.count('fc')} fc, "
+        f"{types.count('mul')} mul, {types.count('flash_attention')} "
+        f"flash_attention")
+    fa.launches = fa.bwd_launches = 0
+    fa.launch_dtypes.clear()
+    steady_ms = []
+    for i, (feed, ref) in enumerate(zip(served["requests"],
+                                        served["logits"])):
+        logits, ms = serve(pred, feed, cfg, dtype="bfloat16")
+        if logits.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 serving returned {logits.dtype}")
+        err = (logits.float() - ref).abs().max().item()
+        top = ref.abs().max().item()
+        agree = (logits.float().argmax(-1) == ref.argmax(-1)).double().mean()
+        log(f"bf16 request {i}: {ms:.2f} ms; against the fp32 "
+            f"NativePredictor max|dlogits| {err:.3e} of max|logits| "
+            f"{top:.3e} ({err / top:.3e}, bound {BF16_SERVE_REL:.3e}), "
+            f"arg-max agreement {agree.item():.4f}")
+        if not err <= BF16_SERVE_REL * top:
+            raise AssertionError("bf16 logits disagree with fp32")
+        if i:
+            steady_ms.append(ms)
+    launches = fa.launches
+    if (launches != 4 * LAUNCHES_PER_REQUEST or fa.bwd_launches
+            or fa.launch_dtypes != {"bfloat16": launches}):
+        raise AssertionError(f"{launches} forward ({fa.launch_dtypes}) and "
+                             f"{fa.bwd_launches} backward launches on the "
+                             "analysis serving path")
+    pred32 = create_paddle_predictor(
+        AnalysisConfig(model_dir).enable_bf16(False))
+    for i, (feed, ref) in enumerate(zip(served["requests"],
+                                        served["logits"])):
+        logits, _ = serve(pred32, feed, cfg)
+        err = (logits - ref).abs().max().item()
+        if not err <= 1e-3 * ref.abs().max().item():
+            raise AssertionError(f"fp32 AnalysisPredictor request {i} "
+                                 f"disagrees with NativePredictor ({err:.3e})")
+    log(f"fp32 AnalysisPredictor: 4 requests within 1e-3 of max|logits| of "
+        "the NativePredictor's")
+    one = served["one"]
+    gpu_logits, _ = serve(pred, one, cfg, dtype="bfloat16")
+    t0 = time.perf_counter()
+    cpu_pred = create_paddle_predictor(
+        AnalysisConfig(model_dir, use_gpu=False).enable_bf16())
+    cpu_logits = cpu_pred.run(one)[0].as_tensor().float()
+    diff = (gpu_logits.float().cpu() - cpu_logits).abs().max().item()
+    top = cpu_logits.abs().max().item()
+    log(f"batch-1 bf16 replay on the CPU ({time.perf_counter() - t0:.1f} s): "
+        f"max|dlogits| = {diff:.3e}, max|logits| = {top:.3e}")
+    if not diff <= BF16_SERVE_REL * top:
+        raise AssertionError("bf16 card and CPU predictors disagree")
+    log(f"median steady request (1-3): NativePredictor fp32 "
+        f"{np.median(served['steady_ms']):.2f} ms, AnalysisPredictor bf16 "
+        f"{np.median(steady_ms):.2f} ms")
+    if profile:
+        profile_request(pred, served["requests"][1], model_dir,
+                        float(np.median(steady_ms)), "bf16 AnalysisPredictor")
     return launches
 
 
@@ -916,16 +1272,25 @@ def main(argv=None):
             for dtype in (torch.float32, torch.bfloat16):
                 profile_bwd(dtype, shape)
 
-    serving = training = (None, None)
+    paths = {}  # path -> (forward, backward) launches
     if not args.kernels:
-        phase("serving: Transformer-base through NativePredictor")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_model_",
                                          dir=_build.BUILD_DIR) as model_dir:
-            serving = (main_path(model_dir, args.profile), 0)
-        phase("training: Transformer-base train steps on Executor()")
-        training = training_path(args.profile)
+            phase("serving: Transformer-base through NativePredictor")
+            served = main_path(model_dir, args.profile)
+            paths["serving"] = (served["launches"], 0)
+            phase("training: Transformer-base train steps on Executor()")
+            trained = training_path(args.profile)
+            paths["training"] = trained["launches"]
+            phase("training through CompiledProgram (bench BuildStrategy, "
+                  "unfused attention)")
+            paths["compiled_training"] = compiled_training_path(
+                trained, args.profile)
+            phase("serving through AnalysisPredictor (IR passes, bf16)")
+            paths["analysis_serving_bf16"] = (
+                analysis_serving_path(model_dir, served, args.profile), 0)
 
-    def entry(name, source, replaces, rows, errors, launches, per):
+    def entry(name, source, replaces, rows, errors, which, per):
         fp32 = dict(rows[torch.float32, False])
         bf16 = dict(rows[torch.bfloat16, False])
         cuda_cores = fp32.pop("bound_other_ms")
@@ -933,7 +1298,10 @@ def main(argv=None):
         bf16["causal_ms"] = rows[torch.bfloat16, True]["ms"]
         return {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": paths["training"][which] if paths else None,
+            "launches_by_path": {k: v[which] for k, v in paths.items()}
+            if paths else None,
             "max_abs_err": errors[torch.float32],
             "ms": fp32["ms"], "plain_ms": fp32["plain_ms"],
             "bound_ms": fp32["bound_ms"], "bound_by": fp32["bound_by"],
@@ -947,17 +1315,14 @@ def main(argv=None):
     kernels = [
         entry("flash_attention_fwd",
               "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-              "paddle_tpu/ops/pallas_attention.py:43", timing, errs,
-              training[0],
-              {"launches_serving": serving[0],
-               "launches_per_request": LAUNCHES_PER_REQUEST,
+              "paddle_tpu/ops/pallas_attention.py:43", timing, errs, 0,
+              {"launches_per_request": LAUNCHES_PER_REQUEST,
                "launches_per_step": FWD_PER_STEP}),
         entry("flash_attention_bwd",
               "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
               "paddle_tpu/ops/pallas_attention.py:213", bwd_timing, bwd_errs,
-              training[1],
-              {"launches_serving": serving[1],
-               "launches_per_request": 0,
+              1,
+              {"launches_per_request": 0,
                "launches_per_step": BWD_PER_STEP,
                "train_shape": dict(
                    shape=list(TRAIN_SHAPE),

@@ -2,9 +2,11 @@
 PyTorch and CUDA for an NVIDIA H100.
 
 The same surface as the JAX package: build a Program with the layers DSL,
-train it with an optimizer's ``minimize`` on an Executor, save it as an
-inference model and serve it through
-``inference.create_paddle_predictor``. Programs and parameter
+train it with an optimizer's ``minimize`` on an Executor (optionally
+through ``CompiledProgram`` and a ``BuildStrategy`` pass pipeline), save
+it as an inference model and serve it through
+``inference.create_paddle_predictor`` (``AnalysisConfig`` adds the IR
+passes and bf16). Programs and parameter
 files are byte-compatible with the JAX package's. Entry points run on the
 card (``CUDAPlace(0)``) unless the caller asks for ``CPUPlace()``; the
 ``flash_attention`` op and its grad run hand-written CUDA kernels on the
@@ -13,7 +15,9 @@ card.
 
 from . import core, ops, registry  # noqa: F401  (ops registers emitters)
 from . import initializer, io, layers, optimizer  # noqa: F401
-from . import backward, contrib  # noqa: F401
+from . import backward, contrib, ir  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy)
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .framework import (Parameter, Program, Variable,  # noqa: F401
                         default_main_program, default_startup_program,

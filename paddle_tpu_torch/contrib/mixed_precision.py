@@ -16,4 +16,5 @@ def decorate(program: Program = None, enable: bool = True) -> Program:
     """Enable (or disable) bf16 autocast for every op of ``program``."""
     program = program or default_main_program()
     program._amp = enable
+    program._bump()
     return program

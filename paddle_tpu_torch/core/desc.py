@@ -88,6 +88,12 @@ class OpDesc:
     def output_arg_names(self) -> List[str]:
         return [n for ns in self.outputs.values() for n in ns]
 
+    def rename_input(self, old: str, new: str):
+        for ns in self.inputs.values():
+            for i, n in enumerate(ns):
+                if n == old:
+                    ns[i] = new
+
     def to_dict(self) -> Dict[str, Any]:
         return {"type": self.type, "inputs": self.inputs,
                 "outputs": self.outputs, "attrs": _attrs_to_jsonable(self.attrs)}

@@ -8,6 +8,13 @@ resolve through ``registry.resolve_grad_emitter``. Ops that neither feed
 a fetch nor write a persistable variable are skipped, so a test clone
 runs without its label feeds and a train step drops dead grad branches.
 
+A ``CompiledProgram`` runs its BuildStrategy's pass groups
+(ir/pipeline.py) over that live op list first. The rewritten list is
+memoized per (program version, fetch names, effective flags), so pattern
+matching runs once per program, not once per step; ``pipeline_stats``
+counts the pipeline's runs, its time per stage and the memo hits. A plain
+Program runs no pass.
+
 State contract: persistable variables live in the Scope across runs as
 tensors on the executor's device. ``Executor()`` with no place runs on
 ``CUDAPlace(0)`` and raises when there is no CUDA device; the host runs
@@ -17,15 +24,18 @@ only when the caller passes ``CPUPlace()``.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import registry
+from .compiler import CompiledProgram
 from .core.desc import OpDesc
 from .core.types import dtype_to_torch
-from .framework import Block, Program, Variable, default_main_program
+from .framework import Block, Variable, default_main_program
+from .ir import pipeline
 from .place import CUDAPlace, Place
 from .registry import EmitContext
 from .utils.flags import FLAGS
@@ -151,28 +161,80 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _fetch_names(fetch_list) -> List[str]:
+    return [f.name if isinstance(f, Variable) else str(f)
+            for f in (fetch_list or [])]
+
+
 class Executor:
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.torch_device
+        # the BuildStrategy pipeline on this executor: runs (memo
+        # misses), memo hits, and per stage its ops removed and seconds
+        self.pipeline_stats = {"runs": 0, "memo_hits": 0, "seconds": 0.0,
+                               "stages": {}}
 
-    def run(self, program: Optional[Program] = None,
+    def lowered_ops(self, program=None, fetch_list=None) -> List[OpDesc]:
+        """The op list ``run`` executes for ``program`` and
+        ``fetch_list``: the live ops of block 0, rewritten by the pass
+        pipeline when ``program`` is a CompiledProgram."""
+        return self._prepare(program, _fetch_names(fetch_list))[1]
+
+    def _prepare(self, program, fetch_names):
+        """(Program, op list) of a run."""
+        program = program or default_main_program()
+        build_strategy = None
+        if isinstance(program, CompiledProgram):
+            program._check_ported()
+            build_strategy = program._build_strategy
+            program = program._program
+        if FLAGS.verify_passes or getattr(build_strategy, "verify_passes",
+                                          False):
+            raise NotImplementedError(
+                "verify_passes (ir/verify.py, the pass verifier) waits for "
+                "ROADMAP A14")
+        block = program.global_block()
+        ops = _live_ops([op for op in block.desc.ops
+                         if op.type not in ("feed", "fetch")],
+                        fetch_names, block)
+        flags = pipeline.effective_flags(pipeline.fingerprint(build_strategy),
+                                         self.device.type)
+        if not flags:
+            return program, ops
+        memo = program.__dict__.setdefault("_pass_memo", {})
+        key = (program._version, tuple(fetch_names), flags)
+        optimized = memo.get(key)
+        if optimized is not None:
+            self.pipeline_stats["memo_hits"] += 1
+            return program, optimized
+        # needed by name: the fetches and the persistable state the
+        # list writes
+        needed = set(fetch_names) | {
+            n for op in ops for n in op.output_arg_names()
+            if _is_persistable(block, n)}
+        t0 = time.perf_counter()
+        optimized = pipeline.run_pipeline(ops, block, needed, flags,
+                                          self.pipeline_stats["stages"])
+        self.pipeline_stats["seconds"] += time.perf_counter() - t0
+        self.pipeline_stats["runs"] += 1
+        memo[key] = optimized
+        return program, optimized
+
+    def run(self, program=None,
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
             scope: Optional[Scope] = None,
             return_numpy: bool = True):
-        """Run block 0 of ``program``. Fetches come back as numpy arrays,
-        or as tensors on the device with ``return_numpy=False``."""
-        program = program or default_main_program()
+        """Run block 0 of ``program`` (a Program or a CompiledProgram).
+        Fetches come back as numpy arrays, or as tensors on the device
+        with ``return_numpy=False``."""
         scope = scope or global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        program, ops = self._prepare(program, fetch_names)
         block = program.global_block()
-        fetch_names = [f.name if isinstance(f, Variable) else str(f)
-                       for f in (fetch_list or [])]
         env = {name: _coerce_feed(value, name, block, self.device)
                for name, value in (feed or {}).items()}
-        ops = _live_ops([op for op in block.desc.ops
-                         if op.type not in ("feed", "fetch")],
-                        fetch_names, block)
         generator = None
         if any(registry.has_op(op.type) and registry.lookup(op.type).needs_rng
                for op in ops):

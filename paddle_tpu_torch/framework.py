@@ -226,6 +226,7 @@ class Block:
         self.desc.ops.insert(index, desc)
         self.ops.insert(index, op)
         self._infer_shape(desc)
+        self.program._bump()
         return op
 
     def _prepend_op(self, **kwargs) -> Operator:
@@ -280,6 +281,9 @@ class Program:
         self._current_role = OpRole.FORWARD
         self.random_seed = 0
         self._amp = False
+        # bumped on every mutation; keys the executor's memo of the
+        # rewritten op lists
+        self._version = 0
 
     @classmethod
     def _from_desc(cls, desc: ProgramDesc) -> "Program":
@@ -299,6 +303,9 @@ class Program:
 
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
+
+    def _bump(self):
+        self._version += 1
 
     @contextlib.contextmanager
     def _role_guard(self, role: OpRole):
@@ -371,6 +378,7 @@ class Program:
         p.current_block_idx = 0
         p.random_seed = self.random_seed
         p._amp = self._amp
+        p._version = self._version
         return p
 
     def _prune(self, feeds: List[str], targets: List[str]) -> "Program":
@@ -394,6 +402,7 @@ class Program:
             if name not in referenced:
                 del blk.vars[name]
                 blk.desc.vars.pop(name, None)
+        p._bump()
         return p
 
     def to_string(self) -> str:

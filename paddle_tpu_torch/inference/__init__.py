@@ -1,2 +1,3 @@
-from .api import (NativeConfig, NativePredictor, PaddleTensor,  # noqa: F401
+from .api import (AnalysisConfig, AnalysisPredictor,  # noqa: F401
+                  NativeConfig, NativePredictor, PaddleTensor,
                   create_paddle_predictor)

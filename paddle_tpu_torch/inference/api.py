@@ -5,6 +5,13 @@ reference inference/api/paddle_api.h).
 is passed (the reference Fluid's knob; the JAX package calls it
 ``use_xla``). With no CUDA device and no explicit CPU request the
 predictor raises instead of running on the host.
+
+``AnalysisConfig`` adds the IR pass list (``DEFAULT_PASSES``, the JAX
+package's) and bf16 autocast; ``create_paddle_predictor`` gives an
+``AnalysisPredictor`` for it, which rewrites the loaded program with the
+passes and then flags it for bf16. The serving wrappers
+(``enable_shape_bucketing``, ``enable_request_coalescing``) are ROADMAP
+A6 and raise.
 """
 
 from __future__ import annotations
@@ -67,6 +74,58 @@ class NativeConfig:
         self.use_gpu = use_gpu
         self.device = device
 
+    def enable_shape_bucketing(self, *args, **kwargs):
+        raise NotImplementedError(
+            "enable_shape_bucketing (the bucketed serving wrapper) waits for "
+            "ROADMAP A6 (serving wrappers)")
+
+    def enable_request_coalescing(self, *args, **kwargs):
+        raise NotImplementedError(
+            "enable_request_coalescing (the micro-batching serving wrapper) "
+            "waits for ROADMAP A6 (serving wrappers)")
+
+
+class AnalysisConfig(NativeConfig):
+    """analysis_predictor.h AnalysisConfig analog: the IR pass list and
+    bf16 autocast."""
+
+    DEFAULT_PASSES = ("infer_clean_graph_pass", "is_test_pass",
+                      "identity_scale_op_clean_pass",
+                      "conv_affine_channel_fuse_pass",
+                      "conv_bn_fuse_pass",
+                      "conv_elementwise_add_act_fuse_pass",
+                      "conv_elementwise_add2_act_fuse_pass",
+                      "conv_elementwise_add_fuse_pass",
+                      "embedding_fc_lstm_fuse_pass",
+                      "fc_fuse_pass", "fc_gru_fuse_pass",
+                      "fc_lstm_fuse_pass",
+                      "repeated_fc_relu_fuse_pass",
+                      "seqconv_eltadd_relu_fuse_pass",
+                      "squared_mat_sub_fuse_pass",
+                      "seqpool_concat_fuse_pass",
+                      "transpose_flatten_concat_fuse_pass")
+
+    def __init__(self, model_dir: Optional[str] = None, **kw):
+        super().__init__(model_dir, **kw)
+        self.ir_optim = True
+        self.use_bf16 = False
+        self.passes: List[str] = list(self.DEFAULT_PASSES)
+
+    def switch_ir_optim(self, flag: bool = True):
+        self.ir_optim = flag
+        return self
+
+    def enable_bf16(self, flag: bool = True):
+        """bf16 autocast for the loaded program's products (the cast
+        points of ``contrib.mixed_precision``): the GEMMs and the flash
+        attention kernel run on bf16 operands. Applied in _optimize."""
+        self.use_bf16 = flag
+        return self
+
+    def pass_builder_set(self, passes: Sequence[str]):
+        self.passes = list(passes)
+        return self
+
 
 class NativePredictor:
     """api_impl.h NativePaddlePredictor analog: load once, run per
@@ -84,6 +143,10 @@ class NativePredictor:
                     model_filename=config.prog_file,
                     params_filename=config.params_file)
         self._fetch_names = [v.name for v in self._fetch_vars]
+        self._optimize()
+
+    def _optimize(self):
+        pass
 
     @property
     def device(self) -> torch.device:
@@ -112,6 +175,25 @@ class NativePredictor:
         return [PaddleTensor(o, n) for n, o in zip(self._fetch_names, outs)]
 
 
+class AnalysisPredictor(NativePredictor):
+    """analysis_predictor.h:44 analog: the loaded program rewritten by
+    the config's passes (the fetches protected), then flagged for bf16
+    when the config asks."""
+
+    def _optimize(self):
+        from .. import ir
+        from ..contrib import mixed_precision
+        cfg = self._config
+        if cfg.ir_optim:
+            ir.apply_passes(self._program, cfg.passes, scope=self._scope,
+                            protected=self._fetch_names)
+        if cfg.use_bf16:
+            mixed_precision.decorate(self._program)
+
+
 def create_paddle_predictor(config: NativeConfig) -> NativePredictor:
-    """paddle_api.h CreatePaddlePredictor analog."""
+    """paddle_api.h CreatePaddlePredictor analog: an AnalysisPredictor
+    for an AnalysisConfig, else a NativePredictor."""
+    if isinstance(config, AnalysisConfig):
+        return AnalysisPredictor(config)
     return NativePredictor(config)

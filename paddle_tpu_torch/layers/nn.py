@@ -13,7 +13,8 @@ __all__ = [
     "fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
     "reshape", "transpose", "squeeze", "reduce_sum", "scale",
     "elementwise_add", "elementwise_mul", "elementwise_div",
-    "elementwise_min", "sequence_mask", "fused_attention",
+    "elementwise_min", "sequence_mask", "fused_attention", "matmul",
+    "softmax", "unsqueeze",
 ]
 
 
@@ -193,4 +194,32 @@ def fused_attention(q, k, v, causal=False, scale=1.0, key_bias=None,
     helper.append_op(type="flash_attention", inputs=inputs,
                      outputs={"Out": out},
                      attrs={"causal": causal, "scale": float(scale)})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", x=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
+    return out
+
+
+def softmax(input, axis=-1, use_cudnn=False, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="unsqueeze2", inputs={"X": input},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axes": list(axes)})
     return out

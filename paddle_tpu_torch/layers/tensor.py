@@ -2,10 +2,13 @@
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..core.types import convert_dtype
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast"]
+__all__ = ["cast", "assign"]
 
 
 def cast(x, dtype):
@@ -15,3 +18,23 @@ def cast(x, dtype):
                      attrs={"in_dtype": x.dtype,
                             "out_dtype": convert_dtype(dtype)})
     return out
+
+
+def assign(input, output=None):
+    """Copy a Variable (``assign``) or write a numpy literal into the
+    program (``assign_value``, the values flat in the attrs)."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        output = output or helper.create_variable_for_type_inference(
+            input.dtype)
+        helper.append_op(type="assign", inputs={"X": input},
+                         outputs={"Out": output})
+    else:
+        arr = np.asarray(input)
+        output = output or helper.create_variable_for_type_inference(
+            str(arr.dtype))
+        helper.append_op(
+            type="assign_value", outputs={"Out": output},
+            attrs={"shape": list(arr.shape), "dtype": convert_dtype(
+                str(arr.dtype)), "values": arr.reshape(-1).tolist()})
+    return output

@@ -3,10 +3,12 @@
 wrappers, with the same parameter names and op sequence, so the programs
 the two packages build serialize to the same bytes.
 
-Static [batch, max_len] shapes with length-derived key masks; every
-attention (encoder self, decoder causal self, cross) lowers to the
-``flash_attention`` op. ``build`` trains with the noam schedule and Adam
-(dropout 0, so attention takes the fused path).
+Static [batch, max_len] shapes with length-derived key masks. With
+``attention_impl="fused"`` every attention (encoder self, decoder causal
+self, cross) is one ``flash_attention`` op; with ``"unfused"`` it is the
+matmul -> key-bias add -> [causal add] -> softmax -> matmul chain, which
+``BuildStrategy.fuse_attention_ops`` rewrites into ``flash_attention``.
+``build`` trains with the noam schedule and Adam (dropout 0).
 """
 
 from __future__ import annotations
@@ -19,10 +21,15 @@ from ..initializer import NormalInitializer
 from ..layer_helper import ParamAttr
 
 
+_IMPLS = ("fused", "unfused")
+
+
 def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
-                         n_head=1, name="", causal=False, key_bias=None):
-    """Multi-head attention over the fused ``flash_attention`` op;
-    ``key_bias`` [B, Tk] is the additive key-padding mask."""
+                         n_head=1, name="", causal=False, key_bias=None,
+                         attention_impl="fused"):
+    """Multi-head attention, as one ``flash_attention`` op ("fused") or
+    as the dense matmul/softmax chain ("unfused"); ``key_bias`` [B, Tk]
+    is the additive key-padding mask."""
     keys = queries if keys is None else keys
     values = keys if values is None else values
     q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2,
@@ -37,9 +44,21 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
         return layers.transpose(layers.reshape(x, [b, t, n_head, d]),
                                 [0, 2, 1, 3])
 
-    out = layers.fused_attention(split_heads(q, d_key), split_heads(k, d_key),
-                                 split_heads(v, d_value), causal=causal,
-                                 scale=d_key ** -0.5, key_bias=key_bias)
+    q = split_heads(q, d_key)
+    k = split_heads(k, d_key)
+    v = split_heads(v, d_value)
+    if attention_impl == "fused":
+        out = layers.fused_attention(q, k, v, causal=causal,
+                                     scale=d_key ** -0.5, key_bias=key_bias)
+    else:
+        product = layers.matmul(q, k, transpose_y=True, alpha=d_key ** -0.5)
+        if key_bias is not None:
+            kb = layers.unsqueeze(layers.unsqueeze(key_bias, axes=[1]),
+                                  axes=[1])
+            product = layers.elementwise_add(product, kb)
+        if causal:
+            product = _causal_add(product)
+        out = layers.matmul(layers.softmax(product), v)
     b, t = queries.shape[0], queries.shape[1]
     out = layers.transpose(out, [0, 2, 1, 3])
     out = layers.reshape(out, [b, t, n_head * d_value])
@@ -66,11 +85,11 @@ def pre_post_process_layer(prev_out, out, process_cmd):
 
 
 def encoder_layer(enc_input, n_head, d_key, d_value, d_model, d_inner_hid,
-                  name="", key_bias=None):
+                  name="", key_bias=None, attention_impl="fused"):
     attn = multi_head_attention(
         pre_post_process_layer(None, enc_input, "n"), None, None,
         d_key, d_value, d_model, n_head, name=f"{name}_att",
-        key_bias=key_bias)
+        key_bias=key_bias, attention_impl=attention_impl)
     attn_out = pre_post_process_layer(enc_input, attn, "da")
     ffn = positionwise_feed_forward(
         pre_post_process_layer(None, attn_out, "n"), d_inner_hid, d_model,
@@ -80,16 +99,16 @@ def encoder_layer(enc_input, n_head, d_key, d_value, d_model, d_inner_hid,
 
 def decoder_layer(dec_input, enc_output, n_head, d_key, d_value, d_model,
                   d_inner_hid, name="", src_key_bias=None,
-                  trg_key_bias=None):
+                  trg_key_bias=None, attention_impl="fused"):
     self_attn = multi_head_attention(
         pre_post_process_layer(None, dec_input, "n"), None, None,
         d_key, d_value, d_model, n_head, name=f"{name}_satt", causal=True,
-        key_bias=trg_key_bias)
+        key_bias=trg_key_bias, attention_impl=attention_impl)
     x = pre_post_process_layer(dec_input, self_attn, "da")
     cross = multi_head_attention(
         pre_post_process_layer(None, x, "n"), enc_output, enc_output,
         d_key, d_value, d_model, n_head, name=f"{name}_catt",
-        key_bias=src_key_bias)
+        key_bias=src_key_bias, attention_impl=attention_impl)
     x = pre_post_process_layer(x, cross, "da")
     ffn = positionwise_feed_forward(
         pre_post_process_layer(None, x, "n"), d_inner_hid, d_model,
@@ -119,17 +138,24 @@ def _length_key_bias(length, max_len):
 
 def build(batch_size=16, src_vocab=10000, tgt_vocab=10000, max_len=64,
           n_layer=6, n_head=8, d_model=512, d_inner_hid=2048,
-          dropout_rate=0.0, lr=2.0, warmup_steps=8000):
+          dropout_rate=0.0, lr=2.0, warmup_steps=8000,
+          attention_impl="fused"):
     """Transformer-base programs: ``main`` (forward, loss, backward and the
     Adam update under the noam schedule of ``warmup_steps``), ``startup``
     (parameter and optimizer-state initializers) and ``test`` (the
     inference clone), with ``logits``, ``loss``, ``feeds`` and ``config``.
     ``lr`` is unused, as in the JAX package (noam sets the rate). Dropout
-    is not ported: ``dropout_rate`` must be 0, the setting under which the
-    JAX package lowers every attention to ``flash_attention``."""
+    is not ported: ``dropout_rate`` must be 0. ``attention_impl`` is
+    "fused" or "unfused" (the JAX package's sequence-parallel kernels,
+    "ring", "ulysses" and "usp", are ROADMAP A12)."""
     if dropout_rate:
         raise ValueError(f"build(dropout_rate={dropout_rate}): dropout is "
                          "not ported yet; pass dropout_rate=0")
+    if attention_impl not in _IMPLS:
+        raise NotImplementedError(
+            f"build(attention_impl={attention_impl!r}): the port has "
+            f"{_IMPLS}; the sequence-parallel kernels wait for ROADMAP A12 "
+            "(multi-device)")
     d_key = d_value = d_model // n_head
     main, startup = Program(), Program()
     with program_guard(main, startup):
@@ -146,14 +172,16 @@ def build(batch_size=16, src_vocab=10000, tgt_vocab=10000, max_len=64,
         enc = _embed(src, src_vocab, d_model, max_len, src_pos, "src")
         for i in range(n_layer):
             enc = encoder_layer(enc, n_head, d_key, d_value, d_model,
-                                d_inner_hid, name=f"enc{i}", key_bias=src_kb)
+                                d_inner_hid, name=f"enc{i}", key_bias=src_kb,
+                                attention_impl=attention_impl)
         enc = pre_post_process_layer(None, enc, "n")
 
         dec = _embed(trg, tgt_vocab, d_model, max_len, trg_pos, "trg")
         for i in range(n_layer):
             dec = decoder_layer(dec, enc, n_head, d_key, d_value, d_model,
                                 d_inner_hid, name=f"dec{i}",
-                                src_key_bias=src_kb, trg_key_bias=trg_kb)
+                                src_key_bias=src_kb, trg_key_bias=trg_kb,
+                                attention_impl=attention_impl)
         dec = pre_post_process_layer(None, dec, "n")
 
         logits = layers.fc(dec, size=tgt_vocab, num_flatten_dims=2,
@@ -197,3 +225,12 @@ def make_fake_batch(batch_size, cfg, seed=0):
     return {"src_word": src, "src_pos": pos, "trg_word": trg,
             "trg_pos": pos, "lbl_word": lbl,
             "src_len": length, "trg_len": length}
+
+
+def _causal_add(product):
+    """Dense-path causal mask: upper-triangular -1e9 added to
+    [B, H, T, T] scores."""
+    t = product.shape[-1]
+    tri = np.triu(np.full((t, t), -1e9, np.float32), k=1)
+    bias = layers.assign(tri)
+    return layers.elementwise_add(product, bias)

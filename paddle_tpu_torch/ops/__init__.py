@@ -8,4 +8,5 @@ from . import kernels_sequence  # noqa: F401
 from . import kernels_host  # noqa: F401
 from . import kernels_control  # noqa: F401
 from . import kernels_optim  # noqa: F401
+from . import kernels_fused  # noqa: F401
 from . import flash_attention  # noqa: F401

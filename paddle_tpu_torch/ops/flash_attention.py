@@ -32,6 +32,7 @@ c <= r + Tk - Tq) in both versions, as ``_plain_attention`` computes it.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -40,8 +41,11 @@ from ..registry import register_op
 from . import _build
 from .common import amp_cast, opt, same_shape_infer
 
-# kernel launches by flash_attention_fwd since the count was last reset
+# kernel launches by flash_attention_fwd since the count was last reset,
+# and the same launches by the dtype of their inputs ("float32",
+# "bfloat16")
 launches = 0
+launch_dtypes: Dict[str, int] = {}
 # kernel launches by flash_attention_bwd since the count was last reset;
 # each call launches BWD_KERNELS kernels (delta, dK/dV, dQ)
 bwd_launches = 0
@@ -242,6 +246,8 @@ def flash_attention_fwd(q, k, v, key_bias=None, causal=False, scale=1.0):
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "flash_attention_fwd")
     launches += 1
+    dtype = str(q.dtype).replace("torch.", "")
+    launch_dtypes[dtype] = launch_dtypes.get(dtype, 0) + 1
     return out, lse
 
 

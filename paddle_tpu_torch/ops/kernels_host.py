@@ -65,18 +65,18 @@ def load_tensor_from_file(path: str) -> torch.Tensor:
         return _read_tensor(f)
 
 
-@register_op("save", is_host=True)
+@register_op("save", no_grad=True, is_host=True)
 def save(ctx, ins, attrs):
     save_tensor_to_file(attrs["file_path"], ins["X"][0])
     return {}
 
 
-@register_op("load", is_host=True)
+@register_op("load", no_grad=True, is_host=True)
 def load(ctx, ins, attrs):
     return {"Out": [load_tensor_from_file(attrs["file_path"]).to(ctx.device)]}
 
 
-@register_op("save_combine", is_host=True)
+@register_op("save_combine", no_grad=True, is_host=True)
 def save_combine(ctx, ins, attrs):
     """Many tensors into one container file."""
     path = attrs["file_path"]
@@ -88,7 +88,7 @@ def save_combine(ctx, ins, attrs):
     return {}
 
 
-@register_op("load_combine", is_host=True)
+@register_op("load_combine", no_grad=True, is_host=True)
 def load_combine(ctx, ins, attrs):
     with open(attrs["file_path"], "rb") as f:
         (n,) = struct.unpack("<I", f.read(4))

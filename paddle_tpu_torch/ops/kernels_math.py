@@ -1,6 +1,7 @@
 """Math ops (counterpart of ``paddle_tpu/ops/kernels_math.py``): the
 elementwise family with Fluid's axis broadcast, ``reduce_sum``, the fc
-product ``mul``, ``scale``, ``relu`` and ``pow``. Large products go to
+product ``mul``, ``matmul``, ``softmax``, ``scale``, ``relu`` and
+``pow``. Large products go to
 ``torch.matmul``, as the JAX package left them to XLA.
 
 Under AMP a bf16 activation meeting an fp32 operand (a bias, the residual
@@ -85,6 +86,53 @@ def mul(ctx, ins, attrs):
     x2, y2 = amp_cast(ctx, x2, y2)
     out = torch.matmul(x2, y2)
     return {"Out": [out.reshape(tuple(xv.shape[:xn]) + tuple(yv.shape[yn:]))]}
+
+
+def _matmul_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    ys = in_shape(block, op, "Y")
+    dt = in_dtype(block, op, "X")
+    if xs is None or ys is None:
+        return
+    tx, ty = op.attrs.get("transpose_X", False), op.attrs.get(
+        "transpose_Y", False)
+    xs2, ys2 = list(xs), list(ys)
+    if len(xs2) == 1:
+        xs2 = [1, xs2[0]]
+    if len(ys2) == 1:
+        ys2 = [ys2[0], 1]
+    if tx:
+        xs2[-1], xs2[-2] = xs2[-2], xs2[-1]
+    if ty:
+        ys2[-1], ys2[-2] = ys2[-2], ys2[-1]
+    batch = xs2[:-2] if len(xs2) >= len(ys2) else ys2[:-2]
+    out = list(batch) + [xs2[-2], ys2[-1]]
+    if len(xs) == 1 and len(ys) == 1:
+        out = [1]
+    for n in op.output("Out"):
+        set_out_var(block, n, out, dt)
+
+
+@register_op("matmul", infer=_matmul_infer)
+def matmul(ctx, ins, attrs):
+    """Batched product with optional transposes of the last two dims,
+    then ``alpha``; bf16 under AMP, as ``mul``."""
+    xv, yv = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False):
+        xv = xv.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        yv = yv.transpose(-1, -2)
+    xv, yv = amp_cast(ctx, xv, yv)
+    out = torch.matmul(xv, yv)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
+@register_op("softmax", infer=same_shape_infer())
+def softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(x(ins), dim=attrs.get("axis", -1))]}
 
 
 @register_op("scale", infer=same_shape_infer())

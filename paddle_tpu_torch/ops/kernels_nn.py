@@ -1,5 +1,6 @@
-"""NN ops (counterpart of ``paddle_tpu/ops/kernels_nn.py``): layer_norm and
-softmax_with_cross_entropy with its grad."""
+"""NN ops (counterpart of ``paddle_tpu/ops/kernels_nn.py``): layer_norm,
+softmax_with_cross_entropy with its grad, and the ``fc`` op that
+fc_fuse_pass writes."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 from ..core.desc import OpDesc
 from ..core.types import GRAD_SUFFIX, DataType
 from ..registry import register_op
-from .common import in_dtype, in_shape, opt, set_out_var
+from .common import amp_cast, in_dtype, in_shape, opt, set_out_var
 
 
 def _ln_infer(op: OpDesc, block):
@@ -124,3 +125,30 @@ def softmax_with_cross_entropy_grad(ctx, ins, attrs):
         grad = grad.masked_fill(
             (lab == attrs.get("ignore_index", -100)).unsqueeze(-1), 0.0)
     return {"Logits@GRAD": [grad.to(logits.dtype)]}
+
+
+def _fc_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "Input")
+    ws = in_shape(block, op, "W")
+    if xs is None or ws is None:
+        return
+    ncol = int(op.attrs.get("in_num_col_dims", 1))
+    for n in op.output("Out"):
+        set_out_var(block, n, list(xs[:ncol]) + [ws[-1]],
+                    in_dtype(block, op, "Input"))
+
+
+@register_op("fc", infer=_fc_infer)
+def fc(ctx, ins, attrs):
+    """The fused fc of fc_fuse_pass (fc_op.cc analog): flatten Input at
+    in_num_col_dims, one GEMM under the same AMP cast as ``mul``, plus the
+    bias. Like the JAX package's op it reads no ``activation_type``: the
+    pass never sets one, and the activation stays a separate op."""
+    xv, wv = ins["Input"][0], ins["W"][0]
+    ncol = int(attrs.get("in_num_col_dims", 1))
+    x2 = xv.reshape(int(np.prod(xv.shape[:ncol])), -1)
+    x2, w2 = amp_cast(ctx, x2, wv)
+    out = torch.matmul(x2, w2)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0]
+    return {"Out": [out.reshape(tuple(xv.shape[:ncol]) + tuple(wv.shape[-1:]))]}

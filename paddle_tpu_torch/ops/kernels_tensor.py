@@ -216,6 +216,53 @@ def squeeze2(ctx, ins, attrs):
     return {"Out": [xv.reshape(shp)], "XShape": [_xshape(xv)]}
 
 
+def _unsqueeze_shape(shape, axes):
+    out = list(shape)
+    for a in sorted(axes):
+        out.insert(a if a >= 0 else a + len(out) + 1, 1)
+    return out
+
+
+def _unsqueeze_infer(op: OpDesc, block):
+    in_shp = in_shape(block, op, "X")
+    dt = in_dtype(block, op, "X")
+    if in_shp is not None:
+        shp = _unsqueeze_shape(in_shp, op.attrs.get("axes", []))
+        for n in op.output("Out"):
+            set_out_var(block, n, shp, dt)
+        for n in op.output("XShape"):
+            set_out_var(block, n, [0] + in_shp, dt)
+
+
+@register_op("unsqueeze", infer=_unsqueeze_infer)
+@register_op("unsqueeze2", intermediate_outputs=("XShape",),
+             infer=_unsqueeze_infer)
+def unsqueeze(ctx, ins, attrs):
+    xv = x(ins)
+    shp = _unsqueeze_shape(list(xv.shape), attrs.get("axes", []))
+    return {"Out": [xv.reshape(shp)], "XShape": [_xshape(xv)]}
+
+
+@register_op("assign", infer=same_shape_infer())
+def assign(ctx, ins, attrs):
+    return {"Out": [x(ins)]}
+
+
+def _assign_value_infer(op: OpDesc, block):
+    for n in op.output("Out"):
+        set_out_var(block, n, op.attrs.get("shape"),
+                    op.attrs.get("dtype", DataType.FP32))
+
+
+@register_op("assign_value", no_grad=True, infer=_assign_value_infer)
+def assign_value(ctx, ins, attrs):
+    """The literal in the attrs (``values``, flat, and ``shape``) as a
+    tensor on the run's device."""
+    dt = dtype_to_torch(attrs.get("dtype", DataType.FP32))
+    vals = torch.tensor(attrs["values"], dtype=dt)
+    return {"Out": [vals.reshape(tuple(attrs["shape"])).to(ctx.device)]}
+
+
 # ---------------------------------------------------------------------------
 # embedding
 # ---------------------------------------------------------------------------

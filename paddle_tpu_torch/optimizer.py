@@ -3,7 +3,8 @@ python/paddle/fluid/optimizer.py). ``minimize`` = ``append_backward`` +
 one update op per parameter, appended under
 ``program._optimized_guard`` so the ops carry the OPTIMIZE role. Only
 ``Optimizer`` and ``AdamOptimizer`` are ported; the others are ROADMAP
-A9."""
+A9. ``fuse_optimizer_update_ops`` is the multi-tensor rewrite behind
+``BuildStrategy.fuse_all_optimizer_ops``."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 from .utils import unique_name
 
-__all__ = ["Optimizer", "AdamOptimizer"]
+__all__ = ["Optimizer", "AdamOptimizer", "fuse_optimizer_update_ops"]
 
 
 class Optimizer:
@@ -153,3 +154,111 @@ class AdamOptimizer(Optimizer):
                      "Beta1PowOut": b1p, "Beta2PowOut": b2p},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
                    "epsilon": self._epsilon})
+
+
+# the update ops fuse_optimizer_update_ops groups, with their slots: adam
+# only (the JAX package also fuses sgd and momentum, which wait for their
+# optimizers, ROADMAP A9)
+_FUSABLE_UPDATE_OPS = {
+    "adam": {"fused_type": "fused_adam",
+             "in_slots": ("Param", "Grad", "Moment1", "Moment2",
+                          "Beta1Pow", "Beta2Pow", "LearningRate"),
+             "out_slots": ("ParamOut", "Moment1Out", "Moment2Out",
+                           "Beta1PowOut", "Beta2PowOut")},
+}
+
+
+def fuse_optimizer_update_ops(ops, var_dtype=None):
+    """Group per-parameter update ops by (op type, hyperparameter attrs,
+    param dtype, grad dtype) and rewrite each group of >= 2 into ONE
+    multi-tensor fused op (ir/pipeline.py calls this under
+    BuildStrategy.fuse_all_optimizer_ops).
+
+    Safety: a group only fuses when no non-member op between its first
+    and last member reads or writes anything a member writes: the fused
+    op sits at the LAST member's slot, so every member's inputs are
+    already live there and moving the earlier members' writes later must
+    be unobservable. Returns (new_ops, ops_removed)."""
+    from .core.desc import OpDesc
+    from .core.types import (OP_ROLE_ATTR_NAME, OP_ROLE_VAR_ATTR_NAME,
+                             OpRole)
+    from .ir import analyze
+
+    du = analyze.DefUse(ops)
+    groups = {}  # key -> list of (index, op)
+    for i, op in enumerate(ops):
+        spec = _FUSABLE_UPDATE_OPS.get(op.type)
+        if spec is None:
+            continue
+        # exactly one var per slot, every declared slot present, and no
+        # undeclared extra slot (whose semantics the fused emitter would
+        # drop)
+        if any(len(op.input(s)) != 1 for s in spec["in_slots"]) or \
+                any(len(op.output(s)) != 1 for s in spec["out_slots"]):
+            continue
+        if {s for s, ns in op.inputs.items() if ns} - set(spec["in_slots"]) \
+                or {s for s, ns in op.outputs.items() if ns} \
+                - set(spec["out_slots"]):
+            continue
+        hyper = tuple(sorted(
+            (k, v) for k, v in op.attrs.items()
+            if k not in (OP_ROLE_ATTR_NAME, OP_ROLE_VAR_ATTR_NAME)
+            and isinstance(v, (bool, int, float, str))))
+        pdt = var_dtype(op.input("Param")[0]) if var_dtype else None
+        gdt = var_dtype(op.input("Grad")[0]) if var_dtype else None
+        if var_dtype and (pdt != "float32" or gdt != "float32"):
+            # non-f32 (or unknown-dtype) params isolate: the bitwise
+            # contract holds for f32 groups
+            pdt = (pdt, op.input("Param")[0])
+        groups.setdefault((op.type, hyper, pdt, gdt), []).append((i, op))
+
+    drop = set()
+    fused_at = {}
+    removed = 0
+    for (op_type, hyper, _pdt, _gdt), members in groups.items():
+        if len(members) < 2:
+            continue
+        spec = _FUSABLE_UPDATE_OPS[op_type]
+        idxs = [i for i, _ in members]
+        member_writes = set()
+        member_reads = set()
+        safe = True
+        for _, op in members:
+            writes = {n for n in op.output_arg_names() if n}
+            reads = {n for n in op.input_arg_names() if n}
+            # members must be pairwise independent: two updates of the
+            # SAME parameter are sequential. Shared reads (the LR var)
+            # are fine.
+            if writes & member_writes or (writes & member_reads) or (
+                    reads & member_writes):
+                safe = False
+                break
+            member_writes |= writes
+            member_reads |= reads
+        if not safe:
+            continue
+        if du.group_interference(idxs, member_reads,
+                                 member_writes) is not None:
+            continue
+        ins = {s: [op.input(s)[0] for _, op in members]
+               for s in spec["in_slots"]}
+        outs = {s: [op.output(s)[0] for _, op in members]
+                for s in spec["out_slots"]}
+        role_var = []
+        for _, op in members:
+            role_var.extend(op.attrs.get(OP_ROLE_VAR_ATTR_NAME) or [])
+        attrs = dict(members[0][1].attrs)
+        attrs[OP_ROLE_ATTR_NAME] = int(OpRole.OPTIMIZE)
+        if role_var:
+            attrs[OP_ROLE_VAR_ATTR_NAME] = role_var
+        fused_at[max(idxs)] = OpDesc(spec["fused_type"], ins, outs, attrs)
+        drop.update(i for i in idxs if i != max(idxs))
+        removed += len(members) - 1
+    if not fused_at:
+        return list(ops), 0
+    out_ops = []
+    for i, op in enumerate(ops):
+        if i in drop:
+            continue
+        out_ops.append(fused_at.get(i, op))
+    return out_ops, removed

@@ -14,6 +14,13 @@ _DEFAULTS: Dict[str, Any] = {
     # capture each op's Python creation callstack (user frames) at
     # append_op time; 0 disables for build-time-critical loops
     "op_callstack": True,
+    # run BuildStrategy.fuse_all_optimizer_ops on CPU places too (off by
+    # default, as in the JAX package, so CPU runs compare per-parameter
+    # updates with per-parameter updates)
+    "fuse_optimizer_ops_on_cpu": False,
+    # check the pipeline's invariants after every stage (ir/verify.py in
+    # the JAX package); not ported, so a run that asks for it raises
+    "verify_passes": False,
 }
 
 

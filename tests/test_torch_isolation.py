@@ -35,6 +35,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.optimizer, paddle_tpu_torch.backward\n"
         "import paddle_tpu_torch.contrib.mixed_precision\n"
         "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
+        "import paddle_tpu_torch.compiler, paddle_tpu_torch.ir\n"
+        "import paddle_tpu_torch.ir.pipeline, paddle_tpu_torch.ir.passes\n"
+        "import paddle_tpu_torch.ir.pattern, paddle_tpu_torch.ir.analyze\n"
+        "import paddle_tpu_torch.ops.kernels_fused\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
