@@ -51,7 +51,7 @@ class BuildStrategy:
         self.fuse_broadcast_op = False
         self.fuse_all_optimizer_ops = False     # multi-tensor fused_adam
         self.memory_optimize = False            # fold + CSE + prune
-        self.fuse_conv_ops = False              # conv stages: ROADMAP A5
+        self.fuse_conv_ops = False              # conv + bn, conv epilogue
         self.fuse_attention_ops = False         # chain -> flash_attention
         self.verify_passes = False              # ir/verify.py: ROADMAP A14
         self.auto_parallel = False              # ROADMAP A12

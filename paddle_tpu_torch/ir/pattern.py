@@ -120,6 +120,20 @@ class GraphPatternDetector:
             matches.append(Match(chosen, binding))
         return matches
 
+    @staticmethod
+    def persistable(symbolic_slot: str):
+        """Predicate: the one var in input slot `symbolic_slot` is a
+        persistable (weight or bias) var."""
+
+        def pred(op: OpDesc, graph: Graph):
+            names = op.input(symbolic_slot)
+            if len(names) != 1:
+                return False
+            vd = graph.desc.vars.get(names[0])
+            return bool(vd is not None and vd.persistable)
+
+        return pred
+
 
 def intermediates_safe(graph: Graph, match: Match, keep_syms,
                        protected) -> bool:

@@ -21,9 +21,15 @@ corresponding BuildStrategy flags are set:
                                   ``fused_adam`` each (optimizer.py
                                   declares the slots, ops/kernels_optim.py
                                   owns the emitter); bitwise equal
-- ``fuse_conv_ops``            -> the conv stages are not ported
-                                  (ROADMAP A5): a program holding a conv
-                                  raises, any other passes unchanged
+- ``fuse_conv_ops``            -> inference conv [+ bias] + batch_norm
+                                  [+ act] and training conv + bias + act
+                                  (forward and backward) become one
+                                  ``fused_conv2d`` each
+- ``FLAGS.conv_layout_nhwc``   -> the conv/pool/batch_norm spine, forward
+                                  and backward, runs NHWC between one
+                                  transpose in and one out (off by
+                                  default in the port, see
+                                  ``effective_flags``)
 
 Contract: every pass preserves bit-exact fetches and scope state, except
 the attention fusion, which is bit-close (it reassociates the scale). The
@@ -53,7 +59,9 @@ from . import analyze
 __all__ = ["fingerprint", "effective_flags", "run_pipeline",
            "constant_fold_ops", "cse_ops", "dead_op_elimination",
            "fuse_elewise_add_act_ops", "fuse_optimizer_ops",
-           "fuse_attention_chain_ops", "block_var_dtype"]
+           "fuse_attention_chain_ops", "fuse_conv_bn_ops",
+           "fuse_conv_epilogue_ops", "conv_layout_nhwc_ops",
+           "block_var_dtype"]
 
 # attrs that carry program structure (sub-blocks): ops holding them are
 # control flow and must never be folded/merged/moved
@@ -83,11 +91,8 @@ _FOLD_MAX_ELEMS = 65536
 # grad op types the port registers only to give the generic vjp type a
 # custom emitter; the JAX package does not register them, so its passes
 # treat them as opaque (never merged, never dropped), and so do these
-_OPAQUE_GRAD_TYPES = ("flash_attention_grad",)
-
-# where the conv stages are queued
-_A5 = ("ROADMAP A5 (the ResNet-50 slice, which decides how NHWC maps to "
-       "channels_last)")
+_OPAQUE_GRAD_TYPES = ("flash_attention_grad", "conv2d_grad",
+                      "depthwise_conv2d_grad")
 
 
 def fingerprint(build_strategy) -> Tuple[str, ...]:
@@ -118,15 +123,20 @@ def effective_flags(flags: Sequence[str], device_type: str
     ``FLAGS.fuse_optimizer_ops_on_cpu``, as in the JAX package (which
     measured the concat -> update -> split rewrite slower on XLA:CPU), so
     that a CPU run compares per-parameter updates with per-parameter
-    updates. The JAX package also appends ``nhwc`` (its channels-last
-    conv layout pass) for every place, a default that rests on a TPU
-    measurement; the port does not, and has no conv ops yet (ROADMAP
-    A5)."""
+    updates.
+
+    ``nhwc`` (conv_layout_nhwc_ops) is appended only when
+    ``FLAGS.conv_layout_nhwc`` is set. The JAX package sets it by
+    default, on a TPU measurement (its conv tilings prefer channels
+    last); the port keeps NCHW until the card's own numbers decide
+    (chip_smoke.py phase 9 times both layouts)."""
     from ..utils.flags import FLAGS
     out = list(flags)
     if (device_type == "cpu" and "optfuse" in out
             and not FLAGS.fuse_optimizer_ops_on_cpu):
         out.remove("optfuse")
+    if FLAGS.conv_layout_nhwc and "nhwc" not in out:
+        out.append("nhwc")
     return tuple(out)
 
 
@@ -492,10 +502,22 @@ def _var_shape(block, name) -> Optional[List[int]]:
         return None
 
 
+def _persistable_1d(block, name) -> bool:
+    """True when `name` is a persistable per-channel vector: the only Y
+    an elementwise_add may carry to count as a conv bias (the fused
+    emitter re-emits the same axis=1 broadcast)."""
+    try:
+        v = block.vars[name]
+        return bool(v.persistable and len(v.desc.shape or []) == 1)
+    except Exception:  # noqa: BLE001 - metadata lookup, best effort
+        return False
+
+
 def _fuse_chain_with_backward(ops: List[OpDesc], fwd_idx: List[int],
                               fused_fwd: OpDesc, out_slot: str,
                               interior: Set[str], needed: Set[str],
-                              aux_in: Set[str] = frozenset()):
+                              aux_in: Set[str] = frozenset(),
+                              dropped_outs: Set[str] = frozenset()):
     """Replace a matched forward chain AND its backward twin with one
     fused op each, or return None when the rewrite cannot be proven
     safe.
@@ -508,7 +530,10 @@ def _fuse_chain_with_backward(ops: List[OpDesc], fwd_idx: List[int],
     desc is the default-vjp grad of the FUSED op (same ``<slot>@GRAD``
     naming), so downstream grad consumers see the names they always
     did. ``aux_in`` names chain inputs the fused op does NOT take (mask
-    constants): legal to read, illegal to grad."""
+    constants): legal to read, illegal to grad. ``dropped_outs`` are
+    chain outputs the fused op stops producing (inference batch_norm's
+    identity MeanOut/VarianceOut): legal only while nothing reads
+    them."""
     if interior & needed:
         return None
     fwd_set = set(fwd_idx)
@@ -522,7 +547,7 @@ def _fuse_chain_with_backward(ops: List[OpDesc], fwd_idx: List[int],
     interior_g = {n + GRAD_SUFFIX for n in interior}
     boundary_g = {n + GRAD_SUFFIX for n in boundary}
     allowed = interior | interior_g | boundary | boundary_g | {""}
-    watched = interior | interior_g
+    watched = interior | interior_g | set(dropped_outs)
 
     def _allowed(n):
         # a boundary input shared by several chains gets RENAME'd
@@ -826,23 +851,380 @@ def _key_bias_source(ops, producer, y, block):
 
 
 # ---------------------------------------------------------------------------
-# the pipeline
+# conv fusions
 # ---------------------------------------------------------------------------
 
 _CONV_TYPES = ("conv2d", "depthwise_conv2d")
+_CONV_ACTS = ("relu", "sigmoid", "tanh")
 
 
-def _conv_stages_not_ported(ops: List[OpDesc], needed: Set[str]
-                            ) -> Tuple[List[OpDesc], int]:
-    """The ``convfuse`` group: the JAX package's conv+bn fold and conv
-    epilogue fusion, which change nothing in a program without conv ops.
-    A program with one raises: those stages are not ported."""
-    convs = sorted({op.type for op in ops if op.type in _CONV_TYPES})
-    if convs:
-        raise NotImplementedError(
-            f"BuildStrategy.fuse_conv_ops on a program with {convs}: the "
-            f"conv stages (fuse_conv_bn, fuse_conv_epilogue) wait for {_A5}")
-    return ops, 0
+def _match_conv_bias(ops, i, readers, writers, block):
+    """The conv at `i` followed by its per-channel bias add, if any:
+    (add index or None, the biased output's name)."""
+    conv_out = ops[i].output("Output")[0]
+    for j in readers.get(conv_out, ()):
+        if j <= i:
+            continue
+        add = ops[j]
+        if (add.type == "elementwise_add"
+                and add.input("X") == [conv_out]
+                and int(add.attrs.get("axis", -1)) == 1
+                and len(add.input("Y")) == 1
+                and _persistable_1d(block, add.input("Y")[0])
+                and len(writers.get(add.output("Out")[0], ())) == 1):
+            return j, add.output("Out")[0]
+        break
+    return None, conv_out
+
+
+def fuse_conv_bn_ops(ops: List[OpDesc], needed: Set[str], block
+                     ) -> Tuple[List[OpDesc], int]:
+    """conv_bn_fuse_pass.cc at the op-list level, for inference lists
+    only (no grad ops): conv2d [+ bias add] + inference-mode batch_norm
+    [+ act] become ONE ``fused_conv2d`` that takes the statistics as live
+    inputs. Unlike the registry pass (ir/passes.py ConvBNFusePass)
+    nothing is folded by value, so a reloaded checkpoint keeps working;
+    the fused emitter composes the unfused emitters, so fetches are the
+    unfused program's. Dropping the batch_norm drops its MeanOut and
+    VarianceOut writes, which are identity updates in inference mode,
+    and is refused while anything reads them or a fetch names its
+    SavedMean or SavedVariance (temporaries with no scope fallback)."""
+    if any(op.type.endswith("_grad") for op in ops):
+        return list(ops), 0
+    total = 0
+    changed = True
+    while changed:
+        changed = False
+        readers = analyze.read_positions(ops)
+        writers = analyze.write_positions(ops)
+        for i, conv in enumerate(ops):
+            if conv.type not in _CONV_TYPES \
+                    or conv.attrs.get("fuse_relu_before_depthwise_conv"):
+                continue
+            add_idx, cur = _match_conv_bias(ops, i, readers, writers, block)
+            bn_idx = None
+            for j in readers.get(cur, ()):
+                if j > i and ops[j].type == "batch_norm" \
+                        and ops[j].input("X") == [cur]:
+                    bn_idx = j
+                break
+            if bn_idx is None:
+                continue
+            bn = ops[bn_idx]
+            if not (bn.attrs.get("is_test")
+                    or bn.attrs.get("use_global_stats")):
+                continue
+            if bn.attrs.get("data_layout", "NCHW") != conv.attrs.get(
+                    "data_format", "NCHW"):
+                continue
+            bn_y = bn.output("Y")[0]
+            side = [n for s in ("MeanOut", "VarianceOut", "SavedMean",
+                                "SavedVariance")
+                    for n in bn.output(s) if n]
+            if any(r > bn_idx for n in side for r in readers.get(n, ())):
+                continue
+            if any(n in needed for s in ("SavedMean", "SavedVariance")
+                   for n in bn.output(s) if n):
+                continue
+            act_idx = None
+            out = bn_y
+            rs = [r for r in readers.get(bn_y, ()) if r > bn_idx]
+            if len(rs) == 1 and ops[rs[0]].type in _CONV_ACTS \
+                    and ops[rs[0]].input("X") == [bn_y] \
+                    and bn_y not in needed:
+                act_idx = rs[0]
+                out = ops[act_idx].output("Out")[0]
+            ins = {"Input": list(conv.input("Input")),
+                   "Filter": list(conv.input("Filter")),
+                   "Scale": list(bn.input("Scale")),
+                   "BNBias": list(bn.input("Bias")),
+                   "Mean": list(bn.input("Mean")),
+                   "Variance": list(bn.input("Variance"))}
+            fwd_idx = [i, bn_idx]
+            interior = {conv.output("Output")[0]}
+            if add_idx is not None:
+                ins["Bias"] = list(ops[add_idx].input("Y"))
+                fwd_idx.append(add_idx)
+                interior.add(cur)
+            if act_idx is not None:
+                fwd_idx.append(act_idx)
+                interior.add(bn_y)
+            fused = OpDesc(
+                "fused_conv2d", ins, {"Output": [out]},
+                dict(conv.attrs, conv_type=conv.type,
+                     activation=(ops[act_idx].type if act_idx is not None
+                                 else "identity"),
+                     epsilon=float(bn.attrs.get("epsilon", 1e-5)),
+                     with_bn=True))
+            res = _fuse_chain_with_backward(
+                ops, sorted(fwd_idx), fused, "Output", interior, needed,
+                dropped_outs=set(side))
+            if res is not None:
+                ops, removed = res
+                total += removed
+                changed = True
+                break
+    return ops, total
+
+
+def fuse_conv_epilogue_ops(ops: List[OpDesc], needed: Set[str], block
+                           ) -> Tuple[List[OpDesc], int]:
+    """conv_elementwise_add_act_fuse_pass.cc for training lists: conv2d
+    + elementwise_add (per-channel persistable bias, axis=1) + act
+    become one ``fused_conv2d``, forward and backward (the three
+    default-vjp grad twins collapse into one ``fused_conv2d_grad``, the
+    generic vjp of the fused emitter). Values and gradients are the
+    unfused program's."""
+    total = 0
+    changed = True
+    while changed:
+        changed = False
+        readers = analyze.read_positions(ops)
+        writers = analyze.write_positions(ops)
+        for i, conv in enumerate(ops):
+            if conv.type not in _CONV_TYPES \
+                    or conv.attrs.get("fuse_relu_before_depthwise_conv"):
+                continue
+            add_idx, add_out = _match_conv_bias(ops, i, readers, writers,
+                                                block)
+            if add_idx is None:
+                continue
+            rs = [r for r in readers.get(add_out, ())
+                  if r > add_idx and not ops[r].type.endswith("_grad")]
+            if len(rs) != 1 or ops[rs[0]].type not in _CONV_ACTS \
+                    or ops[rs[0]].input("X") != [add_out] \
+                    or add_out in needed:
+                continue
+            act_idx = rs[0]
+            fused = OpDesc(
+                "fused_conv2d",
+                {"Input": list(conv.input("Input")),
+                 "Filter": list(conv.input("Filter")),
+                 "Bias": list(ops[add_idx].input("Y"))},
+                {"Output": [ops[act_idx].output("Out")[0]]},
+                dict(conv.attrs, conv_type=conv.type,
+                     activation=ops[act_idx].type))
+            res = _fuse_chain_with_backward(
+                ops, [i, add_idx, act_idx], fused, "Output",
+                {conv.output("Output")[0], add_out}, needed)
+            if res is not None:
+                ops, removed = res
+                total += removed
+                changed = True
+                break
+    return ops, total
+
+
+# ---------------------------------------------------------------------------
+# NHWC layout, forward and backward
+# ---------------------------------------------------------------------------
+
+# layout-aware op -> (main input slot, main output slot, format attr)
+_LAYOUT_OPS = {"conv2d": ("Input", "Output", "data_format"),
+               "depthwise_conv2d": ("Input", "Output", "data_format"),
+               "fused_conv2d": ("Input", "Output", "data_format"),
+               "pool2d": ("X", "Out", "data_format"),
+               "batch_norm": ("X", "Y", "data_layout")}
+# elementwise glue that runs the same in either layout once every 4-D
+# operand is NHWC; "sum" is append_backward's accumulation of the
+# gradients of spine vars with several consumers (the residual
+# shortcut). A training dropout is not glue: its mask draws over the
+# tensor's shape, so a transposed draw is another mask; only the
+# is_test identity passes through (special-cased below).
+_LAYOUT_PASSTHRU = ("relu", "relu6", "sigmoid", "tanh", "leaky_relu",
+                    "elementwise_add", "elementwise_mul",
+                    "scale", "hard_swish", "swish", "sum")
+
+
+def conv_layout_nhwc_ops(ops: List[OpDesc], needed: Set[str], block
+                         ) -> Tuple[List[OpDesc], int]:
+    """Rewrite the NCHW conv/pool/batch_norm spine of an op list to NHWC,
+    the backward half included (the build-time pass, ir/passes.py
+    ConvLayoutNHWCPass, runs before append_backward and never sees it).
+    A grad twin rewritten to the NHWC format with its main input and
+    cotangent swapped to the NHWC twins computes in NHWC; filters,
+    scales and their gradients keep their layout-free shapes (OIHW,
+    [C]), so the optimizer and checkpoints never see the layout.
+
+    Any op the pass does not understand reads the original NCHW value: a
+    transpose materializes it right before that consumer. Wrong layouts
+    cannot arise; unknown ops only cost a transpose. Lists with fewer
+    than 2 NCHW conv ops are left alone (one spine pays a transpose each
+    way, which a lone conv does not repay)."""
+    spine = sum(1 for op in ops
+                if op.type in _CONV_TYPES + ("fused_conv2d",)
+                and op.attrs.get("data_format", "NCHW") == "NCHW")
+    if spine < 2:
+        return list(ops), 0
+
+    nhwc_of: Dict[str, str] = {}   # NCHW var -> its current NHWC twin
+    back_done: Set[str] = set()
+    rewritten: Set[str] = set()    # NCHW names with no NCHW producer
+    twin_seq: Dict[str, int] = {}
+    new_ops: List[OpDesc] = []
+    count = 0
+
+    def rank(name: str) -> Optional[int]:
+        base = name.split(GRAD_SUFFIX)[0] if GRAD_SUFFIX in name else name
+        shape = _var_shape(block, base)
+        return len(shape) if shape else None
+
+    def rank4(name: str) -> bool:
+        return rank(name) == 4
+
+    def to_nhwc(name: str) -> str:
+        if name in nhwc_of:
+            return nhwc_of[name]
+        twin = name + "@NHWC"
+        new_ops.append(OpDesc("transpose", {"X": [name]},
+                              {"Out": [twin]}, {"axis": [0, 2, 3, 1]}))
+        nhwc_of[name] = twin
+        return twin
+
+    def back_to_nchw(name: str):
+        if name in back_done:
+            return
+        new_ops.append(OpDesc("transpose", {"X": [nhwc_of[name]]},
+                              {"Out": [name]}, {"axis": [0, 3, 1, 2]}))
+        back_done.add(name)
+
+    def twin_out(name: str) -> str:
+        """A fresh twin for a WRITE of `name`: a name written again (a
+        gradient accumulated into the same @GRAD name) gets a versioned
+        twin, and later reads resolve through the current mapping, as
+        the executor rebinds names in order."""
+        k = twin_seq.get(name, 0)
+        twin_seq[name] = k + 1
+        twin = name + "@NHWC" + (f"@{k}" if k else "")
+        nhwc_of[name] = twin
+        rewritten.add(name)
+        back_done.discard(name)
+        return twin
+
+    def remap_axis(tensor_names, attrs) -> Optional[Dict]:
+        """Mixed ranks: only the per-channel rank-1 broadcast on axis 1
+        survives the layout change (the channel moves last: axis -1);
+        anything else keeps the op in NCHW."""
+        low = [n for n in tensor_names if not rank4(n)]
+        if not low:
+            return attrs
+        if all(rank(n) == 1 for n in low) and attrs.get("axis", -1) == 1:
+            return dict(attrs, axis=-1)
+        return None
+
+    def invalidate(op):
+        """An op kept in NCHW rebinds its outputs: their twins are
+        stale."""
+        for n in op.output_arg_names():
+            if n and n in nhwc_of:
+                del nhwc_of[n]
+                rewritten.discard(n)
+                back_done.discard(n)
+
+    for op in ops:
+        info = _LAYOUT_OPS.get(op.type)
+        if info is not None \
+                and op.attrs.get(info[2], "NCHW") == "NCHW" \
+                and rank4(op.input(info[0])[0]):
+            in_slot, out_slot, fmt = info
+            inputs = {s: list(ns) for s, ns in op.inputs.items()}
+            outputs = {s: list(ns) for s, ns in op.outputs.items()}
+            inputs[in_slot] = [to_nhwc(op.input(in_slot)[0])]
+            out = op.output(out_slot)[0]
+            outputs[out_slot] = [twin_out(out)]
+            new_ops.append(OpDesc(op.type, inputs, outputs,
+                                  dict(op.attrs, **{fmt: "NHWC"})))
+            count += 1
+            if out in needed:
+                back_to_nchw(out)
+            continue
+        base = (op.type[:-len("_grad")]
+                if op.type.endswith("_grad") else None)
+        ginfo = _LAYOUT_OPS.get(base) if base else None
+        if ginfo is not None \
+                and op.attrs.get(ginfo[2], "NCHW") == "NCHW" \
+                and op.input(ginfo[0]) \
+                and op.input(ginfo[0])[0] in nhwc_of:
+            # grad twin of a rewritten layout op: the main input and its
+            # cotangent go NHWC, the main input's gradient comes out
+            # NHWC; filter/scale slots and their grads are layout-free
+            in_slot, out_slot, fmt = ginfo
+            og_slot = out_slot + GRAD_SUFFIX
+            ig_slot = in_slot + GRAD_SUFFIX
+            og = op.input(og_slot)
+            ig = op.output(ig_slot) if ig_slot in op.outputs else []
+            if not og or not rank4(og[0]):
+                invalidate(op)
+                new_ops.append(op)
+                continue
+            inputs = {s: list(ns) for s, ns in op.inputs.items()}
+            outputs = {s: list(ns) for s, ns in op.outputs.items()}
+            inputs[in_slot] = [nhwc_of[op.input(in_slot)[0]]]
+            inputs[og_slot] = [to_nhwc(og[0])]
+            if ig and ig[0]:
+                outputs[ig_slot] = [twin_out(ig[0])]
+            new_ops.append(OpDesc(op.type, inputs, outputs,
+                                  dict(op.attrs, **{fmt: "NHWC"})))
+            count += 1
+            if ig and ig[0] and ig[0] in needed:
+                back_to_nchw(ig[0])
+            continue
+        pbase = op.type if op.type in _LAYOUT_PASSTHRU else base
+        is_identity_dropout = ((op.type == "dropout" or base == "dropout")
+                               and op.attrs.get("is_test"))
+        if pbase in _LAYOUT_PASSTHRU or is_identity_dropout:
+            tensor_ins = [n for s in op.inputs for n in op.inputs[s] if n]
+            four_d = [n for n in tensor_ins if rank4(n)]
+            # forward vars must already be twinned (their producer was
+            # rewritten); cotangents may be transposed in at the spine's
+            # end, as the forward's single entry transpose
+            fwd_4d = [n for n in four_d if GRAD_SUFFIX not in n]
+            outs_4d = [n for s in op.outputs for n in op.outputs[s]
+                       if n and rank4(n)]
+            if fwd_4d:
+                ok = all(n in nhwc_of for n in fwd_4d)
+            else:
+                # only cotangents (a gradient `sum`): at least one must be
+                # NHWC already, or a whole NCHW chain is transposed in for
+                # nothing
+                ok = (bool(four_d) and bool(outs_4d)
+                      and any(n in nhwc_of for n in four_d))
+            attrs = dict(op.attrs)
+            if ok:
+                remapped = remap_axis(tensor_ins, attrs)
+                ok = remapped is not None
+                attrs = remapped if ok else attrs
+            if ok and op.type == "sum":
+                ok = all(rank4(n) for n in tensor_ins)
+            if ok:
+                inputs = {s: [(nhwc_of[n] if n in nhwc_of else to_nhwc(n))
+                              if n and rank4(n) else n
+                              for n in op.inputs[s]] for s in op.inputs}
+                outputs = {s: [twin_out(n) if n and rank4(n) else n
+                               for n in op.outputs[s]] for s in op.outputs}
+                new_ops.append(OpDesc(op.type, inputs, outputs, attrs))
+                count += 1
+                for n in outs_4d:
+                    if n in needed:
+                        back_to_nchw(n)
+                continue
+        # a layout-oblivious consumer: materialize NCHW for any input
+        # whose producer now emits only the NHWC twin
+        for n in set(op.input_arg_names()):
+            if n in rewritten and n not in back_done:
+                back_to_nchw(n)
+        invalidate(op)
+        new_ops.append(op)
+    for n in sorted(rewritten):
+        if n not in back_done and n in needed:
+            back_to_nchw(n)
+    return new_ops, count
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
+
 
 
 def block_var_dtype(block) -> Callable[[str], Optional[str]]:
@@ -868,24 +1250,30 @@ def run_pipeline(ops: List[OpDesc], block, needed: Set[str],
     rewritten list (fresh descs where rewritten; the input list and its
     descs are never mutated). Stages run in the JAX package's order.
     With ``stats``, each stage adds its ``ops_removed`` and ``seconds``
-    under its name."""
-    if "nhwc" in flags:
-        raise NotImplementedError(f"the conv_layout_nhwc stage waits for "
-                                  f"{_A5}")
+    under its name (for the layout stage, the ops it rewrote)."""
     var_dtype = block_var_dtype(block)
 
     # order matters: the conv/attention matchers run on the rawest
-    # structure (before slimming renames anything), and DCE sweeps the
-    # orphans (mask constants, unsqueeze chains) last
+    # structure (before slimming renames anything), the layout stage
+    # rewrites the (possibly fused) conv spine before the elementwise
+    # fusion, so the residual add + relu glue it twins are still plain
+    # ops, and DCE sweeps the orphans (mask constants, unsqueeze chains,
+    # unread layout twins) last
     stages: List[Tuple[str, Callable]] = []
     if "convfuse" in flags:
-        stages.append(("fuse_conv", _conv_stages_not_ported))
+        stages.append(("fuse_conv_bn",
+                       lambda o, n: fuse_conv_bn_ops(o, n, block)))
+        stages.append(("fuse_conv_epilogue",
+                       lambda o, n: fuse_conv_epilogue_ops(o, n, block)))
     if "attnfuse" in flags:
         stages.append(("fuse_attention",
                        lambda o, n: fuse_attention_chain_ops(o, n, block)))
     if "slim" in flags:
         stages.append(("constant_fold", constant_fold_ops))
         stages.append(("cse", cse_ops))
+    if "nhwc" in flags:
+        stages.append(("conv_layout_nhwc",
+                       lambda o, n: conv_layout_nhwc_ops(o, n, block)))
     if "elewise" in flags:
         stages.append(("fuse_elewise_add_act", fuse_elewise_add_act_ops))
     if "optfuse" in flags:

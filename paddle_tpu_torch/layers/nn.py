@@ -1,12 +1,12 @@
 """NN layers (reference python/paddle/fluid/layers/nn.py): the ones the
-Transformer builds. Each builds descs via LayerHelper; no device work
-happens here."""
+Transformer and ResNet build. Each builds descs via LayerHelper; no device
+work happens here."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = [
@@ -14,7 +14,8 @@ __all__ = [
     "reshape", "transpose", "squeeze", "reduce_sum", "scale",
     "elementwise_add", "elementwise_mul", "elementwise_div",
     "elementwise_min", "sequence_mask", "fused_attention", "matmul",
-    "softmax", "unsqueeze",
+    "softmax", "unsqueeze", "conv2d", "pool2d", "batch_norm",
+    "cross_entropy", "accuracy", "topk", "mean",
 ]
 
 
@@ -222,4 +223,149 @@ def unsqueeze(input, axes, name=None):
     helper.append_op(type="unsqueeze2", inputs={"X": input},
                      outputs={"Out": out, "XShape": xshape},
                      attrs={"axes": list(axes)})
+    return out
+
+
+def _pair(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """conv2d over an NCHW input; the filter [num_filters, C/groups, kh,
+    kw] starts from N(0, sqrt(2 / (kh * kw * C))). A conv with one group
+    per input channel and as many filters is ``depthwise_conv2d``.
+    ``use_cudnn`` is accepted and ignored."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, filter_shape, dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    op_type = ("depthwise_conv2d"
+               if groups == num_channels and num_filters == num_channels
+               else "conv2d")
+    helper.append_op(
+        type=op_type, inputs={"Input": input, "Filter": w},
+        outputs={"Output": pre_bias},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups})
+    pre_act = pre_bias
+    if helper.bias_attr is not False and helper.bias_attr is not None:
+        b = helper.create_parameter(helper.bias_attr, [pre_bias.shape[1]],
+                                    dtype, is_bias=True)
+        if b is not None:
+            pre_act = helper.create_variable_for_type_inference(dtype)
+            helper.append_op(type="elementwise_add",
+                             inputs={"X": pre_bias, "Y": b},
+                             outputs={"Out": pre_act}, attrs={"axis": 1})
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Scale (1) and bias (0) parameters and persistable running mean (0)
+    and variance (1); MeanOut and VarianceOut write the running
+    statistics back under their own names."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        helper.param_attr, [c], dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [c], dtype,
+                                   is_bias=True)
+    mean = helper.create_global_variable(
+        name=moving_mean_name, persistable=True, dtype="float32", shape=[c])
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        name=moving_variance_name, persistable=True, dtype="float32",
+        shape=[c])
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": variance},
+        outputs={"Y": out, "MeanOut": mean, "VarianceOut": variance,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy", inputs={"X": input, "Label": label},
+        outputs={"Y": out},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """top_k, then the accuracy op on its indices."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(input.dtype)
+    topk_indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": input},
+                     outputs={"Out": topk_out, "Indices": topk_indices},
+                     attrs={"k": k})
+    acc_out = helper.create_variable_for_type_inference("float32")
+    correct = correct or helper.create_variable_for_type_inference("int32")
+    total = total or helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": topk_out, "Indices": topk_indices, "Label": label},
+        outputs={"Accuracy": acc_out, "Correct": correct, "Total": total})
+    return acc_out
+
+
+def topk(input, k=1, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": input},
+                     outputs={"Out": values, "Indices": indices},
+                     attrs={"k": k})
+    return values, indices
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": x}, outputs={"Out": out})
     return out

@@ -1,1 +1,1 @@
-from . import transformer  # noqa: F401
+from . import resnet, transformer  # noqa: F401

@@ -9,4 +9,5 @@ from . import kernels_host  # noqa: F401
 from . import kernels_control  # noqa: F401
 from . import kernels_optim  # noqa: F401
 from . import kernels_fused  # noqa: F401
+from . import kernels_image  # noqa: F401
 from . import flash_attention  # noqa: F401

@@ -85,6 +85,10 @@ def normalize_reduce_dims(ndim: int, dim, reduce_all: bool):
 
 _AMP_TYPES = (torch.float32, torch.bfloat16)
 
+# a 0-d host zero: max(x, ZERO) broadcasts into a tensor on any device and
+# keeps its dtype (the relu of the JAX package, ``jnp.maximum(x, 0)``)
+ZERO = torch.zeros(())
+
 
 def amp_cast(ctx, *tensors):
     """bf16 autocast for matrix-product ops, the cast points of the JAX

@@ -1,7 +1,7 @@
 """Math ops (counterpart of ``paddle_tpu/ops/kernels_math.py``): the
 elementwise family with Fluid's axis broadcast, ``reduce_sum``, the fc
-product ``mul``, ``matmul``, ``softmax``, ``scale``, ``relu`` and
-``pow``. Large products go to
+product ``mul``, ``matmul``, ``softmax``, ``scale``, ``relu``, ``pow`` and
+``mean``. Large products go to
 ``torch.matmul``, as the JAX package left them to XLA.
 
 Under AMP a bf16 activation meeting an fp32 operand (a bias, the residual
@@ -16,7 +16,7 @@ import torch
 
 from ..core.desc import OpDesc
 from ..registry import register_op
-from .common import (amp_cast, fluid_broadcast, in_dtype, in_shape,
+from .common import (ZERO, amp_cast, fluid_broadcast, in_dtype, in_shape,
                      normalize_reduce_dims, same_shape_infer, set_out_var, x)
 
 
@@ -147,9 +147,24 @@ def scale(ctx, ins, attrs):
 
 @register_op("relu", infer=same_shape_infer())
 def relu(ctx, ins, attrs):
-    return {"Out": [torch.relu(x(ins))]}
+    """max(x, 0) as the JAX op computes it (``jnp.maximum``), so that its
+    generic-vjp gradient splits a tie as that one does: half the
+    cotangent where x is exactly 0 (``torch.relu`` passes none). Exact
+    zeros are common in bf16, where a residual join's two operands
+    cancel."""
+    return {"Out": [torch.maximum(x(ins), ZERO)]}
 
 
 @register_op("pow", infer=same_shape_infer())
 def pow_op(ctx, ins, attrs):
     return {"Out": [x(ins) ** attrs.get("factor", 1.0)]}
+
+
+def _mean_infer(op: OpDesc, block):
+    for n in op.output("Out"):
+        set_out_var(block, n, [1], in_dtype(block, op, "X"))
+
+
+@register_op("mean", infer=_mean_infer)
+def mean(ctx, ins, attrs):
+    return {"Out": [x(ins).mean().reshape(1)]}

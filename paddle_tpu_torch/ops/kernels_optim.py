@@ -1,8 +1,8 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/kernels_optim.py``):
-``adam`` and its multi-tensor form ``fused_adam``, in plain torch ops (the
-JAX package has no hand kernel for either). ParamOut rebinds the
-parameter's name, so the executor writes the updated tensor back into the
-scope; the update is not in place."""
+``momentum`` and ``adam`` and their multi-tensor forms ``fused_momentum``
+and ``fused_adam``, in plain torch ops (the JAX package has no hand kernel
+for any). ParamOut rebinds the parameter's name, so the executor writes
+the updated tensor back into the scope; the update is not in place."""
 
 from __future__ import annotations
 
@@ -10,6 +10,22 @@ import torch
 
 from ..registry import register_op
 from .common import same_shape_infer
+
+
+@register_op("momentum", no_grad=True,
+             infer=same_shape_infer("ParamOut", "Param"))
+def momentum(ctx, ins, attrs):
+    """v' = mu v + g; p' = p - lr v', or with use_nesterov
+    p' = p - (g + mu v') lr, in the JAX package's order of operations."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    mu = attrs.get("mu", 0.9)
+    lr = ins["LearningRate"][0].reshape(())
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
 
 
 @register_op("adam", no_grad=True,
@@ -54,6 +70,36 @@ def _scalar_list(vals):
     return torch.cat([v.reshape(1) for v in vals])
 
 
+def _stretch(vals, sizes):
+    """Per-parameter [1]-shaped tensors -> one value per element of each
+    parameter's segment (a copy of expanded views; repeat_interleave
+    would first build an int64 index of every element)."""
+    return torch.cat([v.reshape(1).expand(n) for v, n in zip(vals, sizes)])
+
+
+@register_op("fused_momentum", no_grad=True)
+def fused_momentum(ctx, ins, attrs):
+    """The multi-tensor momentum update ``fuse_optimizer_update_ops``
+    writes for a group of per-parameter momentum ops: parameters,
+    gradients and velocities flattened into one vector each and updated
+    in one pass, the learning rate stretched over each parameter's
+    segment. Each element goes through ``momentum``'s float32 operations
+    in the same order, so the results are bitwise equal to the
+    per-parameter ops'."""
+    p, sizes, shapes = _flat_group(ins["Param"])
+    g, _, _ = _flat_group(ins["Grad"])
+    v, _, _ = _flat_group(ins["Velocity"])
+    mu = attrs.get("mu", 0.9)
+    lr_seg = _stretch(ins["LearningRate"], sizes).to(p.dtype)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr_seg
+    else:
+        p_out = p - lr_seg * v_out
+    return {"ParamOut": _split_group(p_out, sizes, shapes),
+            "VelocityOut": _split_group(v_out, sizes, shapes)}
+
+
 @register_op("fused_adam", no_grad=True)
 def fused_adam(ctx, ins, attrs):
     """The multi-tensor Adam update ``fuse_optimizer_update_ops`` writes
@@ -74,12 +120,9 @@ def fused_adam(ctx, ins, attrs):
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     # adam's scalar step size per parameter, vectorized over [N], then
-    # one value per element of the parameter's segment (a copy of
-    # expanded views; repeat_interleave would first build an int64 index
-    # of every element)
+    # one value per element of the parameter's segment
     lr_eff = lr * torch.sqrt(1 - b2p) / (1 - b1p)
-    lr_seg = torch.cat([lr_eff[i:i + 1].expand(n)
-                        for i, n in enumerate(sizes)])
+    lr_seg = _stretch(lr_eff, sizes)
     m1_out = b1 * m1 + (1 - b1) * g
     m2_out = b2 * m2 + (1 - b2) * g * g
     p_out = p - lr_seg * m1_out / (torch.sqrt(m2_out) + eps)

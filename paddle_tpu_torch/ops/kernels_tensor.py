@@ -181,6 +181,14 @@ def _transpose_infer(op: OpDesc, block):
             set_out_var(block, n, [0] + in_shp, dt)
 
 
+@register_op("transpose", infer=_transpose_infer)
+def transpose(ctx, ins, attrs):
+    """The v1 transpose the layout pass writes at an NHWC spine's ends:
+    a dense copy, so the spine's tensors lie channels-last in memory
+    (a view would hand the next conv its NCHW storage back)."""
+    return {"Out": [x(ins).permute(*attrs["axis"]).contiguous()]}
+
+
 @register_op("transpose2", intermediate_outputs=("XShape",),
              infer=_transpose_infer)
 def transpose2(ctx, ins, attrs):
@@ -323,3 +331,23 @@ def lookup_table_grad(ctx, ins, attrs):
     if pad is not None and pad >= 0:
         flat_g = flat_g.masked_fill((flat_ids == pad).unsqueeze(-1), 0.0)
     return {"W@GRAD": [torch.zeros_like(w).index_add_(0, flat_ids, flat_g)]}
+
+
+def _topk_infer(op: OpDesc, block):
+    shp = in_shape(block, op, "X")
+    if shp is not None:
+        out = shp[:-1] + [op.attrs.get("k", 1)]
+        for n in op.output("Out"):
+            set_out_var(block, n, out, in_dtype(block, op, "X"))
+        for n in op.output("Indices"):
+            set_out_var(block, n, out, DataType.INT64)
+
+
+@register_op("top_k", no_grad=True, infer=_topk_infer)
+def top_k(ctx, ins, attrs):
+    """The k largest along the last dim, equal values in index order
+    (``lax.top_k``'s order; a stable descending sort gives it, where
+    ``torch.topk`` does not promise one)."""
+    k = attrs.get("k", 1)
+    vals, idx = torch.sort(x(ins), dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}

@@ -1,10 +1,10 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer.py``; reference
 python/paddle/fluid/optimizer.py). ``minimize`` = ``append_backward`` +
 one update op per parameter, appended under
-``program._optimized_guard`` so the ops carry the OPTIMIZE role. Only
-``Optimizer`` and ``AdamOptimizer`` are ported; the others are ROADMAP
-A9. ``fuse_optimizer_update_ops`` is the multi-tensor rewrite behind
-``BuildStrategy.fuse_all_optimizer_ops``."""
+``program._optimized_guard`` so the ops carry the OPTIMIZE role.
+``Optimizer``, ``MomentumOptimizer`` and ``AdamOptimizer`` are ported;
+the others are ROADMAP A9. ``fuse_optimizer_update_ops`` is the
+multi-tensor rewrite behind ``BuildStrategy.fuse_all_optimizer_ops``."""
 
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 from .utils import unique_name
 
-__all__ = ["Optimizer", "AdamOptimizer", "fuse_optimizer_update_ops"]
+__all__ = ["Optimizer", "MomentumOptimizer", "AdamOptimizer",
+           "fuse_optimizer_update_ops"]
 
 
 class Optimizer:
@@ -124,6 +125,29 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        velocity = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": velocity,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "VelocityOut": velocity},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kwargs):
@@ -156,10 +180,14 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
-# the update ops fuse_optimizer_update_ops groups, with their slots: adam
-# only (the JAX package also fuses sgd and momentum, which wait for their
-# optimizers, ROADMAP A9)
+# the update ops fuse_optimizer_update_ops groups, with their slots
+# (the JAX package also fuses sgd, which waits for its optimizer, ROADMAP
+# A9)
 _FUSABLE_UPDATE_OPS = {
+    "momentum": {"fused_type": "fused_momentum",
+                 "in_slots": ("Param", "Grad", "Velocity",
+                              "LearningRate"),
+                 "out_slots": ("ParamOut", "VelocityOut")},
     "adam": {"fused_type": "fused_adam",
              "in_slots": ("Param", "Grad", "Moment1", "Moment2",
                           "Beta1Pow", "Beta2Pow", "LearningRate"),
@@ -169,10 +197,10 @@ _FUSABLE_UPDATE_OPS = {
 
 
 def fuse_optimizer_update_ops(ops, var_dtype=None):
-    """Group per-parameter update ops by (op type, hyperparameter attrs,
-    param dtype, grad dtype) and rewrite each group of >= 2 into ONE
-    multi-tensor fused op (ir/pipeline.py calls this under
-    BuildStrategy.fuse_all_optimizer_ops).
+    """Group per-parameter momentum and adam update ops by (op type,
+    hyperparameter attrs, param dtype, grad dtype) and rewrite each group
+    of >= 2 into ONE multi-tensor fused op (ir/pipeline.py calls this
+    under BuildStrategy.fuse_all_optimizer_ops).
 
     Safety: a group only fuses when no non-member op between its first
     and last member reads or writes anything a member writes: the fused

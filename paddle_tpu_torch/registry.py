@@ -11,7 +11,8 @@ Counterpart of ``paddle_tpu/registry.py``. An OpInfo bundles:
   ``<type>_grad`` re-runs the forward emitter under ``torch.func.vjp``
   (``generic_vjp_grad_emitter``). Ops with a cheaper backward register a
   custom maker and grad emitter (lookup_table, softmax_with_cross_entropy)
-  or a custom emitter under the generic op type (flash_attention_grad).
+  or a custom emitter under the generic op type (flash_attention_grad,
+  conv2d_grad, depthwise_conv2d_grad).
 - ``infer_shape(op_desc, block)``: compile-time shape/dtype propagation,
   run by ``Block.append_op`` so a built Program is fully typed.
 

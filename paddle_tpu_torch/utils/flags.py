@@ -18,6 +18,12 @@ _DEFAULTS: Dict[str, Any] = {
     # default, as in the JAX package, so CPU runs compare per-parameter
     # updates with per-parameter updates)
     "fuse_optimizer_ops_on_cpu": False,
+    # run the executor pipeline's NHWC layout stage (ir/pipeline.py
+    # conv_layout_nhwc_ops) on every run. The JAX package defaults it on,
+    # from a TPU measurement (its conv tilings prefer channels last,
+    # paddle_tpu/ir/pipeline.py effective_flags); the port keeps NCHW
+    # until the card's numbers (chip_smoke.py phase 9) decide
+    "conv_layout_nhwc": False,
     # check the pipeline's invariants after every stage (ir/verify.py in
     # the JAX package); not ported, so a run that asks for it raises
     "verify_passes": False,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-8) on the CPU at a tiny
-Transformer, to find faults in the script's Python before a run on the
-card.
+"""Rehearse chip_smoke.py's end-to-end phases (5-10) on the CPU at a tiny
+Transformer and a small ResNet-50 (64x64 images, batch 4), to find faults
+in the script's Python before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
 
@@ -67,9 +67,14 @@ def main():
         trained = cs.training_path(False)
         compiled = cs.compiled_training_path(trained, False)
         analysis = cs.analysis_serving_path(d, served, False)
+    cs.RESNET_IMAGE, cs.RESNET_BATCH = (3, 64, 64), 4
+    resnet_train = cs.resnet_training_path("CPU rehearsal", False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d:
+        resnet_serve = cs.resnet_serving_path(d, "CPU rehearsal", False)
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
-          f"compiled training {compiled}, analysis serving {analysis}")
+          f"compiled training {compiled}, analysis serving {analysis}, "
+          f"ResNet-50 training {resnet_train}, serving {resnet_serve}")
 
 
 if __name__ == "__main__":

@@ -186,3 +186,96 @@ def test_analysis_predictor_runs_on_the_card_by_default(model, monkeypatch):
     with pytest.raises(RuntimeError, match="CPUPlace"):
         pinference.create_paddle_predictor(
             pinference.AnalysisConfig(model["dir"]))
+
+
+# ---------------------------------------------------------------------------
+# ResNet (resnet_cifar10): the conv passes on a JAX-written model directory
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def resnet_model(tmp_path_factory):
+    """A JAX-written resnet_cifar10 inference directory (random running
+    statistics, so the batch_norm fold bites), a batch of 3 images, and
+    the JAX package's AnalysisPredictor: logits fp32 and bf16, its op
+    list and its scope after the passes."""
+    from paddle_tpu.models import resnet as jresnet
+    old = JFLAGS.op_callstack, JFLAGS.conv_layout_nhwc
+    JFLAGS.op_callstack, JFLAGS.conv_layout_nhwc = False, False
+    try:
+        with junique.guard():
+            m = jresnet.build(dataset="cifar10")
+        d = str(tmp_path_factory.mktemp("jax_resnet"))
+        exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+        rng = np.random.RandomState(4)
+        with fluid.scope_guard(scope):
+            exe.run(m["startup"])
+            for op in m["test"].global_block().desc.ops:
+                if op.type == "batch_norm":
+                    for slot, shift in (("Mean", 0.0), ("Variance", 0.5)):
+                        n = op.input(slot)[0]
+                        scope.set_var(n, (rng.rand(*np.shape(
+                            scope.find_var(n))) + shift).astype("float32"))
+            fluid.io.save_inference_model(d, ["data"], [m["predict"]], exe,
+                                          main_program=m["test"])
+        feed = {"data": rng.rand(3, 3, 32, 32).astype(np.float32)}
+        out = {"dir": d, "feed": feed}
+        for bf16 in (False, True):
+            cfg = jinference.AnalysisConfig(d)
+            cfg.enable_bf16(bf16)
+            pred = jinference.create_paddle_predictor(cfg)
+            logits = np.asarray(pred.run(feed)[0].data)
+            out[bf16] = (logits.astype(np.float32),
+                         list(pred._program.global_block().desc.ops),
+                         pred._scope)
+        return out
+    finally:
+        JFLAGS.op_callstack, JFLAGS.conv_layout_nhwc = old
+
+
+def test_resnet_passes_fold_as_the_jax_package(resnet_model):
+    """conv_bn_fuse_pass folds every batch_norm into its conv from the
+    loaded values, and the conv_elementwise_add passes fuse what
+    follows: the op list and every folded tensor are the JAX package's,
+    bit for bit."""
+    pred = _port(resnet_model)
+    ops = list(pred._program.global_block().desc.ops)
+    assert_same_ops(resnet_model[False][1], ops)
+    types = [o.type for o in ops]
+    native = pinference.create_paddle_predictor(
+        pinference.NativeConfig(resnet_model["dir"], use_gpu=False))
+    raw = [o.type for o in native._program.global_block().desc.ops]
+    # every conv folds its batch_norm, then takes its bias add (and
+    # relu, or residual add and relu) into a conv2d_fusion
+    assert "batch_norm" not in types and "conv2d" not in types
+    assert types.count("conv2d_fusion") == raw.count("conv2d") == 33
+    jscope = resnet_model[False][2]
+    folded = [n for n in jscope.var_names() if "@bn_fused_bias" in n
+              or n.startswith("conv2d_") and n.endswith(".w_0")]
+    assert len(folded) == 66
+    for n in folded:
+        assert np.array_equal(pred._scope.find_var(n).numpy(),
+                              np.asarray(jscope.find_var(n))), n
+
+
+def test_resnet_fp32_logits_match_jax_and_native(resnet_model):
+    got = _port(resnet_model).run(resnet_model["feed"])[0].as_ndarray()
+    np.testing.assert_allclose(got, resnet_model[False][0], rtol=0,
+                               atol=FP32_ATOL)
+    native = pinference.create_paddle_predictor(
+        pinference.NativeConfig(resnet_model["dir"], use_gpu=False))
+    np.testing.assert_allclose(
+        got, native.run(resnet_model["feed"])[0].as_ndarray(), rtol=0,
+        atol=FP32_ATOL)
+
+
+def test_resnet_bf16_logits_match_jax_and_fp32(resnet_model):
+    """bf16 serving of the folded ResNet: the softmax output in fp32
+    (the fc's bias add promotes it, as in the JAX package), within 2^-6
+    of the largest probability of the JAX package's bf16 output and of
+    the port's own fp32 output (the Transformer's bound above)."""
+    out = _port(resnet_model, bf16=True).run(resnet_model["feed"])[0]
+    got = out.as_ndarray().astype(np.float32)
+    fp32 = _port(resnet_model).run(resnet_model["feed"])[0].as_ndarray()
+    for want in (resnet_model[True][0], fp32):
+        err = np.abs(got - want).max()
+        assert err <= BF16_REL * np.abs(want).max(), err

@@ -26,7 +26,6 @@ from paddle_tpu.utils.flags import FLAGS as JFLAGS
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.contrib import mixed_precision as pmp
-from paddle_tpu_torch.core.desc import OpDesc
 from paddle_tpu_torch.models import transformer as ptransformer
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.utils import unique_name as punique
@@ -346,16 +345,6 @@ def test_data_parallel_entry_points_raise(method):
         getattr(target, method)(*args)
     assert target.with_inference_optimize() is target
     assert target.program is p["main"]
-
-
-def test_conv_fusion_on_a_conv_program_raises():
-    prog = pt.Program()
-    prog.global_block().desc.ops.append(
-        OpDesc("conv2d", {"Input": ["x"], "Filter": ["w"]},
-               {"Output": ["y"]}, {}))
-    target = pt.CompiledProgram(prog, build_strategy=bench_strategy(pt))
-    with pytest.raises(NotImplementedError, match="A5"):
-        pt.Executor(pt.CPUPlace()).lowered_ops(target, ["y"])
 
 
 def test_other_attention_impls_raise():

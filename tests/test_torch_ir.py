@@ -9,10 +9,16 @@ packages build byte-identically. Op lists are compared op by op: type,
 slot names, variable names and attrs (``pt_const`` values, which are
 never serialized, with ``np.array_equal``).
 
-The guarded passes (conv, RNN, sequence fusions, graph_viz) are checked
-for their claim: the JAX package's own pass leaves the Transformer
-inference program unchanged, the port's does too, and the port's raises
-on a graph that holds the pass's anchor ops.
+The conv stages and passes run on the programs of tests/test_conv_fusion.py,
+tests/test_ir_passes.py and tests/test_layout_pass.py and on resnet_cifar10;
+the passes that fold values from the Scope (conv_bn_fuse,
+conv_affine_channel_fuse) also leave the JAX package's folded tensors,
+bit for bit.
+
+The guarded passes (RNN, sequence fusions, graph_viz) are checked for
+their claim: the JAX package's own pass leaves the Transformer inference
+program unchanged, the port's does too, and the port's raises on a graph
+that holds the pass's anchor ops.
 """
 
 import enum
@@ -449,21 +455,29 @@ def test_effective_flags():
     assert ppipe.fingerprint(bs) == jpipe.fingerprint(bs) == full
 
 
-def test_conv_stage_raises_on_a_conv_program():
-    ops = [POpDesc("conv2d", {"Input": ["x"], "Filter": ["w"]},
-                   {"Output": ["y"]}, {})]
-    with pytest.raises(NotImplementedError, match="A5"):
-        ppipe.run_pipeline(ops, pt.Program().global_block(), {"y"},
-                           ("convfuse",))
-    with pytest.raises(NotImplementedError, match="A5"):
-        ppipe.run_pipeline([], pt.Program().global_block(), set(), ("nhwc",))
+def test_effective_flags_nhwc_only_when_set():
+    """The port leaves NCHW by default (the JAX package's default of
+    NHWC rests on a TPU measurement); the flag appends the stage."""
+    assert "nhwc" not in ppipe.effective_flags(("slim",), "cuda")
+    old = PFLAGS.conv_layout_nhwc
+    PFLAGS.conv_layout_nhwc = True
+    try:
+        assert ppipe.effective_flags(("slim",), "cuda") == ("slim", "nhwc")
+        assert ppipe.effective_flags((), "cpu") == ("nhwc",)
+    finally:
+        PFLAGS.conv_layout_nhwc = old
 
 
 def test_registry_flags_the_passes_read_match_jax():
     """needs_rng, is_host and no_grad decide what CSE and DCE may merge
     or drop: every op the port registers carries the JAX package's
-    values (flash_attention_grad, registered in the port for its custom
-    emitter only, is opaque to the passes as in the JAX package)."""
+    values. Exempt: flash_attention_grad, conv2d_grad and
+    depthwise_conv2d_grad, which the port registers only for their
+    custom emitters (the grad ops' descs are the JAX grad makers'); the
+    JAX package does not register them, so its passes treat them as
+    opaque, and the port's do too (``_OPAQUE_GRAD_TYPES``)."""
+    assert set(ppipe._OPAQUE_GRAD_TYPES) == {
+        "flash_attention_grad", "conv2d_grad", "depthwise_conv2d_grad"}
     from paddle_tpu import registry as jreg
     for op_type in sorted(pt.registry._REGISTRY):
         p = pt.registry.lookup(op_type)
@@ -629,7 +643,7 @@ GUARDED = sorted(n for n, cls in pir.PASS_REGISTRY.items()
 def test_every_jax_pass_is_registered_in_the_port():
     assert sorted(pir.PASS_REGISTRY) == sorted(jir.PASS_REGISTRY)
     assert set(AnalysisConfig.DEFAULT_PASSES) <= set(pir.PASS_REGISTRY)
-    assert len(GUARDED) == 16
+    assert len(GUARDED) == 8
 
 
 @pytest.fixture(scope="module")
@@ -675,10 +689,311 @@ def test_guarded_pass_raises_on_its_anchor_ops(name):
     prog = pt.Program()
     blk = prog.global_block().desc
     blk.ops = [POpDesc(alts[0]) for alts in cls.needs]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A(5|10|11)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A(10|11)"):
         pir.apply_passes(prog, [name])
     if cls.needs:
         blk.ops = [POpDesc(alts[0]) for alts in cls.needs[1:]]
         pir.apply_passes(prog, [name])
         assert [o.type for o in prog.global_block().desc.ops] == [
             alts[0] for alts in cls.needs[1:]]
+
+
+# ---------------------------------------------------------------------------
+# the conv stages and passes (programs of tests/test_conv_fusion.py,
+# tests/test_ir_passes.py and tests/test_layout_pass.py, and ResNet)
+# ---------------------------------------------------------------------------
+
+def _conv_train(opt="momentum", bias=True):
+    """tests/test_conv_fusion.py's conv net: conv + bias + relu twice,
+    global pooling, fc, square error, with its backward."""
+    def build():
+        x = fluid.layers.data(name="x", shape=[3, 8, 8], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        h = x
+        for _ in range(2):
+            h = fluid.layers.conv2d(h, num_filters=8, filter_size=3,
+                                    padding=1, act="relu",
+                                    bias_attr=None if bias else False)
+        p = fluid.layers.pool2d(h, pool_size=8, pool_type="avg",
+                                global_pooling=True)
+        loss = fluid.layers.reduce_mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(p, size=1), y))
+        if opt == "adam":
+            fluid.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+        else:
+            fluid.optimizer.Momentum(learning_rate=1e-2,
+                                     momentum=0.9).minimize(loss)
+        return [loss.name]
+    return build
+
+
+def _infer_conv_bn(with_bias, act):
+    """tests/test_conv_fusion.py's inference conv [+ bias] + bn [+ relu]
+    (and tests/test_ir_passes.py's conv_bn_fuse program)."""
+    def build():
+        x = fluid.layers.data(name="x", shape=[3, 8, 8], dtype="float32")
+        c = fluid.layers.conv2d(x, num_filters=4, filter_size=3, padding=1,
+                                bias_attr=None if with_bias else False)
+        b = fluid.layers.batch_norm(c, act=act, is_test=True)
+        return [fluid.layers.reduce_mean(b).name]
+    return build
+
+
+def _small_conv_net(train=True):
+    """tests/test_layout_pass.py's conv/bn/residual/pool net (its SGD
+    replaced by momentum, which the port has)."""
+    def build():
+        from paddle_tpu import layers
+        x = layers.data("img", shape=[8, 16, 16], dtype="float32")
+        y = layers.data("y", shape=[1], dtype="float32")
+        b1 = layers.batch_norm(layers.conv2d(x, num_filters=12, filter_size=3,
+                                             padding=1), act="relu")
+        b2 = layers.batch_norm(layers.conv2d(b1, num_filters=12,
+                                             filter_size=3, padding=1))
+        res = layers.elementwise_add(b1, b2, act="relu")
+        p = layers.pool2d(res, pool_size=2, pool_type="avg", pool_stride=2)
+        loss = layers.reduce_mean(layers.square_error_cost(
+            layers.fc(p, size=1), y))
+        if train:
+            fluid.optimizer.Momentum(learning_rate=0.005,
+                                     momentum=0.9).minimize(loss)
+        return [loss.name]
+    return build
+
+
+def _resnet_cifar(train=True):
+    """resnet_cifar10's train or test program: (main, startup, fetch)."""
+    def build():
+        from paddle_tpu.models import resnet
+        with junique.guard():
+            m = resnet.build(dataset="cifar10")
+        return (m["main"] if train else m["test"]), m["startup"], [
+            m["loss"].name]
+    build.whole_program = True
+    return build
+
+
+def _conv_prog(build):
+    """(main, startup, fetch) of a program builder."""
+    if getattr(build, "whole_program", False):
+        return build()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with junique.guard(), fluid.program_guard(main, startup):
+        fetch = build()
+    return main, startup, fetch
+
+
+def _conv_depthwise_relu():
+    """tests/test_ir_passes.py's relu -> depthwise conv."""
+    x = fluid.layers.data(name="img", shape=[4, 8, 8], dtype="float32")
+    out = fluid.layers.conv2d(fluid.layers.relu(x), num_filters=4,
+                              filter_size=3, padding=1, groups=4,
+                              bias_attr=False)
+    return [out.name]
+
+
+def _conv_bias_act():
+    x = fluid.layers.data(name="img", shape=[3, 8, 8], dtype="float32")
+    c = fluid.layers.conv2d(x, num_filters=4, filter_size=3, padding=1)
+    return [fluid.layers.relu(c).name]
+
+
+def _conv_bias():
+    x = fluid.layers.data(name="img", shape=[3, 8, 8], dtype="float32")
+    return [fluid.layers.conv2d(x, num_filters=4, filter_size=3,
+                                padding=1).name]
+
+
+def _conv_bias_residual_act():
+    x = fluid.layers.data(name="img", shape=[3, 8, 8], dtype="float32")
+    res = fluid.layers.data(name="res", shape=[4, 8, 8], dtype="float32")
+    c = fluid.layers.conv2d(x, num_filters=4, filter_size=3, padding=1)
+    return [fluid.layers.relu(fluid.layers.elementwise_add(c, res)).name]
+
+
+def _conv_affine_channel():
+    x = fluid.layers.data(name="img", shape=[3, 8, 8], dtype="float32")
+    c = fluid.layers.conv2d(x, num_filters=4, filter_size=3, padding=1,
+                            bias_attr=False)
+    scale = fluid.layers.create_parameter([4], "float32", name="ac_scale")
+    bias = fluid.layers.create_parameter([4], "float32", name="ac_bias",
+                                         is_bias=True)
+    return [fluid.layers.affine_channel(c, scale=scale, bias=bias).name]
+
+
+CONV_PROGRAMS = {
+    "train_momentum": _conv_train(),
+    "train_adam": _conv_train("adam"),
+    "train_no_bias": _conv_train(bias=False),
+    "infer_bn_bias_relu": _infer_conv_bn(True, "relu"),
+    "infer_bn_relu": _infer_conv_bn(False, "relu"),
+    "infer_bn_bias": _infer_conv_bn(True, None),
+    "layout_net_train": _small_conv_net(),
+    "layout_net_infer": _small_conv_net(train=False),
+    "resnet_cifar10_train": _resnet_cifar(),
+    "resnet_cifar10_test": _resnet_cifar(train=False),
+}
+
+
+@pytest.fixture(scope="module")
+def conv_programs():
+    old = JFLAGS.op_callstack
+    JFLAGS.op_callstack = False
+    try:
+        return {name: _conv_prog(build)[::2]
+                for name, build in CONV_PROGRAMS.items()}
+    finally:
+        JFLAGS.op_callstack = old
+
+
+def _conv_stage(name):
+    return {
+        "fuse_conv_bn": lambda mod, o, n, b: mod.fuse_conv_bn_ops(o, n, b),
+        "fuse_conv_epilogue": lambda mod, o, n, b:
+            mod.fuse_conv_epilogue_ops(o, n, b),
+        "conv_layout_nhwc": lambda mod, o, n, b:
+            mod.conv_layout_nhwc_ops(o, n, b),
+    }[name]
+
+
+def _both_live(jmain, fetch):
+    pmain = to_port(jmain)
+    pops, needed = _live(pmain, fetch)
+    jops = [jmain.global_block().desc.ops[i]
+            for i, o in enumerate(pmain.global_block().desc.ops)
+            if o in pops]
+    return jops, pops, needed, pmain
+
+
+@pytest.mark.parametrize("stage", ["fuse_conv_bn", "fuse_conv_epilogue",
+                                   "conv_layout_nhwc"])
+@pytest.mark.parametrize("name", sorted(CONV_PROGRAMS))
+def test_conv_stage_matches_jax(conv_programs, name, stage):
+    jmain, fetch = conv_programs[name]
+    jops, pops, needed, pmain = _both_live(jmain, fetch)
+    fn = _conv_stage(stage)
+    jout, jn = fn(jpipe, list(jops), set(needed), jmain.global_block())
+    pout, pn = fn(ppipe, list(pops), set(needed), pmain.global_block())
+    assert pn == jn
+    assert_same_ops(jout, pout)
+    types = [o.type for o in pout]
+    if stage == "fuse_conv_epilogue" and name in ("train_momentum",
+                                                  "train_adam"):
+        assert types.count("fused_conv2d") == 2
+        assert types.count("fused_conv2d_grad") == 2
+    if stage == "fuse_conv_bn" and name.startswith("infer_bn"):
+        assert "batch_norm" not in types
+    if stage == "conv_layout_nhwc" and name == "resnet_cifar10_train":
+        assert pn > 0 and "conv2d_grad" in types
+
+
+@pytest.mark.parametrize("flags", [("convfuse",), ("nhwc",),
+                                   ("convfuse", "slim", "elewise",
+                                    "optfuse"),
+                                   ("convfuse", "slim", "nhwc", "elewise",
+                                    "optfuse")], ids="+".join)
+@pytest.mark.parametrize("name", sorted(CONV_PROGRAMS))
+def test_run_pipeline_on_conv_programs_matches_jax(conv_programs, name,
+                                                   flags):
+    jmain, fetch = conv_programs[name]
+    jops, pops, needed, pmain = _both_live(jmain, fetch)
+    stats = {}
+    pout = ppipe.run_pipeline(pops, pmain.global_block(), set(needed), flags,
+                              stats)
+    jout = jpipe.run_pipeline(jops, jmain.global_block(), set(needed), flags)
+    assert_same_ops(jout, pout)
+    if "convfuse" in flags:
+        assert {"fuse_conv_bn", "fuse_conv_epilogue"} <= set(stats)
+
+
+def _scope_pair(jmain, startup_of):
+    """The JAX startup run into a scope, and a port scope with the same
+    values (random BN statistics so the fold bites)."""
+    jscope = fluid.Scope()
+    with fluid.scope_guard(jscope):
+        fluid.Executor(fluid.CPUPlace()).run(startup_of)
+    rng = np.random.RandomState(3)
+    for op in jmain.global_block().desc.ops:
+        if op.type == "batch_norm":
+            for slot, shift in (("Mean", 0.0), ("Variance", 0.5)):
+                n = op.input(slot)[0]
+                jscope.set_var(n, (rng.rand(*np.shape(jscope.find_var(n)))
+                                   + shift).astype("float32"))
+    for n in ("ac_scale", "ac_bias"):
+        if jscope.find_var(n) is not None:
+            jscope.set_var(n, (rng.rand(4) + 0.5).astype("float32"))
+    pscope = pt.Scope()
+    for n in jscope.var_names():
+        v = jscope.find_var(n)
+        if v is not None:
+            pscope.set_var(n, __import__("torch").from_numpy(
+                np.array(v)))
+    return jscope, pscope
+
+
+CONV_PASS_CASES = {
+    "conv_bn_fuse_bias": (_infer_conv_bn(True, "relu"),
+                          ["conv_bn_fuse_pass"]),
+    "conv_bn_fuse_no_bias": (_infer_conv_bn(False, None),
+                             ["conv_bn_fuse_pass"]),
+    "conv_bn_fuse_train_mode_stays": (_small_conv_net(train=False),
+                                      ["conv_bn_fuse_pass"]),
+    "conv_elementwise_add_act": (_conv_bias_act,
+                                 ["conv_elementwise_add_act_fuse_pass"]),
+    "conv_elementwise_add": (_conv_bias, ["conv_elementwise_add_fuse_pass"]),
+    "conv_elementwise_add2_act": (_conv_bias_residual_act,
+                                  ["conv_elementwise_add2_act_fuse_pass"]),
+    "conv_affine_channel": (_conv_affine_channel,
+                            ["conv_affine_channel_fuse_pass"]),
+    "fuse_relu_depthwise_conv": (_conv_depthwise_relu,
+                                 ["fuse_relu_depthwise_conv_pass"]),
+    "fuse_conv_epilogue_train": (_conv_train(),
+                                 ["fuse_conv_epilogue_pass"]),
+    "fuse_conv_epilogue_infer": (_infer_conv_bn(True, "relu"),
+                                 ["fuse_conv_epilogue_pass"]),
+    "conv_layout_nhwc": (_small_conv_net(train=False),
+                         ["conv_layout_nhwc_pass"]),
+    "analysis_default_on_resnet": (
+        _resnet_cifar(train=False), list(AnalysisConfig.DEFAULT_PASSES)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONV_PASS_CASES))
+def test_conv_registry_pass_matches_jax(name):
+    """The op list, the var descs and, for the passes that fold values
+    (conv_bn_fuse, conv_affine_channel_fuse), every scope tensor: the
+    JAX package's, bit for bit (both fold in numpy from the same
+    float32 values)."""
+    build, passes = CONV_PASS_CASES[name]
+    jmain, jstartup, protected = _conv_prog(build)
+    pmain = to_port(jmain)
+    jscope, pscope = _scope_pair(jmain, jstartup)
+    jir.apply_passes(jmain, passes, scope=jscope, protected=protected)
+    pir.apply_passes(pmain, passes, scope=pscope, protected=protected)
+    assert_same_ops(_ops(jmain), _ops(pmain))
+    assert sorted(pmain.global_block().desc.vars) == \
+        sorted(jmain.global_block().desc.vars)
+    assert sorted(pscope.var_names()) == sorted(jscope.var_names())
+    for n in jscope.var_names():
+        assert np.array_equal(pscope.find_var(n).numpy(),
+                              np.asarray(jscope.find_var(n))), n
+    types = [o.type for o in _ops(pmain)]
+    if name.startswith(("conv_bn_fuse_bias", "conv_bn_fuse_no")):
+        assert "batch_norm" not in types
+    if name == "analysis_default_on_resnet":
+        assert "batch_norm" not in types
+
+
+CONV_PASSES = sorted(set(CONV_PASS_CASES[k][1][0] for k in CONV_PASS_CASES
+                         if not k.startswith("analysis")))
+
+
+@pytest.mark.parametrize("name", CONV_PASSES)
+def test_conv_pass_leaves_the_transformer_unchanged(inference_program, name):
+    jprog, fetch, scope = inference_program
+    jmain, pmain = jprog.clone(), to_port(jprog)
+    jir.apply_passes(jmain, [name], scope=scope, protected=[fetch])
+    pir.apply_passes(pmain, [name], scope=pt.Scope(), protected=[fetch])
+    assert_same_ops(_ops(jmain), _ops(pmain))
+    assert [o.type for o in _ops(pmain)] == [o.type for o in _ops(jprog)]

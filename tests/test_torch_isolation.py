@@ -39,6 +39,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.ir.pipeline, paddle_tpu_torch.ir.passes\n"
         "import paddle_tpu_torch.ir.pattern, paddle_tpu_torch.ir.analyze\n"
         "import paddle_tpu_torch.ops.kernels_fused\n"
+        "import paddle_tpu_torch.ops.kernels_image\n"
+        "import paddle_tpu_torch.models.resnet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
