@@ -6,8 +6,10 @@
                                      # backward call, one request and one
                                      # fp32 and one AMP train step by
                                      # device kernel
-    python3 chip_smoke.py --kernels  # phases 1-4 only: the short loop for
-                                     # work on a kernel
+    python3 chip_smoke.py --kernels  # phases 1-4 only, the short loop for
+                                     # work on a kernel: prints the kernels
+                                     # line (launches null) and no contract
+                                     # line
 
 Phases, in order; any failure exits non-zero and no phase is skipped:
 
@@ -69,7 +71,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ``flash_attention``, 18 ``flash_attention_grad``, no ``softmax`` and
    a ``fused_adam`` before any step runs (the dense chain never runs);
    the pipeline's time, its ops removed per stage and the memo hits are
-   printed. 3 fp32 and 3 AMP steps from phase 6's weights, 36 forward
+   printed. 4 fp32 and 4 AMP steps from phase 6's weights, 36 forward
    and 54 backward launches each; the fp32 steps against phase 6's fused
    build on a plain ``Executor()`` at the JAX package's fused-vs-unfused
    tolerances; a batch-2 AMP step replayed on the CPU; and one step of
@@ -92,7 +94,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    bench.py's BuildStrategy. The rewritten op list must hold no
    ``momentum`` and a ``fused_momentum``, and the conv stages find
    nothing (training batch norms, convs without bias); their counts are
-   printed. 3 fp32 and 5 AMP steps from the same weights, losses finite,
+   printed. 4 fp32 and 5 AMP steps from the same weights, losses finite,
    step medians, images per second, peak memory and the step's 3 x 7.767
    GFLOP per image against 989 TFLOP/s; ``fused_momentum`` bitwise
    against one ``momentum`` per parameter on one backward's gradients;
@@ -117,16 +119,57 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    distance from fp32 over the 4 requests and their arg-max agreement
    printed). No flash kernel launches.
 
+11. whole-step capture. Phases 5-10 run through the executor's plans, so
+   on the card each path's second run captures a CUDA graph and later
+   runs replay it; this phase holds the capture against the eager oracle
+   (``FLAGS.jit_cache = False``) on Transformer-base through
+   ``CompiledProgram`` (bench BuildStrategy, batch 16, T 256, fp32 and
+   AMP), ResNet-50 AMP through ``CompiledProgram`` (batch 128), and
+   ``AnalysisPredictor`` bf16 serving of Transformer-base (batch 8) and
+   ResNet-50 (batch 128), under ``torch.use_deterministic_algorithms``
+   (warnings name any op without a deterministic implementation) with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``. On each path: 5 captured runs
+   against 5 eager runs from the same state, losses or outputs and every
+   persistable, bitwise wherever two eager arms agree bitwise (the two
+   distances printed); step 1's ``FetchHandle`` read after the last step;
+   a ``load_persistables`` (in place: the graph stays) and a ``set_var``
+   of every persistable (a rebinding: the graph is dropped and captured
+   anew) between runs, the next steps bitwise against eager ones (serving:
+   a ``set_var`` of a weight and its restore); ``run(iterations=4)``
+   (eager, then captured) against single runs, bitwise (training); one
+   replay traced by torch.profiler, its flash kernels counted by name
+   against 36 forward + 54 backward per train step and 18 per request,
+   and every flash launch of the phase's runs counted the same way; no
+   K-step run falling back to single steps. Then both arms in turns
+   (outside the deterministic mode): medians, tokens or images per
+   second, the card's idle share of a captured step (device time from
+   the trace), seconds of the warm-up and of the capture with its first
+   replay, and peak memory both ways; ``--profile`` adds an eager
+   step's idle share. A main program with a ``uniform_random`` op: 5
+   captured runs against 5 eager ones and ``run(iterations=2)`` against
+   single runs, bitwise.
+
+Flash launches (phases 5-8 and 11) are counted by kernel name in a
+torch.profiler trace of each path's runs, with the wrappers' counts zeroed
+just before: a replay of a captured graph launches the kernels without
+calling the wrappers, whose counts then cover the eager runs and the
+captures, and must not be 0 where the path runs a kernel. The step and
+request times of phases 5-8 are taken under that trace; the turns of
+phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) holds the wrappers'
+counts at 0: no call, so no flash kernel in any graph either.
+
 TF32 stays off for matrix products and convolutions throughout (both
 default settings are the caller's; cuDNN's benchmark and deterministic
 modes are left at their defaults). The line before the last lists every
 ported kernel with its launches on each path (null under ``--kernels``);
-the last line is the device record.
+the last line is the device record (not printed under ``--kernels``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import re
@@ -134,6 +177,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -147,6 +191,7 @@ from paddle_tpu_torch.models import resnet, transformer
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.utils import unique_name
+from paddle_tpu_torch.utils.flags import FLAGS
 
 SEED = 2024
 FEEDS = ["src_word", "src_pos", "trg_word", "trg_pos", "src_len", "trg_len"]
@@ -178,7 +223,11 @@ AMP_REPLAY_TOL = {"loss": 1e-2, "grads_l2": 0.1, "grad_l2": 0.5}
 # phase 7: steps per arm, and the JAX package's tolerances for its own
 # fused-vs-unfused attention parity (tests/test_attention_fusion.py:99-102;
 # the rewrite reassociates the scale), as (rtol, atol)
-COMPILED_STEPS = 3
+COMPILED_STEPS = 4
+# a path's runs from this one on are replays of its captured graph: the
+# first run of a plan is the eager warm-up and the second captures it, so
+# medians of steady steps and requests start here
+STEADY = 2
 FUSION_LOSS_TOL = (2e-4, 1e-5)
 FUSION_PARAM_TOL = (2e-3, 2e-5)
 # phase 8: bf16 logits against fp32 within this fraction of the largest
@@ -612,34 +661,77 @@ def make_request(cfg, batch, seed):
     return {k: feed[k] for k in FEEDS}
 
 
-def serve(pred, feed, cfg, dtype="float32"):
-    """One request: the logits, checked finite and of the right shape,
-    after LAUNCHES_PER_REQUEST forward launches all on ``dtype`` inputs;
-    and its milliseconds."""
-    before, before_dtype = fa.launches, fa.launch_dtypes.get(dtype, 0)
+def serve(pred, feed, cfg):
+    """One request: the logits, checked finite and of the right shape, and
+    its milliseconds."""
     t0 = time.perf_counter()
     logits = pred.run(feed)[0].as_tensor()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launched = fa.launches - before
-    if fa.launch_dtypes.get(dtype, 0) - before_dtype != launched:
-        raise AssertionError(f"forward launches of the request not all on "
-                             f"{dtype} inputs: {fa.launch_dtypes}")
     want = [len(feed["src_word"]), cfg["max_len"], cfg["tgt_vocab"]]
     if list(logits.shape) != want or not torch.isfinite(logits).all():
         raise AssertionError(f"logits {list(logits.shape)} (want {want}) "
                              "or not finite")
-    if launched != LAUNCHES_PER_REQUEST:
-        raise AssertionError(f"{launched} flash_attention_fwd launches in "
-                             f"one request, want {LAUNCHES_PER_REQUEST}")
     return logits, ms
+
+
+@contextlib.contextmanager
+def traced_launches():
+    """The flash kernels the card runs in the body, counted by kernel name
+    in a torch.profiler trace (CUDA activity), with the wrappers' counts
+    zeroed just before: a replay of a captured graph launches its kernels
+    without calling the wrappers, whose counts cover the eager runs and
+    the captures only. Yields a dict that gets, when the body ends,
+    "traced" (forward kernels, backward kernels: BWD_KERNELS per backward
+    call), "traced_bf16" (forward kernels on bf16 inputs) and the
+    wrappers' "calls" (forward, backward) and "calls_by_dtype"."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fa.launches = fa.bwd_launches = 0
+    fa.launch_dtypes.clear()
+    got = {}
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield got
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count) for e in prof.key_averages()]
+    fwd = [(k, n) for k, n in rows if "flash_fwd_kernel" in k]
+    got["traced"] = (sum(n for _, n in fwd),
+                     sum(n for k, n in rows if "flash_bwd_" in k))
+    got["traced_bf16"] = sum(n for k, n in fwd if "bfloat16" in k)
+    got["calls"] = (fa.launches, fa.bwd_launches)
+    got["calls_by_dtype"] = dict(fa.launch_dtypes)
+
+
+def check_launches(label, counted, want, dtype=None):
+    """A path's flash launches from ``traced_launches`` against ``want``
+    (forward, backward), every forward one on ``dtype`` inputs when given;
+    the wrappers must have launched (or captured) each kernel the path
+    runs at least once. Returns the traced (forward, backward)."""
+    traced, calls = counted["traced"], counted["calls"]
+    log(f"{label}: flash launches {traced[0]} forward + {traced[1]} "
+        f"backward kernels by name in a trace of the path (want {want[0]} + "
+        f"{want[1]}); wrapper calls (eager runs and captures) {calls[0]} "
+        f"forward + {calls[1]} backward, by dtype "
+        f"{counted['calls_by_dtype']}")
+    if traced != tuple(want):
+        raise AssertionError(f"{label}: flash launches {traced}, want {want}")
+    if any(bool(w) != bool(c) for w, c in zip(want, calls)):
+        raise AssertionError(f"{label}: wrapper calls {calls}: a kernel of "
+                             "the path was never launched through its "
+                             "wrapper")
+    if dtype is not None and (
+            counted["traced_bf16"] != (traced[0] if dtype == "bfloat16"
+                                       else 0)
+            or set(counted["calls_by_dtype"]) != {dtype}):
+        raise AssertionError(f"{label}: forward launches not all on {dtype} "
+                             f"inputs ({counted['traced_bf16']} traced on "
+                             f"bf16; calls {counted['calls_by_dtype']})")
+    return traced
 
 
 def main_path(model_dir, profile):
     """Phase 5. Returns the path's forward launches, its requests, their
     logits and the steady request times, for phase 8."""
-    fa.launches = fa.bwd_launches = 0
-    fa.launch_dtypes.clear()
     m = transformer.build(**MODEL)
     cfg = m["config"]
     m["startup"].random_seed = SEED
@@ -657,23 +749,23 @@ def main_path(model_dir, profile):
 
     pred = create_paddle_predictor(NativeConfig(model_dir))
     steady_ms, requests, request_logits = [], [], []
-    for i in range(4):
-        feed = make_request(cfg, 8, SEED + i)
-        logits, ms = serve(pred, feed, cfg)
-        requests.append(feed)
-        request_logits.append(logits)
-        if i:
-            steady_ms.append(ms)
-        tokens = int(feed["trg_len"].sum())
-        log(f"request {i}: batch 8, {ms:.2f} ms, {tokens} target tokens, "
-            f"{tokens / ms * 1e3:.1f} target tokens/s"
-            f"{' (first request)' if i == 0 else ''}")
     one = {k: v[:1] for k, v in make_request(cfg, 8, SEED + 10).items()}
-    gpu_logits, _ = serve(pred, one, cfg)
-    launches = fa.launches
-    if launches != 5 * LAUNCHES_PER_REQUEST or fa.bwd_launches:
-        raise AssertionError(f"{launches} forward and {fa.bwd_launches} "
-                             "backward launches on the serving path")
+    with traced_launches() as counted:
+        for i in range(4):
+            feed = make_request(cfg, 8, SEED + i)
+            logits, ms = serve(pred, feed, cfg)
+            requests.append(feed)
+            request_logits.append(logits)
+            if i >= STEADY:
+                steady_ms.append(ms)
+            tokens = int(feed["trg_len"].sum())
+            what = {0: " (warm-up)", 1: " (capture)"}.get(i, "")
+            log(f"request {i}: batch 8, {ms:.2f} ms (traced), {tokens} "
+                f"target tokens, {tokens / ms * 1e3:.1f} target tokens/s"
+                f"{what}")
+        gpu_logits, _ = serve(pred, one, cfg)
+    launches = check_launches("serving", counted,
+                              (5 * LAUNCHES_PER_REQUEST, 0), "float32")[0]
 
     t0 = time.perf_counter()
     cpu_pred = create_paddle_predictor(NativeConfig(model_dir, use_gpu=False))
@@ -754,29 +846,22 @@ def copy_state(state, device):
 
 def train_steps(exe, program, scope, loss_name, cfg, label,
                 steps=TRAIN_STEPS):
-    """``steps`` steps at TRAIN_BATCH; checks each step's launches and
-    loss. Returns (losses, step ms)."""
+    """``steps`` steps at TRAIN_BATCH; checks each step's loss. Returns
+    (losses, step ms)."""
     losses, step_ms = [], []
     for i in range(steps):
         feed = train_batch(cfg, TRAIN_BATCH, SEED + 100 + i)
-        fwd0, bwd0 = fa.launches, fa.bwd_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (loss,) = exe.run(program, feed=feed, fetch_list=[loss_name],
-                          scope=scope, return_numpy=False)
+        (loss,) = run_tensors(exe, program, feed=feed,
+                              fetch_list=[loss_name], scope=scope)
         loss = float(loss.reshape(-1)[0].item())
         ms = (time.perf_counter() - t0) * 1e3
-        fwd, bwd = fa.launches - fwd0, fa.bwd_launches - bwd0
         tokens = int(feed["trg_len"].sum())
         log(f"{label} step {i}: loss {loss:.6f}, {ms:.1f} ms, {tokens} target "
-            f"tokens, {tokens / ms * 1e3:.0f} target tokens/s, launches "
-            f"{fwd} forward + {bwd} backward")
+            f"tokens, {tokens / ms * 1e3:.0f} target tokens/s")
         if not np.isfinite(loss):
             raise AssertionError(f"{label} step {i}: loss {loss}")
-        if (fwd, bwd) != (FWD_PER_STEP, BWD_PER_STEP):
-            raise AssertionError(f"{label} step {i}: {fwd} forward and {bwd} "
-                                 f"backward launches, want {FWD_PER_STEP} "
-                                 f"and {BWD_PER_STEP}")
         losses.append(loss)
         step_ms.append(ms)
     return losses, step_ms
@@ -819,8 +904,8 @@ def replay_on_cpu(m, program, state, lr, label, amp=False):
     for where, exe in (("card", pt.Executor()),
                        ("cpu", pt.Executor(pt.CPUPlace()))):
         scope = copy_state(state, exe.device)
-        out = exe.run(program, feed=feed, fetch_list=fetch, scope=scope,
-                      return_numpy=False)
+        out = run_tensors(exe, program, feed=feed, fetch_list=fetch,
+                          scope=scope)
         params = [scope.find_var(n).cpu() for n in REPLAY_GRADS]
         results[where] = ([t.cpu().float() for t in out], params)
     (gpu, gpu_p), (cpu, cpu_p) = results["card"], results["cpu"]
@@ -884,23 +969,23 @@ def training_path(profile):
     loss_name = m["loss"].name
     amp_main = mixed_precision.decorate(m["main"].clone())
 
-    fa.launches = fa.bwd_launches = 0
-    fa.launch_dtypes.clear()
     torch.cuda.reset_peak_memory_stats()
     fp32_scope = copy_state(state, exe.device)
-    fp32_losses, fp32_ms = train_steps(exe, m["main"], fp32_scope, loss_name,
-                                       m["config"], "fp32")
-    peak = torch.cuda.max_memory_allocated()
     amp_scope = copy_state(state, exe.device)
-    amp_losses, amp_ms = train_steps(exe, amp_main, amp_scope, loss_name,
-                                     m["config"], "bf16 AMP")
-    launches = (fa.launches, fa.bwd_launches)
-    if launches != (2 * TRAIN_STEPS * FWD_PER_STEP,
-                    2 * TRAIN_STEPS * BWD_PER_STEP):
-        raise AssertionError(f"{launches} launches on the training path")
+    with traced_launches() as counted:
+        fp32_losses, fp32_ms = train_steps(exe, m["main"], fp32_scope,
+                                           loss_name, m["config"],
+                                           "fp32 (traced)")
+        peak = torch.cuda.max_memory_allocated()
+        amp_losses, amp_ms = train_steps(exe, amp_main, amp_scope, loss_name,
+                                         m["config"], "bf16 AMP (traced)")
+    launches = check_launches("training", counted,
+                              (2 * TRAIN_STEPS * FWD_PER_STEP,
+                               2 * TRAIN_STEPS * BWD_PER_STEP))
     rel = max(abs(a - f) / abs(f) for a, f in zip(amp_losses, fp32_losses))
-    log(f"fp32 median step {np.median(fp32_ms[1:]):.1f} ms, AMP "
-        f"{np.median(amp_ms[1:]):.1f} ms (steps 1-{TRAIN_STEPS - 1}); peak "
+    log(f"fp32 median step {np.median(fp32_ms[STEADY:]):.1f} ms, AMP "
+        f"{np.median(amp_ms[STEADY:]):.1f} ms (steps {STEADY}-"
+        f"{TRAIN_STEPS - 1}); peak "
         f"memory {peak / 2 ** 30:.2f} GiB over the fp32 steps; AMP losses "
         f"within {rel:.3e} relative of fp32")
     if not rel <= 1e-2:
@@ -911,9 +996,9 @@ def training_path(profile):
     replay_on_cpu(m, amp_main, state, lr, "bf16 AMP", amp=True)
     if profile:
         profile_step(exe, m, m["main"], fp32_scope,
-                     float(np.median(fp32_ms[1:])), "fp32")
+                     float(np.median(fp32_ms[STEADY:])), "fp32")
         profile_step(exe, m, amp_main, amp_scope,
-                     float(np.median(amp_ms[1:])), "bf16 AMP")
+                     float(np.median(amp_ms[STEADY:])), "bf16 AMP")
     return {"launches": launches, "m": m, "amp_main": amp_main,
             "state": state, "lr": lr, "fp32_ms": fp32_ms, "amp_ms": amp_ms}
 
@@ -969,8 +1054,8 @@ def fused_adam_bitwise(exe, m, state):
                                                  build_strategy=bs)):
         types = [o.type for o in exe.lowered_ops(target, fetch)]
         scope = copy_state(state, exe.device)
-        out = exe.run(target, feed=feed, fetch_list=fetch, scope=scope,
-                      return_numpy=False)
+        out = run_tensors(exe, target, feed=feed, fetch_list=fetch,
+                          scope=scope)
         sides.append((types, out, {n: scope.find_var(n)
                                    for n in scope.var_names()}))
     (types0, out0, vars0), (types1, out1, vars1) = sides
@@ -990,31 +1075,50 @@ def fused_adam_bitwise(exe, m, state):
         raise AssertionError(f"fused_adam differs from adam in {differ[:5]}")
 
 
-def steps_in_turns(exe, state, cfg, arms, rounds=4):
-    """Step times of ``arms`` [(label, program, loss name)] taken in
-    turns, each arm from its own copy of ``state``: round r runs the arms
-    in order when r is even and in reverse when it is odd, so drift on
-    the host (the steps of one phase can run 1.5x slower than those of an
-    earlier one) reaches every arm alike. Prints each arm's median over
-    rounds 1 onward."""
-    scopes = [copy_state(state, exe.device) for _ in arms]
+def in_turns(arms, feeds, start=STEADY):
+    """Wall times of ``arms`` [(name, fn(feed))], one round per feed:
+    round r runs the arms in order when r is even and in reverse when it
+    is odd, so drift on the host (the steps of one phase can run 1.5x
+    slower than those of an earlier one) reaches every arm alike. Returns
+    each arm's median ms over rounds ``start`` onward (by default after
+    the warm-up and the capture)."""
     ms = [[] for _ in arms]
-    for r in range(rounds):
-        feed = train_batch(cfg, TRAIN_BATCH, SEED + 400 + r)
+    for r, feed in enumerate(feeds):
         order = range(len(arms)) if r % 2 == 0 else reversed(range(len(arms)))
         for i in order:
-            _, program, loss_name = arms[i]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            (loss,) = exe.run(program, feed=feed, fetch_list=[loss_name],
-                              scope=scopes[i], return_numpy=False)
-            if not bool(torch.isfinite(loss).all()):
-                raise AssertionError(f"{arms[i][0]}: loss {loss}")
+            arms[i][1](feed)
+            torch.cuda.synchronize()
             ms[i].append((time.perf_counter() - t0) * 1e3)
-    log(f"steps in turns ({rounds} rounds, medians of rounds 1-"
+    return [float(np.median(t[start:])) for t in ms]
+
+
+def train_arms(exe, state, arms):
+    """``arms`` [(label, target, loss name)] as in_turns arms, each a
+    step from its own copy of ``state`` that checks its loss finite."""
+    def arm(label, target, loss_name):
+        scope = copy_state(state, exe.device)
+
+        def step(feed):
+            (loss,) = run_tensors(exe, target, feed=feed,
+                                  fetch_list=[loss_name], scope=scope)
+            if not bool(torch.isfinite(loss).all()):
+                raise AssertionError(f"{label}: loss {loss}")
+        return label, step
+    return [arm(*a) for a in arms]
+
+
+def steps_in_turns(exe, state, cfg, arms, rounds=5):
+    """Step times of ``arms`` [(label, program, loss name)] taken in
+    turns (``in_turns``), each arm from its own copy of ``state``; prints
+    each arm's median."""
+    medians = in_turns(train_arms(exe, state, arms), [
+        train_batch(cfg, TRAIN_BATCH, SEED + 400 + r) for r in range(rounds)])
+    log(f"steps in turns ({rounds} rounds, medians of rounds {STEADY}-"
         f"{rounds - 1}): " + ", ".join(
-            f"{label} {np.median(t[1:]):.1f} ms"
-            for (label, _, _), t in zip(arms, ms)))
+            f"{label} {med:.1f} ms"
+            for (label, _, _), med in zip(arms, medians)))
 
 
 def compiled_training_path(trained, profile):
@@ -1057,21 +1161,22 @@ def compiled_training_path(trained, profile):
     amp_main = mixed_precision.decorate(m["main"].clone())
     amp_target = pt.CompiledProgram(amp_main,
                                     build_strategy=bench_build_strategy())
-    fa.launches = fa.bwd_launches = 0
-    fa.launch_dtypes.clear()
     scope = copy_state(state, exe.device)
-    losses, step_ms = train_steps(exe, target, scope, loss_name, cfg,
-                                  "compiled fp32", COMPILED_STEPS)
     amp_scope = copy_state(state, exe.device)
-    amp_losses, amp_ms = train_steps(exe, amp_target, amp_scope, loss_name,
-                                     cfg, "compiled bf16 AMP", COMPILED_STEPS)
-    launches = (fa.launches, fa.bwd_launches)
+    with traced_launches() as counted:
+        losses, step_ms = train_steps(exe, target, scope, loss_name, cfg,
+                                      "compiled fp32 (traced)",
+                                      COMPILED_STEPS)
+        amp_losses, amp_ms = train_steps(exe, amp_target, amp_scope,
+                                         loss_name, cfg,
+                                         "compiled bf16 AMP (traced)",
+                                         COMPILED_STEPS)
+    launches = check_launches("compiled_training", counted,
+                              (2 * COMPILED_STEPS * FWD_PER_STEP,
+                               2 * COMPILED_STEPS * BWD_PER_STEP))
     stats = exe.pipeline_stats
     log(f"pipeline runs {stats['runs']} (fp32 and AMP programs), memo hits "
         f"{stats['memo_hits']}, {stats['seconds'] * 1e3:.1f} ms in all")
-    if launches != (2 * COMPILED_STEPS * FWD_PER_STEP,
-                    2 * COMPILED_STEPS * BWD_PER_STEP):
-        raise AssertionError(f"{launches} launches on the compiled path")
     if stats["runs"] != 2:
         raise AssertionError("the pipeline ran again on a memoized program")
 
@@ -1107,14 +1212,16 @@ def compiled_training_path(trained, profile):
         ("fused build AMP", trained["amp_main"], fused_m["loss"].name),
         ("compiled AMP", amp_target, loss_name)])
     log(f"median steps on this host: phase 6 fp32 "
-        f"{np.median(trained['fp32_ms'][1:]):.1f} ms, AMP "
-        f"{np.median(trained['amp_ms'][1:]):.1f} ms (steps 1-"
-        f"{TRAIN_STEPS - 1}); compiled fp32 {np.median(step_ms[1:]):.1f} "
-        f"ms, AMP {np.median(amp_ms[1:]):.1f} ms, fused build on plain "
-        f"Executor {np.median(ref_ms[1:]):.1f} ms (steps 1-"
+        f"{np.median(trained['fp32_ms'][STEADY:]):.1f} ms, AMP "
+        f"{np.median(trained['amp_ms'][STEADY:]):.1f} ms (steps {STEADY}-"
+        f"{TRAIN_STEPS - 1}); compiled fp32 "
+        f"{np.median(step_ms[STEADY:]):.1f} ms, AMP "
+        f"{np.median(amp_ms[STEADY:]):.1f} ms, fused build on plain "
+        f"Executor {np.median(ref_ms[STEADY:]):.1f} ms (steps {STEADY}-"
         f"{COMPILED_STEPS - 1})")
     if profile:
-        profile_step(exe, m, target, scope, float(np.median(step_ms[1:])),
+        profile_step(exe, m, target, scope,
+                     float(np.median(step_ms[STEADY:])),
                      "compiled fp32")
     return launches
 
@@ -1133,31 +1240,25 @@ def analysis_serving_path(model_dir, served, profile):
         f"{len(types)} ops after the passes, {types.count('fc')} fc, "
         f"{types.count('mul')} mul, {types.count('flash_attention')} "
         f"flash_attention")
-    fa.launches = fa.bwd_launches = 0
-    fa.launch_dtypes.clear()
     steady_ms = []
-    for i, (feed, ref) in enumerate(zip(served["requests"],
-                                        served["logits"])):
-        logits, ms = serve(pred, feed, cfg, dtype="bfloat16")
+    with traced_launches() as counted:
+        answers = [serve(pred, feed, cfg) for feed in served["requests"]]
+    launches = check_launches("analysis_serving_bf16", counted,
+                              (4 * LAUNCHES_PER_REQUEST, 0), "bfloat16")[0]
+    for i, ((logits, ms), ref) in enumerate(zip(answers, served["logits"])):
         if logits.dtype != torch.bfloat16:
             raise AssertionError(f"bf16 serving returned {logits.dtype}")
         err = (logits.float() - ref).abs().max().item()
         top = ref.abs().max().item()
         agree = (logits.float().argmax(-1) == ref.argmax(-1)).double().mean()
-        log(f"bf16 request {i}: {ms:.2f} ms; against the fp32 "
+        log(f"bf16 request {i}: {ms:.2f} ms (traced); against the fp32 "
             f"NativePredictor max|dlogits| {err:.3e} of max|logits| "
             f"{top:.3e} ({err / top:.3e}, bound {BF16_SERVE_REL:.3e}), "
             f"arg-max agreement {agree.item():.4f}")
         if not err <= BF16_SERVE_REL * top:
             raise AssertionError("bf16 logits disagree with fp32")
-        if i:
+        if i >= STEADY:
             steady_ms.append(ms)
-    launches = fa.launches
-    if (launches != 4 * LAUNCHES_PER_REQUEST or fa.bwd_launches
-            or fa.launch_dtypes != {"bfloat16": launches}):
-        raise AssertionError(f"{launches} forward ({fa.launch_dtypes}) and "
-                             f"{fa.bwd_launches} backward launches on the "
-                             "analysis serving path")
     pred32 = create_paddle_predictor(
         AnalysisConfig(model_dir).enable_bf16(False))
     for i, (feed, ref) in enumerate(zip(served["requests"],
@@ -1170,7 +1271,7 @@ def analysis_serving_path(model_dir, served, profile):
     log(f"fp32 AnalysisPredictor: 4 requests within 1e-3 of max|logits| of "
         "the NativePredictor's")
     one = served["one"]
-    gpu_logits, _ = serve(pred, one, cfg, dtype="bfloat16")
+    gpu_logits, _ = serve(pred, one, cfg)
     t0 = time.perf_counter()
     cpu_pred = create_paddle_predictor(
         AnalysisConfig(model_dir, use_gpu=False).enable_bf16())
@@ -1181,7 +1282,7 @@ def analysis_serving_path(model_dir, served, profile):
         f"max|dlogits| = {diff:.3e}, max|logits| = {top:.3e}")
     if not diff <= BF16_SERVE_REL * top:
         raise AssertionError("bf16 card and CPU predictors disagree")
-    log(f"median steady request (1-3): NativePredictor fp32 "
+    log(f"median steady request ({STEADY}-3): NativePredictor fp32 "
         f"{np.median(served['steady_ms']):.2f} ms, AnalysisPredictor bf16 "
         f"{np.median(steady_ms):.2f} ms")
     if profile:
@@ -1209,8 +1310,8 @@ def resnet_steps(exe, target, scope, loss_name, label, steps, seed0):
         feed = resnet_batch(RESNET_BATCH, seed0 + i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (loss,) = exe.run(target, feed=feed, fetch_list=[loss_name],
-                          scope=scope, return_numpy=False)
+        (loss,) = run_tensors(exe, target, feed=feed,
+                              fetch_list=[loss_name], scope=scope)
         loss = float(loss.reshape(-1)[0].item())
         ms = (time.perf_counter() - t0) * 1e3
         log(f"{label} step {i}: loss {loss:.6f}, {ms:.1f} ms, "
@@ -1326,8 +1427,8 @@ def resnet_replay(exe, m, program, amp_program, state):
                        ("cpu", pt.Executor(pt.CPUPlace()))):
         for label, prog in (("fp32", program), ("amp", amp_program)):
             scope = copy_state(state, exe.device)
-            res = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
-                          return_numpy=False)
+            res = run_tensors(exe, prog, feed=feed, fetch_list=fetch,
+                              scope=scope)
             out[where, label] = [t.cpu().float() for t in res]
     log(f"ResNet-50 batch-2 step replayed on the CPU "
         f"({time.perf_counter() - t0:.1f} s for the four steps)")
@@ -1385,27 +1486,14 @@ def fused_momentum_bitwise(state, grads):
         f"parameters, plain and Nesterov (largest update {worst:.3e})")
 
 
-def resnet_turns(exe, arms, state, rounds=4):
-    """AMP step times of ``arms`` [(label, target, loss name)] in turns,
-    each from its own copy of ``state``; returns each arm's median over
-    rounds 1 onward."""
-    scopes = [copy_state(state, exe.device) for _ in arms]
-    ms = [[] for _ in arms]
-    for r in range(rounds):
-        feed = resnet_batch(RESNET_BATCH, SEED + 400 + r)
-        order = range(len(arms)) if r % 2 == 0 else reversed(range(len(arms)))
-        for i in order:
-            _, target, loss_name = arms[i]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            (loss,) = exe.run(target, feed=feed, fetch_list=[loss_name],
-                              scope=scopes[i], return_numpy=False)
-            if not bool(torch.isfinite(loss).all()):
-                raise AssertionError(f"{arms[i][0]}: loss {loss}")
-            ms[i].append((time.perf_counter() - t0) * 1e3)
-    medians = [float(np.median(t[1:])) for t in ms]
+def resnet_turns(exe, arms, state, rounds=5):
+    """AMP step times of ``arms`` [(label, target, loss name)] in turns
+    (``in_turns``), each from its own copy of ``state``; returns each
+    arm's median."""
+    medians = in_turns(train_arms(exe, state, arms), [
+        resnet_batch(RESNET_BATCH, SEED + 400 + r) for r in range(rounds)])
     log(f"ResNet-50 AMP steps in turns ({rounds} rounds, medians of rounds "
-        f"1-{rounds - 1}): " + ", ".join(
+        f"{STEADY}-{rounds - 1}): " + ", ".join(
             f"{label} {med:.1f} ms ({RESNET_BATCH / med * 1e3:.1f} images/s)"
             for (label, _, _), med in zip(arms, medians)))
     return medians
@@ -1464,8 +1552,12 @@ def resnet_training_path(smi, profile):
     torch.cuda.reset_peak_memory_stats()
     scope = copy_state(state, exe.device)
     losses, fp32_ms = resnet_steps(exe, target, scope, loss_name,
-                                   "ResNet-50 compiled fp32", 3, SEED + 100)
+                                   "ResNet-50 compiled fp32", 4, SEED + 100)
     fp32_peak = torch.cuda.max_memory_allocated()
+    # the fp32 graph's pool, about an eager fp32 step's peak, would
+    # otherwise stay beside the eager fp32 batch-128 runs below
+    exe.close()
+    release()
     torch.cuda.reset_peak_memory_stats()
     amp_scope = copy_state(state, exe.device)
     amp_losses, amp_ms = resnet_steps(exe, amp_target, amp_scope, loss_name,
@@ -1478,8 +1570,8 @@ def resnet_training_path(smi, profile):
     flops = 3 * RESNET_FWD_FLOPS * RESNET_BATCH
     for label, ms, peak in (("fp32", fp32_ms, fp32_peak),
                             ("AMP", amp_ms, amp_peak)):
-        med = float(np.median(ms[1:]))
-        log(f"ResNet-50 {label}: median step {med:.1f} ms (steps 1-"
+        med = float(np.median(ms[STEADY:]))
+        log(f"ResNet-50 {label}: median step {med:.1f} ms (steps {STEADY}-"
             f"{len(ms) - 1}), {RESNET_BATCH / med * 1e3:.1f} images/s, peak "
             f"memory {peak / 2 ** 30:.2f} GiB; {flops / 1e12:.2f} TFLOP per "
             f"step (3 x 7.767 GFLOP per image) bound it at "
@@ -1489,9 +1581,10 @@ def resnet_training_path(smi, profile):
     # fused momentum on one backward's gradients
     grads_scope = copy_state(state, exe.device)
     params = [p.name for p in m["main"].all_parameters()]
-    res = exe.run(m["main"], feed=resnet_batch(RESNET_BATCH, SEED + 300),
+    res = run_tensors(exe, m["main"],
+                      feed=resnet_batch(RESNET_BATCH, SEED + 300),
                   fetch_list=[n + "@GRAD" for n in params],
-                  scope=grads_scope, return_numpy=False)
+                  scope=grads_scope)
     fused_momentum_bitwise(state, dict(zip(params, res)))
 
     resnet_replay(exe, m, target, amp_target, state)
@@ -1520,7 +1613,7 @@ def resnet_training_path(smi, profile):
     log(f"NHWC AMP step at {medians[1] / medians[0]:.3f}x NCHW's [{smi}]")
     if profile:
         profile_resnet_step(exe, amp_target, state, loss_name,
-                            float(np.median(amp_ms[1:])), "NCHW AMP")
+                            float(np.median(amp_ms[STEADY:])), "NCHW AMP")
         profile_resnet_step(exe, nhwc_amp, state, loss_name, medians[1],
                             "NHWC AMP")
         stem_input_grad(m, state, smi)
@@ -1543,9 +1636,8 @@ def _top_rows(rows, busy, n=16):
 def profile_resnet_step(exe, target, state, loss_name, steady_ms, label):
     scope = copy_state(state, exe.device)
     feed = resnet_batch(RESNET_BATCH, SEED + 200)
-    rows, busy = device_rows(lambda: exe.run(
-        target, feed=feed, fetch_list=[loss_name], scope=scope,
-        return_numpy=False))
+    rows, busy = device_rows(lambda: run_tensors(exe, 
+        target, feed=feed, fetch_list=[loss_name], scope=scope))
     log(f"profile of one ResNet-50 {label} step (batch {RESNET_BATCH}): "
         f"{busy:.3f} ms of device time by kernel; median steady step "
         f"{steady_ms:.3f} ms wall, so the card is idle "
@@ -1595,8 +1687,7 @@ def calibrate_batch_norm(exe, test_program, scope, feed):
         op.attrs["is_test"] = False
     fetch = [n for op in bns for n in (op.output("SavedMean")[0],
                                        op.output("SavedVariance")[0])]
-    vals = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
-                   return_numpy=False)
+    vals = run_tensors(exe, prog, feed=feed, fetch_list=fetch, scope=scope)
     for i, op in enumerate(bns):
         mean, inv_std = vals[2 * i], vals[2 * i + 1]
         eps = op.attrs.get("epsilon", 1e-5)
@@ -1673,8 +1764,8 @@ def resnet_serving_path(model_dir, smi, profile):
         raise AssertionError("the fp32 AnalysisPredictor disagrees with the "
                              "NativePredictor")
     for label, ts in times.items():
-        med = float(np.median(ts[1:]))
-        log(f"{label}: median request {med:.2f} ms (requests 1-3), "
+        med = float(np.median(ts[STEADY:]))
+        log(f"{label}: median request {med:.2f} ms (requests {STEADY}-3), "
             f"{RESNET_BATCH / med * 1e3:.1f} images/s [{smi}]")
     log(f"peak memory over the three predictors' requests "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1721,7 +1812,7 @@ def resnet_serving_path(model_dir, smi, profile):
             f"predictor's, max|p| {cpu.abs().max().item():.3e}")
     if profile:
         feed = requests[1]
-        med = float(np.median(times["analysis bf16"][1:]))
+        med = float(np.median(times["analysis bf16"][STEADY:]))
         rows, busy = device_rows(lambda: pred.run(feed))
         log(f"profile of one bf16 batch-{RESNET_BATCH} request: "
             f"{busy:.3f} ms of device time; median request {med:.3f} ms "
@@ -1757,9 +1848,8 @@ def profile_step(exe, m, program, scope, steady_ms, label):
     the generic vjp grad ops run again, and the step's operations (3x the
     forward's products) against the fp32 bound."""
     feed = train_batch(m["config"], TRAIN_BATCH, SEED + 200)
-    rows, busy = device_rows(lambda: exe.run(
-        program, feed=feed, fetch_list=[m["loss"].name], scope=scope,
-        return_numpy=False))
+    rows, busy = device_rows(lambda: run_tensors(exe, 
+        program, feed=feed, fetch_list=[m["loss"].name], scope=scope))
     log(f"profile of one {label} train step (batch {TRAIN_BATCH}): "
         f"{busy:.3f} ms of device time by kernel; median steady step "
         f"{steady_ms:.3f} ms wall, so the card is idle "
@@ -1773,9 +1863,8 @@ def profile_step(exe, m, program, scope, steady_ms, label):
             + (" (dQ overlaps dK/dV: summed kernel times)"
                if kind == "backward" else ""))
     if program is m["main"]:
-        _, fwd_busy = device_rows(lambda: exe.run(
-            m["test"], feed=feed, fetch_list=[m["loss"].name], scope=scope,
-            return_numpy=False))
+        _, fwd_busy = device_rows(lambda: run_tensors(exe, 
+            m["test"], feed=feed, fetch_list=[m["loss"].name], scope=scope))
         fwd_flops = request_flops(m["main"].desc.blocks[0], TRAIN_BATCH)
         log(f"  the forward alone: {fwd_busy:.3f} ms of device time; step "
             f"operations {3 * fwd_flops / 1e9:.1f} GFLOP (3 x the forward's "
@@ -1787,19 +1876,494 @@ def profile_step(exe, m, program, scope, steady_ms, label):
             f"x{count:<5} {key[:90]}")
 
 
-def resnet_paths(smi, profile):
+
+# ---------------------------------------------------------------------------
+# phase 11: whole-step capture
+# ---------------------------------------------------------------------------
+
+CAPTURE_RUNS = 5   # captured runs against eager runs, per path
+CAPTURE_K = 4      # run(iterations=K) against K single runs
+
+
+def run_tensors(exe, *args, **kwargs):
+    """``exe.run(..., return_numpy=False)`` with each fetch's tensor."""
+    return [h.device_value()
+            for h in exe.run(*args, return_numpy=False, **kwargs)]
+
+
+@contextlib.contextmanager
+def jit_cache(on):
+    """FLAGS.jit_cache in the body: off, every run is eager (the oracle
+    the captured runs are held against)."""
+    old = FLAGS.jit_cache
+    FLAGS.jit_cache = on
+    try:
+        yield
+    finally:
+        FLAGS.jit_cache = old
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` in the body, warning
+    (not raising) on an op that has no deterministic implementation; the
+    list it yields gets those warnings' messages when the body ends. The
+    mode's fill of uninitialized memory is off: every kernel of these
+    paths writes all of its output, and a fill would hide one that does
+    not."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    found = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            yield found
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+            found.extend(sorted({str(w.message)[:200] for w in caught
+                                 if "determinis" in str(w.message)}))
+
+
+def distance(a, b):
+    """0.0 when two tensors are bitwise equal, else their largest
+    elementwise distance (inf where NaNs differ)."""
+    if a.shape == b.shape and torch.equal(a, b):
+        return 0.0
+    d = (a.double() - b.double()).abs().max().item()
+    return d if d == d else float("inf")
+
+
+def scope_distance(a, b):
+    """(largest distance, names that differ) over two scopes' tensors."""
+    names = sorted(a.var_names())
+    if names != sorted(b.var_names()):
+        raise AssertionError("the two scopes hold different names")
+    d = {n: distance(a.find_var(n), b.find_var(n)) for n in names}
+    return max(d.values(), default=0.0), [n for n in names if d[n]]
+
+
+def hold(label, what, got, bound):
+    """A distance against its bound: two eager arms' distance from each
+    other (the captured arm is bitwise equal to the eager one wherever the
+    eager arms agree bitwise), or 0.0 (bitwise)."""
+    log(f"  {label}: {what}: {got:.3e} (bound {bound:.3e}"
+        f"{', bitwise' if not bound else ', eager against eager'})")
+    if not got <= bound:
+        raise AssertionError(f"{label}: {what}: {got:.3e} beyond the bound "
+                             f"{bound:.3e}")
+
+
+def check_trace(label, fn, want):
+    """One replay traced by torch.profiler: its flash kernels counted by
+    name against ``want`` (forward, backward). Returns the call's device
+    ms."""
+    rows, busy = device_rows(fn)
+    traced = (sum(r[2] for r in rows if "flash_fwd_kernel" in r[0]),
+              sum(r[2] for r in rows if "flash_bwd_" in r[0]))
+    log(f"  {label}: one replay traced: {busy:.3f} ms of device time, "
+        f"flash launches {traced[0]} forward + {traced[1]} backward by "
+        f"kernel name; want {want[0]} + {want[1]}")
+    if traced != tuple(want):
+        raise AssertionError(f"{label}: flash launches per replay {traced}, "
+                             f"want {want}")
+    return busy
+
+
+def turns_logged(label, arms, feeds, unit, start=1):
+    """``in_turns`` over ``feeds`` with each arm's median and its ``unit``
+    (name, count(feed)) per second printed; returns the medians in ms.
+    Both arms are warm here (captured and replayed before), so the
+    medians start at round 1."""
+    med = in_turns(arms, feeds, start)
+    per_call = np.median([unit[1](f) for f in feeds])
+    log(f"  {label} in turns ({len(feeds)} rounds, medians of rounds "
+        f"{start}-{len(feeds) - 1}): " + ", ".join(
+            f"{name} {m:.2f} ms ({per_call / m * 1e3:.1f} {unit[0]}/s)"
+            for (name, _), m in zip(arms, med)))
+    return med
+
+
+def capture_training(label, target, program, state, loss_name, feeds, unit,
+                     want, io_dir, smi, profile):
+    """Phase 11 on one training path: 5 captured steps against 5 eager
+    steps (and eager against eager) from the same state, losses and every
+    persistable; step 1's FetchHandle read after the last step; a
+    load_persistables and then a set_var of every persistable between
+    runs; run(iterations=K) against K single runs; one replay traced;
+    then the two arms in turns. ``want``: flash launches per step."""
+    exe = pt.Executor()
+    steps = 0
+    stats0 = dict(exe.capture_stats)
+    with traced_launches() as counted, deterministic() as nondeterministic:
+        arms = {}
+        for arm in ("eager", "eager again", "captured"):
+            scope = copy_state(state, exe.device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            handles, secs = [], []
+            with jit_cache(arm == "captured"):
+                for feed in feeds[:CAPTURE_RUNS]:
+                    t0 = time.perf_counter()
+                    handles += exe.run(target, feed=feed,
+                                       fetch_list=[loss_name], scope=scope,
+                                       return_numpy=False)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    steps += 1
+            arms[arm] = dict(scope=scope, losses=handles, secs=secs,
+                             peak=torch.cuda.max_memory_allocated())
+        eager, again = arms["eager"], arms["eager again"]
+        cap = arms["captured"]
+        if (exe.device.type == "cuda"
+                and exe.capture_stats["captures"] - stats0["captures"] != 1):
+            raise AssertionError(f"{label}: {exe.capture_stats} after the "
+                                 "captured arm: want one capture")
+        log(f"  {label}: captured arm: warm-up step {cap['secs'][0]:.3f} s, "
+            f"capture + first replay {cap['secs'][1]:.3f} s; peak memory "
+            f"eager {eager['peak'] / 2 ** 30:.2f} GiB, captured "
+            f"{cap['peak'] / 2 ** 30:.2f} GiB [{smi}]")
+        # the handles are read now, after the last step: a handle that
+        # aliased the graph's output buffer would show the last step's loss
+        def losses(arm):
+            return [h.device_value() for h in arm["losses"]]
+
+        ref = max(map(distance, losses(again), losses(eager)))
+        hold(label, "captured step-1 loss, read after step 4, against eager",
+             distance(losses(cap)[1], losses(eager)[1]), ref)
+        hold(label, f"captured losses of {CAPTURE_RUNS} steps against eager",
+             max(map(distance, losses(cap), losses(eager))), ref)
+        log(f"  {label}: losses " + ", ".join(
+            f"{float(h):.6f}" for h in eager["losses"]))
+        ce, differ = scope_distance(cap["scope"], eager["scope"])
+        ee, _ = scope_distance(again["scope"], eager["scope"])
+        hold(label, f"captured against eager, {len(state)} persistables "
+             f"after {CAPTURE_RUNS} steps ({len(differ)} differ)", ce, ee)
+
+        # a load between runs (in place: the graph stays) and a set_var
+        # (a rebinding: the plan drops its graph and captures anew); each
+        # restores the initial state, so the next steps repeat steps 0-1
+        with pt.scope_guard(copy_state(state, exe.device)):
+            pt.io.save_persistables(exe, io_dir, program)
+        for how in ("load_persistables", "set_var"):
+            after = {}
+            for arm in ("eager", "captured"):
+                scope = arms[arm]["scope"]
+                if how == "set_var":
+                    for n, t in state.items():
+                        scope.set_var(n, t.clone())
+                else:
+                    with pt.scope_guard(scope):
+                        pt.io.load_persistables(exe, io_dir, program)
+                with jit_cache(arm == "captured"):
+                    after[arm] = [exe.run(target, feed=f,
+                                          fetch_list=[loss_name],
+                                          scope=scope, return_numpy=False)[0]
+                                  for f in feeds[:2]]
+                steps += 2
+            got = max(distance(c.device_value(), e.device_value())
+                      for c, e in zip(after["captured"], eager["losses"]))
+            ref = max(distance(c.device_value(), e.device_value())
+                      for c, e in zip(after["eager"], eager["losses"]))
+            hold(label, f"captured steps 0-1 again after {how}, against "
+                 "eager steps 0-1", got, ref)
+            ce, _ = scope_distance(cap["scope"], eager["scope"])
+            hold(label, f"captured against eager, persistables after {how} "
+                 "and 2 steps", ce, ee)
+
+        # K steps in one run against K single runs
+        singles_scope = copy_state(state, exe.device)
+        k_scope = copy_state(state, exe.device)
+        singles = [exe.run(target, feed=f, fetch_list=[loss_name],
+                           scope=singles_scope, return_numpy=False)[0]
+                   for f in feeds[:2 * CAPTURE_K]]
+        stacked = []
+        for j in range(2):
+            part = feeds[j * CAPTURE_K:(j + 1) * CAPTURE_K]
+            sup = {n: np.stack([f[n] for f in part]) for n in part[0]}
+            (h,) = exe.run(target, feed=sup, fetch_list=[loss_name],
+                           scope=k_scope, return_numpy=False,
+                           iterations=CAPTURE_K)
+            if h.shape[0] != CAPTURE_K:
+                raise AssertionError(f"{label}: a K-step fetch of shape "
+                                     f"{h.shape}")
+            stacked += list(h.device_value())
+        steps += 4 * CAPTURE_K
+        got = max(distance(a, b.device_value().reshape(a.shape))
+                  for a, b in zip(stacked, singles))
+        hold(label, f"run(iterations={CAPTURE_K}) twice (eager, then "
+             f"captured) against {2 * CAPTURE_K} single runs, losses", got,
+             0.0)
+        kd, _ = scope_distance(k_scope, singles_scope)
+        hold(label, f"run(iterations={CAPTURE_K}) against single runs, "
+             "persistables", kd, 0.0)
+    log(f"  {label}: ops that warned of no deterministic implementation: "
+        f"{nondeterministic or 'none'}; K-step runs that fell back to "
+        f"single steps: {exe.fuse_fallbacks}")
+    if exe.fuse_fallbacks:
+        raise AssertionError(f"{label}: {exe.fuse_fallbacks} K-step runs "
+                             "fell back to single steps")
+    launches = check_launches(f"  {label}, {steps} steps", counted,
+                              (steps * want[0], steps * want[1]))
+
+    busy = check_trace(label, lambda: exe.run(
+        target, feed=feeds[0], fetch_list=[loss_name], scope=cap["scope"],
+        return_numpy=False), want)
+    turns = [("eager", lambda f: _eager_step(exe, target, f, loss_name,
+                                             eager["scope"])),
+             ("captured", lambda f: exe.run(target, feed=f,
+                                            fetch_list=[loss_name],
+                                            scope=cap["scope"]))]
+    med = turns_logged(label, turns, feeds[:4], unit)
+    log(f"  {label}: captured step {med[1]:.2f} ms against {busy:.3f} ms of "
+        f"device time: the card idle {max(0.0, 1 - busy / med[1]):.1%} of "
+        f"it; eager {med[0]:.2f} ms, {med[0] / med[1]:.2f}x [{smi}]")
+    if profile:
+        _, ebusy = device_rows(lambda: _eager_step(
+            exe, target, feeds[0], loss_name, eager["scope"]))
+        log(f"  {label}: one eager step {ebusy:.3f} ms of device time: the "
+            f"card idle {max(0.0, 1 - ebusy / med[0]):.1%} of it")
+    log(f"  {label}: {exe.capture_stats['captures']} captures in "
+        f"{exe.capture_stats['seconds']:.2f} s, "
+        f"{exe.capture_stats['replays']} replays")
+    return launches
+
+
+def _eager_step(exe, target, feed, loss_name, scope):
+    with jit_cache(False):
+        return exe.run(target, feed=feed, fetch_list=[loss_name],
+                       scope=scope)
+
+
+def capture_serving(label, pred, requests, unit, want, weight, smi, profile):
+    """Phase 11 on one serving path: 5 captured requests against 5 eager
+    ones (and eager against eager) through one predictor, every output
+    read after the last request; a set_var of ``weight`` between
+    requests, and its restore; one replay traced; then both in turns.
+    ``want``: flash forward launches per request."""
+    exe = pred._exe
+    stats0 = dict(exe.capture_stats)
+    n = 0
+
+    def serve_all(captured, feeds):
+        nonlocal n
+        out, secs = [], []
+        with jit_cache(captured):
+            for feed in feeds:
+                t0 = time.perf_counter()
+                out.append(pred.run(feed)[0].as_tensor())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                n += 1
+        return out, secs
+
+    with traced_launches() as counted, deterministic() as nondeterministic:
+        torch.cuda.reset_peak_memory_stats()
+        eager, _ = serve_all(False, requests[:CAPTURE_RUNS])
+        eager_peak = torch.cuda.max_memory_allocated()
+        again, _ = serve_all(False, requests[:CAPTURE_RUNS])
+        torch.cuda.reset_peak_memory_stats()
+        cap, secs = serve_all(True, requests[:CAPTURE_RUNS])
+        cap_peak = torch.cuda.max_memory_allocated()
+        if (exe.device.type == "cuda"
+                and exe.capture_stats["captures"] - stats0["captures"] != 1):
+            raise AssertionError(f"{label}: {exe.capture_stats}: want one "
+                                 "capture")
+        log(f"  {label}: captured arm: warm-up request {secs[0]:.3f} s, "
+            f"capture + first replay {secs[1]:.3f} s; peak memory eager "
+            f"{eager_peak / 2 ** 30:.2f} GiB, captured "
+            f"{cap_peak / 2 ** 30:.2f} GiB [{smi}]")
+        hold(label, f"captured against eager, {CAPTURE_RUNS} outputs read "
+             "after the last request",
+             max(distance(c, e) for c, e in zip(cap, eager)),
+             max(distance(a, e) for a, e in zip(again, eager)))
+        old = pred._scope.find_var(weight)
+        pred._scope.set_var(weight, old * 2)
+        changed = {arm: serve_all(arm, requests[:2])[0]
+                   for arm in (False, True)}
+        pred._scope.set_var(weight, old)
+        restored = {arm: serve_all(arm, requests[:2])[0]
+                    for arm in (False, True)}
+        if not all(distance(c, e) for c, e in zip(changed[False], eager[:2])):
+            raise AssertionError(f"{label}: the set_var of {weight} did not "
+                                 "change the output")
+        hold(label, f"captured against eager, 2 requests after a set_var "
+             f"of {weight}",
+             max(distance(c, e) for c, e in zip(changed[True],
+                                                 changed[False])), 0.0)
+        hold(label, f"captured 2 requests after {weight} is restored, "
+             "against the first eager ones",
+             max(distance(c, e) for c, e in zip(restored[True], eager[:2])),
+             max(distance(c, e) for c, e in zip(restored[False], eager[:2])))
+    log(f"  {label}: ops that warned of no deterministic implementation: "
+        f"{nondeterministic or 'none'}")
+    launches = check_launches(f"  {label}, {n} requests", counted,
+                              (n * want, 0))[0]
+    busy = check_trace(label, lambda: pred.run(requests[0]), (want, 0))
+
+    def eager_request(feed):
+        with jit_cache(False):
+            return pred.run(feed)
+
+    med = turns_logged(label, [("eager", eager_request),
+                               ("captured", pred.run)], requests[:4], unit)
+    log(f"  {label}: captured request {med[1]:.2f} ms against {busy:.3f} ms "
+        f"of device time: the card idle {max(0.0, 1 - busy / med[1]):.1%} "
+        f"of it; eager {med[0]:.2f} ms, {med[0] / med[1]:.2f}x [{smi}]")
+    if profile:
+        _, ebusy = device_rows(lambda: eager_request(requests[0]))
+        log(f"  {label}: one eager request {ebusy:.3f} ms of device time: "
+            f"the card idle {max(0.0, 1 - ebusy / med[0]):.1%} of it")
+    return launches
+
+
+def capture_rng():
+    """A main program with a uniform_random op: 5 captured runs against 5
+    eager runs, each arm from a fresh scope with the program's seed, and
+    run(iterations=2) twice against 4 single runs: the draws bitwise
+    equal, and no two runs' draws alike (the generator advances)."""
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = SEED
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[1024])
+        blk = main.global_block()
+        noise = blk.create_var(name="noise", shape=[16, 1024],
+                               dtype="float32")
+        blk.append_op(type="uniform_random", outputs={"Out": [noise]},
+                      attrs={"shape": [16, 1024], "min": -1.0, "max": 1.0,
+                             "seed": 0})
+        out = pt.layers.elementwise_add(x, noise)
+    exe = pt.Executor()
+    feeds = [{"x": np.random.RandomState(SEED + i).rand(16, 1024).astype(
+        np.float32)} for i in range(CAPTURE_RUNS)]
+    draws = {}
+    for captured in (False, True):
+        scope = pt.Scope()
+        with jit_cache(captured):
+            draws[captured] = [run_tensors(exe, main, feed=f,
+                                           fetch_list=[out, noise],
+                                           scope=scope) for f in feeds]
+    eager = [d[1] for d in draws[False]]
+    if any(torch.equal(eager[i], eager[i + 1])
+           for i in range(len(eager) - 1)):
+        raise AssertionError("uniform_random drew the same values twice")
+    hold("uniform_random program", f"captured against eager, {CAPTURE_RUNS} "
+         "runs, output and draws",
+         max(distance(c, e) for dc, de in zip(draws[True], draws[False])
+             for c, e in zip(dc, de)), 0.0)
+    scope = pt.Scope()
+    sup = {"x": np.stack([f["x"] for f in feeds[:2]])}
+    stacked = []
+    for _ in range(2):  # the warm-up, then the captured K-step graph
+        stacked += list(run_tensors(exe, main, feed=sup, fetch_list=[noise],
+                                    scope=scope, iterations=2)[0])
+    hold("uniform_random program", "run(iterations=2) twice (eager, then "
+         "captured) against 4 single runs, draws",
+         max(distance(a, b) for a, b in zip(stacked, eager[:4])), 0.0)
+
+
+def last_weight(pred):
+    """The last floating-point persistable the predictor's program reads."""
+    for op in reversed(pred._program.global_block().desc.ops):
+        for n in op.input_arg_names():
+            t = pred._scope.find_var(n)
+            if t is not None and t.is_floating_point() and t.dim() >= 2:
+                return n
+    raise AssertionError("the predictor reads no weight")
+
+
+def release():
+    """Free what the last phase held: its plans and graphs (reference
+    cycles of programs included) and the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def capture_paths(model_dir, resnet_dir, smi, profile):
+    """Phase 11; returns the flash launches of its paths."""
+    paths = {}
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_",
+                                     dir=_build.BUILD_DIR) as io_dir:
+        with unique_name.guard():
+            m = transformer.build(attention_impl="unfused", **MODEL)
+        m["startup"].random_seed = SEED
+        init = pt.Scope()
+        pt.Executor().run(m["startup"], scope=init)
+        state = {n: init.find_var(n) for n in init.var_names()}
+        cfg = m["config"]
+        feeds = [train_batch(cfg, TRAIN_BATCH, SEED + 500 + i)
+                 for i in range(2 * CAPTURE_K)]
+        tokens = ("target tokens", lambda f: int(f["trg_len"].sum()))
+        amp_main = mixed_precision.decorate(m["main"].clone())
+        for label, program in (("Transformer compiled fp32", m["main"]),
+                               ("Transformer compiled AMP", amp_main)):
+            target = pt.CompiledProgram(program,
+                                        build_strategy=bench_build_strategy())
+            paths[label] = capture_training(
+                label, target, program, state, m["loss"].name, feeds, tokens,
+                (FWD_PER_STEP, BWD_PER_STEP), io_dir, smi, profile)
+            del target
+            release()
+        del m, amp_main, state, init
+        release()
+
+        pred = create_paddle_predictor(AnalysisConfig(model_dir).enable_bf16())
+        requests = [make_request(cfg, 8, SEED + 600 + i)
+                    for i in range(CAPTURE_RUNS)]
+        paths["Transformer AnalysisPredictor bf16"] = (capture_serving(
+            "Transformer AnalysisPredictor bf16", pred, requests, tokens,
+            LAUNCHES_PER_REQUEST, last_weight(pred), smi, profile), 0)
+        del pred
+        release()
+
+        with unique_name.guard():
+            r = resnet.build(dataset="flowers", depth=50,
+                             class_dim=RESNET_CLASSES,
+                             image_shape=list(RESNET_IMAGE), lr=0.1)
+        r["startup"].random_seed = SEED
+        init = pt.Scope()
+        pt.Executor().run(r["startup"], scope=init)
+        state = {n: init.find_var(n) for n in init.var_names()}
+        amp_main = mixed_precision.decorate(r["main"].clone())
+        label = "ResNet-50 compiled AMP"
+        paths[label] = capture_training(
+            label, pt.CompiledProgram(amp_main,
+                                      build_strategy=bench_build_strategy()),
+            amp_main, state, r["loss"].name,
+            [resnet_batch(RESNET_BATCH, SEED + 500 + i)
+             for i in range(2 * CAPTURE_K)],
+            ("images", lambda f: len(f["data"])), (0, 0), io_dir, smi,
+            profile)
+        del r, amp_main, state, init
+        release()
+
+    pred = create_paddle_predictor(AnalysisConfig(resnet_dir).enable_bf16())
+    label = "ResNet-50 AnalysisPredictor bf16"
+    paths[label] = (capture_serving(
+        label, pred, [{"data": resnet_batch(RESNET_BATCH, SEED + 700 + i)[
+            "data"]} for i in range(CAPTURE_RUNS)],
+        ("images", lambda f: len(f["data"])), 0, last_weight(pred), smi,
+        profile), 0)
+    del pred
+    release()
+    capture_rng()
+    return paths
+
+
+def resnet_paths(model_dir, smi, profile):
     """Phases 9-10; returns their flash launches by path."""
     phase("ResNet-50 training through CompiledProgram (bench "
           "BuildStrategy, batch 128, 224x224)")
     paths = {"resnet50_compiled_training": resnet_training_path(smi,
                                                                 profile)}
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_",
-                                     dir=_build.BUILD_DIR) as model_dir:
-        phase("ResNet-50 serving: NativePredictor and AnalysisPredictor "
-              "(bf16), batch 128")
-        paths["resnet50_serving"] = (
-            resnet_serving_path(model_dir, smi, profile), 0)
+    release()
+    phase("ResNet-50 serving: NativePredictor and AnalysisPredictor "
+          "(bf16), batch 128")
+    paths["resnet50_serving"] = (
+        resnet_serving_path(model_dir, smi, profile), 0)
+    release()
     return paths
 
 
@@ -1807,11 +2371,15 @@ def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
     args.add_argument("--kernels", action="store_true",
-                      help="phases 1-4 only, then the closing lines")
+                      help="phases 1-4 only, then the kernels line and no "
+                      "contract line")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # cuBLAS's deterministic workspace, for phase 11's bitwise gates; read
+    # when the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1901,22 +2469,34 @@ def main(argv=None):
 
     paths = {}  # path -> (forward, backward) launches
     if not args.kernels:
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_model_",
-                                         dir=_build.BUILD_DIR) as model_dir:
+                                         dir=_build.BUILD_DIR) as model_dir, \
+                tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_",
+                                            dir=_build.BUILD_DIR) as rdir:
             phase("serving: Transformer-base through NativePredictor")
             served = main_path(model_dir, args.profile)
             paths["serving"] = (served["launches"], 0)
+            release()
             phase("training: Transformer-base train steps on Executor()")
             trained = training_path(args.profile)
             paths["training"] = trained["launches"]
+            release()
             phase("training through CompiledProgram (bench BuildStrategy, "
                   "unfused attention)")
             paths["compiled_training"] = compiled_training_path(
                 trained, args.profile)
+            del trained
+            release()
             phase("serving through AnalysisPredictor (IR passes, bf16)")
             paths["analysis_serving_bf16"] = (
                 analysis_serving_path(model_dir, served, args.profile), 0)
-        paths.update(resnet_paths(smi, args.profile))
+            del served
+            release()
+            paths.update(resnet_paths(rdir, smi, args.profile))
+            phase("whole-step capture: captured against eager "
+                  "(FLAGS.jit_cache = False) on every path")
+            paths.update(capture_paths(model_dir, rdir, smi, args.profile))
 
     def entry(name, source, replaces, rows, errors, which, per):
         fp32 = dict(rows[torch.float32, False])
@@ -1961,6 +2541,9 @@ def main(argv=None):
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    if args.kernels:
+        log("--kernels: phases 1-4 only; no contract line")
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

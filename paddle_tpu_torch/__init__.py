@@ -18,7 +18,8 @@ from . import initializer, io, layers, optimizer  # noqa: F401
 from . import backward, contrib, ir  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
-from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
+from .executor import (Executor, FetchHandle, Scope,  # noqa: F401
+                       global_scope, scope_guard)
 from .framework import (Parameter, Program, Variable,  # noqa: F401
                         default_main_program, default_startup_program,
                         program_guard)

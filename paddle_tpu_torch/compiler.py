@@ -63,7 +63,8 @@ class BuildStrategy:
 
 class ExecutionStrategy:
     """details/execution_strategy.h analog. ``num_iteration_per_run`` K
-    > 1 (K steps per run) is ROADMAP A4."""
+    > 1 makes each ``Executor.run`` of the CompiledProgram K steps on
+    [K, batch, ...] feeds, as ``run(iterations=K)`` does."""
 
     def __init__(self):
         self.num_threads = 0
@@ -102,14 +103,10 @@ class CompiledProgram:
     def _check_ported(self):
         """Raise on a knob whose machinery the port does not have
         (``verify_passes`` is checked by the executor, with its flag)."""
-        bs, es = self._build_strategy, self._exec_strategy
+        bs = self._build_strategy
         if getattr(bs, "auto_parallel", False):
             raise NotImplementedError(
                 f"BuildStrategy.auto_parallel waits for {_A12}")
-        if int(getattr(es, "num_iteration_per_run", 1) or 1) > 1:
-            raise NotImplementedError(
-                "ExecutionStrategy.num_iteration_per_run > 1 waits for "
-                "ROADMAP A4 (whole-step capture)")
         if int(getattr(bs, "gradient_accumulation_steps", 1) or 1) > 1:
             raise NotImplementedError(
                 "BuildStrategy.gradient_accumulation_steps > 1 waits for "

@@ -1,31 +1,80 @@
-"""Scope + Executor: the block interpreted op by op, eagerly.
+"""Scope + Executor: a block split at its host ops into device segments,
+each run as one plan: eagerly op by op, or on the card as a captured
+CUDA graph replayed over static buffers.
 
-Counterpart of ``paddle_tpu/executor.py``. Where the JAX package traces a
-whole block into one XLA executable, this executor walks the block's ops
-in order and calls each op's emitter on tensors, with sequential name
-rebinding (reference executor.cc:432 is the same loop). Grad op types
-resolve through ``registry.resolve_grad_emitter``. Ops that neither feed
-a fetch nor write a persistable variable are skipped, so a test clone
-runs without its label feeds and a train step drops dead grad branches.
+Counterpart of ``paddle_tpu/executor.py``. Where the JAX package traces
+each device segment into one XLA executable (``_compile_segment``), this
+executor walks a segment's ops in order and calls each op's emitter on
+tensors, with sequential name rebinding (reference executor.cc:432 is
+the same loop); on a CUDA place it then captures that walk into a CUDA
+graph. Grad op types resolve through ``registry.resolve_grad_emitter``.
+Ops that neither feed a fetch nor write a persistable variable are
+skipped, so a test clone runs without its label feeds and a train step
+drops dead grad branches.
 
 A ``CompiledProgram`` runs its BuildStrategy's pass groups
 (ir/pipeline.py) over that live op list first. The rewritten list is
 memoized per (program version, fetch names, effective flags), so pattern
 matching runs once per program, not once per step; ``pipeline_stats``
-counts the pipeline's runs, its time per stage and the memo hits. A plain
-Program runs no pass.
+counts the pipeline's runs, its time per stage and the runs a memoized
+list served (from the pass memo or from a cached plan). A plain Program
+runs no pass.
+
+Plans. A run's plan is its op list split at host ops
+(``_split_segments``), and for each device segment the names it reads
+before writing (from the feed and earlier segments, or from the scope:
+``state_in``), the persistables it writes (``state_out``) and the values
+it hands on (fetches and reads of later segments). With
+``FLAGS.jit_cache`` set (the default) plans are cached in
+``program.__dict__["_exec_cache"]``, one per (program version, fetch
+names, pass flags, feed signature, iterations, AMP, device, scope);
+``close()`` drops the plans of every program this executor ran.
+
+Capture (CUDA places with ``FLAGS.jit_cache``). A plan's first run is
+eager: the warm-up, which makes the cuBLAS and cuDNN handles, loads the
+kernels and fills the plan's constants. Its second run copies the feeds
+into static buffers, releases the allocator's cached blocks and captures
+each device segment with ``torch.cuda.graph`` on a side stream, into one
+memory pool that every graph of the device shares (a graph's
+temporaries are dead once its outputs are copied, and replays run one
+after another on the caller's stream); then it replays. Later runs copy
+the feeds into the static buffers and replay. Host segments run eagerly
+between device segments, as in the JAX package. A capture that fails
+raises; nothing falls back to an eager run. ``FLAGS.jit_cache = False``
+keeps no plan, so every run is eager: the oracle the captured runs are
+held against.
 
 State contract: persistable variables live in the Scope across runs as
-tensors on the executor's device. ``Executor()`` with no place runs on
-``CUDAPlace(0)`` and raises when there is no CUDA device; the host runs
-only when the caller passes ``CPUPlace()``.
+tensors on the executor's device, and a run updates them in place (the
+JAX package donates their buffers): each ``state_out`` is copied into
+the scope's tensor when the scope holds one of the same shape, dtype and
+device, else bound. A graph reads and writes the tensors it captured;
+before each replay the scope's tensors are checked by identity, and a
+name rebound since the capture (``Scope.set_var``, a restore) drops the
+plan's graphs, so that run is eager and the next captures anew. Random
+ops draw from the scope's generator, registered with the graph, so K
+replays advance it as K eager runs do. Fetches come back as numpy
+arrays, or as ``FetchHandle``s on a device copy that later runs do not
+touch.
+
+``run(iterations=K)`` takes [K, batch, ...] super-batches and runs K
+steps in one plan (one graph holds all K, step k reading slice k), with
+fetches stacked [K, ...]; a block with host ops takes K single-step runs
+instead, with a warning (``fuse_fallbacks`` counts them).
+
+``Executor()`` with no place runs on ``CUDAPlace(0)`` and raises when
+there is no CUDA device; the host runs only when the caller passes
+``CPUPlace()``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
-from typing import Any, Dict, List, Optional, Sequence
+import warnings
+import weakref
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +89,8 @@ from .place import CUDAPlace, Place
 from .registry import EmitContext
 from .utils.flags import FLAGS
 
+_scope_tokens = itertools.count(1)
+
 
 class Scope:
     """Name -> tensor store for persistable state (reference scope.h)."""
@@ -47,6 +98,9 @@ class Scope:
     def __init__(self):
         self._vars: Dict[str, Any] = {}
         self._generators: Dict[str, torch.Generator] = {}
+        # unique for the life of the process: a cached plan names the
+        # scope whose tensors its graph reads by this token, never by id()
+        self._token = next(_scope_tokens)
 
     def find_var(self, name: str):
         return self._vars.get(name)
@@ -86,9 +140,109 @@ def scope_guard(scope: Scope):
         _global_scope = prev
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()  # numpy has no bfloat16
+    return t.numpy()
+
+
+class FetchHandle:
+    """A fetch of ``run(..., return_numpy=False)``: a device tensor of
+    its own (a copy made on the stream after the run, so later runs do
+    not touch it), read to the host only when asked: ``numpy()``,
+    ``np.asarray(handle)`` or ``float(handle)``. ``shape``, ``dtype``,
+    ``ndim`` and ``len`` need no transfer; ``dtype`` is that of the
+    numpy array a read gives (float32 for a bfloat16 tensor, which numpy
+    lacks). ``device_value()`` is the tensor; a handle fed back to
+    ``run`` stays on the device."""
+
+    __slots__ = ("_value", "_np")
+
+    def __init__(self, value: torch.Tensor):
+        self._value = value
+        self._np = None
+
+    def device_value(self) -> torch.Tensor:
+        """The tensor, without a transfer."""
+        return self._value
+
+    def numpy(self) -> np.ndarray:
+        """The value on the host (waits for the device once)."""
+        if self._np is None:
+            self._np = _to_numpy(self._value)
+        return self._np
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.numpy()
+        if dtype is not None and arr.dtype != np.dtype(dtype):
+            arr = arr.astype(dtype)
+        return arr
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._value.shape)
+
+    @property
+    def dtype(self) -> np.dtype:
+        if self._value.dtype == torch.bfloat16:
+            return np.dtype(np.float32)
+        return np.dtype(str(self._value.dtype).replace("torch.", ""))
+
+    @property
+    def ndim(self) -> int:
+        return self._value.dim()
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        return self.numpy()[idx]
+
+    def __float__(self):
+        # numpy's rule: size 1 converts, size K raises, so a K-step
+        # stacked fetch does not collapse to one step's value
+        return float(self.numpy())
+
+    def __repr__(self):
+        return (f"FetchHandle(shape={self.shape}, dtype={self.dtype}, "
+                f"device={self._value.device})")
+
+
+def snapshot_value(value) -> FetchHandle:
+    """A handle on a device copy of a scope value (or of a handle's
+    tensor), which later runs, updating the scope in place, leave as
+    it is."""
+    if isinstance(value, FetchHandle):
+        value = value.device_value()
+    return FetchHandle(value.detach().clone())
+
+
+def _unwrap_fetch_handle(value):
+    """A fed FetchHandle stays on the device (its tensor, no read)."""
+    return value.device_value() if isinstance(value, FetchHandle) else value
+
+
+def _validate_super_batch(feed: Dict[str, Any], iterations: int):
+    """Every feed of a K-step run must stack K per-step batches on a
+    leading axis, checked here so that a per-step feed is not run over
+    its batch dimension."""
+    for n, v in feed.items():
+        shp = tuple(np.shape(v))
+        if not shp or shp[0] != iterations:
+            raise ValueError(
+                f"run(iterations={iterations}): feed {n!r} must stack "
+                f"{iterations} per-step batches on a leading axis, got "
+                f"shape {shp}")
+
+
 def _is_persistable(block: Block, name: str) -> bool:
     v = block._var_recursive(name) if name else None
     return v is not None and v.persistable
+
+
+def _is_host(op: OpDesc) -> bool:
+    return registry.has_op(op.type) and registry.lookup(op.type).is_host
 
 
 def _live_ops(ops: List[OpDesc], fetch_names, block: Block) -> List[OpDesc]:
@@ -97,24 +251,52 @@ def _live_ops(ops: List[OpDesc], fetch_names, block: Block) -> List[OpDesc]:
     needed = set(fetch_names)
     kept = []
     for op in reversed(ops):
-        is_host = registry.has_op(op.type) and registry.lookup(op.type).is_host
-        if is_host or any(n in needed or _is_persistable(block, n)
-                          for n in op.output_arg_names()):
+        if _is_host(op) or any(n in needed or _is_persistable(block, n)
+                               for n in op.output_arg_names()):
             kept.append(op)
             needed.update(n for n in op.input_arg_names() if n)
     kept.reverse()
     return kept
 
 
-def _coerce_feed(value, name: str, block: Block, device: torch.device):
-    """A feed as a tensor on ``device`` in the dtype the program declares
-    (int64 ids stay int64; lengths keep their declared type)."""
-    want = None
+def _split_segments(ops: List[OpDesc]) -> List[Tuple[str, List[OpDesc]]]:
+    """Group ops into maximal device runs separated by host ops."""
+    segments: List[Tuple[str, List[OpDesc]]] = []
+    for op in ops:
+        kind = "host" if _is_host(op) else "device"
+        if not segments or segments[-1][0] != kind:
+            segments.append((kind, []))
+        segments[-1][1].append(op)
+    return segments
+
+
+def _fuse_fallback_reason(segments) -> Optional[str]:
+    """Why a K-step run cannot be one plan step (None when it can): host
+    ops split the block into segments run eagerly in between."""
+    host = sorted({op.type for kind, ops in segments if kind == "host"
+                   for op in ops})
+    if host or len(segments) != 1:
+        return f"host ops split the block: {host}"
+    return None
+
+
+def _feed_dtype(name: str, value, block: Block) -> torch.dtype:
+    """The dtype a feed takes in the run: the program's declared one (int64
+    ids stay int64; lengths keep their declared type), else its own."""
     if block.has_var(name) and block.vars[name].dtype is not None:
-        want = dtype_to_torch(block.vars[name].dtype)
+        return dtype_to_torch(block.vars[name].dtype)
+    if isinstance(value, torch.Tensor):
+        return value.dtype
+    return torch.from_numpy(np.empty(0, np.asarray(value).dtype)).dtype
+
+
+def _coerce_feed(value, name: str, block: Block, device: torch.device):
+    """A feed as a tensor on ``device`` in the dtype the program declares."""
+    value = _unwrap_fetch_handle(value)
+    want = _feed_dtype(name, value, block)
     if not isinstance(value, torch.Tensor):
         return torch.tensor(np.asarray(value), dtype=want, device=device)
-    return value.to(device=device, dtype=want or value.dtype)
+    return value.to(device=device, dtype=want)
 
 
 def _emitter(op_type: str):
@@ -154,11 +336,42 @@ def run_ops(op_list: List[OpDesc], env: Dict[str, Any], ctx: EmitContext):
                     env[n] = v
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.float()  # numpy has no bfloat16
-    return t.numpy()
+def _storage(t) -> Optional[int]:
+    return (t.untyped_storage().data_ptr() if isinstance(t, torch.Tensor)
+            else None)
+
+
+def _write_state(scope: Scope, names, env: Dict[str, Any],
+                 capturing: bool = False):
+    """Write each of ``names`` from ``env`` into the scope: copied into
+    the scope's tensor when it has one of the same shape, dtype and
+    device, else bound. A value that shares storage with a tensor being
+    written is cloned first, so every copy reads the run's value. Under
+    capture every name must already have its tensor (the warm-up bound
+    it), since a bound graph-pool tensor would be overwritten by later
+    replays."""
+    names = [n for n in names if n in env]
+    targets = {n: scope.find_var(n) for n in names}
+    ptrs = {_storage(t) for t in targets.values() if t is not None}
+    writes = []
+    for n in names:
+        val, dst = env[n], targets[n]
+        if val is dst:
+            continue
+        if _storage(val) in ptrs:
+            val = val.clone()
+        writes.append((n, val, dst))
+    for n, val, dst in writes:
+        if (isinstance(dst, torch.Tensor) and isinstance(val, torch.Tensor)
+                and dst.shape == val.shape and dst.dtype == val.dtype
+                and dst.device == val.device):
+            dst.copy_(val)
+        elif capturing:
+            raise RuntimeError(
+                f"captured run: persistable {n!r} has no scope tensor of "
+                f"its new shape and dtype {tuple(val.shape)} {val.dtype}")
+        else:
+            scope.set_var(n, val)
 
 
 def _fetch_names(fetch_list) -> List[str]:
@@ -166,23 +379,146 @@ def _fetch_names(fetch_list) -> List[str]:
             for f in (fetch_list or [])]
 
 
+# one capture stream and one graph memory pool per CUDA device
+_capture_streams: Dict[int, Any] = {}
+_graph_pools: Dict[int, Any] = {}
+
+
+def _capture_stream(device: torch.device):
+    idx = device.index or 0
+    if idx not in _capture_streams:
+        _capture_streams[idx] = torch.cuda.Stream(device)
+    return _capture_streams[idx]
+
+
+def _graph_pool(device: torch.device):
+    idx = device.index or 0
+    if idx not in _graph_pools:
+        with torch.cuda.device(device):
+            _graph_pools[idx] = torch.cuda.graph_pool_handle()
+    return _graph_pools[idx]
+
+
+class _Segment:
+    """One device segment of a plan: its ops, the names it reads and
+    writes, its constants and, on the card, its graph."""
+
+    def __init__(self, ops: List[OpDesc], inputs: List[str],
+                 state_in: List[str], state_out: List[str],
+                 outputs: List[str], needs_rng: bool):
+        self.ops = ops
+        self.inputs = inputs        # read from the feed or earlier segments
+        self.state_in = state_in    # read from the scope
+        self.state_out = state_out  # persistables written, in op order
+        self.outputs = outputs      # fetched or read by later segments
+        self.needs_rng = needs_rng
+        self.consts: Dict[int, torch.Tensor] = {}
+        self.drop_graph()
+
+    def drop_graph(self):
+        self.graph = None
+        self.static_in: Dict[str, torch.Tensor] = {}
+        self.static_out: Dict[str, torch.Tensor] = {}
+        self.state_refs: Dict[str, Any] = {}
+
+    def state_rebound(self, scope: Scope) -> bool:
+        """Does the scope hold another tensor under a name the graph
+        reads or writes than the one it captured?"""
+        for n, ref in self.state_refs.items():
+            if scope.find_var(n) is not ref():
+                return True
+        return False
+
+
+class _Plan:
+    """A run's segments ("host", ops) and ("device", _Segment), and the
+    count of its runs (the first is the warm-up; the second captures)."""
+
+    def __init__(self, segments, scope: Scope):
+        self.segments = segments
+        self.scope_ref = weakref.ref(scope)
+        self.runs = 0
+
+    def drop_graphs(self):
+        for kind, seg in self.segments:
+            if kind == "device":
+                seg.drop_graph()
+        self.runs = 0
+
+
+def _make_plan(ops: List[OpDesc], feed_names, fetch_names, block: Block,
+               scope: Scope) -> _Plan:
+    """Split ``ops`` at host ops and analyse each device segment: the
+    names it reads before writing, from the run (feeds, earlier
+    segments) or from the scope, the persistables it writes and the
+    values later segments or the fetches take from it."""
+    split = _split_segments(ops)
+    available = set(feed_names)
+    segments = []
+    for i, (kind, seg_ops) in enumerate(split):
+        written: List[str] = []
+        if kind == "host":
+            segments.append(("host", seg_ops))
+            for op in seg_ops:
+                written.extend(n for n in op.output_arg_names() if n)
+            available.update(written)
+            continue
+        later_reads = {n for _, later in split[i + 1:] for op in later
+                       for n in op.input_arg_names()}
+        # dicts keep first-seen order
+        first_reads: Dict[str, None] = {}
+        seg_written: Dict[str, None] = {}
+        needs_rng = False
+        for op in seg_ops:
+            info = registry.lookup(op.type) if registry.has_op(op.type) \
+                else None
+            needs_rng = needs_rng or bool(info and info.needs_rng)
+            for n in op.input_arg_names():
+                if n and n not in seg_written:
+                    first_reads.setdefault(n)
+            for n in op.output_arg_names():
+                if n:
+                    seg_written.setdefault(n)
+        written = list(seg_written)
+        inputs = [n for n in first_reads if n in available]
+        state_in = [n for n in first_reads if n not in available]
+        state_out = [n for n in written if _is_persistable(block, n)]
+        outputs = [n for n in written
+                   if n in later_reads or n in fetch_names]
+        segments.append(("device", _Segment(seg_ops, inputs, state_in,
+                                            state_out, outputs, needs_rng)))
+        available.update(written)
+    return _Plan(segments, scope)
+
+
 class Executor:
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.torch_device
+        self._seen_programs = weakref.WeakSet()
         # the BuildStrategy pipeline on this executor: runs (memo
-        # misses), memo hits, and per stage its ops removed and seconds
+        # misses), runs a memoized list served (pass memo or cached
+        # plan), and per stage its ops removed and seconds
         self.pipeline_stats = {"runs": 0, "memo_hits": 0, "seconds": 0.0,
                                "stages": {}}
+        # graphs captured by this executor, their seconds from the start
+        # of the capture to the end of the first replay (host clock,
+        # synchronized), and replays
+        self.capture_stats = {"captures": 0, "seconds": 0.0, "replays": 0}
+        # run(iterations=K) calls that took K single-step runs
+        self.fuse_fallbacks = 0
 
     def lowered_ops(self, program=None, fetch_list=None) -> List[OpDesc]:
         """The op list ``run`` executes for ``program`` and
         ``fetch_list``: the live ops of block 0, rewritten by the pass
         pipeline when ``program`` is a CompiledProgram."""
-        return self._prepare(program, _fetch_names(fetch_list))[1]
+        program, build_strategy = self._unwrap(program)
+        return self._prepare(program, build_strategy,
+                             _fetch_names(fetch_list))
 
-    def _prepare(self, program, fetch_names):
-        """(Program, op list) of a run."""
+    @staticmethod
+    def _unwrap(program):
+        """(Program, BuildStrategy or None) of a run's target."""
         program = program or default_main_program()
         build_strategy = None
         if isinstance(program, CompiledProgram):
@@ -194,20 +530,28 @@ class Executor:
             raise NotImplementedError(
                 "verify_passes (ir/verify.py, the pass verifier) waits for "
                 "ROADMAP A14")
+        return program, build_strategy
+
+    def _flags(self, build_strategy):
+        return pipeline.effective_flags(pipeline.fingerprint(build_strategy),
+                                        self.device.type)
+
+    def _prepare(self, program, build_strategy, fetch_names):
+        """The op list of a run: block 0's live ops, rewritten by the
+        pipeline (memoized) when the BuildStrategy selects passes."""
         block = program.global_block()
         ops = _live_ops([op for op in block.desc.ops
                          if op.type not in ("feed", "fetch")],
                         fetch_names, block)
-        flags = pipeline.effective_flags(pipeline.fingerprint(build_strategy),
-                                         self.device.type)
+        flags = self._flags(build_strategy)
         if not flags:
-            return program, ops
+            return ops
         memo = program.__dict__.setdefault("_pass_memo", {})
         key = (program._version, tuple(fetch_names), flags)
         optimized = memo.get(key)
         if optimized is not None:
             self.pipeline_stats["memo_hits"] += 1
-            return program, optimized
+            return optimized
         # needed by name: the fetches and the persistable state the
         # list writes
         needed = set(fetch_names) | {
@@ -219,40 +563,233 @@ class Executor:
         self.pipeline_stats["seconds"] += time.perf_counter() - t0
         self.pipeline_stats["runs"] += 1
         memo[key] = optimized
-        return program, optimized
+        return optimized
+
+    def _plan(self, program, build_strategy, feed, fetch_names, scope,
+              iterations):
+        """The cached plan of this run's key (made on a miss), or a plan
+        for this run alone when ``FLAGS.jit_cache`` is off."""
+        block = program.global_block()
+        flags = self._flags(build_strategy)
+        signature = tuple(sorted(
+            (n, tuple(np.shape(_unwrap_fetch_handle(v))),
+             str(_feed_dtype(n, _unwrap_fetch_handle(v), block)))
+            for n, v in feed.items()))
+        key = (program._version, tuple(fetch_names), flags, signature,
+               iterations, program._amp, str(self.device), scope._token)
+        cache = program.__dict__.setdefault("_exec_cache", {})
+        plan = cache.get(key) if FLAGS.jit_cache else None
+        if plan is not None:
+            if flags:
+                self.pipeline_stats["memo_hits"] += 1
+            return plan
+        ops = self._prepare(program, build_strategy, fetch_names)
+        plan = _make_plan(ops, list(feed), fetch_names, block, scope)
+        if FLAGS.jit_cache:
+            # plans of scopes that are gone cannot run again: drop them
+            for k in [k for k, p in cache.items() if p.scope_ref() is None]:
+                del cache[k]
+            cache[key] = plan
+            self._seen_programs.add(program)
+        return plan
 
     def run(self, program=None,
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
             scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy: bool = True,
+            use_program_cache: bool = True,
+            iterations: Optional[int] = None):
         """Run block 0 of ``program`` (a Program or a CompiledProgram).
-        Fetches come back as numpy arrays, or as tensors on the device
-        with ``return_numpy=False``."""
+        Fetches come back as numpy arrays, or as ``FetchHandle``s with
+        ``return_numpy=False``. ``iterations=K`` (or a CompiledProgram's
+        ``ExecutionStrategy.num_iteration_per_run``) runs K steps on
+        [K, batch, ...] feeds and stacks the fetches [K, ...].
+        ``use_program_cache`` is the reference's argument and is ignored:
+        ``FLAGS.jit_cache`` decides whether plans are kept."""
         scope = scope or global_scope()
+        target = program or default_main_program()
+        if iterations is None and isinstance(target, CompiledProgram):
+            iterations = target._exec_strategy.num_iteration_per_run
+        iterations = max(1, int(iterations or 1))
+        feed = dict(feed or {})
         fetch_names = _fetch_names(fetch_list)
-        program, ops = self._prepare(program, fetch_names)
+        program, build_strategy = self._unwrap(target)
+        if iterations > 1:
+            _validate_super_batch(feed, iterations)
+        plan = self._plan(program, build_strategy, feed, fetch_names, scope,
+                          iterations)
+        if iterations > 1:
+            reason = _fuse_fallback_reason(plan.segments)
+            if reason is not None:
+                self.fuse_fallbacks += 1
+                warnings.warn(
+                    f"run(iterations={iterations}): cannot fuse steps "
+                    f"into one plan ({reason}); falling back to "
+                    f"{iterations} sequential single-step runs",
+                    stacklevel=2)
+                return self._run_steps_sequential(
+                    target, feed, fetch_list, scope, return_numpy,
+                    iterations)
         block = program.global_block()
-        env = {name: _coerce_feed(value, name, block, self.device)
-               for name, value in (feed or {}).items()}
+        captured = (self.device.type == "cuda" and FLAGS.jit_cache
+                    and plan.runs > 0)
+        if captured and any(kind == "device" and seg.graph is not None
+                            and seg.state_rebound(scope)
+                            for kind, seg in plan.segments):
+            plan.drop_graphs()
+            captured = False
         generator = None
-        if any(registry.has_op(op.type) and registry.lookup(op.type).needs_rng
-               for op in ops):
+        if any(kind == "device" and seg.needs_rng
+               for kind, seg in plan.segments):
             generator = scope.generator(self.device,
                                         program.random_seed or FLAGS.seed)
-        ctx = EmitContext(self.device, generator=generator, amp=program._amp,
-                          scope=scope)
+        env = {n: _coerce_feed(v, n, block, self.device)
+               for n, v in feed.items()}
+        results: Dict[str, Any] = {}
         # grad ops differentiate with torch.func.vjp, which records its
         # forward under no_grad too
         with torch.no_grad():
-            run_ops(ops, env, ctx)
-        for name, val in env.items():
-            if _is_persistable(block, name):
-                scope.set_var(name, val)
-        results = []
+            for kind, seg in plan.segments:
+                if kind == "host":
+                    run_ops(seg, env, EmitContext(
+                        self.device, amp=program._amp, scope=scope))
+                    _write_state(scope, [n for op in seg
+                                         for n in op.output_arg_names()
+                                         if n and _is_persistable(block, n)],
+                                 env)
+                    continue
+                ctx = EmitContext(self.device, generator=generator,
+                                  amp=program._amp, scope=scope,
+                                  consts=seg.consts)
+                if not captured:
+                    outs = self._run_eager(seg, env, scope, ctx, iterations,
+                                           warm_up=self.device.type == "cuda"
+                                           and FLAGS.jit_cache)
+                elif seg.graph is None:
+                    outs = self._capture(seg, env, scope, ctx, iterations)
+                else:
+                    outs = self._replay(seg, env)
+                env.update(outs)
+                results.update((n, outs[n]) for n in fetch_names
+                               if n in outs)
+        plan.runs += 1
+        out = []
         for n in fetch_names:
-            val = env[n] if n in env else scope.find_var(n)
-            if val is None:
-                raise KeyError(f"fetch {n!r} was not computed by this run")
-            results.append(_to_numpy(val) if return_numpy else val)
-        return results
+            if n in results:
+                val = results[n]
+            elif n in env:
+                # a fed value or a host op's output
+                val = env[n].clone()
+            else:
+                val = scope.find_var(n)
+                if val is None:
+                    raise KeyError(f"fetch {n!r} was not computed by this "
+                                   "run")
+                val = val.clone()  # the scope's tensor changes in place
+            out.append(_to_numpy(val) if return_numpy else FetchHandle(val))
+        return out
+
+    def _steps(self, seg: _Segment, env: Dict[str, Any], scope: Scope,
+               ctx: EmitContext, iterations: int, capturing: bool = False):
+        """The segment's ``iterations`` steps on the inputs in ``env``
+        (step k reads slice k of each input when K > 1), each ending
+        with its state written into the scope. Returns the outputs,
+        stacked [K, ...] when K > 1; an output sharing storage with the
+        scope's state is cloned, before the state is written (which may
+        change that tensor in place) and after (which may bind it)."""
+        state = seg.state_in + seg.state_out
+
+        def detach(outs):
+            ptrs = {_storage(scope.find_var(n)) for n in state}
+            return {n: v.clone() if _storage(v) in ptrs else v
+                    for n, v in outs.items()}
+
+        per_step = []
+        for k in range(iterations):
+            step = {n: (env[n][k] if iterations > 1 else env[n])
+                    for n in seg.inputs}
+            run_ops(seg.ops, step, ctx)
+            missing = [n for n in seg.outputs if n not in step]
+            if missing:
+                raise KeyError(f"{missing} not computed by this run")
+            outs = detach({n: step[n] for n in seg.outputs})
+            _write_state(scope, seg.state_out, step, capturing)
+            per_step.append(detach(outs))
+        if iterations == 1:
+            return per_step[0]
+        return {n: torch.stack([s[n] for s in per_step])
+                for n in seg.outputs}
+
+    def _run_eager(self, seg, env, scope, ctx, iterations, warm_up):
+        """An eager run; a plan's warm-up on the card runs on the capture
+        stream, whose cuBLAS workspace the capture then finds made."""
+        if not warm_up:
+            return self._steps(seg, env, scope, ctx, iterations)
+        side = _capture_stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            outs = self._steps(seg, env, scope, ctx, iterations)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return outs
+
+    def _capture(self, seg, env, scope, ctx, iterations):
+        """Capture the segment's steps into a CUDA graph over static
+        input buffers and the scope's state tensors, then replay it once."""
+        dev = self.device
+        t0 = time.perf_counter()
+        seg.static_in = {n: env[n].clone() for n in seg.inputs}
+        for n in seg.state_in + seg.state_out:
+            if scope.find_var(n) is None:
+                raise KeyError(f"captured run: {n!r} is not in the scope")
+        seg.state_refs = {n: weakref.ref(scope.find_var(n))
+                          for n in seg.state_in + seg.state_out}
+        graph = torch.cuda.CUDAGraph()
+        if seg.needs_rng:
+            graph.register_generator_state(ctx.generator)
+        # torch.cuda.graph synchronizes and empties the allocator's cache
+        # first, so the graph's pool can take the warm-up's blocks
+        with torch.cuda.graph(graph, pool=_graph_pool(dev),
+                              stream=_capture_stream(dev)):
+            seg.static_out = self._steps(seg, dict(seg.static_in), scope,
+                                         ctx, iterations, capturing=True)
+        seg.graph = graph
+        outs = self._replay(seg, None)
+        torch.cuda.synchronize(dev)
+        self.capture_stats["captures"] += 1
+        self.capture_stats["seconds"] += time.perf_counter() - t0
+        return outs
+
+    def _replay(self, seg, env):
+        """Replay the segment's graph on this run's inputs (``env``; None
+        when the static buffers hold them already). The outputs are
+        copied out of the graph's pool, which other graphs reuse."""
+        if env is not None:
+            for n, buf in seg.static_in.items():
+                buf.copy_(env[n])
+        seg.graph.replay()
+        self.capture_stats["replays"] += 1
+        return {n: t.clone() for n, t in seg.static_out.items()}
+
+    def _run_steps_sequential(self, program, feed, fetch_list, scope,
+                              return_numpy, iterations):
+        """``run(iterations=K)`` as K single-step runs on slice k of each
+        [K, ...] feed, the fetches stacked: the K-step contract without
+        the fused plan."""
+        per_step = [self.run(program,
+                             feed={n: _unwrap_fetch_handle(v)[k]
+                                   for n, v in feed.items()},
+                             fetch_list=fetch_list, scope=scope,
+                             return_numpy=False, iterations=1)
+                    for k in range(iterations)]
+        out = []
+        for i in range(len(per_step[0]) if per_step else 0):
+            val = torch.stack([s[i].device_value() for s in per_step])
+            out.append(_to_numpy(val) if return_numpy else FetchHandle(val))
+        return out
+
+    def close(self):
+        """Drop the plans, and with them the graphs, of every program
+        this executor ran."""
+        for prog in list(self._seen_programs):
+            prog.__dict__.pop("_exec_cache", None)

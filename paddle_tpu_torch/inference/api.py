@@ -129,7 +129,9 @@ class AnalysisConfig(NativeConfig):
 
 class NativePredictor:
     """api_impl.h NativePaddlePredictor analog: load once, run per
-    request."""
+    request. On the card the executor captures each request signature
+    (feed shapes and dtypes) in a CUDA graph at its second request and
+    replays it for the later ones; ``close()`` releases the graphs."""
 
     def __init__(self, config: NativeConfig):
         self._config = config
@@ -172,7 +174,12 @@ class NativePredictor:
         outs = self._exe.run(self._program, feed=feed,
                              fetch_list=self._fetch_names,
                              return_numpy=False, scope=self._scope)
-        return [PaddleTensor(o, n) for n, o in zip(self._fetch_names, outs)]
+        return [PaddleTensor(o.device_value(), n)
+                for n, o in zip(self._fetch_names, outs)]
+
+    def close(self):
+        """Release the captured graphs of this predictor's program."""
+        self._exe.close()
 
 
 class AnalysisPredictor(NativePredictor):

@@ -150,8 +150,10 @@ def _pt_const_infer(op, block):
 def _pt_const(ctx, ins, attrs):
     """Literal produced by constant folding: the folded numpy value rides
     in the op's attrs (in memory only: rewritten op lists are never
-    serialized)."""
-    return {"Out": [torch.as_tensor(attrs["value"], device=ctx.device)]}
+    serialized); copied to the device once per plan
+    (``EmitContext.constant``)."""
+    return {"Out": [ctx.constant(attrs, lambda: torch.as_tensor(
+        attrs["value"], device=ctx.device))]}
 
 
 # ---------------------------------------------------------------------------

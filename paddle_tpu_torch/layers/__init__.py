@@ -1,5 +1,6 @@
-from . import io, nn, ops, tensor  # noqa: F401
+from . import control_flow, io, nn, ops, tensor  # noqa: F401
 from . import learning_rate_scheduler  # noqa: F401
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

@@ -50,6 +50,9 @@ launch_dtypes: Dict[str, int] = {}
 # each call launches BWD_KERNELS kernels (delta, dK/dV, dQ)
 bwd_launches = 0
 BWD_KERNELS = 3
+# A call under CUDA graph capture counts the launch it records in the
+# graph; the graph's replays launch the kernels again without calling the
+# wrappers, so they move no count here (a profiler trace counts them).
 
 _MAX_D = 128
 # the kernel's grid: (B*H, query tiles of _BM rows); CUDA caps gridDim.x at

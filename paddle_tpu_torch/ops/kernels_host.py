@@ -1,5 +1,5 @@
 """Host ops: save/load and save_combine/load_combine (checkpointing as
-ops).
+ops), and print.
 
 Counterpart of ``paddle_tpu/ops/kernels_host.py`` with the same tensor
 file format, so parameter files cross-load between the two packages: a
@@ -94,3 +94,26 @@ def load_combine(ctx, ins, attrs):
         (n,) = struct.unpack("<I", f.read(4))
         vals = [_read_tensor(f).to(ctx.device) for _ in range(n)]
     return {"Out": vals}
+
+
+@register_op("print", no_grad=True, is_host=True)
+def print_op(ctx, ins, attrs):
+    """print_op.cc analog: the input's shape, dtype and values on the
+    host's standard output (a host op: it waits for the device)."""
+    msg = attrs.get("message", "")
+    for v in ins["In"]:
+        arr = torch.as_tensor(v).detach().cpu()
+        if arr.dtype == torch.bfloat16:
+            arr = arr.float()
+        arr = arr.numpy()
+        parts = [msg or "Variable:"]
+        if attrs.get("print_tensor_shape", True):
+            parts.append(f"shape={list(arr.shape)}")
+        if attrs.get("print_tensor_type", True):
+            parts.append(f"dtype={arr.dtype}")
+        if attrs.get("print_tensor_stats", False) and arr.size:
+            parts.append(f"min={arr.min()} max={arr.max()} mean={arr.mean()}")
+        print(" ".join(parts))
+        if attrs.get("print_tensor_value", True):
+            print(arr)
+    return {"Out": list(ins["In"])}

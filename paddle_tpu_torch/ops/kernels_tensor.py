@@ -265,10 +265,12 @@ def _assign_value_infer(op: OpDesc, block):
 @register_op("assign_value", no_grad=True, infer=_assign_value_infer)
 def assign_value(ctx, ins, attrs):
     """The literal in the attrs (``values``, flat, and ``shape``) as a
-    tensor on the run's device."""
+    tensor on the run's device, copied there once per plan
+    (``EmitContext.constant``)."""
     dt = dtype_to_torch(attrs.get("dtype", DataType.FP32))
-    vals = torch.tensor(attrs["values"], dtype=dt)
-    return {"Out": [vals.reshape(tuple(attrs["shape"])).to(ctx.device)]}
+    return {"Out": [ctx.constant(attrs, lambda: torch.tensor(
+        attrs["values"], dtype=dt).reshape(tuple(attrs["shape"])).to(
+            ctx.device))]}
 
 
 # ---------------------------------------------------------------------------

@@ -34,16 +34,31 @@ from .core.types import GRAD_SUFFIX
 class EmitContext:
     """Per-run context handed to emitters: the device every tensor of
     the run lives on, the ``torch.Generator`` random ops draw from (on
-    that device), and the bf16 autocast flag."""
+    that device), the bf16 autocast flag, and the constants of the
+    executor's plan (``constant``)."""
 
-    __slots__ = ("generator", "device", "amp", "scope")
+    __slots__ = ("generator", "device", "amp", "scope", "consts")
 
     def __init__(self, device: torch.device, generator=None, amp=False,
-                 scope=None):
+                 scope=None, consts=None):
         self.device = device
         self.generator = generator
         self.amp = amp
         self.scope = scope
+        self.consts = consts
+
+    def constant(self, attrs, make):
+        """A copy of the literal ``make()`` builds from an op's ``attrs``,
+        made once per plan (keyed by the attrs dict, which the plan's op
+        list keeps alive), so runs after the first copy no host data to
+        the device, which a CUDA graph capture does not permit. Without a
+        plan each call makes it anew."""
+        if self.consts is None:
+            return make()
+        t = self.consts.get(id(attrs))
+        if t is None:
+            t = self.consts[id(attrs)] = make()
+        return t.clone()
 
 
 class OpInfo:

@@ -24,6 +24,10 @@ _DEFAULTS: Dict[str, Any] = {
     # paddle_tpu/ir/pipeline.py effective_flags); the port keeps NCHW
     # until the card's numbers (chip_smoke.py phase 9) decide
     "conv_layout_nhwc": False,
+    # keep each run's plan on its program and, on a CUDA place, capture
+    # it in a CUDA graph at its second run (paddle_tpu/utils/flags.py
+    # jit_cache); False keeps none, so every run is eager (the oracle)
+    "jit_cache": True,
     # check the pipeline's invariants after every stage (ir/verify.py in
     # the JAX package); not ported, so a run that asks for it raises
     "verify_passes": False,

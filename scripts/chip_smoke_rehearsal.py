@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-10) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-11) on the CPU at a tiny
 Transformer and a small ResNet-50 (64x64 images, batch 4), to find faults
 in the script's Python before a run on the card.
 
@@ -8,11 +8,13 @@ in the script's Python before a run on the card.
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
 wrappers count their calls as launches (on the CPU they compute the
-plain versions and count nothing themselves). FLAGS.fuse_optimizer_ops_on_cpu
+plain versions and count nothing themselves), which stand for the
+profiler's traces of the card. FLAGS.fuse_optimizer_ops_on_cpu
 is set, so phase 7's rewrite holds its fused_adam as on the card.
 Times printed here are the CPU's; they say nothing about the card.
 """
 
+import contextlib
 import os
 import sys
 import tempfile
@@ -53,6 +55,29 @@ def _count_launches():
     fa.flash_attention_fwd, fa.flash_attention_bwd = counted_fwd, counted_bwd
 
 
+def _device_rows(fn):
+    """The profiler's rows as the card would give them: the flash kernels
+    this call launched, by the counters the wrappers move."""
+    fwd, bwd = fa.launches, fa.bwd_launches
+    fn()
+    return ([("flash_fwd_kernel", 1.0, fa.launches - fwd),
+             ("flash_bwd_", 1.0, fa.bwd_launches - bwd)], 1.0)
+
+
+@contextlib.contextmanager
+def _traced_launches():
+    """chip_smoke.traced_launches with the trace's counts taken from the
+    wrappers' counters: on the CPU every run is eager, so each launch
+    passes through its wrapper."""
+    fa.launches = fa.bwd_launches = 0
+    fa.launch_dtypes.clear()
+    got = {}
+    yield got
+    got["traced"] = got["calls"] = (fa.launches, fa.bwd_launches)
+    got["traced_bf16"] = fa.launch_dtypes.get("bfloat16", 0)
+    got["calls_by_dtype"] = dict(fa.launch_dtypes)
+
+
 def main():
     cs.MODEL = TINY
     pexecutor.CUDAPlace = papi.CUDAPlace = lambda device=0: pt.CPUPlace()
@@ -60,21 +85,23 @@ def main():
     torch.cuda.reset_peak_memory_stats = lambda *a: None
     torch.cuda.max_memory_allocated = lambda *a: 0
     FLAGS.fuse_optimizer_ops_on_cpu = True
+    cs.device_rows = _device_rows
+    cs.traced_launches = _traced_launches
     _count_launches()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
         served = cs.main_path(d, False)
         trained = cs.training_path(False)
         compiled = cs.compiled_training_path(trained, False)
         analysis = cs.analysis_serving_path(d, served, False)
-    cs.RESNET_IMAGE, cs.RESNET_BATCH = (3, 64, 64), 4
-    resnet_train = cs.resnet_training_path("CPU rehearsal", False)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d:
-        resnet_serve = cs.resnet_serving_path(d, "CPU rehearsal", False)
+        cs.RESNET_IMAGE, cs.RESNET_BATCH = (3, 64, 64), 4
+        resnet = cs.resnet_paths(r, "CPU rehearsal", False)
+        capture = cs.capture_paths(d, r, "CPU rehearsal", False)
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
-          f"ResNet-50 training {resnet_train}, serving {resnet_serve}")
+          f"ResNet-50 {resnet}, phase 11 {capture}")
 
 
 if __name__ == "__main__":

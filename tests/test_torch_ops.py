@@ -412,3 +412,101 @@ def test_grad_flags_match_jax():
         assert p.no_grad == j.no_grad, op_type
         assert p.intermediate_outputs == j.intermediate_outputs, op_type
         assert (p.grad_maker is None) == (j.grad_maker is None), op_type
+
+
+def _no_device_copies(monkeypatch):
+    """Make a copy of host data to another device raise: ``torch.tensor``
+    or ``torch.as_tensor`` onto a device that is not the CPU, or
+    ``Tensor.to`` from the CPU onto one. A CUDA graph capture does not
+    permit such a copy (from pageable host memory). The emitters run on
+    the meta device, which stands for the card here."""
+    real_tensor, real_as, real_to = torch.tensor, torch.as_tensor, \
+        torch.Tensor.to
+
+    def off_host(device):
+        return device is not None and torch.device(device).type != "cpu"
+
+    def tensor(*args, device=None, **kwargs):
+        if off_host(device):
+            raise AssertionError(f"host data copied to {device} in a run")
+        return real_tensor(*args, device=device, **kwargs)
+
+    def as_tensor(*args, device=None, **kwargs):
+        if off_host(device):
+            raise AssertionError(f"host data copied to {device} in a run")
+        return real_as(*args, device=device, **kwargs)
+
+    def to(self, *args, **kwargs):
+        out = real_to(self, *args, **kwargs)
+        if self.device.type == "cpu" and out.device.type != "cpu":
+            raise AssertionError(f"a CPU tensor moved to {out.device} in "
+                                 "a run")
+        return out
+
+    monkeypatch.setattr(torch, "tensor", tensor)
+    monkeypatch.setattr(torch, "as_tensor", as_tensor)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+
+
+@pytest.mark.parametrize("dtype,step", [
+    ("float32", 1.0), ("float32", 0.1), ("int32", 2.0), ("int64", 1.0),
+    ("int64", 1.5), ("bfloat16", 0.1)])
+def test_increment_matches_jax_and_makes_no_host_tensor(dtype, step,
+                                                         monkeypatch):
+    """The step is cast to X's dtype as the JAX op casts it (1.5 -> 1 for
+    integers, 0.1 rounded to bf16) and added as a Python number, with no
+    copy of host data to the device (the run on the meta device). (The
+    JAX package runs without x64, so its int64 counter is int32: values
+    are compared.)"""
+    x0 = np.array([3, -7], np.float32 if dtype == "bfloat16" else dtype)
+    jx = jnp.asarray(x0).astype(jnp.bfloat16 if dtype == "bfloat16"
+                                else x0.dtype)
+    jout = jreg.lookup("increment").emitter(jreg.EmitContext(), {"X": [jx]},
+                                            {"step": step})["Out"][0]
+    px = torch.from_numpy(x0)
+    if dtype == "bfloat16":
+        px = px.to(torch.bfloat16)
+    emit = preg.lookup("increment").emitter
+    out = emit(preg.EmitContext(torch.device("cpu")), {"X": [px]},
+               {"step": step})["Out"][0]
+    meta = px.to("meta")
+    _no_device_copies(monkeypatch)
+    on_meta = emit(preg.EmitContext(meta.device), {"X": [meta]},
+                   {"step": step})["Out"][0]
+    monkeypatch.undo()
+    assert out.dtype == on_meta.dtype == px.dtype
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(jout).astype(np.float32))
+
+
+@pytest.mark.parametrize("name,values,shape", [
+    ("FP32", [0.5, -1.25, 3.0, 0.1, 7.0, -2.0], [2, 3]),
+    ("INT32", [1, 2, -3], [3]), ("INT64", [4, 5], [2, 1])])
+def test_assign_value_matches_jax_and_copies_its_literal_once(
+        name, values, shape, monkeypatch):
+    """Against the JAX emitter; with a plan's constants the literal is
+    copied to the device at the first run only (the runs on the meta
+    device), and each run gets a copy of its own (an in-place update of
+    one run's output leaves the next run's alone)."""
+    pdt, jdt = _dt(name)
+    jout = jreg.lookup("assign_value").emitter(
+        jreg.EmitContext(), {}, {"values": values, "shape": shape,
+                                 "dtype": jdt})["Out"][0]
+    attrs = {"values": values, "shape": shape, "dtype": pdt}
+    ctx = preg.EmitContext(torch.device("cpu"), consts={})
+    emit = preg.lookup("assign_value").emitter
+    first = emit(ctx, {}, attrs)["Out"][0]
+    first.add_(1)
+    second = emit(ctx, {}, attrs)["Out"][0]
+    meta_ctx = preg.EmitContext(torch.device("meta"), consts={})
+    emit(meta_ctx, {}, attrs)
+    _no_device_copies(monkeypatch)
+    on_meta = emit(meta_ctx, {}, attrs)["Out"][0]
+    with pytest.raises(AssertionError, match="moved to meta"):
+        emit(preg.EmitContext(torch.device("meta")), {}, attrs)
+    monkeypatch.undo()
+    assert list(second.shape) == list(on_meta.shape) == shape
+    assert on_meta.dtype == second.dtype
+    assert second.dtype == {"FP32": torch.float32, "INT32": torch.int32,
+                            "INT64": torch.int64}[name]
+    np.testing.assert_array_equal(second.numpy(), np.asarray(jout))
