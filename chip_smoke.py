@@ -30,7 +30,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    rows; the backward (dQ, dK, dV, dKeyBias against
    ``plain_attention_bwd``) the same way, causal and not, with key-bias
    tails and ragged Tq != Tk, and at the train step's [16, 8, 256, 64],
-   the grid that the training path launches.
+   the grid that the training path launches; both at BERT's [16, 12,
+   128, 64] (key lengths in [T/4, T], one row at length 1).
 4. kernel timing at [8, 8, 256, 64] (the shape of a request), the
    backward also at [16, 8, 256, 64] (the shape of a train step), each
    the card's time per call from a CUDA-graph replay of 30 calls (the
@@ -44,7 +45,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    TFLOP/s; 989 beside it). Backward: 5 products of 2*B*H*Tq*Tk*D;
    float32 as 3xTF32 at 495 TFLOP/s (67 TFLOP/s beside it), bfloat16 at
    989 TFLOP/s, each against the bytes read and written once at 3.35
-   TB/s.
+   TB/s. Both also at BERT's [16, 12, 128, 64], key bias, non-causal.
 5. serving: Transformer-base (the bench_transformer widths, random
    weights from a seed) built with the port's layers, initialized on the
    card, saved as an inference model and served by
@@ -149,7 +150,28 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    captured runs against 5 eager ones and ``run(iterations=2)`` against
    single runs, bitwise.
 
-Flash launches (phases 5-8 and 11) are counted by kernel name in a
+12. BERT-base pretraining: ``bert.build`` at bench_bert's widths (vocab
+   30522, T 128, 20 masked slots, 12 layers, 12 heads, d_model 768,
+   d_inner 3072), batch 16 with row lengths in [64, 128], through
+   ``CompiledProgram`` under bench.py's BuildStrategy. Arm A, bench_bert's
+   Adam (lr 1e-4, epsilon 1e-6), fp32 and AMP: 5 steps each on one
+   batch, the masked-LM loss falling at every step (fp32). Arm B, the
+   LAMB recipe with API both packages have: ``bert.build(is_train=False)``
+   then ``LambOptimizer(weight_decay=0.01)`` with
+   ``set_gradient_clip(GradientClipByGlobalNorm(1.0))`` and a rate from
+   ``linear_lr_warmup(polynomial_decay(...))``, AMP, 5 steps, the rate
+   fetched each step against its closed form. Per step: ms, tokens/s,
+   the loss and its two parts; per arm: warm-up and capture seconds and
+   peak memory; 24 forward + 36 backward flash launches a step counted
+   by kernel name in a trace. Arm A AMP and arm B captured against eager
+   over 3 runs under ``torch.use_deterministic_algorithms``: bitwise
+   (losses and every persistable, two eager arms too), no op warning of
+   a missing deterministic implementation. A batch-2 step of each arm
+   replayed on the CPU: fp32 end to end (BERT_FP32_REPLAY_TOL), AMP op by
+   op (BERT_AMP_OP_REL). Then the three arms captured in turns, untraced,
+   with one traced replay's device time (idle share).
+
+Flash launches (phases 5-8, 11 and 12) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
 calling the wrappers, whose counts then cover the eager runs and the
@@ -187,7 +209,7 @@ from paddle_tpu_torch.core.desc import ProgramDesc
 from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
                                         create_paddle_predictor)
-from paddle_tpu_torch.models import resnet, transformer
+from paddle_tpu_torch.models import bert, resnet, transformer
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.utils import unique_name
@@ -201,6 +223,7 @@ MODEL = dict(src_vocab=32000, tgt_vocab=32000, max_len=256, n_layer=6,
              n_head=8, d_model=512, d_inner_hid=2048, dropout_rate=0.0)
 MAIN_SHAPE = (8, 8, 256, 64)     # [B, H, T, D] of every attention per request
 TRAIN_SHAPE = (16, 8, 256, 64)   # ... and per train step
+BERT_SHAPE = (16, 12, 128, 64)   # ... and per BERT-base train step
 LAUNCHES_PER_REQUEST = 18        # 6 encoder self + 6 decoder self + 6 cross
 TRAIN_BATCH = 16                 # the JAX build's default batch
 TRAIN_STEPS = 5
@@ -439,6 +462,8 @@ def kernel_cases(dtype):
     yield "causal T=300 (5 q tiles)", make_case(2, 3, 300, 300, 64, dtype, [300, 211], 28), True
     yield "B*H=512", make_case(32, 16, 64, 64, 64, dtype, lens(32, 64), 29), False
     yield "D=33 (unaligned rows)", make_case(2, 3, 90, 90, 33, dtype, [90, 45], 30), True
+    b, h, t, d = BERT_SHAPE
+    yield "bert (key bias, a row of 1)", make_case(b, h, t, t, d, dtype, lens(b - 1, t) + [1], 45), False
 
 
 def time_ms(fn, iters=30, warmup=5, graph=True):
@@ -495,8 +520,8 @@ def bound(q, k, v, kb, causal):
             max(t_bytes, other))
 
 
-def time_kernel(dtype, causal):
-    b, h, t, d = MAIN_SHAPE
+def time_kernel(dtype, causal, shape=MAIN_SHAPE):
+    b, h, t, d = shape
     q, k, v, kb = make_case(b, h, t, t, d, dtype, [t] * (b // 2) + [t // 2] * (b // 2), 11)
     scale = d ** -0.5
     mask = kb[:, None, None, :].to(dtype)
@@ -571,6 +596,8 @@ def bwd_cases(dtype):
     b, h, t, d = TRAIN_SHAPE
     yield "train (key bias)", make_case(b, h, t, t, d, dtype, lens(b, t), 43), False
     yield "train (causal, bias)", make_case(b, h, t, t, d, dtype, lens(b, t), 44), True
+    b, h, t, d = BERT_SHAPE
+    yield "bert (key bias, a row of 1)", make_case(b, h, t, t, d, dtype, lens(b - 1, t) + [1], 46), False
 
 
 def bwd_bound(q, k, v, kb, causal):
@@ -1329,9 +1356,11 @@ def _rel_l2(got, want):
     return (torch.linalg.norm(g - w) / torch.linalg.norm(w)).item()
 
 
-def _op_error(want, got, before, amp):
-    """(error, bound) of one op's output on the card against the CPU's;
-    ``before`` is the persistable input the output rebinds, or None."""
+def _op_error(want, got, before, rel, top=None):
+    """(error, bound) of one op's output on the card against the CPU's,
+    the bound ``rel`` of ``top``, by default the output's largest
+    magnitude; ``before`` is the persistable input the output rebinds, or
+    None."""
     if got is None or got.dtype != want.dtype or got.shape != want.shape:
         return float("inf"), 0.0
     got = got.cpu()
@@ -1346,14 +1375,21 @@ def _op_error(want, got, before, amp):
         want = want - before.double()  # the change; got - want is unmoved
         got = got - before.double()
     err = (got - want).abs().max().item()
-    return err, OP_REPLAY_REL[amp] * want.abs().max().item() + floor
+    if top is None:
+        top = want.abs().max().item()
+    return err, rel * top + floor
 
 
-def replay_each_op(ops, block, scope, feed, device, amp, label):
+def replay_each_op(ops, block, scope, feed, device, amp, label, rel=None,
+                   tops=None):
     """Run ``ops`` in order on the CPU from ``feed`` and ``scope`` (CPU
     tensors), and each op once more on ``device`` on the CPU's input
-    values: every output within OP_REPLAY_REL of the CPU's. Returns the
-    CPU run's values by name."""
+    values: every output within ``rel[op type]`` (by default
+    ``rel["*"]``, by default OP_REPLAY_REL) of its largest magnitude on
+    the CPU, or of the magnitude ``tops[op type](ins, attrs)`` gives by
+    output slot. Returns the CPU run's values by name."""
+    rel = rel or {"*": OP_REPLAY_REL[amp]}
+    tops = tops or {}
     cpu = torch.device("cpu")
     ctx_cpu = pt.registry.EmitContext(cpu, amp=amp)
     ctx_card = pt.registry.EmitContext(device, amp=amp)
@@ -1375,6 +1411,7 @@ def replay_each_op(ops, block, scope, feed, device, amp, label):
             want = emit(ctx_cpu, ins, op.attrs)
             read = {n: v for slot, names in op.inputs.items()
                     for n, v in zip(names, ins[slot]) if n}
+            top = tops[op.type](ins, op.attrs) if op.type in tops else {}
             for slot, names in op.outputs.items():
                 outs = (got or {}).get(slot) or [None] * len(names)
                 for n, w, g in zip(names, (want or {}).get(slot) or (), outs):
@@ -1382,7 +1419,9 @@ def replay_each_op(ops, block, scope, feed, device, amp, label):
                         continue
                     before = read.get(n) if pt.executor._is_persistable(
                         block, n) else None
-                    err, bound = _op_error(w, g, before, amp)
+                    err, bound = _op_error(
+                        w, g, before, rel.get(op.type, rel["*"]),
+                        top.get(slot))
                     n_out += 1
                     key = op.type + (" (state)" if before is not None else "")
                     worst[key] = max(worst.get(key, (0.0, 0.0)),
@@ -1394,10 +1433,11 @@ def replay_each_op(ops, block, scope, feed, device, amp, label):
                     env[n] = w
     log(f"{label}: {len(ops)} ops replayed on the card on the CPU run's "
         f"values ({time.perf_counter() - t0:.1f} s), {n_out} outputs within "
-        f"{OP_REPLAY_REL[amp]:.3g} of their largest magnitudes; largest "
+        f"{rel} of their largest magnitudes (of {sorted(tops)}'s sums of "
+        f"absolute products); largest "
         f"share of the bound by op: " + ", ".join(
-            f"{k} {v[0]:.2f}" for k, v in sorted(worst.items(),
-                                                 key=lambda kv: -kv[1][0])))
+            f"{k} {v[0]:.2f}" for k, v in sorted(
+                worst.items(), key=lambda kv: -kv[1][0])[:16]))
     return env
 
 
@@ -2352,6 +2392,399 @@ def capture_paths(model_dir, resnet_dir, smi, profile):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 12: BERT-base pretraining
+# ---------------------------------------------------------------------------
+
+# bench_bert's widths (bench.py:1069-1084): vocab 30522, T 128, 20 masked
+# slots, 12 layers of 12 heads at d_model 768, d_inner 3072, batch 16
+BERT = dict(vocab_size=30522, max_len=128, max_masked=20, n_layer=12,
+            n_head=12, d_model=768, d_inner_hid=3072)
+BERT_BATCH = 16
+BERT_STEPS = 5
+BERT_CAPTURE_RUNS = 3
+# per train step: each layer's attention and its recompute inside the grad
+# op, then the backward's delta, dK/dV and dQ kernels
+BERT_FWD_PER_STEP = 2 * BERT["n_layer"]
+BERT_BWD_PER_STEP = BERT["n_layer"] * fa.BWD_KERNELS
+# arm B's rate: a linear warmup from 1e-5 to 1e-4 over 3 steps, then a
+# polynomial decay (power 1) from 1e-4 to 1e-6 over 10 steps
+LAMB_LR = dict(start=1e-5, peak=1e-4, end=1e-6, warmup=3, decay_steps=10)
+# the fp32 step, card against CPU: the loss within the CPU tests' 1e-5
+# relative (tests/test_torch_bert.py); the gradients within phase 6's card
+# bounds, 1e-3 relative in L2 (all 157 together) and 1e-2 of each one's
+# largest magnitude elementwise and in L2. The CPU tests hold two plain
+# attentions against each other; the card runs the 3xTF32 kernels, whose
+# backward takes delta from the forward kernel's O, and dSoft = P (dP -
+# delta) cancels where a row's dP is near delta (replay_on_cpu's
+# docstring), so the small gradients of the upper layers' query and key
+# weights move by about 1e-3 in L2 (on an H100: layer11_att_q.w 2.0e-3,
+# layer10_att_q.w 1.2e-3). How many gradients also meet the CPU tests'
+# 1e-5 of their largest magnitude is printed
+BERT_FP32_REPLAY_TOL = {"loss": 1e-5, "grads_l2": 1e-3, "grad_l2": 1e-2,
+                        "grad_max": 1e-2}
+# the AMP step op by op: tests/test_torch_bert.py's per-op bound (one bf16
+# ulp at each output's largest magnitude), but the flash ops at the bf16
+# kernels' own bound against their plain version (BWD_TOL), since the
+# kernels round P and dSoft to bf16 as operands, and O once, where the
+# CPU's plain version rounds O at other points. The backward's outputs are
+# held against that share of the sums of the absolute values of the
+# products behind them (flash_grad_tops), the forward-error bound of
+# their dot products: dSoft = P (dO V^T - rowsum(dO O)) cancels where the
+# values share a component, and dQ = scale * dSoft K (dSoft sums to 0 along
+# a row) where the keys do, as in the upper layers of a BERT at
+# initialisation. On an H100 the last layer's dQ, at most 4.7e-5, was
+# 5.2e-5 off (beyond 1e-2 of its largest value, and of scale * |dSoft|
+# |K|, 7.1e-4, with dSoft's own cancellation); bf16 operands do that on
+# the CPU too (emulated_attention_bwd on emulated_attention's O against
+# plain_attention_bwd, keys and values with a shared component: 1.8x the
+# largest dQ, 6e-4 of the largest sum of absolute products)
+BERT_AMP_OP_REL = {"*": 2.0 ** -7,
+                   "flash_attention": BWD_TOL[torch.bfloat16]["grad"],
+                   "flash_attention_grad": BWD_TOL[torch.bfloat16]["grad"]}
+
+
+def flash_grad_tops(ins, attrs):
+    """The largest sum of the absolute values of the products behind each
+    output of a ``flash_attention_grad`` op, from its CPU inputs in fp32:
+    with |dSoft| taken as P (|dO| |V|^T + rowsum(|dO| |O|)), scale *
+    |dSoft| |K| (dQ), scale * |dSoft|^T |Q| (dK), P^T |dO| (dV) and
+    |dSoft| summed over heads and queries (dKeyBias)."""
+    q, k, v, do = (ins[n][0].float() for n in ("Q", "K", "V", "Out@GRAD"))
+    kb = ins["KeyBias"][0] if ins.get("KeyBias") else None
+    causal, scale = bool(attrs.get("causal", False)), attrs.get("scale", 1.0)
+    out, lse = fa.plain_attention(q, k, v, kb, causal, scale)
+    s = fa._mask(torch.einsum("bhqd,bhkd->bhqk", q, k) * scale, kb, causal)
+    p = torch.exp(s - lse[..., None])
+    dsoft = p * (torch.einsum("bhqd,bhkd->bhqk", do.abs(), v.abs())
+                 + (do.abs() * out.abs()).sum(-1)[..., None])
+    return {"Q@GRAD": scale * torch.einsum(
+                "bhqk,bhkd->bhqd", dsoft, k.abs()).max().item(),
+            "K@GRAD": scale * torch.einsum(
+                "bhqk,bhqd->bhkd", dsoft, q.abs()).max().item(),
+            "V@GRAD": torch.einsum("bhqk,bhqd->bhkd", p,
+                                   do.abs()).max().item(),
+            "KeyBias@GRAD": dsoft.sum(dim=(1, 2)).max().item()}
+
+
+def bert_batch(cfg, batch, seed):
+    """bert.make_fake_batch with each row's length drawn in [T/2, T], so
+    the key bias masks keys, and its masked positions inside its length."""
+    rng = np.random.RandomState(seed)
+    feed = bert.make_fake_batch(batch, cfg, seed=seed)
+    t, m = cfg["max_len"], cfg["max_masked"]
+    lens = rng.randint(t // 2, t + 1, batch).astype(np.int32)
+    feed["seq_len"] = lens
+    feed["mask_pos"] = np.stack([
+        i * t + rng.choice(n, m, replace=False)
+        for i, n in enumerate(lens)]).astype(np.int64)
+    return feed
+
+
+def bert_recipe():
+    """Arm B: BERT's forward (``is_train=False``), then LAMB (weight
+    decay 0.01) with a global-norm clip of 1.0 and LAMB_LR's rate, with
+    API both packages have. Returns the build with the rate's Variable
+    under "lr"."""
+    m = bert.build(is_train=False, **BERT)
+    with pt.program_guard(m["main"], m["startup"]):
+        sched = pt.layers.learning_rate_scheduler
+        lr = sched.linear_lr_warmup(
+            sched.polynomial_decay(LAMB_LR["peak"], LAMB_LR["decay_steps"],
+                                   LAMB_LR["end"]),
+            LAMB_LR["warmup"], LAMB_LR["start"], LAMB_LR["peak"])
+        pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+        pt.optimizer.LambOptimizer(learning_rate=lr,
+                                   weight_decay=0.01).minimize(m["loss"])
+    m["lr"] = lr
+    return m
+
+
+def lamb_lr(step):
+    """LAMB_LR's rate at run ``step`` (the counter reads 0 at the first
+    run), in float64."""
+    c = LAMB_LR
+    if step < c["warmup"]:
+        return c["start"] + (c["peak"] - c["start"]) * step / c["warmup"]
+    frac = min(step, c["decay_steps"]) / c["decay_steps"]
+    return (c["peak"] - c["end"]) * (1 - frac) + c["end"]
+
+
+def bert_state(m):
+    """The startup's persistables from SEED, on the card."""
+    m["startup"].random_seed = SEED
+    init = pt.Scope()
+    t0 = time.perf_counter()
+    pt.Executor().run(m["startup"], scope=init)
+    state = {n: init.find_var(n) for n in init.var_names()}
+    n_params = sum(state[p.name].numel() for p in m["main"].all_parameters())
+    log(f"BERT startup on the card: {time.perf_counter() - t0:.2f} s, "
+        f"{len(state)} persistables, {n_params} parameter elements")
+    return state
+
+
+def bert_steps(label, target, state, m, feeds, smi, lr_name=None):
+    """BERT_STEPS steps through ``target`` from ``state`` under a trace
+    that counts the flash launches (BERT_FWD_PER_STEP + BERT_BWD_PER_STEP
+    a step): per step its ms, tokens per second, the loss and its
+    masked-LM and next-sentence parts (and the rate, against
+    ``lamb_lr``); per arm the warm-up and capture seconds and the peak
+    memory. Returns (losses, masked-LM losses, step ms, launches)."""
+    exe = pt.Executor()
+    scope = copy_state(state, exe.device)
+    fetch = [m["loss"].name, m["mlm_loss"].name, m["nsp_loss"].name] + (
+        [lr_name] if lr_name else [])
+    losses, mlm_losses, step_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with traced_launches() as counted:
+        for i in range(BERT_STEPS):
+            feed = feeds[i]
+            t0 = time.perf_counter()
+            out = run_tensors(exe, target, feed=feed, fetch_list=fetch,
+                              scope=scope)
+            loss, mlm, nsp = (float(t.reshape(-1)[0].item())
+                              for t in out[:3])
+            ms = (time.perf_counter() - t0) * 1e3
+            tokens = len(feed["src_ids"]) * feed["src_ids"].shape[1]
+            what = {0: " (warm-up)", 1: " (capture)"}.get(i, "")
+            msg = (f"{label} step {i}: loss {loss:.6f} (masked LM "
+                   f"{mlm:.6f}, next sentence {nsp:.6f}), {ms:.1f} ms "
+                   f"(traced), {tokens / ms * 1e3:.0f} tokens/s{what}")
+            if lr_name:
+                lr, want = float(out[3].reshape(-1)[0].item()), lamb_lr(i)
+                msg += f", lr {lr:.6e} (closed form {want:.6e})"
+                if not abs(lr - want) <= 2e-6 * want:
+                    raise AssertionError(f"{label} step {i}: rate {lr} "
+                                         f"against the schedule's {want}")
+            log(msg)
+            if not np.isfinite(loss):
+                raise AssertionError(f"{label} step {i}: loss {loss}")
+            losses.append(loss)
+            mlm_losses.append(mlm)
+            step_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    launches = check_launches(label, counted,
+                              (BERT_STEPS * BERT_FWD_PER_STEP,
+                               BERT_STEPS * BERT_BWD_PER_STEP))
+    med = float(np.median(step_ms[STEADY:]))
+    log(f"{label}: warm-up step {step_ms[0] / 1e3:.3f} s, capture + first "
+        f"replay {step_ms[1] / 1e3:.3f} s, median of steps {STEADY}-"
+        f"{BERT_STEPS - 1} {med:.2f} ms (traced), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB [{smi}]")
+    return losses, mlm_losses, step_ms, launches
+
+
+def bert_capture_bitwise(label, target, state, loss_name, feeds):
+    """Captured against eager, BERT_CAPTURE_RUNS runs each from the same
+    state under ``torch.use_deterministic_algorithms``: two eager arms
+    bitwise equal to each other, and the captured arm (warm-up, capture,
+    replay) bitwise equal to them, losses and every persistable; no op
+    warned of a missing deterministic implementation."""
+    exe = pt.Executor()
+    stats0 = dict(exe.capture_stats)
+    arms = {}
+    with deterministic() as nondeterministic:
+        for arm in ("eager", "eager again", "captured"):
+            scope = copy_state(state, exe.device)
+            with jit_cache(arm == "captured"):
+                losses = [run_tensors(exe, target, feed=f,
+                                      fetch_list=[loss_name],
+                                      scope=scope)[0]
+                          for f in feeds[:BERT_CAPTURE_RUNS]]
+            arms[arm] = (scope, losses)
+    if (exe.device.type == "cuda"
+            and exe.capture_stats["captures"] - stats0["captures"] != 1):
+        raise AssertionError(f"{label}: {exe.capture_stats}: want one "
+                             "capture")
+    (es, el), (gs, gl), (cs_, cl) = (arms["eager"], arms["eager again"],
+                                     arms["captured"])
+    hold(label, "eager again against eager, losses",
+         max(map(distance, gl, el)), 0.0)
+    hold(label, f"captured against eager, losses of {BERT_CAPTURE_RUNS} "
+         "runs", max(map(distance, cl, el)), 0.0)
+    ee, _ = scope_distance(gs, es)
+    hold(label, f"eager again against eager, {len(state)} persistables",
+         ee, 0.0)
+    ce, differ = scope_distance(cs_, es)
+    hold(label, f"captured against eager, {len(state)} persistables "
+         f"({len(differ)} differ)", ce, 0.0)
+    log(f"  {label}: losses " + ", ".join(f"{float(t):.6f}" for t in el)
+        + f"; ops that warned of no deterministic implementation: "
+        f"{nondeterministic or 'none'}")
+    if nondeterministic:
+        raise AssertionError(f"{label}: ops without a deterministic "
+                             f"implementation: {nondeterministic}")
+
+
+def bert_replay(label, m, target, state, amp):
+    """A batch-2 step of ``target`` from ``state`` replayed on the CPU.
+    fp32, end to end on the card and through Executor(CPUPlace()): the
+    loss and every parameter's gradient at BERT_FP32_REPLAY_TOL. AMP, op
+    by op on the card's rewritten list (``replay_each_op`` at
+    BERT_AMP_OP_REL)."""
+    feed = bert_batch(m["config"], 2, SEED + 50)
+    exe = pt.Executor()
+    if amp:
+        replay_each_op(exe.lowered_ops(target, [m["loss"].name]),
+                       m["main"].global_block(),
+                       copy_state(state, torch.device("cpu")), feed,
+                       exe.device, True, f"{label}: AMP step at batch 2",
+                       rel=BERT_AMP_OP_REL,
+                       tops={"flash_attention_grad": flash_grad_tops})
+        return
+    params = [p.name for p in m["main"].all_parameters()]
+    fetch = [m["loss"].name] + [n + "@GRAD" for n in params]
+    out = {}
+    t0 = time.perf_counter()
+    for where, ex in (("card", exe), ("cpu", pt.Executor(pt.CPUPlace()))):
+        res = run_tensors(ex, target, feed=feed, fetch_list=fetch,
+                          scope=copy_state(state, ex.device))
+        out[where] = [t.cpu().float() for t in res]
+    card, cpu = out["card"], out["cpu"]
+    loss_err = abs(card[0].item() - cpu[0].item()) / abs(cpu[0].item())
+    tol = BERT_FP32_REPLAY_TOL
+    rows = []  # (L2, largest error / largest magnitude, name)
+    for name, g, c in zip(params, card[1:], cpu[1:]):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: {name} gradient not finite")
+        rows.append((_rel_l2([g], [c]),
+                     (g - c).abs().max().item() / c.abs().max().item(), name))
+    together = _rel_l2(card[1:], cpu[1:])
+    tight = sum(r[1] <= 1e-5 for r in rows)
+    log(f"{label}: fp32 step at batch 2 replayed on the CPU "
+        f"({time.perf_counter() - t0:.1f} s for both): loss "
+        f"{card[0].item():.7f} on the card, {cpu[0].item():.7f} on the CPU "
+        f"({loss_err:.3e} relative, bound {tol['loss']}); the "
+        f"{len(params)} gradients together {together:.3e} relative in L2 "
+        f"(bound {tol['grads_l2']}), each at most "
+        f"{max(r[0] for r in rows):.3e} in L2 (bound {tol['grad_l2']}) and "
+        f"{max(r[1] for r in rows):.3e} of its largest magnitude (bound "
+        f"{tol['grad_max']}); {tight} of {len(params)} within the CPU "
+        f"tests' 1e-5 of their largest magnitude; largest L2: " + ", ".join(
+            f"{n} {l2:.2e}" for l2, _, n in sorted(rows, reverse=True)[:5]))
+    if not (loss_err <= tol["loss"] and together <= tol["grads_l2"]
+            and all(l2 <= tol["grad_l2"] and mx <= tol["grad_max"]
+                    for l2, mx, _ in rows)):
+        raise AssertionError(f"{label}: the card's fp32 step disagrees with "
+                             "the CPU's")
+
+
+def bert_paths(smi, profile):
+    """Phase 12. Arm A (bench_bert: Adam lr 1e-4, epsilon 1e-6) fp32 and
+    AMP and arm B (the LAMB recipe, AMP), each through CompiledProgram
+    under bench.py's BuildStrategy. Returns their flash launches by
+    path."""
+    paths = {}
+    with unique_name.guard():
+        a = bert.build(**BERT)
+    cfg, loss_name = a["config"], a["loss"].name
+    state = bert_state(a)
+    amp_main = mixed_precision.decorate(a["main"].clone())
+    targets = {label: pt.CompiledProgram(
+        program, build_strategy=bench_build_strategy())
+        for label, program in (("fp32", a["main"]), ("AMP", amp_main))}
+    ops = pt.Executor().lowered_ops(targets["AMP"], [loss_name])
+    types = [o.type for o in ops]
+    log(f"arm A's rewritten AMP step: {len(ops)} ops, "
+        f"{types.count('flash_attention')} flash_attention, "
+        f"{types.count('flash_attention_grad')} flash_attention_grad, "
+        f"{types.count('fused_adam')} fused_adam, {types.count('gather')} "
+        f"gather, {types.count('gelu')} gelu")
+    if (types.count("flash_attention") != BERT["n_layer"]
+            or types.count("flash_attention_grad") != BERT["n_layer"]
+            or "fused_adam" not in types or "adam" in types):
+        raise AssertionError("arm A's rewritten step is not the expected one")
+    # one batch for every step of arm A, so the fall of the loss is the
+    # optimizer's, not the data's. The gate is the masked-LM loss falling
+    # at every step: the next-sentence head, on random labels, overshoots
+    # at Adam's first step (about 0.8 -> 5.2 at batch 16, the same on the
+    # card and through Executor(CPUPlace()) from the same state), so the
+    # total rises once before it falls
+    fixed = [bert_batch(cfg, BERT_BATCH, SEED + 800)] * BERT_STEPS
+    fp32_losses, fp32_mlm, _, paths["bert_train_fp32"] = bert_steps(
+        "BERT arm A fp32", targets["fp32"], state, a, fixed, smi)
+    if not all(b < a_ for a_, b in zip(fp32_mlm, fp32_mlm[1:])):
+        raise AssertionError(f"arm A fp32 masked-LM losses do not fall: "
+                             f"{fp32_mlm}")
+    amp_losses, _, _, paths["bert_train_amp"] = bert_steps(
+        "BERT arm A AMP", targets["AMP"], state, a, fixed, smi)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(amp_losses, fp32_losses))
+    log(f"arm A: the AMP losses within {rel:.3e} relative of fp32's")
+    release()
+
+    with unique_name.guard():
+        b = bert_recipe()
+    b_state = bert_state(b)
+    b_amp = mixed_precision.decorate(b["main"].clone())
+    b_target = pt.CompiledProgram(b_amp, build_strategy=bench_build_strategy())
+    b_fp32 = pt.CompiledProgram(b["main"],
+                                build_strategy=bench_build_strategy())
+    b_feeds = [bert_batch(cfg, BERT_BATCH, SEED + 850 + i)
+               for i in range(BERT_STEPS)]
+    _, _, _, paths["bert_lamb_amp"] = bert_steps(
+        "BERT arm B (LAMB, clip, schedule) AMP", b_target, b_state, b,
+        b_feeds, smi, lr_name=b["lr"].name)
+    release()
+
+    phase("BERT: captured against eager (FLAGS.jit_cache = False), bitwise")
+    feeds = [bert_batch(cfg, BERT_BATCH, SEED + 900 + i)
+             for i in range(BERT_CAPTURE_RUNS)]
+    bert_capture_bitwise("BERT arm A AMP", targets["AMP"], state, loss_name,
+                         feeds)
+    release()
+    bert_capture_bitwise("BERT arm B AMP", b_target, b_state,
+                         b["loss"].name, feeds)
+    release()
+
+    phase("BERT: batch-2 steps replayed on the CPU")
+    bert_replay("BERT arm A", a, targets["fp32"], state, amp=False)
+    bert_replay("BERT arm A", a, targets["AMP"], state, amp=True)
+    bert_replay("BERT arm B", b, b_fp32, b_state, amp=False)
+    bert_replay("BERT arm B", b, b_target, b_state, amp=True)
+    release()
+
+    phase("BERT: captured and eager steps in turns (untraced), device time")
+    exe = pt.Executor()
+    arms = [("arm A fp32", targets["fp32"], loss_name, state),
+            ("arm A AMP", targets["AMP"], loss_name, state),
+            ("arm B AMP", b_target, b["loss"].name, b_state)]
+    scopes = {(label, how): copy_state(st, exe.device)
+              for label, _, _, st in arms for how in ("captured", "eager")}
+
+    def arm(label, how, target, name):
+        def step(feed):
+            with jit_cache(how == "captured"):
+                (loss,) = run_tensors(exe, target, feed=feed,
+                                      fetch_list=[name],
+                                      scope=scopes[label, how])
+            if not bool(torch.isfinite(loss).all()):
+                raise AssertionError(f"{label} {how}: loss {loss}")
+        return f"{label} {how}", step
+    turn_feeds = [bert_batch(cfg, BERT_BATCH, SEED + 950 + r)
+                  for r in range(6)]
+    med = in_turns([arm(lb, how, t, n) for lb, t, n, _ in arms
+                    for how in ("captured", "eager")], turn_feeds)
+    tokens = BERT_BATCH * BERT["max_len"]
+    for i, (label, target, name, _) in enumerate(arms):
+        ms, eager_ms = med[2 * i], med[2 * i + 1]
+        run = lambda: exe.run(target, feed=turn_feeds[0], fetch_list=[name],
+                              scope=scopes[label, "captured"])
+        busy = check_trace(f"BERT {label}", run,
+                           (BERT_FWD_PER_STEP, BERT_BWD_PER_STEP))
+        log(f"BERT {label}: captured step {ms:.2f} ms, eager {eager_ms:.2f} "
+            f"ms (medians of rounds {STEADY}-5 in turns), {tokens / ms * 1e3:.0f}"
+            f" and {tokens / eager_ms * 1e3:.0f} tokens/s; {busy:.3f} ms of "
+            f"device time: the card idle {max(0.0, 1 - busy / ms):.1%} of a "
+            f"captured step [{smi}]")
+        if profile:
+            rows, _ = device_rows(run)
+            for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
+                log(f"  {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% "
+                    f"x{count:<5} {key[:90]}")
+    return paths
+
+
 def resnet_paths(model_dir, smi, profile):
     """Phases 9-10; returns their flash launches by path."""
     phase("ResNet-50 training through CompiledProgram (bench "
@@ -2418,11 +2851,14 @@ def main(argv=None):
 
     phase("kernels against their plain versions")
     errs, bwd_errs, bwd_train_errs = {}, {}, {}
+    bert_errs, bwd_bert_errs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, (q, k, v, kb), causal) in enumerate(kernel_cases(dtype)):
             err = check_case(name, q, k, v, kb, causal)
             if i < 3:
                 errs[dtype] = max(errs.get(dtype, 0.0), err)
+            if name.startswith("bert"):
+                bert_errs[dtype] = err
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, (q, k, v, kb), causal) in enumerate(bwd_cases(dtype)):
             err = check_bwd_case(f"bwd {name}", q, k, v, kb, causal)
@@ -2431,6 +2867,8 @@ def main(argv=None):
             if name.startswith("train"):
                 bwd_train_errs[dtype] = max(bwd_train_errs.get(dtype, 0.0),
                                             err)
+            if name.startswith("bert"):
+                bwd_bert_errs[dtype] = err
 
     phase(f"kernel timing at {list(MAIN_SHAPE)} (the backward also at "
           f"{list(TRAIN_SHAPE)})")
@@ -2461,6 +2899,17 @@ def main(argv=None):
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {rate} "
                     f"TFLOP/s), {row['bound_other_ms']:.4f} ms at the fp32 "
                     f"CUDA cores 67 TFLOP/s")
+
+    bert_fwd, bert_bwd = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, fn, what in ((bert_fwd, time_kernel, "fwd"),
+                               (bert_bwd, time_bwd, "bwd")):
+            row = rows[dtype] = fn(dtype, False, BERT_SHAPE)
+            log(f"{what} {list(BERT_SHAPE)} (BERT) {str(dtype)[6:]:<8} "
+                f"kernel {row['ms']:.4f} ms (eager calls "
+                f"{row['eager_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+                f"sdpa {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
 
     if args.profile:
         for shape in (MAIN_SHAPE, TRAIN_SHAPE):
@@ -2497,6 +2946,15 @@ def main(argv=None):
             phase("whole-step capture: captured against eager "
                   "(FLAGS.jit_cache = False) on every path")
             paths.update(capture_paths(model_dir, rdir, smi, args.profile))
+        phase("BERT-base pretraining through CompiledProgram (bench "
+              "BuildStrategy, batch 16, T 128): Adam fp32 and AMP, LAMB AMP")
+        paths.update(bert_paths(smi, args.profile))
+        release()
+
+    def bert_shape(rows, errors, per_step):
+        return {"shape": list(BERT_SHAPE), "launches_per_step": per_step,
+                "max_abs_err": {str(dt)[6:]: e for dt, e in errors.items()},
+                **{str(dt)[6:]: row for dt, row in rows.items()}}
 
     def entry(name, source, replaces, rows, errors, which, per):
         fp32 = dict(rows[torch.float32, False])
@@ -2525,13 +2983,17 @@ def main(argv=None):
               "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
               "paddle_tpu/ops/pallas_attention.py:43", timing, errs, 0,
               {"launches_per_request": LAUNCHES_PER_REQUEST,
-               "launches_per_step": FWD_PER_STEP}),
+               "launches_per_step": FWD_PER_STEP,
+               "bert_shape": bert_shape(bert_fwd, bert_errs,
+                                        BERT_FWD_PER_STEP)}),
         entry("flash_attention_bwd",
               "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
               "paddle_tpu/ops/pallas_attention.py:213", bwd_timing, bwd_errs,
               1,
               {"launches_per_request": 0,
                "launches_per_step": BWD_PER_STEP,
+               "bert_shape": bert_shape(bert_bwd, bwd_bert_errs,
+                                        BERT_BWD_PER_STEP),
                "train_shape": dict(
                    shape=list(TRAIN_SHAPE),
                    max_abs_err={str(dt)[6:]: e

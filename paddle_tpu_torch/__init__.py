@@ -15,7 +15,7 @@ card.
 
 from . import core, ops, registry  # noqa: F401  (ops registers emitters)
 from . import initializer, io, layers, optimizer  # noqa: F401
-from . import backward, contrib, ir  # noqa: F401
+from . import backward, clip, contrib, ir, regularizer  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .executor import (Executor, FetchHandle, Scope,  # noqa: F401

@@ -15,6 +15,7 @@ import sys
 from typing import Dict, List, Optional
 
 from . import registry
+from .utils import unique_name
 from .core.desc import BlockDesc, OpDesc, ProgramDesc, VarDesc
 from .core.types import (OP_ROLE_ATTR_NAME, DataType, OpRole, VarType,
                          convert_dtype)
@@ -72,6 +73,35 @@ class Variable:
     def __repr__(self):
         return (f"Variable({self.name!r}, shape={self.shape}, "
                 f"dtype={self.dtype}, persistable={self.persistable})")
+
+    # arithmetic appends elementwise ops (the JAX package's math_op_patch)
+    def _binary(self, other, op, reverse=False):
+        from .layers import math_op_patch
+        return math_op_patch.binary_op(self, other, op, reverse)
+
+    def __add__(self, o):
+        return self._binary(o, "elementwise_add")
+
+    def __radd__(self, o):
+        return self._binary(o, "elementwise_add", True)
+
+    def __sub__(self, o):
+        return self._binary(o, "elementwise_sub")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elementwise_sub", True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elementwise_mul")
+
+    def __rmul__(self, o):
+        return self._binary(o, "elementwise_mul", True)
+
+    def __truediv__(self, o):
+        return self._binary(o, "elementwise_div")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elementwise_div", True)
 
 
 class Parameter(Variable):
@@ -176,7 +206,9 @@ class Block:
             return None
         return self.program.block(self.desc.parent_idx)
 
-    def create_var(self, name, **kwargs) -> Variable:
+    def create_var(self, name=None, **kwargs) -> Variable:
+        if name is None:
+            name = unique_name.generate("_generated_var")
         if name in self.vars:
             return self.vars[name]
         return Variable(self, name, **kwargs)

@@ -1,4 +1,4 @@
-from . import control_flow, io, nn, ops, tensor  # noqa: F401
+from . import control_flow, io, math_op_patch, nn, ops, tensor  # noqa: F401
 from . import learning_rate_scheduler  # noqa: F401
 from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403

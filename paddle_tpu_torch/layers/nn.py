@@ -1,5 +1,6 @@
 """NN layers (reference python/paddle/fluid/layers/nn.py): the ones the
-Transformer and ResNet build. Each builds descs via LayerHelper; no device
+Transformer, ResNet and BERT build and the training API (clips, schedules)
+appends. Each builds descs via LayerHelper; no device
 work happens here."""
 
 from __future__ import annotations
@@ -11,11 +12,14 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
-    "reshape", "transpose", "squeeze", "reduce_sum", "scale",
-    "elementwise_add", "elementwise_mul", "elementwise_div",
-    "elementwise_min", "sequence_mask", "fused_attention", "matmul",
-    "softmax", "unsqueeze", "conv2d", "pool2d", "batch_norm",
-    "cross_entropy", "accuracy", "topk", "mean",
+    "reshape", "transpose", "squeeze", "reduce_sum", "reduce_mean",
+    "reduce_max", "reduce_min", "reduce_prod", "scale", "clip",
+    "clip_by_norm", "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "logical_and", "logical_or", "logical_xor",
+    "logical_not", "sequence_mask", "fused_attention", "matmul", "softmax",
+    "unsqueeze", "slice", "gather", "cast", "conv2d", "pool2d",
+    "batch_norm", "cross_entropy", "accuracy", "topk", "mean",
 ]
 
 
@@ -123,16 +127,36 @@ def squeeze(input, axes, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
     helper.append_op(
-        type="reduce_sum", inputs={"X": input}, outputs={"Out": out},
+        type=op_type, inputs={"X": input}, outputs={"Out": out},
         attrs={"dim": dim if dim is not None else [],
                "keep_dim": keep_dim, "reduce_all": dim is None})
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -144,6 +168,23 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
         attrs={"scale": float(scale), "bias": float(bias),
                "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": x},
+                     outputs={"Out": out},
+                     attrs={"max_norm": float(max_norm)})
+    return out
 
 
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
@@ -158,6 +199,10 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_mul", x, y, axis, act, name)
 
@@ -166,8 +211,41 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
 
 
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
 def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def _logical(op_type, x, y, out, name):
+    helper = LayerHelper(op_type, name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference("bool")
+    ins = {"X": x} if y is None else {"X": x, "Y": y}
+    helper.append_op(type=op_type, inputs=ins, outputs={"Out": out})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical("logical_and", x, y, out, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical("logical_or", x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical("logical_xor", x, y, out, name)
+
+
+def logical_not(x, out=None, name=None):
+    return _logical("logical_not", x, None, out, name)
 
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):
@@ -224,6 +302,29 @@ def unsqueeze(input, axes, name=None):
                      outputs={"Out": out, "XShape": xshape},
                      attrs={"axes": list(axes)})
     return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": input},
+                     outputs={"Out": out},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def cast(x, dtype):
+    from . import tensor as tensor_layers
+    return tensor_layers.cast(x, dtype)
 
 
 def _pair(v):

@@ -8,7 +8,7 @@ from ..core.types import convert_dtype
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "assign"]
+__all__ = ["cast", "assign", "fill_constant"]
 
 
 def cast(x, dtype):
@@ -38,3 +38,14 @@ def assign(input, output=None):
             attrs={"shape": list(arr.shape), "dtype": convert_dtype(
                 str(arr.dtype)), "values": arr.reshape(-1).tolist()})
     return output
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    out = out or helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant", outputs={"Out": out},
+        attrs={"shape": list(shape), "dtype": convert_dtype(dtype),
+               "value": float(value)})
+    out.stop_gradient = True
+    return out

@@ -22,14 +22,44 @@ from ..layer_helper import ParamAttr
 
 
 _IMPLS = ("fused", "unfused")
+# the JAX package's sequence-parallel kernels (ROADMAP A12)
+_SP_IMPLS = ("ring", "ulysses", "usp")
 
 
-def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
-                         n_head=1, name="", causal=False, key_bias=None,
+def _no_dropout(dropout_rate, where):
+    if dropout_rate:
+        raise ValueError(f"{where}(dropout_rate={dropout_rate}): dropout is "
+                         "not ported yet (ROADMAP A1); pass dropout_rate=0")
+
+
+def check_attention_impl(attention_impl, where="build"):
+    if attention_impl in _SP_IMPLS:
+        raise NotImplementedError(
+            f"{where}(attention_impl={attention_impl!r}): the port has "
+            f"{_IMPLS}; the sequence-parallel kernels wait for ROADMAP A12 "
+            "(multi-device)")
+    if attention_impl not in _IMPLS:
+        raise ValueError(f"unknown attention_impl {attention_impl!r}")
+
+
+def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
+                         d_model, n_head=1, dropout_rate=0.0, cache=None,
+                         name="", causal=False, key_bias=None,
                          attention_impl="fused"):
-    """Multi-head attention, as one ``flash_attention`` op ("fused") or
-    as the dense matmul/softmax chain ("unfused"); ``key_bias`` [B, Tk]
-    is the additive key-padding mask."""
+    """Multi-head attention, in the JAX package's signature: one
+    ``flash_attention`` op ("fused", no dense ``attn_bias``) or the dense
+    matmul -> [attn_bias add] -> [key-bias add] -> [causal add] ->
+    softmax -> matmul chain ("unfused", or any dense ``attn_bias``
+    [B, H, Tq, Tk]). ``key_bias`` [B, Tk] is the additive key-padding
+    mask. Attention dropout (ROADMAP A1), the incremental decode
+    ``cache`` (A7) and the sequence-parallel impls (A12) are not
+    ported."""
+    check_attention_impl(attention_impl, "multi_head_attention")
+    _no_dropout(dropout_rate, "multi_head_attention")
+    if cache is not None:
+        raise NotImplementedError(
+            "multi_head_attention(cache=...): the incremental decode cache "
+            "is not ported yet (ROADMAP A7)")
     keys = queries if keys is None else keys
     values = keys if values is None else values
     q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2,
@@ -47,11 +77,13 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
     q = split_heads(q, d_key)
     k = split_heads(k, d_key)
     v = split_heads(v, d_value)
-    if attention_impl == "fused":
+    if attn_bias is None and attention_impl == "fused":
         out = layers.fused_attention(q, k, v, causal=causal,
                                      scale=d_key ** -0.5, key_bias=key_bias)
     else:
         product = layers.matmul(q, k, transpose_y=True, alpha=d_key ** -0.5)
+        if attn_bias is not None:
+            product = layers.elementwise_add(product, attn_bias)
         if key_bias is not None:
             kb = layers.unsqueeze(layers.unsqueeze(key_bias, axes=[1]),
                                   axes=[1])
@@ -66,7 +98,9 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
                      param_attr=ParamAttr(name=f"{name}_o.w"))
 
 
-def positionwise_feed_forward(x, d_inner_hid, d_hid, name=""):
+def positionwise_feed_forward(x, d_inner_hid, d_hid, dropout_rate=0.0,
+                              name=""):
+    _no_dropout(dropout_rate, "positionwise_feed_forward")
     hidden = layers.fc(x, size=d_inner_hid, num_flatten_dims=2, act="relu",
                        param_attr=ParamAttr(name=f"{name}_ffn1.w"))
     return layers.fc(hidden, size=d_hid, num_flatten_dims=2,
@@ -87,7 +121,7 @@ def pre_post_process_layer(prev_out, out, process_cmd):
 def encoder_layer(enc_input, n_head, d_key, d_value, d_model, d_inner_hid,
                   name="", key_bias=None, attention_impl="fused"):
     attn = multi_head_attention(
-        pre_post_process_layer(None, enc_input, "n"), None, None,
+        pre_post_process_layer(None, enc_input, "n"), None, None, None,
         d_key, d_value, d_model, n_head, name=f"{name}_att",
         key_bias=key_bias, attention_impl=attention_impl)
     attn_out = pre_post_process_layer(enc_input, attn, "da")
@@ -101,12 +135,12 @@ def decoder_layer(dec_input, enc_output, n_head, d_key, d_value, d_model,
                   d_inner_hid, name="", src_key_bias=None,
                   trg_key_bias=None, attention_impl="fused"):
     self_attn = multi_head_attention(
-        pre_post_process_layer(None, dec_input, "n"), None, None,
+        pre_post_process_layer(None, dec_input, "n"), None, None, None,
         d_key, d_value, d_model, n_head, name=f"{name}_satt", causal=True,
         key_bias=trg_key_bias, attention_impl=attention_impl)
     x = pre_post_process_layer(dec_input, self_attn, "da")
     cross = multi_head_attention(
-        pre_post_process_layer(None, x, "n"), enc_output, enc_output,
+        pre_post_process_layer(None, x, "n"), enc_output, enc_output, None,
         d_key, d_value, d_model, n_head, name=f"{name}_catt",
         key_bias=src_key_bias, attention_impl=attention_impl)
     x = pre_post_process_layer(x, cross, "da")
@@ -148,14 +182,8 @@ def build(batch_size=16, src_vocab=10000, tgt_vocab=10000, max_len=64,
     is not ported: ``dropout_rate`` must be 0. ``attention_impl`` is
     "fused" or "unfused" (the JAX package's sequence-parallel kernels,
     "ring", "ulysses" and "usp", are ROADMAP A12)."""
-    if dropout_rate:
-        raise ValueError(f"build(dropout_rate={dropout_rate}): dropout is "
-                         "not ported yet; pass dropout_rate=0")
-    if attention_impl not in _IMPLS:
-        raise NotImplementedError(
-            f"build(attention_impl={attention_impl!r}): the port has "
-            f"{_IMPLS}; the sequence-parallel kernels wait for ROADMAP A12 "
-            "(multi-device)")
+    _no_dropout(dropout_rate, "build")
+    check_attention_impl(attention_impl)
     d_key = d_value = d_model // n_head
     main, startup = Program(), Program()
     with program_guard(main, startup):

@@ -59,6 +59,18 @@ def same_shape_infer(out_slot="Out", in_slot="X"):
     return infer
 
 
+def scalar_infer(out_slot="Out", dtype=None, shape=(1,), in_slot="X"):
+    """infer rule: Out is a fixed-shape statistic (a norm, a flag);
+    dtype=None inherits in_slot's dtype."""
+
+    def infer(op: OpDesc, block):
+        dt = dtype if dtype is not None else in_dtype(block, op, in_slot)
+        for name in op.output(out_slot):
+            set_out_var(block, name, list(shape), dt)
+
+    return infer
+
+
 def fluid_broadcast(xv: torch.Tensor, yv: torch.Tensor, axis: int):
     """Fluid elementwise broadcast: align Y into X at ``axis``
     (reference elementwise_op_function.h semantics)."""

@@ -1,8 +1,12 @@
 """Optimizer update ops (counterpart of ``paddle_tpu/ops/kernels_optim.py``):
-``momentum`` and ``adam`` and their multi-tensor forms ``fused_momentum``
-and ``fused_adam``, in plain torch ops (the JAX package has no hand kernel
-for any). ParamOut rebinds the parameter's name, so the executor writes
-the updated tensor back into the scope; the update is not in place."""
+``sgd``, ``momentum``, ``lars_momentum``, ``adam``, ``lamb``, ``adamax``,
+``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
+``proximal_gd``, ``proximal_adagrad`` and the multi-tensor forms
+``fused_sgd``, ``fused_momentum`` and ``fused_adam``, in plain torch ops
+(the JAX package has no hand kernel for any). Each computes its JAX op's
+float32 operations per element in the same order. ParamOut rebinds the
+parameter's name, so the executor writes the updated tensor back into the
+scope; the update is not in place."""
 
 from __future__ import annotations
 
@@ -10,6 +14,22 @@ import torch
 
 from ..registry import register_op
 from .common import same_shape_infer
+
+
+def _lr(ins):
+    return ins["LearningRate"][0].reshape(())
+
+
+def _update(name):
+    """Register an update op: no grad, ParamOut shaped as Param."""
+    return register_op(name, no_grad=True,
+                       infer=same_shape_infer("ParamOut", "Param"))
+
+
+@_update("sgd")
+def sgd(ctx, ins, attrs):
+    p = ins["Param"][0]
+    return {"ParamOut": [p - _lr(ins) * ins["Grad"][0].to(p.dtype)]}
 
 
 @register_op("momentum", no_grad=True,
@@ -50,6 +70,168 @@ def adam(ctx, ins, attrs):
             "Beta1PowOut": [b1p * b1], "Beta2PowOut": [b2p * b2]}
 
 
+@_update("lars_momentum")
+def lars_momentum(ctx, ins, attrs):
+    """Momentum with the layer-wise rate lr * coeff * ||p|| / (||g|| +
+    decay ||p|| + 1e-12) on g + decay p."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    mu = attrs.get("mu", 0.9)
+    coeff = attrs.get("lars_coeff", 0.001)
+    decay = attrs.get("lars_weight_decay", 0.0005)
+    p_norm = torch.sqrt(torch.sum(p * p))
+    g_norm = torch.sqrt(torch.sum(g * g))
+    local_lr = _lr(ins) * coeff * p_norm / (g_norm + decay * p_norm + 1e-12)
+    v_out = mu * v + local_lr * (g + decay * p)
+    return {"ParamOut": [p - v_out], "VelocityOut": [v_out]}
+
+
+@_update("lamb")
+def lamb(ctx, ins, attrs):
+    """LAMB: Adam's bias-corrected direction plus weight decay, scaled by
+    the trust ratio ||p|| / ||r|| (1 where either norm is 0, as for a
+    zero-initialised bias)."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    m1_out = b1 * m1 + (1 - b1) * g
+    m2_out = b2 * m2 + (1 - b2) * g * g
+    m1_hat = m1_out / (1 - b1p.reshape(()))
+    m2_hat = m2_out / (1 - b2p.reshape(()))
+    r = m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p
+    p_norm = torch.sqrt(torch.sum(p * p))
+    r_norm = torch.sqrt(torch.sum(r * r))
+    trust = torch.where(p_norm * r_norm > 0, p_norm / r_norm, 1.0)
+    p_out = p - _lr(ins) * trust * r
+    return {"ParamOut": [p_out], "Moment1Out": [m1_out],
+            "Moment2Out": [m2_out],
+            "Beta1PowOut": [b1p * b1], "Beta2PowOut": [b2p * b2]}
+
+
+@_update("adamax")
+def adamax(ctx, ins, attrs):
+    """Adam with the infinity norm; Beta1Pow advances in a separate scale
+    op (``AdamaxOptimizer._finish_update``)."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m, inf = ins["Moment"][0], ins["InfNorm"][0]
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    lr = _lr(ins) / (1 - ins["Beta1Pow"][0].reshape(()))
+    m_out = b1 * m + (1 - b1) * g
+    inf_out = torch.maximum(b2 * inf, torch.abs(g))
+    p_out = p - lr * m_out / (inf_out + eps)
+    return {"ParamOut": [p_out], "MomentOut": [m_out],
+            "InfNormOut": [inf_out]}
+
+
+@_update("adagrad")
+def adagrad(ctx, ins, attrs):
+    p, g, mom = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    m_out = mom + g * g
+    p_out = p - _lr(ins) * g / (torch.sqrt(m_out) + attrs.get("epsilon", 1e-6))
+    return {"ParamOut": [p_out], "MomentOut": [m_out]}
+
+
+@_update("decayed_adagrad")
+def decayed_adagrad(ctx, ins, attrs):
+    p, g, mom = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    decay = attrs.get("decay", 0.95)
+    m_out = decay * mom + (1 - decay) * g * g
+    p_out = p - _lr(ins) * g / (torch.sqrt(m_out) + attrs.get("epsilon", 1e-6))
+    return {"ParamOut": [p_out], "MomentOut": [m_out]}
+
+
+@_update("adadelta")
+def adadelta(ctx, ins, attrs):
+    """No learning rate: the step is sqrt((E[dx^2] + eps) / (E[g^2] +
+    eps)) g."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    avg_sq_g = ins["AvgSquaredGrad"][0]
+    avg_sq_u = ins["AvgSquaredUpdate"][0]
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    asg_out = rho * avg_sq_g + (1 - rho) * g * g
+    update = -torch.sqrt((avg_sq_u + eps) / (asg_out + eps)) * g
+    asu_out = rho * avg_sq_u + (1 - rho) * update * update
+    return {"ParamOut": [p + update], "AvgSquaredGradOut": [asg_out],
+            "AvgSquaredUpdateOut": [asu_out]}
+
+
+@_update("rmsprop")
+def rmsprop(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    ms, mom = ins["MeanSquare"][0], ins["Moment"][0]
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mu = attrs.get("momentum", 0.0)
+    lr = _lr(ins)
+    ms_out = rho * ms + (1 - rho) * g * g
+    if attrs.get("centered", False):
+        mg_out = rho * ins["MeanGrad"][0] + (1 - rho) * g
+        mom_out = mu * mom + lr * g / torch.sqrt(ms_out - mg_out * mg_out
+                                                 + eps)
+        return {"ParamOut": [p - mom_out], "MomentOut": [mom_out],
+                "MeanSquareOut": [ms_out], "MeanGradOut": [mg_out]}
+    mom_out = mu * mom + lr * g / torch.sqrt(ms_out + eps)
+    return {"ParamOut": [p - mom_out], "MomentOut": [mom_out],
+            "MeanSquareOut": [ms_out]}
+
+
+@_update("ftrl")
+def ftrl(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    sq, lin = ins["SquaredAccumulator"][0], ins["LinearAccumulator"][0]
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    lr_power = attrs.get("lr_power", -0.5)
+    lr = _lr(ins)
+    new_sq = sq + g * g
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+        denom = torch.sqrt(new_sq) / lr + 2 * l2
+    else:
+        sigma = (new_sq ** -lr_power - sq ** -lr_power) / lr
+        denom = new_sq ** -lr_power / lr + 2 * l2
+    lin_out = lin + g - sigma * p
+    pre = torch.minimum(torch.maximum(lin_out, torch.tensor(
+        -l1, dtype=lin_out.dtype)), torch.tensor(l1, dtype=lin_out.dtype)) \
+        - lin_out
+    return {"ParamOut": [pre / denom], "SquaredAccumOut": [new_sq],
+            "LinearAccumOut": [lin_out]}
+
+
+def _prox(prox, lr, l1, l2):
+    """The L1 soft threshold (when l1 > 0), then the L2 shrink."""
+    if l1 > 0:
+        prox = torch.sign(prox) * torch.maximum(
+            torch.abs(prox) - lr * l1, torch.zeros((), dtype=prox.dtype))
+    return prox / (1.0 + lr * l2)
+
+
+@_update("proximal_gd")
+def proximal_gd(ctx, ins, attrs):
+    p = ins["Param"][0]
+    lr = _lr(ins)
+    prox = p - lr * ins["Grad"][0].to(p.dtype)
+    return {"ParamOut": [_prox(prox, lr, attrs.get("l1", 0.0),
+                               attrs.get("l2", 0.0))]}
+
+
+@_update("proximal_adagrad")
+def proximal_adagrad(ctx, ins, attrs):
+    p, g, mom = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    m_out = mom + g * g
+    eff_lr = _lr(ins) / torch.sqrt(m_out)
+    prox = p - eff_lr * g.to(p.dtype)
+    return {"ParamOut": [_prox(prox, eff_lr, attrs.get("l1", 0.0),
+                               attrs.get("l2", 0.0))],
+            "MomentOut": [m_out]}
+
+
 def _flat_group(tensors, dtype=None):
     """Per-parameter tensors -> one flat vector, with the sizes and
     shapes that split it back."""
@@ -75,6 +257,18 @@ def _stretch(vals, sizes):
     parameter's segment (a copy of expanded views; repeat_interleave
     would first build an int64 index of every element)."""
     return torch.cat([v.reshape(1).expand(n) for v, n in zip(vals, sizes)])
+
+
+@register_op("fused_sgd", no_grad=True)
+def fused_sgd(ctx, ins, attrs):
+    """The multi-tensor sgd update ``fuse_optimizer_update_ops`` writes
+    for a group of per-parameter sgd ops: one flat vector each of
+    parameters and gradients, the learning rate stretched over each
+    parameter's segment; bitwise equal to the per-parameter ops."""
+    p, sizes, shapes = _flat_group(ins["Param"])
+    g, _, _ = _flat_group(ins["Grad"], dtype=p.dtype)
+    lr_seg = _stretch(ins["LearningRate"], sizes).to(p.dtype)
+    return {"ParamOut": _split_group(p - lr_seg * g, sizes, shapes)}
 
 
 @register_op("fused_momentum", no_grad=True)

@@ -1,7 +1,9 @@
 """Tensor creation / manipulation ops (counterpart of
 ``paddle_tpu/ops/kernels_tensor.py``), with the grads of ``cast`` and
 ``lookup_table`` and the backward's bookkeeping ops ``sum`` and
-``fill_zeros_like``. Random ops draw from the run's ``torch.Generator``;
+``fill_zeros_like``. ``gather`` reads rows with ``index_select``, whose
+vjp (the generic grad op's) is the scatter-add ``index_add_``, as
+``lookup_table_grad`` is. Random ops draw from the run's ``torch.Generator``;
 the JAX package's threefry stream gives other numbers from the same seed,
 so cross-package tests move parameters over as arrays.
 
@@ -333,6 +335,55 @@ def lookup_table_grad(ctx, ins, attrs):
     if pad is not None and pad >= 0:
         flat_g = flat_g.masked_fill((flat_ids == pad).unsqueeze(-1), 0.0)
     return {"W@GRAD": [torch.zeros_like(w).index_add_(0, flat_ids, flat_g)]}
+
+
+# ---------------------------------------------------------------------------
+# slicing and gathering
+# ---------------------------------------------------------------------------
+
+def _slice_infer(op: OpDesc, block):
+    in_shp = in_shape(block, op, "Input")
+    if in_shp is None:
+        return
+    shp = list(in_shp)
+    for ax, st, en in zip(op.attrs.get("axes", []),
+                          op.attrs.get("starts", []),
+                          op.attrs.get("ends", [])):
+        n = in_shp[ax]
+        st2 = max(st + n, 0) if st < 0 else min(st, n)
+        en2 = max(en + n, 0) if en < 0 else min(en, n)
+        shp[ax] = max(en2 - st2, 0)
+    for nm in op.output("Out"):
+        set_out_var(block, nm, shp, in_dtype(block, op, "Input"))
+
+
+@register_op("slice", infer=_slice_infer)
+def slice_op(ctx, ins, attrs):
+    """Input[starts:ends] along each of ``axes`` (Python's clamping)."""
+    xv = ins["Input"][0]
+    idx = [slice(None)] * xv.dim()
+    for ax, st, en in zip(attrs.get("axes", []), attrs.get("starts", []),
+                          attrs.get("ends", [])):
+        idx[ax] = slice(st, en)
+    return {"Out": [xv[tuple(idx)]]}
+
+
+def _gather_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    ids = in_shape(block, op, "Index")
+    if xs is not None and ids is not None:
+        for n in op.output("Out"):
+            set_out_var(block, n, [ids[0]] + xs[1:], in_dtype(block, op, "X"))
+
+
+@register_op("gather", infer=_gather_infer)
+def gather(ctx, ins, attrs):
+    """Rows of X at the flattened Index. Its gradient (the generic vjp of
+    ``index_select``) scatter-adds the rows back with ``index_add_``,
+    which takes a sorted, deterministic path under
+    ``torch.use_deterministic_algorithms``."""
+    idx = ins["Index"][0].reshape(-1).long()
+    return {"Out": [torch.index_select(ins["X"][0], 0, idx)]}
 
 
 def _topk_infer(op: OpDesc, block):

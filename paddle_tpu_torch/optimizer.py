@@ -1,10 +1,12 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer.py``; reference
 python/paddle/fluid/optimizer.py). ``minimize`` = ``append_backward`` +
-one update op per parameter, appended under
-``program._optimized_guard`` so the ops carry the OPTIMIZE role.
-``Optimizer``, ``MomentumOptimizer`` and ``AdamOptimizer`` are ported;
-the others are ROADMAP A9. ``fuse_optimizer_update_ops`` is the
-multi-tensor rewrite behind ``BuildStrategy.fuse_all_optimizer_ops``."""
+the clip and regularization ops + one update op per parameter, appended
+under ``program._optimized_guard`` so the ops carry the OPTIMIZE role.
+Every optimizer of the JAX package is ported but ``ModelAverage``
+(ROADMAP A9). A parameter's ``optimize_attr["learning_rate"]`` scales the
+global rate (a ``scale`` op), or replaces it when it is a Variable
+(``append_LARS``). ``fuse_optimizer_update_ops`` is the multi-tensor
+rewrite behind ``BuildStrategy.fuse_all_optimizer_ops``."""
 
 from __future__ import annotations
 
@@ -18,8 +20,12 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 from .utils import unique_name
 
-__all__ = ["Optimizer", "MomentumOptimizer", "AdamOptimizer",
-           "fuse_optimizer_update_ops"]
+__all__ = ["SGD", "Momentum", "Adagrad", "Adam", "Adamax", "DecayedAdagrad",
+           "Ftrl", "SGDOptimizer", "MomentumOptimizer", "AdagradOptimizer",
+           "AdamOptimizer", "AdamaxOptimizer", "DecayedAdagradOptimizer",
+           "RMSPropOptimizer", "FtrlOptimizer", "AdadeltaOptimizer",
+           "ModelAverage", "LarsMomentum", "LarsMomentumOptimizer",
+           "LambOptimizer", "Optimizer", "fuse_optimizer_update_ops"]
 
 
 class Optimizer:
@@ -49,13 +55,18 @@ class Optimizer:
         return self._learning_rate_map.get(program or default_main_program())
 
     def _create_param_lr(self, param_and_grad):
+        """The rate of one parameter's update: the global rate, scaled by
+        its ``optimize_attr["learning_rate"]`` (a ``scale`` op), or that
+        attr itself when it is a Variable."""
         param = param_and_grad[0]
+        base = self._global_learning_rate()
         mult = getattr(param, "optimize_attr", {}).get("learning_rate", 1.0)
-        if mult != 1.0:
-            raise NotImplementedError(
-                f"{param.name}: a per-parameter learning rate is not ported "
-                "to paddle_tpu_torch yet (ROADMAP A9)")
-        return self._global_learning_rate()
+        if isinstance(mult, Variable):
+            return mult
+        if mult == 1.0:
+            return base
+        from .layers import nn
+        return nn.scale(base, scale=float(mult))
 
     # -- accumulators -------------------------------------------------------
     def _add_accumulator(self, name, param, dtype=None, fill_value=0.0,
@@ -81,6 +92,9 @@ class Optimizer:
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
 
+    def _finish_update(self, block, parameters_and_grads):
+        """Ops after every update op (Adamax's Beta1Pow advance)."""
+
     # -- the optimization pass ----------------------------------------------
     def _create_optimization_pass(self, parameters_and_grads, loss,
                                   startup_program=None):
@@ -100,6 +114,8 @@ class Optimizer:
                 if getattr(param_and_grad[0], "trainable", True):
                     optimize_ops.append(self._append_optimize_op(
                         global_block, param_and_grad))
+        with program._optimized_guard([]):
+            self._finish_update(global_block, parameters_and_grads)
         return optimize_ops
 
     def backward(self, loss, startup_program=None, parameter_list=None,
@@ -123,6 +139,16 @@ class Optimizer:
         optimize_ops = self.apply_gradients(params_grads, loss,
                                             startup_program)
         return optimize_ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": p, "Grad": g,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p})
 
 
 class MomentumOptimizer(Optimizer):
@@ -180,10 +206,229 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+class LarsMomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        velocity = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="lars_momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": velocity,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "VelocityOut": velocity},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay})
+
+
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        moment = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": p, "Grad": g, "Moment": moment,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "MomentOut": moment},
+            attrs={"epsilon": self._epsilon})
+
+
+class LambOptimizer(AdamOptimizer):
+    """LAMB, the optimizer BASELINE.json names for BERT: Adam's moments,
+    a decoupled weight decay and a per-parameter trust ratio."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, weight_decay=0.01, **kwargs):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kwargs)
+        self._weight_decay = weight_decay
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        b2p = self._get_accumulator("beta2_pow_acc", p)
+        return block.append_op(
+            type="lamb",
+            inputs={"Param": p, "Grad": g, "Moment1": m1, "Moment2": m2,
+                    "Beta1Pow": b1p, "Beta2Pow": b2p,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+                     "Beta1PowOut": b1p, "Beta2PowOut": b2p},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon,
+                   "weight_decay": self._weight_decay})
+
+
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, shape=[1],
+                                  fill_value=self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            type="adamax",
+            inputs={"Param": p, "Grad": g,
+                    "Moment": self._get_accumulator("moment", p),
+                    "InfNorm": self._get_accumulator("inf_norm", p),
+                    "Beta1Pow": self._get_accumulator("beta1_pow_acc", p),
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p,
+                     "MomentOut": self._get_accumulator("moment", p),
+                     "InfNormOut": self._get_accumulator("inf_norm", p)},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+
+    def _finish_update(self, block, parameters_and_grads):
+        for p, g in parameters_and_grads:
+            if g is None:
+                continue
+            b1p = self._get_accumulator("beta1_pow_acc", p)
+            block.append_op(type="scale", inputs={"X": b1p},
+                            outputs={"Out": b1p},
+                            attrs={"scale": self._beta1})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        moment = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": p, "Grad": g, "Moment": moment,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "MomentOut": moment},
+            attrs={"decay": self._decay, "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("__avg_squared_grad", p)
+            self._add_accumulator("__avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        asg = self._get_accumulator("__avg_squared_grad", p)
+        asu = self._get_accumulator("__avg_squared_update", p)
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": p, "Grad": g, "AvgSquaredGrad": asg,
+                    "AvgSquaredUpdate": asu},
+            outputs={"ParamOut": p, "AvgSquaredGradOut": asg,
+                     "AvgSquaredUpdateOut": asu},
+            attrs={"epsilon": self._epsilon, "rho": self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("momentum", p)
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        mom = self._get_accumulator("momentum", p)
+        ms = self._get_accumulator("mean_square", p)
+        mg = self._get_accumulator("mean_grad", p)
+        outputs = {"ParamOut": p, "MomentOut": mom, "MeanSquareOut": ms}
+        if self._centered:
+            outputs["MeanGradOut"] = mg
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": p, "Grad": g, "Moment": mom, "MeanSquare": ms,
+                    "MeanGrad": mg,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs=outputs,
+            attrs={"decay": self._rho, "epsilon": self._epsilon,
+                   "momentum": self._momentum, "centered": self._centered})
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": p, "Grad": g, "SquaredAccumulator": sq,
+                    "LinearAccumulator": lin,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "SquaredAccumOut": sq,
+                     "LinearAccumOut": lin},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power})
+
+
+class ModelAverage(Optimizer):
+    """Parameter averaging for evaluation: not ported (ROADMAP A9)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ModelAverage is not ported to paddle_tpu_torch yet "
+            "(ROADMAP A9)")
+
+
 # the update ops fuse_optimizer_update_ops groups, with their slots
-# (the JAX package also fuses sgd, which waits for its optimizer, ROADMAP
-# A9)
 _FUSABLE_UPDATE_OPS = {
+    "sgd": {"fused_type": "fused_sgd",
+            "in_slots": ("Param", "Grad", "LearningRate"),
+            "out_slots": ("ParamOut",)},
     "momentum": {"fused_type": "fused_momentum",
                  "in_slots": ("Param", "Grad", "Velocity",
                               "LearningRate"),
@@ -197,7 +442,7 @@ _FUSABLE_UPDATE_OPS = {
 
 
 def fuse_optimizer_update_ops(ops, var_dtype=None):
-    """Group per-parameter momentum and adam update ops by (op type,
+    """Group per-parameter sgd, momentum and adam update ops by (op type,
     hyperparameter attrs, param dtype, grad dtype) and rewrite each group
     of >= 2 into ONE multi-tensor fused op (ir/pipeline.py calls this
     under BuildStrategy.fuse_all_optimizer_ops).
@@ -290,3 +535,15 @@ def fuse_optimizer_update_ops(ops, var_dtype=None):
             continue
         out_ops.append(fused_at.get(i, op))
     return out_ops, removed
+
+
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
+Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+LarsMomentum = LarsMomentumOptimizer

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-11) on the CPU at a tiny
-Transformer and a small ResNet-50 (64x64 images, batch 4), to find faults
-in the script's Python before a run on the card.
+"""Rehearse chip_smoke.py's end-to-end phases (5-12) on the CPU at a tiny
+Transformer, a small ResNet-50 (64x64 images, batch 4) and a narrow
+12-layer BERT (d_model 24, T 16, batch 4), to find faults in the
+script's Python before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
 
@@ -37,6 +38,9 @@ from paddle_tpu_torch.utils.flags import FLAGS  # noqa: E402
 # exceeds 16 * 64 for phase 7's batch of ids that do not repeat
 TINY = dict(src_vocab=2000, tgt_vocab=2000, max_len=64, n_layer=6,
             n_head=2, d_model=16, d_inner_hid=32, dropout_rate=0.0)
+# 12 layers keep phase 12's launch counts
+BERT_TINY = dict(vocab_size=100, max_len=16, max_masked=4, n_layer=12,
+                 n_head=12, d_model=24, d_inner_hid=48)
 
 
 def _count_launches():
@@ -98,10 +102,12 @@ def main():
         cs.RESNET_IMAGE, cs.RESNET_BATCH = (3, 64, 64), 4
         resnet = cs.resnet_paths(r, "CPU rehearsal", False)
         capture = cs.capture_paths(d, r, "CPU rehearsal", False)
+    cs.BERT, cs.BERT_BATCH = BERT_TINY, 4
+    bert = cs.bert_paths("CPU rehearsal", False)
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
-          f"ResNet-50 {resnet}, phase 11 {capture}")
+          f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}")
 
 
 if __name__ == "__main__":

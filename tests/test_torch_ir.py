@@ -133,6 +133,15 @@ def _relu(x, out):
     return ("relu", {"X": [x]}, {"Out": [out]}, {})
 
 
+def _act(kind, x, out):
+    return (kind, {"X": [x]}, {"Out": [out]}, {})
+
+
+def _sgd(i, lr="lr"):
+    return ("sgd", {"Param": [f"p{i}"], "Grad": [f"g{i}"],
+                    "LearningRate": [lr]}, {"ParamOut": [f"p{i}"]}, {})
+
+
 FP32 = "<fp32>"  # each package's DataType.FP32 (see _descs)
 
 
@@ -168,6 +177,15 @@ LIST_CASES = {
     "fold_chain_of_two": (
         "constant_fold", [_fill("c", 1.5, (2, 3)), _scale("c", "c2", 4.0),
                           _relu("c2", "c3"), _add("x", "c3", "o")], {"o"}),
+    "fold_through_new_ops": (
+        "constant_fold", [_fill("c", 4.0), _act("sqrt", "c", "c2"),
+                          _act("tanh", "c2", "c3"), _fill("d", 0.5),
+                          ("elementwise_max", {"X": ["c3"], "Y": ["d"]},
+                           {"Out": ["c4"]}, {"axis": -1}),
+                          _add("x", "c4", "o")], {"o"}),
+    "cse_new_ops": ("cse", [_act("gelu", "x", "a"), _act("gelu", "x", "b"),
+                            _act("sqrt", "a", "c"), _act("sqrt", "b", "d"),
+                            _add("c", "d", "o")], {"o"}),
     "fold_leaves_state_alone": (
         "constant_fold", [_scale("state_w", "s"),
                           ("elementwise_mul", {"X": ["x"], "Y": ["s"]},
@@ -186,6 +204,12 @@ LIST_CASES = {
         {"o", "s"}),
     "elewise_reverse": ("elewise", [_relu("y", "r"), _add("x", "r", "o")],
                         {"o"}),
+    "elewise_add_tanh": ("elewise", [_add("x", "y", "a"),
+                                     _act("tanh", "a", "o")], {"o"}),
+    "elewise_reverse_sigmoid": ("elewise", [_act("sigmoid", "y", "r"),
+                                            _add("x", "r", "o")], {"o"}),
+    "elewise_gelu_stays": ("elewise", [_add("x", "y", "a"),
+                                       _act("gelu", "a", "o")], {"o"}),
     "elewise_scale_act": ("elewise", [_add("x", "y", "a"),
                                       _scale("a", "o", 0.5)], {"o"}),
     "elewise_scale_bias_stays": ("elewise", [_add("x", "y", "a"),
@@ -195,6 +219,10 @@ LIST_CASES = {
     "optfuse_groups_by_hyperparams": (
         "optfuse", [_adam(0), _adam(1), _adam(2, beta1=0.5),
                     _adam(3, beta1=0.5)], set()),
+    "optfuse_sgd": ("optfuse", [_sgd(0), _sgd(1), _sgd(2, lr="lr2")],
+                    set()),
+    "optfuse_sgd_beside_adam": ("optfuse", [_sgd(0), _adam(1), _sgd(2),
+                                            _adam(3)], set()),
     "optfuse_per_param_lr": ("optfuse", [_adam(0, lr="lr0"),
                                          _adam(1, lr="lr1")], set()),
     "optfuse_skips_undeclared_slots": (
@@ -354,6 +382,85 @@ def test_run_pipeline_matches_jax(transformers, impl, flags):
     assert "dead_op_elimination" in stats
     assert sum(r["ops_removed"] for r in stats.values()) == \
         len(pops) - len(pout)
+
+
+BERT_TINY = dict(vocab_size=100, max_len=16, max_masked=4, n_layer=2,
+                 n_head=2, d_model=32, d_inner_hid=64)
+
+
+def _bert_recipe(mod, model):
+    """tests/test_torch_bert.py's LAMB recipe: a global-norm clip and a
+    warmup of a polynomial decay."""
+    m = model.build(is_train=False, **BERT_TINY)
+    with mod.program_guard(m["main"], m["startup"]):
+        sched = mod.layers.learning_rate_scheduler
+        lr = sched.linear_lr_warmup(
+            sched.polynomial_decay(1e-3, 10, 1e-5), 3, 0.0, 1e-3)
+        mod.clip.set_gradient_clip(mod.clip.GradientClipByGlobalNorm(1.0))
+        mod.optimizer.LambOptimizer(learning_rate=lr).minimize(m["loss"])
+    return m
+
+
+@pytest.fixture(scope="module")
+def berts():
+    """BERT tiny, fused and unfused attention, and the LAMB recipe, built
+    byte-identically by both packages."""
+    from paddle_tpu.models import bert as jbert
+    from paddle_tpu_torch.models import bert as pbert
+    old = JFLAGS.op_callstack, PFLAGS.op_callstack
+    JFLAGS.op_callstack = PFLAGS.op_callstack = False
+    try:
+        out = {}
+        for name in ("fused", "unfused", "recipe"):
+            with junique.guard():
+                j = (_bert_recipe(fluid, jbert) if name == "recipe" else
+                     jbert.build(attention_impl=name, **BERT_TINY))
+            with punique.guard():
+                p = (_bert_recipe(pt, pbert) if name == "recipe" else
+                     pbert.build(attention_impl=name, **BERT_TINY))
+            assert p["main"].desc.to_bytes() == j["main"].desc.to_bytes()
+            out[name] = (j, p)
+        return out
+    finally:
+        JFLAGS.op_callstack, PFLAGS.op_callstack = old
+
+
+@pytest.mark.parametrize("impl", ["fused", "unfused", "recipe"])
+@pytest.mark.parametrize("stage", ["fuse_attention", "constant_fold", "cse",
+                                   "fuse_elewise_add_act",
+                                   "fuse_optimizer_ops",
+                                   "dead_op_elimination"])
+def test_stage_on_the_bert_program_matches_jax(berts, impl, stage):
+    """Every stage on BERT's train program (gather, slice, gelu, tanh,
+    the tied embedding's grad sum; LAMB, the clip's sqrt and max and the
+    schedule's compares in the recipe) gives the JAX op list."""
+    j, p = berts[impl]
+    jb, pb = j["main"].global_block(), p["main"].global_block()
+    pops, needed = _live(p["main"], [p["loss"].name])
+    jops = [jb.desc.ops[i] for i, o in enumerate(pb.desc.ops) if o in pops]
+    fn = _stage(stage)
+    jout, jn = fn(jpipe, list(jops), set(needed), jb)
+    pout, pn = fn(ppipe, list(pops), set(needed), pb)
+    assert pn == jn
+    assert_same_ops(jout, pout)
+    if stage == "fuse_attention" and impl == "unfused":
+        types = [o.type for o in pout]
+        assert types.count("flash_attention") == BERT_TINY["n_layer"]
+        assert "softmax" not in types
+
+
+@pytest.mark.parametrize("impl", ["fused", "unfused", "recipe"])
+@pytest.mark.parametrize("flags", FLAG_SETS, ids="+".join)
+def test_run_pipeline_on_bert_matches_jax(berts, impl, flags):
+    j, p = berts[impl]
+    jb, pb = j["main"].global_block(), p["main"].global_block()
+    pops, needed = _live(p["main"], [p["loss"].name])
+    jops = [jb.desc.ops[i] for i, o in enumerate(pb.desc.ops) if o in pops]
+    pout = ppipe.run_pipeline(pops, pb, set(needed), flags)
+    jout = jpipe.run_pipeline(jops, jb, set(needed), flags)
+    assert_same_ops(jout, pout)
+    if "optfuse" in flags and impl != "recipe":
+        assert "fused_adam" in [o.type for o in pout]
 
 
 def _mlp():
