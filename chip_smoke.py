@@ -171,7 +171,33 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    op (BERT_AMP_OP_REL). Then the three arms captured in turns, untraced,
    with one traced replay's device time (idle share).
 
-Flash launches (phases 5-8, 11 and 12) are counted by kernel name in a
+13. the serving front (ROADMAP A6), after phase 12: (a) phase 5's
+   directory at the bench widths through
+   ``AnalysisConfig(dir).enable_bf16()`` with
+   ``enable_shape_bucketing(batch_buckets=(4, 8, 16, 32))`` and
+   ``enable_request_coalescing(max_batch_size=32, batch_timeout_us=1000)``
+   (bench_infer_serving's defaults): ``warmup()`` on 4 threads (each
+   bucket's warm-up and capture), then 64 coalesced requests from 8
+   client threads, both traced (18 bf16 flash forward launches per device
+   call); then 3 windows of 256 requests of sizes 1, 3, 5, 8 from 8
+   threads, each followed by the same requests through a plain bf16
+   ``AnalysisPredictor`` called by 8 threads (the naive path): requests/s
+   and p50/p99 latency both ways, device calls and rows per call. Gates:
+   every bucket warm, none degraded, no plan and no capture after the
+   warm-up; every coalesced request's logits finite, of their shape, and
+   within FRONT_REL of the plain predictor's run of it alone; a
+   sequential ``BucketedPredictor.run`` at each request size bitwise the
+   plain predictor's run of the zero-padded bucket feed (deterministic
+   mode); 8 threads on one ``clone()`` of the plain predictor each
+   bitwise the serial run (ROADMAP C3). (b) phase 10's ResNet-50
+   directory, bf16, through ``BucketedPredictor`` with buckets (32, 64,
+   128): batch-128 requests bitwise the plain predictor's, then the
+   pinned, double-buffered feed against the plain predictor's pageable
+   one in turns (measured, not gated). (c) ROADMAP C1's probe (matmul,
+   square, elementwise_sub) served by ``AnalysisPredictor`` on the card
+   against a CPU one.
+
+Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
 calling the wrappers, whose counts then cover the eager runs and the
@@ -198,6 +224,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -2785,6 +2812,352 @@ def bert_paths(smi, profile):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serving front
+# ---------------------------------------------------------------------------
+
+# bench_infer_serving's defaults (bench.py:1354-1370): the bucket ladder,
+# the coalescer's batch and window, 8 clients of request sizes 1, 3, 5, 8
+FRONT_BUCKETS = (4, 8, 16, 32)
+FRONT_MAX_BATCH = 32
+FRONT_TIMEOUT_US = 1000
+FRONT_CLIENTS = 8
+FRONT_SIZES = (1, 3, 5, 8)
+FRONT_REQUESTS = 256   # per window
+FRONT_WINDOWS = 3
+FRONT_CHECK = 64       # requests of the traced pass after the warm-up
+# a coalesced request against the plain predictor's run of it alone: each
+# bf16 run lies within BF16_SERVE_REL of the request's largest |logit| from
+# the fp32 logits (phase 8's gate), so two bf16 runs of one request lie
+# within twice that of each other, whatever tiles cuBLAS picks at each M
+FRONT_REL = 2 * BF16_SERVE_REL
+RESNET_FRONT_BUCKETS = (32, 64, 128)
+RESNET_PAGEABLE_MS = 23.69  # phase 11's captured bf16 request (PR 9, call 5)
+
+
+def plan_runs(pred):
+    """(plans, runs) of the executor under a predictor and its serving
+    wrappers: one plan per feed signature, one run per device call."""
+    base = pred
+    while not hasattr(base, "_exe"):
+        base = getattr(base, "_pred", None) or base._base
+    plans = base._program.__dict__.get("_exec_cache", {})
+    return len(plans), sum(p.runs for p in plans.values()), base._exe
+
+
+def run_clients(call, requests, check=None):
+    """``requests`` through ``call(feed)`` from FRONT_CLIENTS threads, each
+    taking the next request in turn. Returns (outputs, latencies in ms,
+    wall seconds). A latency runs from the call to the output computed on
+    the card (the client waits for its stream); ``check(i, out)`` runs
+    after, off the clock, and its result is kept in place of the output.
+    Every client waits for the whole card (the front's copy stream too),
+    so a latency may hold other clients' work: both paths alike."""
+    outs, lat, errs = [None] * len(requests), [None] * len(requests), []
+    it, lock = iter(range(len(requests))), threading.Lock()
+    barrier = threading.Barrier(FRONT_CLIENTS)
+
+    def client():
+        barrier.wait()
+        while True:
+            with lock:
+                i = next(it, None)
+            if i is None:
+                return
+            try:
+                t0 = time.perf_counter()
+                out = call(requests[i])[0].as_tensor()
+                torch.cuda.synchronize()
+                lat[i] = (time.perf_counter() - t0) * 1e3
+                outs[i] = check(i, out) if check else out
+            except BaseException as e:  # noqa: BLE001 -- raised below
+                errs.append(e)
+                return
+
+    threads = [threading.Thread(target=client, name=f"client{c}")
+               for c in range(FRONT_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a serving client hung")
+    if errs:
+        raise errs[0]
+    return outs, lat, wall
+
+
+def check_logits(label, feed, out, cfg):
+    want = [len(feed["src_word"]), cfg["max_len"], cfg["tgt_vocab"]]
+    if list(out.shape) != want or out.dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: logits {list(out.shape)} "
+                             f"{out.dtype}, want {want} bfloat16")
+    return torch.isfinite(out).all()
+
+
+def agree_alone(label, front, plain, requests, outs, cfg):
+    """Each coalesced request's logits against the plain predictor's run
+    of that request alone, within FRONT_REL of its largest |logit|;
+    returns the largest relative distance."""
+    worst = 0.0
+    for feed, got in zip(requests, outs):
+        if not bool(check_logits(label, feed, got, cfg)):
+            raise AssertionError(f"{label}: logits not finite")
+        want = plain.run(feed)[0].as_tensor()
+        d = (got.float() - want.float()).abs().max().item()
+        rel = d / want.float().abs().max().item()
+        worst = max(worst, rel)
+        if not rel <= FRONT_REL:
+            raise AssertionError(f"{label}: a coalesced request of "
+                                 f"{len(feed['src_word'])} rows is {rel:.3e} "
+                                 f"of its largest |logit| from its run "
+                                 f"alone (bound {FRONT_REL:.3e})")
+    return worst
+
+
+def pad_rows(feed, rows):
+    """The zero-padded bucket feed the front builds for ``feed``."""
+    return {n: np.concatenate([v, np.zeros((rows - len(v),) + v.shape[1:],
+                                           v.dtype)])
+            for n, v in feed.items()}
+
+
+def transformer_front(model_dir, cfg, smi):
+    """Phase 13 (a). Returns the path's traced flash forward launches."""
+    base = AnalysisConfig(model_dir).enable_bf16()
+    front = create_paddle_predictor(
+        base.enable_shape_bucketing(batch_buckets=FRONT_BUCKETS)
+        .enable_request_coalescing(max_batch_size=FRONT_MAX_BATCH,
+                                   batch_timeout_us=FRONT_TIMEOUT_US))
+    plain = create_paddle_predictor(AnalysisConfig(model_dir).enable_bf16())
+    try:
+        requests = [make_request(cfg, FRONT_SIZES[i % len(FRONT_SIZES)],
+                                 SEED + 1300 + i)
+                    for i in range(FRONT_CHECK + FRONT_WINDOWS
+                                   * FRONT_REQUESTS)]
+        check = requests[:FRONT_CHECK]
+        with traced_launches() as counted:
+            t0 = time.perf_counter()
+            took = front.warmup()
+            warm_s = time.perf_counter() - t0
+            plans0, runs0, exe = plan_runs(front)
+            stats0 = dict(exe.capture_stats)
+            outs, _, _ = run_clients(front.run, check)
+            plans1, runs1, _ = plan_runs(front)
+        health = front.health()
+        log(f"warm-up of {len(took)} buckets on 4 threads: {warm_s:.2f} s "
+            f"wall, per bucket " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in sorted(took.items())))
+        log(f"after warm-up: {plans0} plans, {stats0['captures']} captures")
+        # one plan per bucket, captured by the warm-up (the CPU
+        # rehearsal captures nothing)
+        want_caps = len(FRONT_BUCKETS) if exe.device.type == "cuda" else 0
+        if (health["degraded_buckets"] or not health["warmup_complete"]
+                or sorted(health["warm_buckets"]) != sorted(
+                    f"b{b}" for b in FRONT_BUCKETS)
+                or plans0 != len(FRONT_BUCKETS)
+                or stats0["captures"] != want_caps):
+            raise AssertionError(f"warm-up incomplete: {health}, {plans0} "
+                                 f"plans, {stats0}")
+        calls = runs1 - runs0
+        launches = check_launches(
+            f"serving front, warm-up + {FRONT_CHECK} coalesced requests "
+            f"({calls} device calls after the warm-up's {runs0} runs)",
+            counted, (LAUNCHES_PER_REQUEST * runs1, 0), "bfloat16")[0]
+        worst = agree_alone("traced pass", front, plain, check, outs, cfg)
+        del outs
+
+        # the naive path: the plain predictor's plans warm (and captured)
+        for feed in requests[:2 * len(FRONT_SIZES)]:
+            plain.run(feed)
+        stats_plain = dict(plain._exe.capture_stats)
+        rows = {"front": [], "naive": []}
+        for w in range(FRONT_WINDOWS):
+            window = requests[FRONT_CHECK + w * FRONT_REQUESTS:
+                              FRONT_CHECK + (w + 1) * FRONT_REQUESTS]
+            n_rows = sum(len(f["src_word"]) for f in window)
+            _, r0, _ = plan_runs(front)
+            outs, lat, wall = run_clients(front.run, window)
+            _, r1, _ = plan_runs(front)
+            rows["front"].append((wall, lat, r1 - r0))
+            log(f"window {w} coalesced: {FRONT_REQUESTS} requests "
+                f"({n_rows} rows) in {wall:.3f} s, "
+                f"{FRONT_REQUESTS / wall:.1f} requests/s, p50 "
+                f"{np.percentile(lat, 50):.2f} ms, p99 "
+                f"{np.percentile(lat, 99):.2f} ms; {r1 - r0} device calls, "
+                f"{n_rows / (r1 - r0):.2f} rows per call [{smi}]")
+            worst = max(worst, agree_alone(f"window {w}", front, plain,
+                                           window, outs, cfg))
+            del outs
+            flags, lat, wall = run_clients(
+                plain.run, window,
+                check=lambda i, out: check_logits("naive", window[i], out,
+                                                  cfg))
+            if not all(bool(f) for f in flags):
+                raise AssertionError("naive path: logits not finite")
+            rows["naive"].append((wall, lat, FRONT_REQUESTS))
+            log(f"window {w} naive (plain predictor, {FRONT_CLIENTS} "
+                f"threads): {wall:.3f} s, {FRONT_REQUESTS / wall:.1f} "
+                f"requests/s, p50 {np.percentile(lat, 50):.2f} ms, p99 "
+                f"{np.percentile(lat, 99):.2f} ms [{smi}]")
+        for path, runs in rows.items():
+            lat = np.concatenate([r[1] for r in runs])
+            n = FRONT_WINDOWS * FRONT_REQUESTS
+            wall = sum(r[0] for r in runs)
+            log(f"{path}: {n} requests over {FRONT_WINDOWS} windows, "
+                f"{n / wall:.1f} requests/s, p50 "
+                f"{np.percentile(lat, 50):.2f} ms, p99 "
+                f"{np.percentile(lat, 99):.2f} ms, "
+                f"{sum(r[2] for r in runs)} device calls [{smi}]")
+        log(f"every coalesced request ({FRONT_CHECK} + {FRONT_WINDOWS} x "
+            f"{FRONT_REQUESTS}) finite, of its shape, and at most "
+            f"{worst:.3e} of its largest |logit| from its run alone (bound "
+            f"{FRONT_REL:.3e})")
+        plans2, _, _ = plan_runs(front)
+        new_caps = exe.capture_stats["captures"] - stats0["captures"]
+        log(f"after all traffic: {plans2} plans, {new_caps} captures after "
+            f"the warm-up; the plain predictor's captures in its windows "
+            f"{plain._exe.capture_stats['captures'] - stats_plain['captures']}")
+        health = front.health()
+        log(f"health(): {json.dumps(health, sort_keys=True)}")
+        if new_caps or plans2 != plans0 or health["degraded_buckets"]:
+            raise AssertionError("the front made a plan or a capture after "
+                                 "its warm-up, or degraded a bucket")
+
+        # sequential, under the deterministic mode: bitwise the plain
+        # predictor's run of the same zero-padded bucket feed
+        with deterministic() as nondeterministic:
+            for n in FRONT_SIZES + (FRONT_BUCKETS[-1],):
+                feed = make_request(cfg, n, SEED + 1900 + n)
+                got = front._pred.run(feed)[0].as_tensor()
+                b = next(b for b in FRONT_BUCKETS if b >= n)
+                for k in range(2):  # eager and captured, if new
+                    want = plain.run(pad_rows(feed, b))[0].as_tensor()[:n]
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"sequential BucketedPredictor.run at {n} rows "
+                            f"is {distance(got, want):.3e} from the plain "
+                            f"predictor's run of its bucket-{b} feed")
+        log(f"sequential BucketedPredictor.run at {FRONT_SIZES + (32,)} "
+            f"rows: bitwise the plain predictor's run of each zero-padded "
+            f"bucket feed (deterministic mode; ops that warned: "
+            f"{nondeterministic or 'none'})")
+
+        # C3: 8 threads on one clone of the plain predictor
+        twin = plain.clone()
+        c3 = requests[:4 * FRONT_CLIENTS]
+        serial = [plain.run(f)[0].as_tensor() for f in c3]
+        outs, _, _ = run_clients(twin.run, c3)
+        bad = [i for i, (a, b) in enumerate(zip(outs, serial))
+               if not torch.equal(a, b)]
+        log(f"C3: {len(c3)} requests on {FRONT_CLIENTS} threads through one "
+            f"clone of the plain predictor: {len(c3) - len(bad)} bitwise "
+            f"their serial runs")
+        if bad:
+            raise AssertionError(f"C3: requests {bad} differ from their "
+                                 "serial runs")
+    finally:
+        front.shutdown()
+    return launches
+
+
+def resnet_front(resnet_dir, smi):
+    """Phase 13 (b): ResNet-50 bf16 through BucketedPredictor at batch
+    128, its pinned, double-buffered feed against the plain predictor's
+    pageable one, in turns; under the deterministic mode, so both arms run
+    the same convolution algorithms."""
+    with deterministic():
+        front = create_paddle_predictor(
+            AnalysisConfig(resnet_dir).enable_bf16()
+            .enable_shape_bucketing(batch_buckets=RESNET_FRONT_BUCKETS))
+        plain = create_paddle_predictor(
+            AnalysisConfig(resnet_dir).enable_bf16())
+        fa.launches = fa.bwd_launches = 0
+        took = front.warmup()
+        plans0, _, exe = plan_runs(front)
+        caps0 = exe.capture_stats["captures"]
+        feeds = [{"data": resnet_batch(RESNET_BATCH, SEED + 1400 + i)["data"]}
+                 for i in range(6)]
+        for feed in feeds[:2]:  # the plain plan's warm-up and capture
+            plain.run(feed)
+        for i, feed in enumerate(feeds):
+            got = resnet_serve(front, feed)[0]
+            want = resnet_serve(plain, feed)[0]
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"ResNet-50 front at batch {RESNET_BATCH} (an exact "
+                    f"bucket): request {i} {distance(got, want):.3e} from "
+                    "the plain bf16 AnalysisPredictor")
+        med = in_turns([("pinned", front.run), ("pageable", plain.run)],
+                       feeds, start=1)
+        plans1, _, _ = plan_runs(front)
+    if fa.launches or fa.bwd_launches:
+        raise AssertionError("flash launches on ResNet-50 serving")
+    if (plans1 != plans0 or exe.capture_stats["captures"] != caps0
+            or front.health()["degraded_buckets"]):
+        raise AssertionError(f"ResNet-50 front: {front.health()}, plans "
+                             f"{plans0} -> {plans1}")
+    log(f"ResNet-50 front: warm-up " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in sorted(took.items()))
+        + f"; {len(feeds)} batch-{RESNET_BATCH} requests bitwise the plain "
+        "bf16 AnalysisPredictor's (no pad rows at an exact bucket)")
+    log(f"ResNet-50 bf16 request at batch {RESNET_BATCH}, captured, in turns "
+        f"(medians of rounds 1-5): pinned double-buffered feed {med[0]:.2f} "
+        f"ms ({RESNET_BATCH / med[0] * 1e3:.1f} images/s), pageable feed "
+        f"{med[1]:.2f} ms ({RESNET_BATCH / med[1] * 1e3:.1f} images/s); "
+        f"phase 11 measured the pageable one at {RESNET_PAGEABLE_MS} ms "
+        f"(PR 9, call 5) [{smi}]")
+
+
+def c1_on_the_card():
+    """Phase 13 (c), C1: ROADMAP C1's probe (matmul, square and
+    elementwise_sub that do not form the FM pattern) served through
+    AnalysisPredictor on the card, against a CPU AnalysisPredictor."""
+    from paddle_tpu_torch.layer_helper import LayerHelper, ParamAttr
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[512], dtype="float32")
+        w = LayerHelper("probe").create_parameter(
+            ParamAttr(name="probe_w"), [512, 512], "float32")
+        xw = pt.layers.matmul(x, w)
+        out = pt.layers.elementwise_sub(pt.layers.square(xw), xw)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c1_",
+                                     dir=_build.BUILD_DIR) as d:
+        exe = pt.Executor(pt.CPUPlace())
+        with pt.scope_guard(pt.Scope()):
+            exe.run(startup)
+            pt.io.save_inference_model(d, ["x"], [out], exe,
+                                       main_program=main)
+        feed = {"x": np.random.RandomState(SEED).randn(64, 512).astype(
+            np.float32)}
+        card = create_paddle_predictor(AnalysisConfig(d))
+        cpu = create_paddle_predictor(AnalysisConfig(d, use_gpu=False))
+        got = card.run(feed)[0].as_tensor().cpu()
+        want = cpu.run(feed)[0].as_tensor()
+    types = [o.type for o in card._program.global_block().desc.ops]
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    log(f"C1: the probe {types} served by AnalysisPredictor on the card, "
+        f"{rel:.3e} of its largest value from a CPU AnalysisPredictor")
+    if not rel <= 1e-5:
+        raise AssertionError("C1: the card's probe disagrees with the CPU's")
+
+
+def front_paths(model_dir, resnet_dir, cfg, smi):
+    """Phase 13; returns its paths' flash launches."""
+    paths = {"Transformer serving front bf16": (
+        transformer_front(model_dir, cfg, smi), 0)}
+    release()
+    resnet_front(resnet_dir, smi)
+    paths["ResNet-50 serving front bf16"] = (0, 0)
+    release()
+    c1_on_the_card()
+    return paths
+
+
 def resnet_paths(model_dir, smi, profile):
     """Phases 9-10; returns their flash launches by path."""
     phase("ResNet-50 training through CompiledProgram (bench "
@@ -2926,6 +3299,7 @@ def main(argv=None):
             phase("serving: Transformer-base through NativePredictor")
             served = main_path(model_dir, args.profile)
             paths["serving"] = (served["launches"], 0)
+            cfg = served["cfg"]
             release()
             phase("training: Transformer-base train steps on Executor()")
             trained = training_path(args.profile)
@@ -2946,10 +3320,16 @@ def main(argv=None):
             phase("whole-step capture: captured against eager "
                   "(FLAGS.jit_cache = False) on every path")
             paths.update(capture_paths(model_dir, rdir, smi, args.profile))
-        phase("BERT-base pretraining through CompiledProgram (bench "
-              "BuildStrategy, batch 16, T 128): Adam fp32 and AMP, LAMB AMP")
-        paths.update(bert_paths(smi, args.profile))
-        release()
+            phase("BERT-base pretraining through CompiledProgram (bench "
+                  "BuildStrategy, batch 16, T 128): Adam fp32 and AMP, LAMB "
+                  "AMP")
+            paths.update(bert_paths(smi, args.profile))
+            release()
+            phase("the serving front: BucketedPredictor and "
+                  "BatchingPredictor over bf16 Transformer-base and "
+                  "ResNet-50, the executor under threads")
+            paths.update(front_paths(model_dir, rdir, cfg, smi))
+            release()
 
     def bert_shape(rows, errors, per_step):
         return {"shape": list(BERT_SHAPE), "launches_per_step": per_step,

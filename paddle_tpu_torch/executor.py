@@ -57,6 +57,17 @@ replays advance it as K eager runs do. Fetches come back as numpy
 arrays, or as ``FetchHandle``s on a device copy that later runs do not
 touch.
 
+Threads. ``run`` may be called from several threads at once, on one
+plan too (a predictor's clones and the serving front share one
+executor). Plan lookup and creation and each plan's run count are atomic
+under the executor's lock. On the card one lock per device is held over
+a capture, over an eager warm-up (which runs on the capture stream) and
+over a replay from the copy of its inputs into the static buffers
+through the copies of its outputs, so two callers of a plan each get
+their own rows and no other graph of the shared pool replays in between.
+The lock orders enqueueing only. A capture's error mode is the
+capturing thread's own, so other threads may allocate while it runs.
+
 ``run(iterations=K)`` takes [K, batch, ...] super-batches and runs K
 steps in one plan (one graph holds all K, step k reading slice k), with
 fetches stacked [K, ...]; a block with host ops takes K single-step runs
@@ -71,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import threading
 import time
 import warnings
 import weakref
@@ -87,6 +99,7 @@ from .framework import Block, Variable, default_main_program
 from .ir import pipeline
 from .place import CUDAPlace, Place
 from .registry import EmitContext
+from .testing import faults as _faults
 from .utils.flags import FLAGS
 
 _scope_tokens = itertools.count(1)
@@ -379,12 +392,33 @@ def _fetch_names(fetch_list) -> List[str]:
             for f in (fetch_list or [])]
 
 
-# one capture stream and one graph memory pool per CUDA device
+# one capture stream, one graph memory pool and one lock per CUDA device
 _capture_streams: Dict[int, Any] = {}
 _graph_pools: Dict[int, Any] = {}
+_device_locks: Dict[int, threading.RLock] = {}
+_device_locks_guard = threading.Lock()
+
+
+def _device_lock(device: torch.device):
+    """The device's lock, held over a capture, over an eager warm-up (it
+    runs on the capture stream) and over a replay from the copy of its
+    inputs through the clones of its outputs: so no other thread's work
+    lands in a capture, and no other graph of the shared pool replays
+    between a replay and the copies of its outputs. It orders enqueueing
+    only; nothing in it waits for the device but a capture's first
+    replay. A CPU run needs none."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    idx = device.index or 0
+    with _device_locks_guard:
+        lock = _device_locks.get(idx)
+        if lock is None:
+            lock = _device_locks[idx] = threading.RLock()
+    return lock
 
 
 def _capture_stream(device: torch.device):
+    """Called with the device's lock held."""
     idx = device.index or 0
     if idx not in _capture_streams:
         _capture_streams[idx] = torch.cuda.Stream(device)
@@ -392,6 +426,7 @@ def _capture_stream(device: torch.device):
 
 
 def _graph_pool(device: torch.device):
+    """Called with the device's lock held."""
     idx = device.index or 0
     if idx not in _graph_pools:
         with torch.cuda.device(device):
@@ -507,14 +542,19 @@ class Executor:
         self.capture_stats = {"captures": 0, "seconds": 0.0, "replays": 0}
         # run(iterations=K) calls that took K single-step runs
         self.fuse_fallbacks = 0
+        # plan lookup and creation, the pipeline memo, the statistics and
+        # each plan's run count, for callers on several threads (a
+        # predictor and its clones share one executor)
+        self._lock = threading.RLock()
 
     def lowered_ops(self, program=None, fetch_list=None) -> List[OpDesc]:
         """The op list ``run`` executes for ``program`` and
         ``fetch_list``: the live ops of block 0, rewritten by the pass
         pipeline when ``program`` is a CompiledProgram."""
         program, build_strategy = self._unwrap(program)
-        return self._prepare(program, build_strategy,
-                             _fetch_names(fetch_list))
+        with self._lock:
+            return self._prepare(program, build_strategy,
+                                 _fetch_names(fetch_list))
 
     @staticmethod
     def _unwrap(program):
@@ -606,7 +646,10 @@ class Executor:
         ``ExecutionStrategy.num_iteration_per_run``) runs K steps on
         [K, batch, ...] feeds and stacks the fetches [K, ...].
         ``use_program_cache`` is the reference's argument and is ignored:
-        ``FLAGS.jit_cache`` decides whether plans are kept."""
+        ``FLAGS.jit_cache`` decides whether plans are kept. Safe to call
+        from several threads at once, on one plan too: each caller gets
+        the results of its own feed."""
+        _faults.fire("executor.run")
         scope = scope or global_scope()
         target = program or default_main_program()
         if iterations is None and isinstance(target, CompiledProgram):
@@ -617,8 +660,18 @@ class Executor:
         program, build_strategy = self._unwrap(target)
         if iterations > 1:
             _validate_super_batch(feed, iterations)
-        plan = self._plan(program, build_strategy, feed, fetch_names, scope,
-                          iterations)
+        with self._lock:
+            plan = self._plan(program, build_strategy, feed, fetch_names,
+                              scope, iterations)
+            captured = (self.device.type == "cuda" and FLAGS.jit_cache
+                        and plan.runs > 0)
+            if captured:
+                with _device_lock(self.device):
+                    if any(kind == "device" and seg.graph is not None
+                           and seg.state_rebound(scope)
+                           for kind, seg in plan.segments):
+                        plan.drop_graphs()
+                        captured = False
         if iterations > 1:
             reason = _fuse_fallback_reason(plan.segments)
             if reason is not None:
@@ -632,13 +685,6 @@ class Executor:
                     target, feed, fetch_list, scope, return_numpy,
                     iterations)
         block = program.global_block()
-        captured = (self.device.type == "cuda" and FLAGS.jit_cache
-                    and plan.runs > 0)
-        if captured and any(kind == "device" and seg.graph is not None
-                            and seg.state_rebound(scope)
-                            for kind, seg in plan.segments):
-            plan.drop_graphs()
-            captured = False
         generator = None
         if any(kind == "device" and seg.needs_rng
                for kind, seg in plan.segments):
@@ -666,14 +712,14 @@ class Executor:
                     outs = self._run_eager(seg, env, scope, ctx, iterations,
                                            warm_up=self.device.type == "cuda"
                                            and FLAGS.jit_cache)
-                elif seg.graph is None:
-                    outs = self._capture(seg, env, scope, ctx, iterations)
                 else:
-                    outs = self._replay(seg, env)
+                    outs = self._run_captured(seg, env, scope, ctx,
+                                              iterations)
                 env.update(outs)
                 results.update((n, outs[n]) for n in fetch_names
                                if n in outs)
-        plan.runs += 1
+        with self._lock:
+            plan.runs += 1
         out = []
         for n in fetch_names:
             if n in results:
@@ -726,16 +772,28 @@ class Executor:
         stream, whose cuBLAS workspace the capture then finds made."""
         if not warm_up:
             return self._steps(seg, env, scope, ctx, iterations)
-        side = _capture_stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            outs = self._steps(seg, env, scope, ctx, iterations)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        with _device_lock(self.device):
+            side = _capture_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                outs = self._steps(seg, env, scope, ctx, iterations)
+            torch.cuda.current_stream(self.device).wait_stream(side)
         return outs
+
+    def _run_captured(self, seg, env, scope, ctx, iterations):
+        """A run of a warm plan's segment: its capture if no thread has
+        made the graph yet, else a replay; the choice is made under the
+        device's lock, so two threads never capture one segment."""
+        with _device_lock(self.device):
+            if seg.graph is None:
+                return self._capture(seg, env, scope, ctx, iterations)
+            return self._replay(seg, env)
 
     def _capture(self, seg, env, scope, ctx, iterations):
         """Capture the segment's steps into a CUDA graph over static
-        input buffers and the scope's state tensors, then replay it once."""
+        input buffers and the scope's state tensors, then replay it once.
+        Called with the device's lock held; the capture's error mode is
+        the thread's own, so other threads may allocate meanwhile."""
         dev = self.device
         t0 = time.perf_counter()
         seg.static_in = {n: env[n].clone() for n in seg.inputs}
@@ -750,7 +808,8 @@ class Executor:
         # torch.cuda.graph synchronizes and empties the allocator's cache
         # first, so the graph's pool can take the warm-up's blocks
         with torch.cuda.graph(graph, pool=_graph_pool(dev),
-                              stream=_capture_stream(dev)):
+                              stream=_capture_stream(dev),
+                              capture_error_mode="thread_local"):
             seg.static_out = self._steps(seg, dict(seg.static_in), scope,
                                          ctx, iterations, capturing=True)
         seg.graph = graph
@@ -763,7 +822,9 @@ class Executor:
     def _replay(self, seg, env):
         """Replay the segment's graph on this run's inputs (``env``; None
         when the static buffers hold them already). The outputs are
-        copied out of the graph's pool, which other graphs reuse."""
+        copied out of the graph's pool, which other graphs reuse. Called
+        with the device's lock held, from the copy of the inputs through
+        the copies of the outputs."""
         if env is not None:
             for n, buf in seg.static_in.items():
                 buf.copy_(env[n])

@@ -9,9 +9,12 @@ predictor raises instead of running on the host.
 ``AnalysisConfig`` adds the IR pass list (``DEFAULT_PASSES``, the JAX
 package's) and bf16 autocast; ``create_paddle_predictor`` gives an
 ``AnalysisPredictor`` for it, which rewrites the loaded program with the
-passes and then flags it for bf16. The serving wrappers
-(``enable_shape_bucketing``, ``enable_request_coalescing``) are ROADMAP
-A6 and raise.
+passes and then flags it for bf16. With the serving knobs set
+(``enable_shape_bucketing``, ``enable_request_coalescing``) the predictor
+comes back wrapped in ``serving.BucketedPredictor`` and
+``serving.BatchingPredictor``. The JAX package's
+``create_paddle_predictor`` also starts its monitor's HTTP plane
+(``monitor.maybe_serve_http``), which waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -73,16 +76,65 @@ class NativeConfig:
         self.params_file = params_file
         self.use_gpu = use_gpu
         self.device = device
+        # serving knobs (inference/serving.py): bucket ladder and request
+        # coalescing; create_paddle_predictor wraps accordingly
+        self.bucket_config: Optional[dict] = None
+        self.coalesce_config: Optional[dict] = None
 
-    def enable_shape_bucketing(self, *args, **kwargs):
-        raise NotImplementedError(
-            "enable_shape_bucketing (the bucketed serving wrapper) waits for "
-            "ROADMAP A6 (serving wrappers)")
+    def enable_shape_bucketing(self, batch_buckets=None, seq_dim=None,
+                               seq_buckets=None, seq_feeds=None,
+                               warmup_workers: int = 4):
+        """Serve any request batch size from a bounded ladder of shape
+        buckets (powers of two by default), each one plan (a CUDA graph
+        on the card): the batch dim pads UP to the nearest bucket,
+        oversize batches chunk at the top bucket, outputs slice back to
+        the true rows. One declared dynamic trailing dim (e.g. seqlen)
+        buckets too via seq_dim/seq_buckets. ``warmup_workers`` warms that
+        many ladder cells concurrently in warmup() (1 = serial). See
+        serving.BucketedPredictor."""
+        self.bucket_config = {"batch_buckets": batch_buckets,
+                              "seq_dim": seq_dim,
+                              "seq_buckets": seq_buckets,
+                              "seq_feeds": seq_feeds,
+                              "warmup_workers": warmup_workers}
+        return self
 
-    def enable_request_coalescing(self, *args, **kwargs):
-        raise NotImplementedError(
-            "enable_request_coalescing (the micro-batching serving wrapper) "
-            "waits for ROADMAP A6 (serving wrappers)")
+    def enable_request_coalescing(self, max_batch_size: int = 64,
+                                  batch_timeout_us: int = 2000,
+                                  max_queue_rows: Optional[int] = 4096,
+                                  shed_policy: str = "reject-new",
+                                  default_deadline_ms: Optional[float] = None,
+                                  dispatch_retries: int = 2,
+                                  retry_backoff_ms: float = 10.0,
+                                  breaker_threshold: int = 5,
+                                  breaker_reset_ms: float = 1000.0):
+        """Coalesce concurrent run() calls into one padded device call
+        (micro-batching): a dispatcher thread gathers up to
+        max_batch_size rows, waiting at most batch_timeout_us for
+        co-requests, and fans rows back per request via futures.
+
+        Resilience knobs (serving.BatchingPredictor): ``max_queue_rows``
+        bounds the queue (None = unbounded) with ``shed_policy``
+        'reject-new' (raise Overloaded at the caller) or 'drop-oldest'
+        (fail the oldest queued futures); ``default_deadline_ms`` stamps
+        every request lacking an explicit submit(deadline_ms=)
+        (DeadlineExceeded if still queued at expiry);
+        ``dispatch_retries``/``retry_backoff_ms`` retry a failed device
+        call with capped exponential backoff; ``breaker_threshold``
+        consecutive dispatch failures open the circuit breaker
+        (CircuitOpen fail-fast, half-open probe after
+        ``breaker_reset_ms``; 0 disables)."""
+        self.coalesce_config = {
+            "max_batch_size": int(max_batch_size),
+            "batch_timeout_us": int(batch_timeout_us),
+            "max_queue_rows": max_queue_rows,
+            "shed_policy": shed_policy,
+            "default_deadline_ms": default_deadline_ms,
+            "dispatch_retries": int(dispatch_retries),
+            "retry_backoff_ms": float(retry_backoff_ms),
+            "breaker_threshold": int(breaker_threshold),
+            "breaker_reset_ms": float(breaker_reset_ms)}
+        return self
 
 
 class AnalysisConfig(NativeConfig):
@@ -177,6 +229,15 @@ class NativePredictor:
         return [PaddleTensor(o.device_value(), n)
                 for n, o in zip(self._fetch_names, outs)]
 
+    def clone(self):
+        """paddle_api.h:186 Clone(): a predictor sharing this one's scope,
+        executor and program, so its weights and warm plans too; it may
+        run on another thread at the same time (the executor is
+        thread-safe)."""
+        new = object.__new__(type(self))
+        new.__dict__.update(self.__dict__)
+        return new
+
     def close(self):
         """Release the captured graphs of this predictor's program."""
         self._exe.close()
@@ -198,9 +259,19 @@ class AnalysisPredictor(NativePredictor):
             mixed_precision.decorate(self._program)
 
 
-def create_paddle_predictor(config: NativeConfig) -> NativePredictor:
+def create_paddle_predictor(config: NativeConfig):
     """paddle_api.h CreatePaddlePredictor analog: an AnalysisPredictor
-    for an AnalysisConfig, else a NativePredictor."""
+    for an AnalysisConfig, else a NativePredictor; with the serving knobs
+    set, wrapped in the bucketed and the micro-batching serving layers
+    (inference/serving.py), with the same run() surface."""
     if isinstance(config, AnalysisConfig):
-        return AnalysisPredictor(config)
-    return NativePredictor(config)
+        pred = AnalysisPredictor(config)
+    else:
+        pred = NativePredictor(config)
+    if config.bucket_config is not None:
+        from . import serving
+        pred = serving.BucketedPredictor(pred, **config.bucket_config)
+    if config.coalesce_config is not None:
+        from . import serving
+        pred = serving.BatchingPredictor(pred, **config.coalesce_config)
+    return pred

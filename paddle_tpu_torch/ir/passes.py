@@ -7,7 +7,8 @@ reaches (is_test, identity_scale_op_clean, fc_fuse, infer_clean_graph,
 fuse_elewise_add_act, repeated_fc_relu_fuse), the conv passes
 (conv_bn_fuse and conv_affine_channel_fuse, which fold values from the
 Scope; the conv_elementwise_add fusions; fuse_relu_depthwise_conv;
-conv_layout_nhwc) and the registry wrappers of the BuildStrategy op-list
+conv_layout_nhwc), squared_mat_sub_fuse (the FM trick) and the registry
+wrappers of the BuildStrategy op-list
 stages (cse, constant_fold, dead_op_elimination, fuse_optimizer_ops,
 fuse_attention, fuse_conv_epilogue). Each rewrites a program to the op
 list the JAX package's pass gives.
@@ -950,6 +951,77 @@ class FuseAttentionPass(_OpListPass):
 # passes not ported yet: registered under their names behind a guard
 # ---------------------------------------------------------------------------
 
+@register_pass
+class SquaredMatSubFusePass(Pass):
+    """squared_mat_sub_fuse_pass.cc analog: the FM second-order
+    interaction trick out = ((x@y)^2 - (x^2)@(y^2)) * scalar collapses
+    into fusion_squared_mat_sub. Matches with and without the trailing
+    scale op; a program that holds the op types but not the pattern is
+    left as it is."""
+
+    name = "squared_mat_sub_fuse_pass"
+
+    def apply(self, graph: Graph):
+        from .pattern import GraphPatternDetector, PNode, intermediates_safe
+        protected = self.attrs.get("protected", set())
+
+        def plain_mm(op, graph):
+            return (not op.attrs.get("transpose_X")
+                    and not op.attrs.get("transpose_Y")
+                    and float(op.attrs.get("alpha", 1.0)) == 1.0)
+
+        for with_scale in (True, False):
+            det = GraphPatternDetector(graph)
+            pattern = [
+                PNode("mm_xy", "matmul", inputs={"X": "x", "Y": "y"},
+                      outputs={"Out": "xy"}, predicate=plain_mm),
+                PNode("sq_xy", "square", inputs={"X": "xy"},
+                      outputs={"Out": "xy2"}),
+                PNode("sq_x", "square", inputs={"X": "x"},
+                      outputs={"Out": "x2"}),
+                PNode("sq_y", "square", inputs={"X": "y"},
+                      outputs={"Out": "y2"}),
+                PNode("mm_x2y2", "matmul", inputs={"X": "x2", "Y": "y2"},
+                      outputs={"Out": "x2y2"}, predicate=plain_mm),
+                PNode("sub", "elementwise_sub",
+                      inputs={"X": "xy2", "Y": "x2y2"},
+                      outputs={"Out": "sub_out"}),
+            ]
+            if with_scale:
+                pattern.append(PNode("scale", "scale",
+                                     inputs={"X": "sub_out"},
+                                     outputs={"Out": "out"}))
+                keep = ("x", "y", "out")
+            else:
+                keep = ("x", "y", "sub_out")
+            drop = set()
+            fused_at = {}
+            for m in det.detect(pattern):
+                if not intermediates_safe(graph, m, keep, protected):
+                    continue
+                if with_scale:
+                    sc_op = graph.ops[m.ops["scale"]]
+                    if float(sc_op.attrs.get("bias", 0.0)) != 0.0:
+                        continue
+                    scalar = float(sc_op.attrs.get("scale", 1.0))
+                    out = m.vars["out"]
+                else:
+                    scalar = 1.0
+                    out = m.vars["sub_out"]
+                # the fused op reads x and y at the last matched slot;
+                # every write of them must precede the first
+                first = min(m.op_indices())
+                if not (_reads_same_at(graph, m.vars["x"], first)
+                        and _reads_same_at(graph, m.vars["y"], first)):
+                    continue
+                fused_at[max(m.op_indices())] = OpDesc(
+                    "fusion_squared_mat_sub",
+                    {"X": [m.vars["x"]], "Y": [m.vars["y"]]},
+                    {"Out": [out]}, {"scalar": scalar})
+                drop.update(m.op_indices())
+            _splice(graph, fused_at, drop)
+
+
 _A10 = "ROADMAP A10 (observability)"
 _A11 = "ROADMAP A11 (RNN, sequence and detection fusions)"
 
@@ -987,8 +1059,6 @@ for _name, _needs, _item in (
         ("fc_lstm_fuse_pass", (("mul",), ("lstm",)), _A11),
         ("seqconv_eltadd_relu_fuse_pass",
          (("sequence_conv",), ("elementwise_add",), ("relu",)), _A11),
-        ("squared_mat_sub_fuse_pass",
-         (("matmul",), ("square",), ("elementwise_sub",)), _A11),
         ("seqpool_concat_fuse_pass", (("sequence_pool",), ("concat",)),
          _A11),
         ("transpose_flatten_concat_fuse_pass",

@@ -1,7 +1,8 @@
 """Fused ops the IR passes write (counterpart of
 ``paddle_tpu/ops/kernels_fused.py``; reference operators/fused/):
 ``fused_elemwise_activation`` (fuse_elewise_add_act),
-``fusion_repeated_fc_relu`` (repeated_fc_relu_fuse_pass), ``conv2d_fusion``
+``fusion_repeated_fc_relu`` (repeated_fc_relu_fuse_pass),
+``fusion_squared_mat_sub`` (squared_mat_sub_fuse_pass), ``conv2d_fusion``
 (the inference conv passes) and ``fused_conv2d`` (the pipeline's conv
 stages). Each composes the torch ops, or the registered emitters, of the
 ops it replaces; the RNN and sequence fusions wait for ROADMAP A11.
@@ -84,6 +85,21 @@ def fusion_repeated_fc_relu(ctx, ins, attrs):
             h = h + b
         h = torch.relu(h)
     return {"Out": [h]}
+
+
+@register_op("fusion_squared_mat_sub", no_grad=True,
+             infer=_dtype_only_infer)
+def fusion_squared_mat_sub(ctx, ins, attrs):
+    """fused/fusion_squared_mat_sub_op.cc: ((xy)^2 - x^2 y^2) * scalar,
+    the FM second-order trick as one op, in the JAX op's order of
+    operations."""
+    xv, yv = ins["X"][0], ins["Y"][0]
+    s = float(attrs.get("scalar", 1.0))
+    xy = torch.matmul(xv, yv)
+    x2y2 = torch.matmul(xv * xv, yv * yv)
+    return {"Out": [(xy * xy - x2y2) * s],
+            "SquaredX": [xv * xv], "SquaredY": [yv * yv],
+            "SquaredXY": [xy * xy]}
 
 
 _CONV_ACTS = {

@@ -338,7 +338,10 @@ _make_act("exp", lambda v, a: torch.exp(v))
 _make_act("log", lambda v, a: torch.log(v))
 _make_act("sqrt", lambda v, a: torch.sqrt(v))
 _make_act("rsqrt", lambda v, a: torch.rsqrt(v))
-_make_act("abs", lambda v, a: torch.abs(v))
+# abs differentiates as the JAX op does, g where v >= 0 and -g elsewhere,
+# so +0 and -0 pass the whole cotangent (``torch.abs`` passes none there);
+# v + 0.0 turns -0 into +0, so the values are torch.abs's bit for bit
+_make_act("abs", lambda v, a: torch.where(v >= 0, v + 0.0, torch.abs(v)))
 _make_act("square", lambda v, a: v * v)
 _make_act("reciprocal", lambda v, a: 1.0 / v)
 _make_act("ceil", lambda v, a: torch.ceil(v))

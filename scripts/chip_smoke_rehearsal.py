@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-12) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-13) on the CPU at a tiny
 Transformer, a small ResNet-50 (64x64 images, batch 4) and a narrow
-12-layer BERT (d_model 24, T 16, batch 4), to find faults in the
-script's Python before a run on the card.
+12-layer BERT (d_model 24, T 16, batch 4), and phase 13's serving front
+with fewer requests a window, to find faults in the script's Python
+before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
 
@@ -102,12 +103,18 @@ def main():
         cs.RESNET_IMAGE, cs.RESNET_BATCH = (3, 64, 64), 4
         resnet = cs.resnet_paths(r, "CPU rehearsal", False)
         capture = cs.capture_paths(d, r, "CPU rehearsal", False)
-    cs.BERT, cs.BERT_BATCH = BERT_TINY, 4
-    bert = cs.bert_paths("CPU rehearsal", False)
+        cs.BERT, cs.BERT_BATCH = BERT_TINY, 4
+        bert = cs.bert_paths("CPU rehearsal", False)
+        # phase 13: fewer requests a window; ResNet-50's batch of 4 is an
+        # exact bucket of its own ladder
+        cs.FRONT_CHECK, cs.FRONT_REQUESTS = 16, 24
+        cs.RESNET_FRONT_BUCKETS = (2, 4)
+        front = cs.front_paths(d, r, served["cfg"], "CPU rehearsal")
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
-          f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}")
+          f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
+          f"phase 13 {front}")
 
 
 if __name__ == "__main__":

@@ -16,8 +16,14 @@ package's, on the CPU, on a model directory the JAX package wrote.
     keeps some bf16 round trips in fp32), 0.85 ulp against fp32. The
     card's check (chip_smoke.py phase 8) derives its bound from this one;
 (d) the knobs: ``switch_ir_optim(False)`` runs no pass,
-    ``pass_builder_set`` runs the given ones, the serving wrappers raise,
-    and the predictor runs on the card unless ``use_gpu=False``.
+    ``pass_builder_set`` runs the given ones, the serving wrappers raise
+    on a bad value as the JAX package's do, and the predictor runs on the
+    card unless ``use_gpu=False``;
+(e) ROADMAP C1: programs that hold ``matmul``, ``square`` and
+    ``elementwise_sub`` (the probe, which is not the FM pattern, and the
+    FM pattern, which squared_mat_sub_fuse_pass fuses), saved by the JAX
+    package and served by both AnalysisPredictors: the same op list and
+    outputs within 1e-6 relative (fp32, a few float32 sums apart).
 """
 
 import numpy as np
@@ -175,10 +181,23 @@ def test_ir_optim_off_and_pass_lists(model):
 
 @pytest.mark.parametrize("knob", ["enable_shape_bucketing",
                                   "enable_request_coalescing"])
-def test_serving_wrappers_raise(knob):
-    for cfg in (pinference.NativeConfig("d"), pinference.AnalysisConfig("d")):
-        with pytest.raises(NotImplementedError, match="A6"):
-            getattr(cfg, knob)()
+def test_serving_wrappers_raise(knob, tmp_path):
+    """The knobs return their config (the wrappers are ported:
+    tests/test_torch_serving.py); the wrapper a bad value selects raises
+    ValueError at creation in both packages."""
+    from paddle_tpu.testing.models import save_mlp
+    d = save_mlp(str(tmp_path / "mlp"))
+    bad = {"enable_shape_bucketing": {"batch_buckets": (0, 2)},
+           "enable_request_coalescing": {"shed_policy": "lifo"}}[knob]
+    for mod, cfgs in (
+            (pinference, (pinference.NativeConfig(d, use_gpu=False),
+                          pinference.AnalysisConfig(d, use_gpu=False))),
+            (jinference, (jinference.NativeConfig(d),
+                          jinference.AnalysisConfig(d)))):
+        for cfg in cfgs:
+            assert getattr(cfg, knob)(**bad) is cfg
+            with pytest.raises(ValueError):
+                mod.create_paddle_predictor(cfg)
 
 
 def test_analysis_predictor_runs_on_the_card_by_default(model, monkeypatch):
@@ -279,3 +298,59 @@ def test_resnet_bf16_logits_match_jax_and_fp32(resnet_model):
     for want in (resnet_model[True][0], fp32):
         err = np.abs(got - want).max()
         assert err <= BF16_REL * np.abs(want).max(), err
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C1: matmul, square and elementwise_sub served
+# ---------------------------------------------------------------------------
+
+def _c1_program(fm):
+    """The C1 probe (x -> matmul(x, w) -> square -> elementwise_sub(., the
+    product)), or the FM pattern over two fed matrices; JAX-built."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 9
+    with junique.guard(), fluid.program_guard(main, startup):
+        if fm:
+            x = fluid.layers.data(name="x", shape=[3, 4], dtype="float32")
+            y = fluid.layers.data(name="y", shape=[4, 5], dtype="float32")
+            xy = fluid.layers.matmul(x, y)
+            x2y2 = fluid.layers.matmul(fluid.layers.square(x),
+                                       fluid.layers.square(y))
+            out = fluid.layers.scale(fluid.layers.elementwise_sub(
+                fluid.layers.square(xy), x2y2), scale=0.5)
+            feeds = ["x", "y"]
+        else:
+            x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+            w = fluid.layers.create_parameter([4, 4], "float32",
+                                              name="probe_w")
+            xw = fluid.layers.matmul(x, w)
+            out = fluid.layers.elementwise_sub(fluid.layers.square(xw), xw)
+            feeds = ["x"]
+    return main, startup, feeds, out
+
+
+@pytest.mark.parametrize("fm", [False, True], ids=["probe", "fm"])
+def test_squared_mat_sub_programs_serve_as_jax(fm, tmp_path):
+    main, startup, feeds, out = _c1_program(fm)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    d = str(tmp_path / "c1")
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(d, feeds, [out], exe,
+                                      main_program=main,
+                                      export_for_deployment=False)
+    rng = np.random.RandomState(4)
+    feed = ({"x": rng.rand(2, 3, 4).astype(np.float32),
+             "y": rng.rand(2, 4, 5).astype(np.float32)} if fm
+            else {"x": rng.randn(3, 4).astype(np.float32)})
+    jpred = jinference.create_paddle_predictor(jinference.AnalysisConfig(d))
+    ppred = pinference.create_paddle_predictor(
+        pinference.AnalysisConfig(d, use_gpu=False))
+    assert_same_ops(list(jpred._program.global_block().desc.ops),
+                    list(ppred._program.global_block().desc.ops))
+    types = [o.type for o in ppred._program.global_block().desc.ops]
+    assert types.count("fusion_squared_mat_sub") == int(fm)
+    want = np.asarray(jpred.run(feed)[0].data)
+    got = ppred.run(feed)[0].as_ndarray()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)

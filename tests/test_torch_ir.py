@@ -677,7 +677,40 @@ def _with_feed_fetch():
     return [out.name]
 
 
+def _fm(scale=0.5, bias=0.0):
+    """The FM second-order trick squared_mat_sub_fuse_pass matches
+    (tests/test_ir_passes.py), with or without its trailing scale (a
+    scale with a bias is not taken into the fused op)."""
+    def build():
+        x = fluid.layers.data(name="x", shape=[3, 4], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[4, 5], dtype="float32")
+        xy = fluid.layers.matmul(x, y)
+        x2y2 = fluid.layers.matmul(fluid.layers.square(x),
+                                   fluid.layers.square(y))
+        out = fluid.layers.elementwise_sub(fluid.layers.square(xy), x2y2)
+        if scale is not None:
+            out = fluid.layers.scale(out, scale=scale, bias=bias)
+        return [out.name]
+    return build
+
+
+def _squared_mat_sub_probe():
+    """ROADMAP C1's probe: matmul, square and elementwise_sub that do not
+    form the FM pattern; the pass must leave it as it is."""
+    x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+    w = fluid.layers.create_parameter([4, 4], "float32", name="probe_w")
+    xw = fluid.layers.matmul(x, w)
+    return [fluid.layers.elementwise_sub(fluid.layers.square(xw), xw).name]
+
+
 PASS_CASES = {
+    "squared_mat_sub_fm_scaled": (_fm(), ["squared_mat_sub_fuse_pass"]),
+    "squared_mat_sub_fm_unscaled": (_fm(None),
+                                    ["squared_mat_sub_fuse_pass"]),
+    "squared_mat_sub_fm_biased_scale": (_fm(0.5, 1.0),
+                                        ["squared_mat_sub_fuse_pass"]),
+    "squared_mat_sub_probe_stays": (_squared_mat_sub_probe,
+                                    ["squared_mat_sub_fuse_pass"]),
     "fc_fuse": (_fc_chain(2), ["fc_fuse_pass"]),
     "repeated_fc_relu": (_fc_chain(3),
                          ["fc_fuse_pass", "repeated_fc_relu_fuse_pass"]),
@@ -710,6 +743,15 @@ def test_registry_pass_matches_jax(name):
         sorted(jmain.global_block().desc.vars)
     assert [o.desc for o in pmain.global_block().ops] == _ops(pmain)
     assert pmain._version > v0
+    types = [o.type for o in _ops(pmain)]
+    assert types == {
+        "squared_mat_sub_fm_scaled": ["fusion_squared_mat_sub"],
+        "squared_mat_sub_fm_unscaled": ["fusion_squared_mat_sub"],
+        "squared_mat_sub_fm_biased_scale": ["fusion_squared_mat_sub",
+                                            "scale"],
+        "squared_mat_sub_probe_stays": ["matmul", "square",
+                                        "elementwise_sub"],
+    }.get(name, types)
 
 
 @pytest.mark.parametrize("impl", ["fused", "unfused"])
@@ -750,7 +792,9 @@ GUARDED = sorted(n for n, cls in pir.PASS_REGISTRY.items()
 def test_every_jax_pass_is_registered_in_the_port():
     assert sorted(pir.PASS_REGISTRY) == sorted(jir.PASS_REGISTRY)
     assert set(AnalysisConfig.DEFAULT_PASSES) <= set(pir.PASS_REGISTRY)
-    assert len(GUARDED) == 8
+    # squared_mat_sub_fuse_pass is ported (ROADMAP C1), the rest guarded
+    assert len(GUARDED) == 7
+    assert "squared_mat_sub_fuse_pass" not in GUARDED
 
 
 @pytest.fixture(scope="module")
@@ -1104,3 +1148,66 @@ def test_conv_pass_leaves_the_transformer_unchanged(inference_program, name):
     pir.apply_passes(pmain, [name], scope=pt.Scope(), protected=[fetch])
     assert_same_ops(_ops(jmain), _ops(pmain))
     assert [o.type for o in _ops(pmain)] == [o.type for o in _ops(jprog)]
+
+
+# ---------------------------------------------------------------------------
+# InferenceTranspiler
+# ---------------------------------------------------------------------------
+
+def _resnet_test(depth):
+    """The imagenet ResNet's test program at ``depth`` on 32x32 images:
+    (test program, startup, fetch)."""
+    def build():
+        from paddle_tpu.models import resnet
+        with junique.guard():
+            m = resnet.build(dataset="flowers", depth=depth,
+                             image_shape=[3, 32, 32])
+        return m["test"], m["startup"], [m["predict"].name]
+    build.whole_program = True
+    return build
+
+
+@pytest.mark.parametrize("depth", [18, 50])
+def test_inference_transpiler_on_resnet_matches_jax(depth):
+    """The transpiled op list, var descs and folded tensors: the JAX
+    package's, bit for bit (conv_bn_fuse folds in numpy in both)."""
+    from paddle_tpu.inference import InferenceTranspiler as JTranspiler
+    from paddle_tpu_torch.inference import InferenceTranspiler
+    assert InferenceTranspiler.PASSES == JTranspiler.PASSES
+    jmain, jstartup, fetch = _conv_prog(_resnet_test(depth))
+    pmain = to_port(jmain)
+    jscope, pscope = _scope_pair(jmain, jstartup)
+    JTranspiler().transpile(jmain, scope=jscope, protected=fetch)
+    assert InferenceTranspiler().transpile(pmain, scope=pscope,
+                                           protected=fetch) is pmain
+    assert_same_ops(_ops(jmain), _ops(pmain))
+    assert sorted(pmain.global_block().desc.vars) == \
+        sorted(jmain.global_block().desc.vars)
+    for n in jscope.var_names():
+        assert np.array_equal(pscope.find_var(n).numpy(),
+                              np.asarray(jscope.find_var(n))), n
+    assert "batch_norm" not in [o.type for o in _ops(pmain)]
+
+
+def test_inference_transpiler_on_save_mlp_matches_jax(tmp_path):
+    """save_mlp's directory loaded by each package and transpiled: the
+    same op list (fc_fuse makes every biased mul one fc)."""
+    from paddle_tpu.inference import InferenceTranspiler as JTranspiler
+    from paddle_tpu.testing.models import save_mlp as jax_save_mlp
+    from paddle_tpu_torch.inference import InferenceTranspiler
+    d = jax_save_mlp(str(tmp_path / "mlp"), depth=2)
+    jscope = fluid.Scope()
+    with fluid.scope_guard(jscope):
+        jprog, _, jfetch = fluid.io.load_inference_model(
+            d, fluid.Executor(fluid.CPUPlace()))
+    pscope = pt.Scope()
+    with pt.scope_guard(pscope):
+        pprog, _, pfetch = pt.io.load_inference_model(
+            d, pt.Executor(pt.CPUPlace()))
+    JTranspiler().transpile(jprog, scope=jscope,
+                            protected=[v.name for v in jfetch])
+    with pt.scope_guard(pscope):  # the global scope is the default
+        InferenceTranspiler().transpile(pprog,
+                                        protected=[v.name for v in pfetch])
+    assert_same_ops(_ops(jprog), _ops(pprog))
+    assert [o.type for o in _ops(pprog)].count("fc") == 3

@@ -41,6 +41,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.ops.kernels_fused\n"
         "import paddle_tpu_torch.ops.kernels_image\n"
         "import paddle_tpu_torch.models.resnet\n"
+        "import paddle_tpu_torch.inference.serving\n"
+        "import paddle_tpu_torch.inference.transpiler\n"
+        "import paddle_tpu_torch.testing.faults\n"
+        "import paddle_tpu_torch.testing.models\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

@@ -65,7 +65,12 @@ ACTS = {
     "sigmoid": ({}, X), "logsigmoid": ({}, X), "exp": ({}, X),
     "log": ({}, pos(3, 5)), "tanh": ({}, X), "tanh_shrink": ({}, X),
     "softshrink": ({"lambda": 0.3}, X), "sqrt": ({}, pos(3, 5)),
-    "rsqrt": ({}, pos(3, 5)), "abs": ({}, X), "ceil": ({}, X * 3),
+    "rsqrt": ({}, pos(3, 5)),
+    # +0 and -0 among the inputs: JAX's abs passes the whole cotangent
+    # there (ROADMAP C2)
+    "abs": ({}, np.concatenate([X, [[0.0, -0.0, 1.0, -1.0, 0.0]]])
+            .astype(np.float32)),
+    "ceil": ({}, X * 3),
     "floor": ({}, X * 3), "cos": ({}, X), "sin": ({}, X),
     "round": ({}, np.array([[0.5, 1.5, -2.5, 2.4, -0.6]], np.float32)),
     "reciprocal": ({}, pos(3, 5)), "square": ({}, X), "softplus": ({}, X * 4),
