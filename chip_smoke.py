@@ -197,14 +197,42 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    square, elementwise_sub) served by ``AnalysisPredictor`` on the card
    against a CPU one.
 
+14. generation (ROADMAP A7.1-A7.2), after phase 13: ``build_lm`` at the
+   bench_transformer widths (6 layers, d_model 512, 8 heads, d_inner
+   2048, vocab 32000, 256 positions; random weights from seed 2024)
+   through three ``DecodeEngine``s on the card (dense, paged, paged with
+   radix prefix reuse; prompt buckets 32, 64, 128, new-token buckets 32,
+   64, 128, slot buckets 1-16, top-k window 64), on 32 prompts of 24-120
+   tokens (every other opening with one 64-token system prompt), 64 new
+   tokens each, each decode chunk one captured CUDA graph. Gates: (a)
+   each engine's greedy ``generate`` tokens equal ``naive_generate``'s
+   (the re-prefill reference) up to a step where the reference's top-2
+   logit gap is under GEN_TIE; (b) dense and paged (no prefix reuse)
+   bitwise, tokens and carry logits, under the deterministic mode; (c)
+   after the warm-up no prefill plan, capture, decode plan or capture,
+   ingest key or carry is made by the traffic; (d) a 64-step chunk at 16
+   slots copies exactly its tokens and done flags to the host (counted
+   in a profiler trace, bytes too); (e) a sampled request's tokens (T
+   0.8, top-k 40) the same alone in slot 0, in slot 5 among 15
+   neighbours and re-admitted to slot 5 mid-decode; (f) one request on a
+   CPU ``DecodeEngine`` from the card's weights: greedy tokens under the
+   same near-tie rule, first decode logits within GEN_CPU_REL; (g) no
+   flash launch. Measured: tokens/s of ``generate`` against
+   ``naive_generate``, decode ms per step at 1, 8 and 16 slots captured
+   against ``FLAGS.jit_cache = False`` in turns, one traced replay's
+   device time, kernels per step and idle share against the step's byte
+   bound, capture seconds, KV bytes resident dense against paged, prefix
+   hits and prefill tokens saved, peak memory.
+
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
 calling the wrappers, whose counts then cover the eager runs and the
 captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
-phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) holds the wrappers'
-counts at 0: no call, so no flash kernel in any graph either.
+phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
+(phase 14) hold the wrappers' counts at 0: no call, so no flash kernel
+in any graph either.
 
 TF32 stays off for matrix products and convolutions throughout (both
 default settings are the caller's; cuDNN's benchmark and deterministic
@@ -236,6 +264,10 @@ from paddle_tpu_torch.core.desc import ProgramDesc
 from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
                                         create_paddle_predictor)
+from paddle_tpu_torch.inference.generation import (DecodeEngine,
+                                                   SamplingParams,
+                                                   collect_tokens,
+                                                   naive_generate)
 from paddle_tpu_torch.models import bert, resnet, transformer
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -3173,6 +3205,394 @@ def resnet_paths(model_dir, smi, profile):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 14: generation
+# ---------------------------------------------------------------------------
+
+# build_lm at bench_transformer's widths (the model phases 5-13 train and
+# serve) with the vocabulary and positions of its bench config
+GEN_LM = dict(vocab=32000, n_layer=6, n_head=8, d_model=512,
+              d_inner_hid=2048, max_positions=256, eos_id=1)
+GEN_ENGINE = dict(prompt_buckets=(32, 64, 128),
+                  new_token_buckets=(32, 64, 128),
+                  slot_buckets=(1, 2, 4, 8, 16), top_k_max=64)
+GEN_LENS = (24, 56, 88, 120, 40, 104, 32, 72)
+GEN_REQUESTS = 32
+GEN_SHARED = 64      # the system prompt every other request opens with
+GEN_NEW = 64
+GEN_CAP = 128 + 64   # the top prompt bucket + GEN_NEW's bucket
+GEN_CHUNK = 32       # steps per decode_chunk in the slot-level checks
+# a cached decode step and the re-prefill run products of other shapes
+# (M = slots against M = the prompt bucket), so their fp32 logits differ
+# in the last bits: a greedy token may flip only where the reference's
+# top-1 minus top-2 logit is under this
+GEN_TIE = 1e-3
+# the card's first decode logits against a CPU engine's, as a share of
+# the largest |logit| (fp32 products of other blockings on both sides)
+GEN_CPU_REL = 1e-4
+GEN_SAMPLING = dict(temperature=0.8, top_k=40)
+
+
+def gen_prompts(vocab, seed):
+    """The phase's traffic: lengths cycling GEN_LENS; every other prompt
+    opens with the same GEN_SHARED-token system prompt (at most length - 1
+    of it), as bench_infer_generate shares its prefix."""
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(2, vocab, (GEN_LENS[i % len(GEN_LENS)],)).astype(
+        np.int64) for i in range(GEN_REQUESTS)]
+    sys_tokens = rng.randint(2, vocab, (GEN_SHARED,)).astype(np.int64)
+    for p in prompts[::2]:
+        k = min(GEN_SHARED, len(p) - 1)
+        p[:k] = sys_tokens[:k]
+    return prompts
+
+
+def gen_engine(spec, paged, prefix, place=None):
+    """A DecodeEngine of phase 14 on its own scope (the startup's fixed
+    seed makes every engine's weights the same)."""
+    old = FLAGS.generation_paged, FLAGS.generation_prefix_cache
+    FLAGS.generation_paged, FLAGS.generation_prefix_cache = paged, prefix
+    try:
+        return DecodeEngine(spec, place=place, scope=pt.Scope(),
+                            **GEN_ENGINE).initialize()
+    finally:
+        FLAGS.generation_paged, FLAGS.generation_prefix_cache = old
+
+
+def gen_counts(e):
+    """What warm traffic must not add to: prefill plans and their captures,
+    decode plans and captures, ingest keys, carries."""
+    progs = list(e._prefill_progs.values()) + list(e._prefix_progs.values())
+    return {"plans": sum(len(p.__dict__.get("_exec_cache", {}))
+                         for p, _ in progs),
+            "prefill_captures": e._exe.capture_stats["captures"],
+            **{k: e.stats[k] for k in ("decode_builds", "decode_captures",
+                                       "ingest_builds", "carries")}}
+
+
+def near_ties(label, outs, ref, gaps):
+    """Each request's tokens against the reference's up to the first step
+    where they differ, which must be a near-tie of the reference
+    (GEN_TIE). Returns the requests that diverged."""
+    diverged = 0
+    for i, (got, want) in enumerate(zip(outs, ref)):
+        got, want = list(got), list(want)
+        t = next((t for t in range(min(len(got), len(want)))
+                  if got[t] != want[t]), None)
+        if t is None:
+            if len(got) != len(want):
+                raise AssertionError(f"{label}: request {i}: {len(got)} "
+                                     f"tokens, the reference {len(want)}")
+            continue
+        if not gaps[i][t] < GEN_TIE:
+            raise AssertionError(
+                f"{label}: request {i} step {t}: token {got[t]} against the "
+                f"reference's {want[t]}, whose top-2 gap {gaps[i][t]:.3e} is "
+                f"not under {GEN_TIE}")
+        diverged += 1
+    log(f"  {label}: {len(outs)} requests' greedy tokens equal the "
+        f"re-prefill reference's; {diverged} diverged at a near-tie (top-2 "
+        f"gap under {GEN_TIE})")
+    return diverged
+
+
+def timed_generate(e, prompts):
+    """(outputs, seconds) of one ``generate`` of the traffic."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = e.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def seat(e, prompts, sampling=None, slots=16, at=None):
+    """A (slots, GEN_CAP) table with ``prompts`` admitted (in slots ``at``,
+    by default 0..n-1)."""
+    st = e.alloc_state(slots, GEN_CAP)
+    for j, p in enumerate(prompts):
+        e.admit(st, j if at is None else at[j], p, GEN_NEW,
+                (sampling or [SamplingParams()] * len(prompts))[j])
+    return st
+
+
+def chunks(e, st, n):
+    """``n`` decode chunks of GEN_CHUNK steps: tokens and done flags."""
+    got = [e.decode_chunk(st, GEN_CHUNK) for _ in range(n)]
+    return (np.concatenate([t for t, _ in got]),
+            np.concatenate([d for _, d in got]))
+
+
+def d2h_copies(fn):
+    """(count, bytes) of the device-to-host copies in a profiler trace of
+    one call of fn."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json", dir=_build.BUILD_DIR) \
+            as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name)).get("traceEvents", [])
+    copies = [ev for ev in events if "Memcpy DtoH" in str(ev.get("name"))]
+    return len(copies), sum(int(ev.get("args", {}).get("bytes", 0))
+                            for ev in copies)
+
+
+def gen_sampling(e, prompts):
+    """Gate (e): a sampled request's tokens in slot 0 alone, in slot 5
+    among 15 neighbours (sampled with other seeds, and greedy), and in
+    slot 5 re-admitted after another request left it mid-decode: all the
+    same."""
+    req = prompts[3]
+    sp = SamplingParams(seed=SEED, **GEN_SAMPLING)
+
+    def tokens_of(st, slot):
+        toks, dones = chunks(e, st, 2)
+        e.free_state(st)
+        return collect_tokens(toks[:, slot], dones[:, slot], GEN_NEW).tolist()
+
+    solo = tokens_of(seat(e, [req], [sp]), 0)
+    others = [p for i, p in enumerate(prompts) if i != 3][:15]
+    samp = [SamplingParams(seed=SEED + 1 + i, **GEN_SAMPLING) if i % 2
+            else SamplingParams() for i in range(15)]
+    at = [i for i in range(16) if i != 5]
+    st = seat(e, others + [req], samp + [sp], at=at + [5])
+    crowd = tokens_of(st, 5)
+    st = seat(e, others + [prompts[5]], samp + [SamplingParams(
+        seed=SEED + 99, **GEN_SAMPLING)], at=at + [5])
+    e.decode_chunk(st, GEN_CHUNK)
+    e.release_slot(st, 5)
+    e.admit(st, 5, req, GEN_NEW, sp)
+    rejoined = tokens_of(st, 5)
+    greedy = e.generate([req], GEN_NEW)[0].tolist()
+    differ = sum(a != b for a, b in zip(solo, greedy))
+    log(f"  (e) sampled (T {GEN_SAMPLING['temperature']}, top-k "
+        f"{GEN_SAMPLING['top_k']}, seed {SEED}): {len(solo)} tokens alone in "
+        f"slot 0, {len(crowd)} in slot 5 among 15 neighbours, {len(rejoined)} "
+        f"re-admitted to slot 5 mid-decode; {differ} "
+        f"of {min(len(solo), len(greedy))} differ from the greedy tokens")
+    if not solo == crowd == rejoined:
+        raise AssertionError(f"(e) sampled tokens depend on the slot or the "
+                             f"neighbours: {solo[:8]} / {crowd[:8]} / "
+                             f"{rejoined[:8]}")
+
+
+def gen_cpu_replay(spec_cpu, e, prompt, ref, gap):
+    """Gate (f): one batch-1 request on a CPU DecodeEngine from the card
+    engine's weights: greedy tokens under the near-tie rule, and the
+    first decode step's logits within GEN_CPU_REL of the card's."""
+    cpu = gen_engine(spec_cpu, paged=True, prefix=True,
+                     place=pt.CPUPlace())
+    names = [v.name for v in spec_cpu.startup.list_vars() if v.persistable]
+    pt.io.set_params_from_numpy(
+        cpu.scope, {n: e.scope.find_var(n).cpu().numpy() for n in names},
+        "cpu", program=spec_cpu.startup)
+    got = cpu.generate([prompt], GEN_NEW)[0].tolist()
+    near_ties("(f) CPU DecodeEngine, batch 1", [got], [ref], [gap])
+    logits = []
+    for eng in (e, cpu):
+        st = seat(eng, [prompt], slots=1)
+        eng.decode_chunk(st, 1)
+        logits.append(st.logits.detach().cpu().double())
+        eng.free_state(st)
+    rel = ((logits[0] - logits[1]).abs().max()
+           / logits[1].abs().max()).item()
+    log(f"  (f) first decode logits, card against CPU: {rel:.3e} of the "
+        f"largest |logit| (bound {GEN_CPU_REL})")
+    if not rel <= GEN_CPU_REL:
+        raise AssertionError(f"(f) first decode logits {rel:.3e} from the "
+                             "CPU's")
+
+
+def decode_step_ms(e, prompts, smi):
+    """Decode ms per step at 1, 8 and 16 slots, captured against
+    FLAGS.jit_cache = False in turns; device time of one traced replay at
+    16 slots and the card's idle share; the step's byte bound."""
+    rows = {}
+    for slots in (1, 8, 16):
+        st = seat(e, prompts[:slots], slots=slots)
+        e.decode_chunk(st, GEN_CHUNK)   # capture
+
+        def eager(_):
+            with jit_cache(False):
+                e.decode_chunk(st, GEN_CHUNK)
+        med = in_turns([("captured", lambda _: e.decode_chunk(st, GEN_CHUNK)),
+                        ("eager", eager)], range(4), start=1)
+        rows[slots] = [m / GEN_CHUNK for m in med]
+        if slots == 16:
+            trace, busy = device_rows(lambda: e.decode_chunk(st, GEN_CHUNK))
+            spec = e.spec
+            # every weight read once, but only one row of each embedding
+            # per slot; the cache read whole (the dense view's bytes)
+            tables = ("lm_word_emb", "lm_pos_emb")
+            weights = sum(e.scope.find_var(n).numel() * 4
+                          for n in e._traced_step(GEN_CAP).param_names
+                          if n not in tables) \
+                + 2 * slots * GEN_LM["d_model"] * 4
+            cache = (2 * spec.n_layer * slots * spec.n_head * GEN_CAP
+                     * spec.d_head * 4)
+            bound = (weights + cache) / HBM_BYTES_PER_S * 1e3
+            log(f"  decode at 16 slots: one traced replay "
+                f"{busy / GEN_CHUNK:.4f} ms of device time per step against "
+                f"{rows[16][0]:.4f} ms "
+                f"wall: idle {max(0.0, 1 - busy / med[0]):.1%}; "
+                f"{sum(r[2] for r in trace) / GEN_CHUNK:.0f} kernels per "
+                f"step; "
+                f"bytes bound {bound:.4f} ms per step ({weights / 1e6:.1f} MB "
+                f"of weights + {cache / 1e6:.1f} MB of cache at 3.35 TB/s) "
+                f"[{smi}]")
+            for key, us, count in sorted(trace, key=lambda r: -r[1])[:12]:
+                log(f"    {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% "
+                    f"x{count:<6} {key[:90]}")
+        e.free_state(st)
+    log("  decode ms per step, captured against eager (jit_cache=False), "
+        "medians of 3 rounds in turns: " + ", ".join(
+            f"{s} slots {c:.4f} / {g:.4f} ({g / c:.1f}x)"
+            for s, (c, g) in rows.items()) + f" [{smi}]")
+    return rows
+
+
+def generation_paths(smi):
+    """Phase 14. Returns its flash launches, which must be (0, 0)."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    with unique_name.guard():
+        lm = transformer.build_lm(**GEN_LM)
+    spec = lm["spec"]
+    spec.startup.random_seed = SEED
+    prompts = gen_prompts(GEN_LM["vocab"], SEED)
+    dense = gen_engine(spec, paged=False, prefix=False)
+    paged = gen_engine(spec, paged=True, prefix=False)
+    prefix = gen_engine(spec, paged=True, prefix=True)
+    names = [v.name for v in spec.startup.list_vars() if v.persistable]
+    for e in (paged, prefix):
+        if not all(torch.equal(e.scope.find_var(n), dense.scope.find_var(n))
+                   for n in names):
+            raise AssertionError("phase 14's engines hold other weights")
+    log(f"  build_lm {GEN_LM}: {len(names)} parameters, "
+        f"{sum(dense.scope.find_var(n).numel() for n in names) / 1e6:.1f} M "
+        f"weights; {GEN_REQUESTS} prompts of {sorted(set(GEN_LENS))} tokens, "
+        f"every other opening with a {GEN_SHARED}-token system prompt, "
+        f"{GEN_NEW} new tokens each")
+
+    # the re-prefill reference, once (the three engines share weights);
+    # its first pass captures each prefill bucket's plan
+    t0 = time.perf_counter()
+    ref, gaps = [], []
+    for p in prompts:
+        g = []
+        ref.append(naive_generate(dense, p, GEN_NEW, gaps=g).tolist())
+        gaps.append(g)
+    ref_s = time.perf_counter() - t0
+    flat = [x for g in gaps for x in g]
+    log(f"  reference (naive re-prefill, first pass): {sum(map(len, ref))} "
+        f"tokens in {ref_s:.2f} s; {sum(x < GEN_TIE for x in flat)} of "
+        f"{len(flat)} steps are near-ties (top-2 gap under {GEN_TIE})")
+
+    # (b) under the deterministic mode: the dense and the paged engine
+    # warm (each chunk key captured) and agree bitwise
+    with deterministic() as found:
+        outs = {}
+        for label, e in (("dense", dense), ("paged", paged)):
+            e.generate(prompts, GEN_NEW)
+            outs[label], _ = timed_generate(e, prompts)
+        if [o.tolist() for o in outs["dense"]] != [o.tolist()
+                                                   for o in outs["paged"]]:
+            raise AssertionError("(b) dense and paged tokens differ")
+        carries = []
+        for e in (dense, paged):
+            st = seat(e, prompts[:16])
+            e.decode_chunk(st, GEN_NEW)
+            carries.append(st.logits.clone())
+            e.free_state(st)
+        hold("(b)", "dense against paged carry logits after a 64-step chunk",
+             distance(*carries), 0.0)
+    if found:
+        log(f"  (b) ops without a deterministic implementation: {found}")
+    log(f"  (b) dense and paged (no prefix reuse): {GEN_REQUESTS} requests' "
+        "tokens equal under torch.use_deterministic_algorithms")
+
+    # warm the prefix engine: its prefix-prefill plans (twice: the plan's
+    # first run is eager) and one generate (the chunk's capture)
+    st = prefix.alloc_state(16, GEN_CAP)
+    prefix.warm_prefix(st)
+    prefix.warm_prefix(st)
+    prefix.free_state(st)
+    prefix.generate(prompts, GEN_NEW)
+    for _ in range(2):   # the naive ladder's top bucket, timed below
+        naive_generate(prefix, prompts[3], GEN_NEW)
+
+    # (a), (c), (g): generate on each engine, warm, traced for flash
+    # launches; nothing is built or captured
+    before = {label: gen_counts(e) for label, e in
+              (("dense", dense), ("paged", paged), ("prefix", prefix))}
+    engines = (("dense", dense), ("paged", paged), ("paged+prefix", prefix))
+    with traced_launches() as counted:
+        for label, e in engines:
+            outs = e.generate(prompts, GEN_NEW)
+            near_ties(f"(a) {label}", [o.tolist() for o in outs], ref, gaps)
+    check_launches("(g) generation", counted, (0, 0))
+    hits0 = dict(prefix.stats)
+    rates = {}
+    for label, e in engines:
+        outs, secs = timed_generate(e, prompts)
+        rates[label] = sum(map(len, outs)) / secs
+    saved = (prefix.stats["prefill_tokens_saved"]
+             - hits0["prefill_tokens_saved"])
+    hits = prefix.stats["prefix_hits"] - hits0["prefix_hits"]
+    t0 = time.perf_counter()
+    naive_tokens = sum(len(naive_generate(prefix, p, GEN_NEW))
+                       for p in prompts[:8])
+    naive_rate = naive_tokens / (time.perf_counter() - t0)
+    log(f"  tokens/s, generate (32 requests, 2 chunks of 16 slots) against "
+        f"naive_generate (8 requests one by one): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in rates.items())
+        + f"; naive {naive_rate:.1f} [{smi}]")
+    log(f"  prefix reuse: {hits} hits of {GEN_REQUESTS} admissions, "
+        f"{saved} prefill tokens saved")
+
+    # (d): a chunk reads only its tokens and done flags to the host
+    st = seat(prefix, prompts[:16])
+    fetched0 = prefix.stats["host_fetch_bytes"]
+    n, nbytes = d2h_copies(lambda: prefix.decode_chunk(st, GEN_NEW))
+    want = GEN_NEW * 16 * (4 + 1)
+    counted_bytes = prefix.stats["host_fetch_bytes"] - fetched0
+    log(f"  (d) one {GEN_NEW}-step chunk at 16 slots: {n} device-to-host "
+        f"copies, {nbytes} bytes in the trace, {counted_bytes} counted "
+        f"(want {want}: steps x slots x (int32 token + bool flag)); cache "
+        f"resident {st.cache_bytes()} bytes")
+    if n != 2 or nbytes != want or counted_bytes != want:
+        raise AssertionError("(d) a decode chunk read more than its tokens "
+                             "and done flags")
+    prefix.free_state(st)
+    after = {label: gen_counts(e) for label, e in
+             (("dense", dense), ("paged", paged), ("prefix", prefix))}
+    log(f"  (c) after the warm-up: {after}")
+    if after != before:
+        raise AssertionError(f"(c) warm traffic built or captured: before "
+                             f"{before}, after {after}")
+
+    gen_sampling(paged, prompts)
+    with unique_name.guard():
+        spec_cpu = transformer.build_lm(**GEN_LM)["spec"]
+    gen_cpu_replay(spec_cpu, prefix, prompts[3], ref[3], gaps[3])
+
+    steps = decode_step_ms(prefix, prompts, smi)
+    dense_st, paged_st = dense.alloc_state(16, GEN_CAP), \
+        paged.alloc_state(16, GEN_CAP)
+    log(f"  KV bytes resident at 16 slots x cap {GEN_CAP}: dense "
+        f"{dense_st.cache_bytes()}, paged {paged_st.cache_bytes()} "
+        f"({paged_st.num_pages} pages of {paged_st.page_size} + the null "
+        "page, and the table)")
+    for e in (dense, paged, prefix):
+        log(f"  engine stats: {e.stats}; prefill captures "
+            f"{e._exe.capture_stats}")
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    return {"generation": (0, 0)}, steps
+
+
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
@@ -3329,6 +3749,11 @@ def main(argv=None):
                   "BatchingPredictor over bf16 Transformer-base and "
                   "ResNet-50, the executor under threads")
             paths.update(front_paths(model_dir, rdir, cfg, smi))
+            release()
+            phase("generation: build_lm at the Transformer-base widths "
+                  "through DecodeEngine, dense, paged and paged with prefix "
+                  "reuse, each decode chunk a captured CUDA graph")
+            paths.update(generation_paths(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

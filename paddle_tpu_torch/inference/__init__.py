@@ -1,8 +1,9 @@
 """Inference engine (counterpart of ``paddle_tpu/inference``): the
-predictors, the serving front and the inference transpiler. The JAX
-package's ``CppPredictor`` waits for ROADMAP A13 and its generation
-names (``DecodeEngine``, ``GenerationPredictor``, ``GenerationSpec``,
-``SamplingParams``) for A7."""
+predictors, the serving front, the inference transpiler and, in
+``inference.generation``, the decode engine (``DecodeEngine``,
+``GenerationSpec``, ``SamplingParams``). The JAX package's
+``CppPredictor`` waits for ROADMAP A13 and its ``GenerationPredictor``
+for A7.3."""
 
 from .api import (AnalysisConfig, AnalysisPredictor, NativeConfig,
                   NativePredictor, PaddleTensor, create_paddle_predictor)

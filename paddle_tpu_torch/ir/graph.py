@@ -34,6 +34,11 @@ class Graph:
     def ops(self) -> List[OpDesc]:
         return self.desc.ops
 
+    def producer(self, var: str) -> Optional[int]:
+        """Index of the single op writing `var`, else None."""
+        w = self.writers.get(var, [])
+        return w[0] if len(w) == 1 else None
+
     def consumers(self, var: str) -> List[int]:
         return self.readers.get(var, [])
 

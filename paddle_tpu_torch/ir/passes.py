@@ -1022,6 +1022,79 @@ class SquaredMatSubFusePass(Pass):
             _splice(graph, fused_at, drop)
 
 
+@register_pass
+class TransposeFlattenConcatFusePass(Pass):
+    """fusion_transpose_flatten_concat_op.cc route: N uniform transpose2 ->
+    reshape2 (a [-1, k] flatten at axis 1) chains feeding one concat fuse
+    into one op (the detection heads' pattern). The fused op takes the
+    concat's slot."""
+
+    name = "transpose_flatten_concat_fuse_pass"
+
+    def apply(self, graph: Graph):
+        protected = self.attrs.get("protected", set())
+        ops = graph.ops
+        drop = set()
+        fused_at = {}
+        for ci, cop in enumerate(ops):
+            if cop.type != "concat" or len(cop.input("X")) < 2:
+                continue
+            chains = self._chains(graph, ci, cop, protected, drop)
+            if chains is None:
+                continue
+            axes = {tuple(ops[ti].attrs.get("axis", ())) for ti, _ in chains}
+            if len(axes) != 1 or not all(self._flattens_at_1(graph, ops[fi])
+                                         for _, fi in chains):
+                continue
+            fused_at[ci] = OpDesc(
+                "fusion_transpose_flatten_concat",
+                {"X": [ops[ti].input("X")[0] for ti, _ in chains]},
+                {"Out": list(cop.output("Out"))},
+                {"trans_axis": list(axes.pop()), "flatten_axis": 1,
+                 "concat_axis": int(cop.attrs.get("axis", 1))})
+            for ti, fi in chains:
+                drop.update((ti, fi))
+        _splice(graph, fused_at, drop)
+
+    @staticmethod
+    def _chains(graph, ci, cop, protected, drop):
+        """(transpose index, reshape index) per concat input, or None when
+        an input is not a private transpose2 -> [-1, k] reshape2 chain."""
+        ops = graph.ops
+        chains = []
+        for v in cop.input("X"):
+            fi = graph.producer(v)
+            fop = ops[fi] if fi is not None else None
+            if (fop is None or fop.type != "reshape2"
+                    or graph.single_consumer(v) != ci
+                    or graph.is_fetched(v, protected) or fi in drop):
+                return None
+            rshape = list(fop.attrs.get("shape", ()))
+            if len(rshape) != 2 or rshape[0] != -1:
+                return None
+            t_out = fop.input("X")[0]
+            ti = graph.producer(t_out)
+            top = ops[ti] if ti is not None else None
+            if (top is None or top.type != "transpose2"
+                    or graph.single_consumer(t_out) != fi
+                    or graph.is_fetched(t_out, protected) or ti in drop):
+                return None
+            chains.append((ti, fi))
+        return chains
+
+    @staticmethod
+    def _flattens_at_1(graph, fop):
+        """The fused op splits the transposed shape at dim 1, so the
+        reshape's k must be the product of the transposed dims after the
+        first, all known."""
+        td = graph.desc.vars.get(fop.input("X")[0])
+        if td is None or not td.shape or any(
+                s is None or s < 0 for s in td.shape[1:]):
+            return False
+        return int(np.prod([int(s) for s in td.shape[1:]])) == int(
+            list(fop.attrs.get("shape", ()))[1])
+
+
 _A10 = "ROADMAP A10 (observability)"
 _A11 = "ROADMAP A11 (RNN, sequence and detection fusions)"
 
@@ -1061,8 +1134,6 @@ for _name, _needs, _item in (
          (("sequence_conv",), ("elementwise_add",), ("relu",)), _A11),
         ("seqpool_concat_fuse_pass", (("sequence_pool",), ("concat",)),
          _A11),
-        ("transpose_flatten_concat_fuse_pass",
-         (("transpose2",), ("reshape2",), ("concat",)), _A11),
         # writes a .dot file of any graph: nothing to match, always raises
         ("graph_viz_pass", (), _A10)):
     _not_ported(_name, _needs, _item)

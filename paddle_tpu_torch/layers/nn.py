@@ -19,7 +19,8 @@ __all__ = [
     "elementwise_pow", "logical_and", "logical_or", "logical_xor",
     "logical_not", "sequence_mask", "fused_attention", "matmul", "softmax",
     "unsqueeze", "slice", "gather", "cast", "conv2d", "pool2d",
-    "batch_norm", "cross_entropy", "accuracy", "topk", "mean",
+    "batch_norm", "cross_entropy", "accuracy", "topk", "mean", "concat",
+    "kv_cache_write", "kv_cache_gather_paged", "kv_cache_write_paged",
 ]
 
 
@@ -257,6 +258,56 @@ def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     helper.append_op(type="sequence_mask", inputs={"X": x},
                      outputs={"Y": out},
                      attrs={"maxlen": maxlen, "out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
+def kv_cache_write(cache, new, position, name=None):
+    """Write one K/V column into a fixed-capacity slot-major cache: Cache
+    [B, H, cap, D] gets New [B, H, 1, D] at Position [B] per slot
+    (ops/kernels_cache.py). Inference only."""
+    helper = LayerHelper("kv_cache_write", name=name)
+    out = helper.create_variable_for_type_inference(cache.dtype)
+    helper.append_op(type="kv_cache_write",
+                     inputs={"Cache": cache, "New": new,
+                             "Position": position},
+                     outputs={"Out": out}, attrs={})
+    return out
+
+
+def kv_cache_gather_paged(pool, table, cap=0, name=None):
+    """Dense slot-major view [B, H, max_pages * page, D] of a paged cache
+    Pool [num_pages, H, page, D] through its page Table [B, max_pages]
+    (``cap`` > 0 trims an overhanging last page). Inference only."""
+    helper = LayerHelper("kv_cache_gather_paged", name=name)
+    out = helper.create_variable_for_type_inference(pool.dtype)
+    helper.append_op(type="kv_cache_gather_paged",
+                     inputs={"Pool": pool, "Table": table},
+                     outputs={"Out": out}, attrs={"cap": int(cap)})
+    return out
+
+
+def kv_cache_write_paged(pool, table, new, position, mask=None,
+                         name=None):
+    """Write one K/V column through the page table: slot b's New
+    [B, H, 1, D] lands in page Table[b, Position[b] // page] at offset
+    Position[b] % page; ``mask`` (bool [B], True = suppress) sends the
+    write to the null page 0. Inference only."""
+    helper = LayerHelper("kv_cache_write_paged", name=name)
+    out = helper.create_variable_for_type_inference(pool.dtype)
+    inputs = {"Pool": pool, "Table": table, "New": new,
+              "Position": position}
+    if mask is not None:
+        inputs["Mask"] = mask
+    helper.append_op(type="kv_cache_write_paged", inputs=inputs,
+                     outputs={"Out": out}, attrs={})
     return out
 
 

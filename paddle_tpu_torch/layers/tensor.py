@@ -8,7 +8,7 @@ from ..core.types import convert_dtype
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "assign", "fill_constant"]
+__all__ = ["cast", "assign", "fill_constant", "concat"]
 
 
 def cast(x, dtype):
@@ -18,6 +18,11 @@ def cast(x, dtype):
                      attrs={"in_dtype": x.dtype,
                             "out_dtype": convert_dtype(dtype)})
     return out
+
+
+def concat(input, axis=0, name=None):
+    from . import nn
+    return nn.concat(input, axis, name)
 
 
 def assign(input, output=None):

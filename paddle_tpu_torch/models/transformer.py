@@ -9,6 +9,13 @@ self, cross) is one ``flash_attention`` op; with ``"unfused"`` it is the
 matmul -> key-bias add -> [causal add] -> softmax -> matmul chain, which
 ``BuildStrategy.fuse_attention_ops`` rewrites into ``flash_attention``.
 ``build`` trains with the noam schedule and Adam (dropout 0).
+
+``build_lm`` is the decoder-only LM of the generation engine
+(inference/generation): a prefill program per prompt bucket, a
+prefix-prefill program per (suffix bucket, prefix length) and a one-token
+decode step per cache capacity, sharing one explicitly named parameter
+set. Every attention there is the dense chain; none is a
+``flash_attention``.
 """
 
 from __future__ import annotations
@@ -51,15 +58,15 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
     matmul -> [attn_bias add] -> [key-bias add] -> [causal add] ->
     softmax -> matmul chain ("unfused", or any dense ``attn_bias``
     [B, H, Tq, Tk]). ``key_bias`` [B, Tk] is the additive key-padding
-    mask. Attention dropout (ROADMAP A1), the incremental decode
-    ``cache`` (A7) and the sequence-parallel impls (A12) are not
-    ported."""
+    mask. With ``cache`` ({"k", "v"}: split-heads [B, H, T, D]) the
+    step's keys and values are concatenated to the cache's along time,
+    the dict is rebound to the grown variables and the dense chain
+    attends over them (the reference's incremental decode; shapes grow
+    per step, so the generation engine's fixed-capacity
+    ``kv_cache_write`` cache serves instead). Attention dropout (ROADMAP
+    A1) and the sequence-parallel impls (A12) are not ported."""
     check_attention_impl(attention_impl, "multi_head_attention")
     _no_dropout(dropout_rate, "multi_head_attention")
-    if cache is not None:
-        raise NotImplementedError(
-            "multi_head_attention(cache=...): the incremental decode cache "
-            "is not ported yet (ROADMAP A7)")
     keys = queries if keys is None else keys
     values = keys if values is None else values
     q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2,
@@ -77,7 +84,10 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
     q = split_heads(q, d_key)
     k = split_heads(k, d_key)
     v = split_heads(v, d_value)
-    if attn_bias is None and attention_impl == "fused":
+    if cache is not None:
+        k = cache["k"] = layers.concat([cache["k"], k], axis=2)
+        v = cache["v"] = layers.concat([cache["v"], v], axis=2)
+    if attn_bias is None and attention_impl == "fused" and cache is None:
         out = layers.fused_attention(q, k, v, causal=causal,
                                      scale=d_key ** -0.5, key_bias=key_bias)
     else:
@@ -262,3 +272,245 @@ def _causal_add(product):
     tri = np.triu(np.full((t, t), -1e9, np.float32), k=1)
     bias = layers.assign(tri)
     return layers.elementwise_add(product, bias)
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only LM of the generation engine (inference/generation)
+# ---------------------------------------------------------------------------
+
+
+def _lm_split_heads(x, n_head, d):
+    b, t = x.shape[0], x.shape[1]
+    return layers.transpose(layers.reshape(x, [b, t, n_head, d]),
+                            [0, 2, 1, 3])
+
+
+def _lm_merge_heads(x, n_head, d):
+    b = x.shape[0]
+    t = x.shape[2]
+    return layers.reshape(layers.transpose(x, [0, 2, 1, 3]),
+                          [b, t, n_head * d])
+
+
+def _lm_embed(tokens, pos_ids, vocab, d_model, max_positions):
+    word = layers.embedding(
+        tokens, size=[vocab, d_model],
+        param_attr=ParamAttr(name="lm_word_emb",
+                             initializer=NormalInitializer(
+                                 0.0, d_model ** -0.5)))
+    word = layers.scale(word, scale=d_model ** 0.5)
+    pos = layers.embedding(pos_ids, size=[max_positions, d_model],
+                           param_attr=ParamAttr(name="lm_pos_emb"))
+    pos.stop_gradient = True
+    return layers.elementwise_add(word, pos)
+
+
+def _lm_proj_qkv(h, i, n_head, d_key):
+    q = layers.fc(h, size=d_key * n_head, num_flatten_dims=2,
+                  bias_attr=False, param_attr=ParamAttr(name=f"lm{i}_q.w"))
+    k = layers.fc(h, size=d_key * n_head, num_flatten_dims=2,
+                  bias_attr=False, param_attr=ParamAttr(name=f"lm{i}_k.w"))
+    v = layers.fc(h, size=d_key * n_head, num_flatten_dims=2,
+                  bias_attr=False, param_attr=ParamAttr(name=f"lm{i}_v.w"))
+    return (_lm_split_heads(q, n_head, d_key),
+            _lm_split_heads(k, n_head, d_key),
+            _lm_split_heads(v, n_head, d_key))
+
+
+def _lm_attn_out(weights, v, i, n_head, d_key, d_model):
+    out = _lm_merge_heads(layers.matmul(weights, v), n_head, d_key)
+    return layers.fc(out, size=d_model, num_flatten_dims=2,
+                     bias_attr=False,
+                     param_attr=ParamAttr(name=f"lm{i}_o.w"))
+
+
+def _lm_ln(x, name):
+    return layers.layer_norm(x, begin_norm_axis=len(x.shape) - 1,
+                             param_attr=ParamAttr(name=f"{name}.w"),
+                             bias_attr=ParamAttr(name=f"{name}.b"))
+
+
+def _lm_ffn(x, i, d_inner_hid, d_model):
+    h = layers.fc(x, size=d_inner_hid, num_flatten_dims=2, act="relu",
+                  param_attr=ParamAttr(name=f"lm{i}_ffn1.w"),
+                  bias_attr=ParamAttr(name=f"lm{i}_ffn1.b"))
+    return layers.fc(h, size=d_model, num_flatten_dims=2,
+                     param_attr=ParamAttr(name=f"lm{i}_ffn2.w"),
+                     bias_attr=ParamAttr(name=f"lm{i}_ffn2.b"))
+
+
+def _lm_block(x, i, n_head, d_key, d_model, d_inner_hid, attend):
+    """One pre-norm block; ``attend(q, k, v)`` -> (weights, values)."""
+    q, k, v = _lm_proj_qkv(_lm_ln(x, f"lm{i}_ln1"), i, n_head, d_key)
+    weights, vals = attend(q, k, v)
+    x = layers.elementwise_add(
+        x, _lm_attn_out(weights, vals, i, n_head, d_key, d_model))
+    ffn = _lm_ffn(_lm_ln(x, f"lm{i}_ln2"), i, d_inner_hid, d_model)
+    return layers.elementwise_add(x, ffn), k, v
+
+
+def _lm_logits(x, vocab):
+    return layers.fc(_lm_ln(x, "lm_final_ln"), size=vocab,
+                     num_flatten_dims=2, bias_attr=False,
+                     param_attr=ParamAttr(name="lm_proj.w"))
+
+
+def _lm_bias(length, maxlen):
+    """[B] lengths -> [B, 1, 1, maxlen] additive bias, 0 keep / -1e9."""
+    return layers.unsqueeze(layers.unsqueeze(
+        _length_key_bias(length, maxlen), axes=[1]), axes=[1])
+
+
+def build_lm(vocab=1000, n_layer=2, n_head=2, d_model=32, d_inner_hid=64,
+             max_positions=128, eos_id=1, pad_id=0):
+    """Decoder-only transformer LM as a ``GenerationSpec``: returns
+    ``{"spec", "config"}``. ``spec.build_prefill(tp)`` is the causal
+    forward over a prompt bucket ``tp`` fetching the logits and each
+    layer's split-heads K/V; ``spec.build_prefill_prefix(ts, pc)`` the
+    same over a suffix bucket ``ts`` attending over a fed K/V prefix of
+    padded length ``pc``; ``spec.build_decode(cap)`` the one-token step
+    against a fixed-capacity cache. Parameters are named explicitly, so
+    every program shares the set ``spec.startup`` initializes."""
+    from ..inference.generation.spec import GenerationSpec
+
+    d_key = d_model // n_head
+    alpha = d_key ** -0.5
+
+    def build_prefill(tp, startup=None):
+        if tp > max_positions:
+            raise ValueError(f"prompt bucket {tp} exceeds max_positions "
+                             f"{max_positions}")
+        main = Program()
+        with program_guard(main, startup if startup is not None
+                           else Program()):
+            tokens = layers.data("lm_tokens", shape=[tp, 1], dtype="int64")
+            pos = layers.data("lm_pos", shape=[tp, 1], dtype="int64")
+            length = layers.data("lm_len", shape=[], dtype="int32")
+            # the key-padding bias, as the decode step builds it from its
+            # positions
+            kb = _length_key_bias(length, tp)
+            x = _lm_embed(tokens, pos, vocab, d_model, max_positions)
+
+            def attend(q, k, v):
+                product = layers.matmul(q, k, transpose_y=True, alpha=alpha)
+                kbu = layers.unsqueeze(layers.unsqueeze(kb, axes=[1]),
+                                       axes=[1])
+                product = _causal_add(layers.elementwise_add(product, kbu))
+                return layers.softmax(product), v
+
+            ks, vs = [], []
+            for i in range(n_layer):
+                x, k, v = _lm_block(x, i, n_head, d_key, d_model,
+                                    d_inner_hid, attend)
+                ks.append(k)
+                vs.append(v)
+            logits = _lm_logits(x, vocab)
+        return main, {"tokens": "lm_tokens", "pos": "lm_pos",
+                      "length": "lm_len", "logits": logits.name,
+                      "k": [k.name for k in ks], "v": [v.name for v in vs]}
+
+    def build_prefill_prefix(ts, pc, startup=None):
+        """A ``ts``-bucket prompt suffix against a fed K/V prefix of padded
+        length ``pc``: ``lm_prefix_len`` masks the padding (one program
+        per (ts, pc) serves every hit depth) and ``lm_pos`` carries global
+        positions, so the suffix attends over what the full prefill
+        would."""
+        if ts + pc > max_positions:
+            raise ValueError(f"suffix bucket {ts} + prefix {pc} exceeds "
+                             f"max_positions {max_positions}")
+        main = Program()
+        with program_guard(main, startup if startup is not None
+                           else Program()):
+            tokens = layers.data("lm_tokens", shape=[ts, 1], dtype="int64")
+            pos = layers.data("lm_pos", shape=[ts, 1], dtype="int64")
+            length = layers.data("lm_len", shape=[], dtype="int32")
+            plen = layers.data("lm_prefix_len", shape=[], dtype="int32")
+            pk = [layers.data(f"lm_prefix_k{i}", shape=[n_head, pc, d_key],
+                              dtype="float32") for i in range(n_layer)]
+            pv = [layers.data(f"lm_prefix_v{i}", shape=[n_head, pc, d_key],
+                              dtype="float32") for i in range(n_layer)]
+            kbu = _lm_bias(length, ts)
+            pbu = _lm_bias(plen, pc)
+            x = _lm_embed(tokens, pos, vocab, d_model, max_positions)
+            ks, vs = [], []
+            for i in range(n_layer):
+                def attend(q, k, v, i=i):
+                    # every valid prefix position precedes every suffix
+                    # row: the prefix columns need only the length mask
+                    prod_p = layers.elementwise_add(layers.matmul(
+                        q, pk[i], transpose_y=True, alpha=alpha), pbu)
+                    prod_s = _causal_add(layers.elementwise_add(
+                        layers.matmul(q, k, transpose_y=True, alpha=alpha),
+                        kbu))
+                    return (layers.softmax(layers.concat([prod_p, prod_s],
+                                                         axis=3)),
+                            layers.concat([pv[i], v], axis=2))
+
+                x, k, v = _lm_block(x, i, n_head, d_key, d_model,
+                                    d_inner_hid, attend)
+                ks.append(k)
+                vs.append(v)
+            logits = _lm_logits(x, vocab)
+        return main, {"tokens": "lm_tokens", "pos": "lm_pos",
+                      "length": "lm_len", "prefix_len": "lm_prefix_len",
+                      "prefix_k": [f"lm_prefix_k{i}" for i in range(n_layer)],
+                      "prefix_v": [f"lm_prefix_v{i}" for i in range(n_layer)],
+                      "logits": logits.name,
+                      "k": [k.name for k in ks], "v": [v.name for v in vs]}
+
+    def build_decode(cap, startup=None):
+        if cap > max_positions:
+            raise ValueError(f"cache capacity {cap} exceeds max_positions "
+                             f"{max_positions}")
+        main = Program()
+        with program_guard(main, startup if startup is not None
+                           else Program()):
+            tok = layers.data("gen_token", shape=[1, 1], dtype="int64")
+            pos = layers.data("gen_pos", shape=[], dtype="int32")
+            cache_k = [layers.data(f"gen_cache_k{i}",
+                                   shape=[n_head, cap, d_key],
+                                   dtype="float32") for i in range(n_layer)]
+            cache_v = [layers.data(f"gen_cache_v{i}",
+                                   shape=[n_head, cap, d_key],
+                                   dtype="float32") for i in range(n_layer)]
+            x = _lm_embed(tok, layers.reshape(pos, [-1, 1, 1]), vocab,
+                          d_model, max_positions)
+            # j <= pos attends: the prompt and every token generated so
+            # far, the causal and padding set the prefill masks at pos
+            vbu = _lm_bias(layers.scale(pos, scale=1.0, bias=1.0), cap)
+            new_k, new_v = [], []
+            for i in range(n_layer):
+                def attend(q, k, v, i=i):
+                    ck = layers.kv_cache_write(cache_k[i], k, pos)
+                    cv = layers.kv_cache_write(cache_v[i], v, pos)
+                    new_k.append(ck)
+                    new_v.append(cv)
+                    product = layers.elementwise_add(layers.matmul(
+                        q, ck, transpose_y=True, alpha=alpha), vbu)
+                    return layers.softmax(product), cv
+
+                x, _k, _v = _lm_block(x, i, n_head, d_key, d_model,
+                                      d_inner_hid, attend)
+            logits = _lm_logits(x, vocab)
+        return main, {"token": "gen_token", "pos": "gen_pos",
+                      "logits": logits.name,
+                      "cache_k": [f"gen_cache_k{i}" for i in range(n_layer)],
+                      "cache_v": [f"gen_cache_v{i}" for i in range(n_layer)],
+                      "new_k": [k.name for k in new_k],
+                      "new_v": [v.name for v in new_v]}
+
+    # the startup of one canonical prefill: the explicit names make the
+    # parameter set the same for every bucket
+    startup = Program()
+    build_prefill(min(8, max_positions), startup=startup)
+    spec = GenerationSpec(
+        vocab=vocab, eos_id=eos_id, pad_id=pad_id, n_layer=n_layer,
+        n_head=n_head, d_head=d_key, max_positions=max_positions,
+        startup=startup, build_prefill=build_prefill,
+        build_decode=build_decode,
+        build_prefill_prefix=build_prefill_prefix)
+    return {"spec": spec,
+            "config": {"vocab": vocab, "n_layer": n_layer, "n_head": n_head,
+                       "d_model": d_model, "d_inner_hid": d_inner_hid,
+                       "max_positions": max_positions, "eos_id": eos_id,
+                       "pad_id": pad_id}}

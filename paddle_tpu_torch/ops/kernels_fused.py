@@ -2,7 +2,9 @@
 ``paddle_tpu/ops/kernels_fused.py``; reference operators/fused/):
 ``fused_elemwise_activation`` (fuse_elewise_add_act),
 ``fusion_repeated_fc_relu`` (repeated_fc_relu_fuse_pass),
-``fusion_squared_mat_sub`` (squared_mat_sub_fuse_pass), ``conv2d_fusion``
+``fusion_squared_mat_sub`` (squared_mat_sub_fuse_pass),
+``fusion_transpose_flatten_concat`` (transpose_flatten_concat_fuse_pass),
+``conv2d_fusion``
 (the inference conv passes) and ``fused_conv2d`` (the pipeline's conv
 stages). Each composes the torch ops, or the registered emitters, of the
 ops it replaces; the RNN and sequence fusions wait for ROADMAP A11.
@@ -100,6 +102,22 @@ def fusion_squared_mat_sub(ctx, ins, attrs):
     return {"Out": [(xy * xy - x2y2) * s],
             "SquaredX": [xv * xv], "SquaredY": [yv * yv],
             "SquaredXY": [xy * xy]}
+
+
+@register_op("fusion_transpose_flatten_concat", no_grad=True)
+def fusion_transpose_flatten_concat(ctx, ins, attrs):
+    """N x (transpose -> flatten at ``flatten_axis``) + concat
+    (fused/fusion_transpose_flatten_concat_op.cc)."""
+    trans_axis = list(attrs["trans_axis"])
+    flatten_axis = int(attrs.get("flatten_axis", 1))
+    outs = []
+    for xv in ins["X"]:
+        t = xv.permute(*trans_axis)
+        lead = 1
+        for d in t.shape[:flatten_axis]:
+            lead *= d
+        outs.append(t.reshape(lead, -1))
+    return {"Out": [torch.cat(outs, dim=int(attrs.get("concat_axis", 1)))]}
 
 
 _CONV_ACTS = {

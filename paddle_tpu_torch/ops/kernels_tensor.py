@@ -253,6 +253,25 @@ def unsqueeze(ctx, ins, attrs):
     return {"Out": [xv.reshape(shp)], "XShape": [_xshape(xv)]}
 
 
+def _concat_infer(op: OpDesc, block):
+    shps = [in_shape(block, op, "X", i) for i in range(len(op.input("X")))]
+    dt = in_dtype(block, op, "X")
+    if shps and all(s is not None for s in shps):
+        shp = list(shps[0])
+        axis = op.attrs.get("axis", 0) % len(shp)
+        parts = [s[axis] for s in shps]
+        # an unknown part makes the concatenated extent unknown
+        shp[axis] = (sum(parts) if all(p is not None and p >= 0
+                                       for p in parts) else -1)
+        for n in op.output("Out"):
+            set_out_var(block, n, shp, dt)
+
+
+@register_op("concat", infer=_concat_infer)
+def concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(list(ins["X"]), dim=attrs.get("axis", 0))]}
+
+
 @register_op("assign", infer=same_shape_infer())
 def assign(ctx, ins, attrs):
     return {"Out": [x(ins)]}

@@ -31,6 +31,13 @@ _DEFAULTS: Dict[str, Any] = {
     # check the pipeline's invariants after every stage (ir/verify.py in
     # the JAX package); not ported, so a run that asks for it raises
     "verify_passes": False,
+    # generation (inference/generation), read once when a DecodeEngine is
+    # made: the paged KV cache (pages behind a free-list allocator, the
+    # default; 0 is the dense [slots, H, cap, D] cache), its tokens per
+    # page, and radix prefix reuse over the page pool
+    "generation_paged": True,
+    "generation_page_size": 8,
+    "generation_prefix_cache": True,
 }
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-13) on the CPU at a tiny
-Transformer, a small ResNet-50 (64x64 images, batch 4) and a narrow
-12-layer BERT (d_model 24, T 16, batch 4), and phase 13's serving front
-with fewer requests a window, to find faults in the script's Python
-before a run on the card.
+"""Rehearse chip_smoke.py's end-to-end phases (5-14) on the CPU at a tiny
+Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow
+12-layer BERT (d_model 24, T 16, batch 4), phase 13's serving front
+with fewer requests a window and phase 14's generation at a narrow LM
+(d_model 16, vocab 256), to find faults in the script's Python before a
+run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
 
@@ -31,6 +32,7 @@ import chip_smoke as cs  # noqa: E402
 import paddle_tpu_torch as pt  # noqa: E402
 from paddle_tpu_torch import executor as pexecutor  # noqa: E402
 from paddle_tpu_torch.inference import api as papi  # noqa: E402
+from paddle_tpu_torch.inference.generation import engine as pengine  # noqa: E402,E501
 from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.utils.flags import FLAGS  # noqa: E402
 
@@ -42,6 +44,18 @@ TINY = dict(src_vocab=2000, tgt_vocab=2000, max_len=64, n_layer=6,
 # 12 layers keep phase 12's launch counts
 BERT_TINY = dict(vocab_size=100, max_len=16, max_masked=4, n_layer=12,
                  n_head=12, d_model=24, d_inner_hid=48)
+
+
+# phase 14's buckets and traffic need max_positions 256
+GEN_TINY = dict(vocab=256, n_layer=2, n_head=2, d_model=16, d_inner_hid=32,
+                max_positions=256, eos_id=1)
+
+
+def _d2h_copies(fn):
+    """chip_smoke.d2h_copies without a trace: the two host arrays a
+    decode chunk returns, its tokens and done flags."""
+    toks, dones = fn()
+    return 2, toks.nbytes + dones.nbytes
 
 
 def _count_launches():
@@ -85,7 +99,8 @@ def _traced_launches():
 
 def main():
     cs.MODEL = TINY
-    pexecutor.CUDAPlace = papi.CUDAPlace = lambda device=0: pt.CPUPlace()
+    pexecutor.CUDAPlace = papi.CUDAPlace = pengine.CUDAPlace = \
+        lambda device=0: pt.CPUPlace()
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.reset_peak_memory_stats = lambda *a: None
     torch.cuda.max_memory_allocated = lambda *a: 0
@@ -110,11 +125,16 @@ def main():
         cs.FRONT_CHECK, cs.FRONT_REQUESTS = 16, 24
         cs.RESNET_FRONT_BUCKETS = (2, 4)
         front = cs.front_paths(d, r, served["cfg"], "CPU rehearsal")
+    # phase 14 at a narrow LM with the phase's buckets, positions and
+    # traffic; the trace of a chunk's host copies is the engine's own count
+    cs.GEN_LM = GEN_TINY
+    cs.d2h_copies = _d2h_copies
+    gen, _ = cs.generation_paths("CPU rehearsal")
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
-          f"phase 13 {front}")
+          f"phase 13 {front}, phase 14 {gen}")
 
 
 if __name__ == "__main__":

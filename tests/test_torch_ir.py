@@ -703,7 +703,33 @@ def _squared_mat_sub_probe():
     return [fluid.layers.elementwise_sub(fluid.layers.square(xw), xw).name]
 
 
+def _transpose_flatten_concat(flat=True, same_axes=True):
+    """The detection heads' pattern transpose_flatten_concat_fuse_pass
+    matches: two transpose2 -> [-1, k] reshape2 chains into one concat;
+    a reshape that is not a flatten, or transposes of different axes, are
+    left alone."""
+    def build():
+        L = fluid.layers
+        outs = []
+        for i, shape in enumerate(([4, 3, 5], [2, 3, 5])):
+            x = L.data(name=f"x{i}", shape=shape, dtype="float32")
+            axis = [0, 2, 3, 1] if same_axes or i == 0 else [0, 3, 2, 1]
+            t = L.transpose(x, axis)
+            k = shape[0] * shape[1] * shape[2]
+            outs.append(L.reshape(t, [-1, k] if flat else [-1, 15, shape[0]]))
+        return [L.concat(outs, axis=1).name]
+    return build
+
+
 PASS_CASES = {
+    "transpose_flatten_concat": (_transpose_flatten_concat(),
+                                 ["transpose_flatten_concat_fuse_pass"]),
+    "transpose_flatten_concat_not_flat": (
+        _transpose_flatten_concat(flat=False),
+        ["transpose_flatten_concat_fuse_pass"]),
+    "transpose_flatten_concat_mixed_axes": (
+        _transpose_flatten_concat(same_axes=False),
+        ["transpose_flatten_concat_fuse_pass"]),
     "squared_mat_sub_fm_scaled": (_fm(), ["squared_mat_sub_fuse_pass"]),
     "squared_mat_sub_fm_unscaled": (_fm(None),
                                     ["squared_mat_sub_fuse_pass"]),
@@ -751,6 +777,11 @@ def test_registry_pass_matches_jax(name):
                                             "scale"],
         "squared_mat_sub_probe_stays": ["matmul", "square",
                                         "elementwise_sub"],
+        "transpose_flatten_concat": ["fusion_transpose_flatten_concat"],
+        "transpose_flatten_concat_not_flat": [
+            "transpose2", "reshape2", "transpose2", "reshape2", "concat"],
+        "transpose_flatten_concat_mixed_axes": [
+            "transpose2", "reshape2", "transpose2", "reshape2", "concat"],
     }.get(name, types)
 
 
@@ -792,9 +823,12 @@ GUARDED = sorted(n for n, cls in pir.PASS_REGISTRY.items()
 def test_every_jax_pass_is_registered_in_the_port():
     assert sorted(pir.PASS_REGISTRY) == sorted(jir.PASS_REGISTRY)
     assert set(AnalysisConfig.DEFAULT_PASSES) <= set(pir.PASS_REGISTRY)
-    # squared_mat_sub_fuse_pass is ported (ROADMAP C1), the rest guarded
-    assert len(GUARDED) == 7
+    # squared_mat_sub_fuse_pass (ROADMAP C1) and
+    # transpose_flatten_concat_fuse_pass (with concat) are ported, the
+    # rest guarded
+    assert len(GUARDED) == 6
     assert "squared_mat_sub_fuse_pass" not in GUARDED
+    assert "transpose_flatten_concat_fuse_pass" not in GUARDED
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,12 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.inference.transpiler\n"
         "import paddle_tpu_torch.testing.faults\n"
         "import paddle_tpu_torch.testing.models\n"
+        "import paddle_tpu_torch.ops.kernels_cache\n"
+        "import paddle_tpu_torch.inference.generation\n"
+        "import paddle_tpu_torch.inference.generation.engine\n"
+        "import paddle_tpu_torch.inference.generation.paging\n"
+        "import paddle_tpu_torch.inference.generation.sampling\n"
+        "import paddle_tpu_torch.inference.generation.spec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
