@@ -224,6 +224,41 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    bound, capture seconds, KV bytes resident dense against paged, prefix
    hits and prefill tokens saved, peak memory.
 
+15. generation behind the serving front (ROADMAP A7.3) and beam search,
+   after phase 14. (A) phase 14's LM behind ``GenerationPredictor``
+   (8 slots, 8-step chunks, 64 new tokens; bench_infer_generate's
+   predictor): the paged engine with prefix reuse and a dense engine as
+   the B side, 48 prompts of phase 14's lengths (every other opening
+   with its system prompt) from 8 client threads, against
+   ``naive_generate`` from 8 threads. Gates: (a) each request's greedy
+   tokens equal the re-prefill reference's under GEN_TIE, in every
+   pass alike (two of the 48, two traced of 16); (b) on the dense predictor each request's tokens
+   bitwise its tokens alone in slot 0 of the same table (the carry and
+   chunk graph the predictor used); (c) no plan, capture, decode plan,
+   ingest key or carry made after ``warmup()``; (d) slots re-admitted;
+   (e) a sampled request's tokens the same through the predictor and
+   alone in slot 0; (f) ``health()`` healthy with no active slot; (g) no
+   flash launch. Measured: tokens/s of both predictors and of naive,
+   per-token and request p50/p99, mean slot occupancy, joins, prefix
+   hits, warm-up seconds, a traced pass's device time and idle share,
+   peak memory. (B) ``machine_translation.build`` at the Fluid
+   benchmark's widths (30000-word dictionaries, 512 wide, max_len 50,
+   beam 4, 50 decode steps; weights from the startup program run on the
+   CPU from a seed, set on the card with ``io.set_params_from_numpy``),
+   its decode program at batch 16 (64 hypotheses) through
+   ``Executor.run``: the bounded While inside one captured device
+   segment; 5 captured runs against 2 eager ones bitwise (deterministic
+   mode); the card's sentences against a CPU run's, equal but where a
+   batch row's hypotheses part at a near-tie (its selected scores at the
+   first differing step within MT_TIE of the CPU's, from both runs cut
+   to that step), final scores within MT_SCORE_REL; a cut decode agrees
+   with the whole; one captured call copies only its fetches to the
+   host; no flash launch. Measured: ms per call captured and eager in
+   turns, sentences/s, kernels of a traced call (the graph's nodes),
+   idle share, capture seconds, peak memory. Then a While with an
+   inferred bound runs inside a captured segment and one with a fed
+   limit between captured segments, both x * w^3.
+
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
@@ -231,8 +266,8 @@ calling the wrappers, whose counts then cover the eager runs and the
 captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
-(phase 14) hold the wrappers' counts at 0: no call, so no flash kernel
-in any graph either.
+(phases 14-15) hold the wrappers' counts at 0: no call, so no flash
+kernel in any graph either.
 
 TF32 stays off for matrix products and convolutions throughout (both
 default settings are the caller's; cuDNN's benchmark and deterministic
@@ -265,10 +300,12 @@ from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.inference import (AnalysisConfig, NativeConfig,
                                         create_paddle_predictor)
 from paddle_tpu_torch.inference.generation import (DecodeEngine,
+                                                   GenerationPredictor,
                                                    SamplingParams,
                                                    collect_tokens,
                                                    naive_generate)
-from paddle_tpu_torch.models import bert, resnet, transformer
+from paddle_tpu_torch.models import (bert, machine_translation, resnet,
+                                     transformer)
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.utils import unique_name
@@ -3233,13 +3270,14 @@ GEN_CPU_REL = 1e-4
 GEN_SAMPLING = dict(temperature=0.8, top_k=40)
 
 
-def gen_prompts(vocab, seed):
-    """The phase's traffic: lengths cycling GEN_LENS; every other prompt
-    opens with the same GEN_SHARED-token system prompt (at most length - 1
-    of it), as bench_infer_generate shares its prefix."""
+def gen_prompts(vocab, seed, n=GEN_REQUESTS):
+    """The phase's traffic: ``n`` prompts of lengths cycling GEN_LENS;
+    every other prompt opens with the same GEN_SHARED-token system prompt
+    (at most length - 1 of it), as bench_infer_generate shares its
+    prefix."""
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(2, vocab, (GEN_LENS[i % len(GEN_LENS)],)).astype(
-        np.int64) for i in range(GEN_REQUESTS)]
+        np.int64) for i in range(n)]
     sys_tokens = rng.randint(2, vocab, (GEN_SHARED,)).astype(np.int64)
     for p in prompts[::2]:
         k = min(GEN_SHARED, len(p) - 1)
@@ -3593,6 +3631,492 @@ def generation_paths(smi):
     return {"generation": (0, 0)}, steps
 
 
+# ---------------------------------------------------------------------------
+# phase 15: generation behind the serving front, and beam search
+# ---------------------------------------------------------------------------
+
+# the GenerationPredictor of bench_infer_generate: 8 slots, 8-step chunks
+PRED = dict(max_slots=8, decode_chunk=8, default_max_new_tokens=GEN_NEW)
+PRED_CAP = 128 + 128     # its cap: the top prompt + top new-token bucket
+PRED_CLIENTS = 8
+PRED_REQUESTS = 48
+PRED_TRACED = 16   # requests of each traced pass
+# machine_translation.build at the Fluid benchmark's widths (30000-word
+# dictionaries, 512 wide), max_len 50, beam 4, 50 decode steps; batch 16,
+# so the loop carries 64 hypotheses
+MT = dict(src_dict_size=30000, tgt_dict_size=30000, emb_dim=512, hid=512,
+          max_len=50, beam_size=4, decode_max_len=50)
+MT_BATCH = 16
+MT_RUNS = 5        # captured runs held against eager ones, bitwise
+# the card's final scores against the CPU's (fp32, TF32 off; other GEMM
+# blockings), relative, where a batch row's sentences agree
+MT_SCORE_REL = 1e-5
+# where a batch row's hypotheses part from the CPU's, the first step they
+# differ must be a near-tie: the row's selected scores at that step
+# (chosen and rejected swapped) within this of the CPU's, relative
+MT_TIE = 1e-5
+MT_CHECK_STEP = 3  # a decode cut to this many steps agrees with the whole
+
+
+def pred_clients(call, items):
+    """``items`` through ``call(item)`` from PRED_CLIENTS threads, each
+    taking the next item in turn. Returns (outputs, seconds each, wall
+    seconds)."""
+    outs, lat, errs = [None] * len(items), [None] * len(items), []
+    it, lock = iter(range(len(items))), threading.Lock()
+    barrier = threading.Barrier(PRED_CLIENTS)
+
+    def client():
+        barrier.wait()
+        while True:
+            with lock:
+                i = next(it, None)
+            if i is None:
+                return
+            try:
+                t0 = time.perf_counter()
+                outs[i] = call(items[i])
+                lat[i] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001 -- raised below
+                errs.append(e)
+                return
+
+    threads = [threading.Thread(target=client, name=f"gen-client{c}")
+               for c in range(PRED_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a generation client hung")
+    if errs:
+        raise errs[0]
+    return outs, lat, wall
+
+
+def alone_in_table(e, prompt, sampling=None):
+    """``prompt`` alone in slot 0 of a table of the predictor's geometry
+    (PRED's slots, PRED_CAP), decoded in its chunks: the carry and the
+    chunk graph the predictor used (handed back at its shutdown)."""
+    st = e.alloc_state(PRED["max_slots"], PRED_CAP)
+    try:
+        e.admit(st, 0, prompt, GEN_NEW, sampling or SamplingParams())
+        chunk = PRED["decode_chunk"]
+        got = [e.decode_chunk(st, chunk) for _ in range(GEN_NEW // chunk)]
+    finally:
+        e.free_state(st)
+    toks = np.concatenate([t for t, _ in got])
+    dones = np.concatenate([d for _, d in got])
+    return collect_tokens(toks[:, 0], dones[:, 0], GEN_NEW).tolist()
+
+
+def predictor_run(label, e, prompts, ref, gaps, smi):
+    """One GenerationPredictor over engine ``e``: warm-up, the traffic from
+    PRED_CLIENTS threads twice (the gates' pass, then the timed one), two
+    passes of PRED_TRACED requests traced (flash launches, device time),
+    the gates of ``predictor_paths``. Returns (its row of numbers, the
+    traffic's tokens)."""
+    torch.cuda.reset_peak_memory_stats()
+    pred = GenerationPredictor(e, **PRED)
+    hits0 = e.stats["prefix_hits"]
+
+    def call(p):
+        return pred.run(p, max_new_tokens=GEN_NEW, timeout=600).tolist()
+
+    try:
+        t0 = time.perf_counter()
+        took = pred.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        before = gen_counts(e)
+        outs, _, _ = pred_clients(call, prompts)
+        timed, lat, wall = pred_clients(call, prompts)
+        # two short passes traced: flash launches by kernel name, then
+        # device time (a trace of the whole traffic costs minutes)
+        walls, short = [], prompts[:PRED_TRACED]
+
+        def traced():
+            t = time.perf_counter()
+            again = pred_clients(call, short)[0]
+            walls.append(time.perf_counter() - t)
+            if again != outs[:PRED_TRACED]:
+                raise AssertionError(f"(a) {label}: a traced pass's tokens "
+                                     "differ from the first pass's")
+        with traced_launches() as counted:
+            traced()
+        check_launches(f"(g) {label} predictor", counted, (0, 0))
+        rows, busy = device_rows(traced)
+        after = gen_counts(e)
+        h = pred.health()
+        stats = dict(pred.stats)
+        sampled = None
+        if label == "paged+prefix":
+            # (e) a sampled request amid greedy traffic
+            sp = SamplingParams(seed=SEED, **GEN_SAMPLING)
+            crowd = [pred.submit(p, max_new_tokens=GEN_NEW)
+                     for p in prompts[:12]]
+            mid = pred.submit(prompts[3], max_new_tokens=GEN_NEW,
+                              sampling=sp)
+            crowd += [pred.submit(p, max_new_tokens=GEN_NEW)
+                      for p in prompts[12:20]]
+            sampled = mid.result(timeout=600).tolist()
+            for f in crowd:
+                f.result(timeout=600)
+    finally:
+        pred.shutdown()
+    log(f"  {label}: warm-up {warm_s:.2f} s ({', '.join(f'{k} {v:.2f}' for k, v in took.items())})")
+    if after != before:
+        raise AssertionError(f"(c) {label}: traffic after warmup() built or "
+                             f"captured: before {before}, after {after}")
+    log(f"  (c) {label}: after warmup() the traffic made no plan, capture, "
+        f"decode plan, ingest key or carry: {after}")
+    near_ties(f"(a) {label} predictor", outs, ref, gaps)
+    if timed != outs:
+        raise AssertionError(f"(a) {label}: the timed pass's tokens differ "
+                             "from the first pass's")
+    if not h["healthy"] or h["active_slots"]:
+        raise AssertionError(f"(f) {label}: health after the traffic {h}")
+    if stats["readmits"] <= 0:
+        raise AssertionError(f"(d) {label}: no slot was re-admitted")
+    tokens = sum(map(len, timed))
+    per_tok = [s / len(o) * 1e3 for s, o in zip(lat, timed)]
+    occupancy = stats["slot_steps"] / max(
+        1, stats["decode_chunks"] * PRED["max_slots"])
+    idle = max(0.0, 1 - busy / (walls[1] * 1e3))
+    row = {"tokens_per_s": tokens / wall,
+           "per_token_ms_p50": float(np.percentile(per_tok, 50)),
+           "per_token_ms_p99": float(np.percentile(per_tok, 99)),
+           "request_s_p50": float(np.percentile(lat, 50)),
+           "request_s_p99": float(np.percentile(lat, 99)),
+           "occupancy": occupancy, "joins": stats["joins"],
+           "readmits": stats["readmits"], "deferrals": stats["deferrals"],
+           "prefix_hits": e.stats["prefix_hits"] - hits0,
+           "warmup_s": warm_s, "idle": idle,
+           "kernels": sum(r[2] for r in rows),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  {label} predictor: {PRED_REQUESTS} requests x {GEN_NEW} tokens "
+        f"from {PRED_CLIENTS} threads: {row['tokens_per_s']:.1f} tokens/s; "
+        f"per token p50 {row['per_token_ms_p50']:.3f} ms, p99 "
+        f"{row['per_token_ms_p99']:.3f} ms (a request's seconds over its "
+        f"tokens); request p50 {row['request_s_p50']:.3f} s, p99 "
+        f"{row['request_s_p99']:.3f} s; mean slot occupancy "
+        f"{occupancy:.1%}; {stats['joins']} joins ({stats['readmits']} "
+        f"re-admissions), {stats['deferrals']} deferrals, "
+        f"{row['prefix_hits']} prefix hits over the four passes "
+        f"and the sampled check; a traced pass of {PRED_TRACED} requests: "
+        f"{busy:.1f} ms of device time in {walls[1] * 1e3:.1f} ms wall, "
+        f"idle {idle:.1%}, {row['kernels']} kernels; peak memory "
+        f"{row['peak_gib']:.2f} GiB; health {h} [{smi}]")
+    if sampled is not None:
+        alone = alone_in_table(e, prompts[3], SamplingParams(
+            seed=SEED, **GEN_SAMPLING))
+        log(f"  (e) sampled (T {GEN_SAMPLING['temperature']}, top-k "
+            f"{GEN_SAMPLING['top_k']}): {len(sampled)} tokens through the "
+            f"predictor amid 20 greedy requests, {len(alone)} alone in "
+            f"slot 0; equal: {sampled == alone}")
+        if sampled != alone:
+            raise AssertionError(f"(e) sampled tokens through the predictor "
+                                 f"{sampled[:8]} against slot 0 alone "
+                                 f"{alone[:8]}")
+    return row, outs
+
+
+def predictor_paths(smi):
+    """Phase 15, path A: build_lm at phase 14's widths behind
+    GenerationPredictor (8 slots, 8-step chunks, 64 new tokens), the paged
+    engine with prefix reuse and a dense engine as the B side, against
+    naive_generate from 8 threads. Gates: (a) each request's greedy tokens
+    equal the re-prefill reference's under GEN_TIE, every pass alike; (b)
+    on the dense predictor each request's tokens bitwise its tokens alone
+    in slot 0 of the same table (the same carry and chunk graph); (c) no
+    plan, capture, decode plan, ingest key or carry made after warmup();
+    (d) slots re-admitted; (e) a sampled request's tokens the same through
+    the predictor and alone in slot 0; (f) health() healthy with no active
+    slot; (g) no flash launch."""
+    t_phase = time.perf_counter()
+    with unique_name.guard():
+        spec = transformer.build_lm(**GEN_LM)["spec"]
+    spec.startup.random_seed = SEED
+    prompts = gen_prompts(GEN_LM["vocab"], SEED + 15, PRED_REQUESTS)
+    prefix = gen_engine(spec, paged=True, prefix=True)
+    dense = gen_engine(spec, paged=False, prefix=False)
+    t0 = time.perf_counter()
+    ref, gaps = [], []
+    for p in prompts:
+        g = []
+        ref.append(naive_generate(dense, p, GEN_NEW, gaps=g).tolist())
+        gaps.append(g)
+    log(f"  reference: naive_generate of {PRED_REQUESTS} prompts of "
+        f"{sorted(set(GEN_LENS))} tokens (every other opening with a "
+        f"{GEN_SHARED}-token system prompt), {GEN_NEW} tokens each, in "
+        f"{time.perf_counter() - t0:.2f} s (its plans' warm-up and "
+        "capture included)")
+    rows = {}
+    rows["paged+prefix"], _ = predictor_run("paged+prefix", prefix, prompts,
+                                            ref, gaps, smi)
+    rows["dense"], outs = predictor_run("dense", dense, prompts, ref, gaps,
+                                        smi)
+    alone = [alone_in_table(dense, p) for p in prompts]
+    same = sum(a == o for a, o in zip(alone, outs))
+    log(f"  (b) dense: {same} of {PRED_REQUESTS} requests' tokens through "
+        "the predictor bitwise their tokens alone in slot 0 of the same "
+        "table")
+    if same != PRED_REQUESTS:
+        raise AssertionError("(b) a request's tokens depend on its "
+                             "neighbours in the slot table")
+    naive, lat, wall = pred_clients(
+        lambda p: naive_generate(dense, p, GEN_NEW).tolist(), prompts)
+    if naive != ref:
+        raise AssertionError("naive_generate from 8 threads differs from "
+                             "its serial run")
+    rows["naive"] = {"tokens_per_s": sum(map(len, naive)) / wall}
+    log(f"  tokens/s, {PRED_REQUESTS} requests from {PRED_CLIENTS} threads: "
+        + ", ".join(f"{k} {v['tokens_per_s']:.1f}" for k, v in rows.items())
+        + f" [{smi}]")
+    log(f"  phase 15 path A: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def mt_feed(cfg, seed):
+    """The decode program's feed: a fake batch's sources, every
+    hypothesis starting at id 0, one live hypothesis per sentence."""
+    batch = machine_translation.make_fake_batch(MT_BATCH, cfg, seed=seed)
+    w = cfg["beam_size"]
+    return {"src": batch["src"], "src_len": batch["src_len"],
+            "start_ids": np.zeros((MT_BATCH * w,), np.int64),
+            "init_scores": np.tile(np.array([0.0] + [-1e9] * (w - 1),
+                                            np.float32), MT_BATCH)}
+
+
+def mt_cut(program, steps):
+    """A copy of the decode program whose loop stops after ``steps``
+    trips (its limit and its trip bound set to ``steps``)."""
+    prog = program.clone()
+    blk = prog.global_block()
+    loop = next(o for o in blk.ops if o.type == "while")
+    cond = loop.attrs["__cond_name__"]
+    cmp_op = next(o for o in blk.ops if o.type == "less_than"
+                  and cond in o.output_arg_names)
+    limit = cmp_op.input("Y")[0]
+    fill = next(o for o in blk.ops if o.type == "fill_constant"
+                and limit in o.output_arg_names)
+    fill.desc.attrs["value"] = float(steps)
+    loop.desc.attrs["__inferred_trip_bound__"] = int(steps)
+    prog._bump()
+    return prog
+
+
+def mt_run(exe, program, feed, scope, fetch):
+    return [np.asarray(a) for a in exe.run(program, feed=feed,
+                                           fetch_list=fetch, scope=scope)]
+
+
+def beam_search_path(smi):
+    """Phase 15, path B: the machine-translation decode program (a While of
+    50 trips over the attention GRU step, softmax, top_k and beam_search,
+    array_write histories, beam_search_decode) at the Fluid benchmark's
+    widths through Executor.run on the card, its loop bounded and so
+    captured whole. Gates: captured against eager bitwise (deterministic
+    mode); the card's sentences against a CPU run's, equal but where a
+    batch row's hypotheses part at a near-tie (MT_TIE at the first step
+    they differ); final scores within MT_SCORE_REL where sentences agree;
+    a decode cut to MT_CHECK_STEP steps agrees with the whole; one
+    captured call copies only its fetches to the host; no flash launch.
+    Then an unbounded While (a fed limit) runs between captured segments,
+    a bounded one inside one."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    m = machine_translation.build(**MT)
+    cfg, prog = m["config"], m["decode"]["program"]
+    exe = pt.Executor()
+    # the startup program's weights from a seed on the CPU, as numpy,
+    # into a card scope and a CPU scope
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    m["startup"].random_seed = SEED
+    cpu_exe.run(m["startup"], scope=cpu_scope)
+    names = [v.name for v in prog.list_vars() if v.persistable]
+    arrays = {n: cpu_scope.find_var(n).numpy() for n in names}
+    scope = pt.Scope()
+    pt.io.set_params_from_numpy(scope, arrays, exe.device, program=prog)
+    n_weights = sum(a.size for a in arrays.values())
+    dec = next(o for o in prog.global_block().ops
+               if o.type == "beam_search_decode")
+    fetch = [m["decode"]["sentences"].name, "init_scores",
+             dec.input("Ids")[0], dec.input("ParentIdx")[0]]
+    feed = mt_feed(cfg, SEED)
+    log(f"  machine_translation.build {MT}: {len(names)} parameters of the "
+        f"decode program, {n_weights / 1e6:.1f} M weights; batch "
+        f"{MT_BATCH} x beam {cfg['beam_size']}")
+
+    with traced_launches() as counted, deterministic() as found:
+        with jit_cache(False):
+            eager = [mt_run(exe, prog, feed, scope, fetch) for _ in range(2)]
+        cap0 = dict(exe.capture_stats)
+        captured = [mt_run(exe, prog, feed, scope, fetch)
+                    for _ in range(MT_RUNS)]
+    check_launches("(g) beam search", counted, (0, 0))
+    if found:
+        log(f"  ops without a deterministic implementation: {found}")
+    captures = exe.capture_stats["captures"] - cap0["captures"]
+    capture_s = exe.capture_stats["seconds"] - cap0["seconds"]
+    for i, name in enumerate(("sentences", "final scores", "id history",
+                              "parent history")):
+        hold("captured", f"{name}, eager against eager",
+             distance(torch.from_numpy(eager[0][i]),
+                      torch.from_numpy(eager[1][i])), 0.0)
+        hold("captured", f"{name}, {MT_RUNS} captured runs against eager",
+             max(distance(torch.from_numpy(c[i]),
+                          torch.from_numpy(eager[0][i])) for c in captured),
+             0.0)
+    if captures != (exe.device.type == "cuda"):
+        raise AssertionError(f"the decode program made {captures} captures; "
+                             "want one graph for its one device segment")
+    plan = next(iter(prog.__dict__["_exec_cache"].values()))
+    kinds = [k for k, _ in plan.segments]
+    log(f"  plan segments {kinds}: the bounded While inside the one "
+        f"captured device segment; capture and first replay "
+        f"{capture_s:.2f} s")
+    if kinds != ["device"]:
+        raise AssertionError(f"the decode plan's segments {kinds}")
+
+    sent, scores, ids_h, par_h = captured[0]
+    cpu = mt_run(cpu_exe, prog, feed, cpu_scope, fetch)
+    w = cfg["beam_size"]
+    parted = []
+    for b in range(MT_BATCH):
+        rows = slice(b * w, (b + 1) * w)
+        if np.array_equal(ids_h[:, rows], cpu[2][:, rows]) and \
+                np.array_equal(par_h[:, rows], cpu[3][:, rows]):
+            continue
+        t = int(np.argmax(np.any((ids_h[:, rows] != cpu[2][:, rows])
+                                 | (par_h[:, rows] != cpu[3][:, rows]),
+                                 axis=1)))
+        parted.append((b, t))
+    for b, t in parted:
+        cut = mt_cut(prog, t + 1)
+        with jit_cache(False):
+            card_t = mt_run(exe, cut, feed, scope, fetch)[1]
+        cpu_t = mt_run(cpu_exe, cut, feed, cpu_scope, fetch)[1]
+        rows = slice(b * w, (b + 1) * w)
+        a, c = np.sort(card_t[rows]), np.sort(cpu_t[rows])
+        rel = float(np.max(np.abs(a - c) / np.abs(c)))
+        log(f"  batch row {b}: hypotheses part from the CPU's at step {t}; "
+            f"its selected scores there {a.tolist()} (card) against "
+            f"{c.tolist()} (CPU): {rel:.3e} relative (near-tie bound "
+            f"{MT_TIE})")
+        if not rel <= MT_TIE:
+            raise AssertionError(f"batch row {b} parts from the CPU's at "
+                                 f"step {t}, not at a near-tie")
+    agree = [r for r in range(MT_BATCH * w)
+             if r // w not in {b for b, _ in parted}]
+    if not np.array_equal(sent[agree], cpu[0][agree]):
+        raise AssertionError("sentences differ where the histories agree")
+    rel = float(np.max(np.abs(scores[agree] - cpu[1][agree])
+                       / np.abs(cpu[1][agree]))) if agree else 0.0
+    log(f"  card against CPU (fp32, TF32 off): {MT_BATCH - len(parted)} of "
+        f"{MT_BATCH} sentences' beams equal, {len(parted)} parted at a "
+        f"near-tie; final scores {rel:.3e} relative (bound {MT_SCORE_REL}); "
+        f"best hypothesis of sentence 0: {sent[0][:12].tolist()}")
+    if not rel <= MT_SCORE_REL:
+        raise AssertionError(f"final scores {rel:.3e} from the CPU's")
+    with jit_cache(False):
+        short = mt_run(exe, mt_cut(prog, MT_CHECK_STEP), feed, scope, fetch)
+    if not (np.array_equal(short[2][:MT_CHECK_STEP],
+                           ids_h[:MT_CHECK_STEP])
+            and np.array_equal(short[3][:MT_CHECK_STEP],
+                               par_h[:MT_CHECK_STEP])):
+        raise AssertionError("a decode cut to MT_CHECK_STEP steps parts from "
+                             "the whole decode")
+
+    n, nbytes = d2h_copies(lambda: mt_run(exe, prog, feed, scope, fetch))
+    want = sum(a.nbytes for a in captured[0])
+    log(f"  one captured call: {n} device-to-host copies, {nbytes} bytes "
+        f"(its {len(fetch)} fetches: {want} bytes)")
+    if n != len(fetch) or nbytes != want:
+        raise AssertionError("a captured decode call read more than its "
+                             "fetches to the host")
+
+    def eager_call(_):
+        with jit_cache(False):
+            mt_run(exe, prog, feed, scope, fetch)
+    med = in_turns([("captured", lambda _: mt_run(exe, prog, feed, scope,
+                                                  fetch)),
+                    ("eager", eager_call)], range(5), start=1)
+    rows, busy = device_rows(lambda: mt_run(exe, prog, feed, scope, fetch))
+    kernels = sum(r[2] for r in rows)
+    row = {"captured_ms": med[0], "eager_ms": med[1],
+           "sentences_per_s": MT_BATCH / med[0] * 1e3,
+           "kernels": kernels, "device_ms": busy,
+           "idle": max(0.0, 1 - busy / med[0]), "capture_s": capture_s,
+           "parted": len(parted),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  decode call (batch {MT_BATCH}, 50 steps), medians of 4 rounds "
+        f"in turns: captured {med[0]:.2f} ms ({row['sentences_per_s']:.1f} "
+        f"sentences/s), eager {med[1]:.2f} ms ({med[1] / med[0]:.1f}x); "
+        f"a traced captured call: {busy:.2f} ms of device time, {kernels} "
+        f"kernels (the graph's nodes), idle {row['idle']:.1%}; peak memory "
+        f"{row['peak_gib']:.2f} GiB [{smi}]")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"    {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% x{count:<6} "
+            f"{key[:90]}")
+    while_loops(exe)
+    log(f"  phase 15 path B: {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def while_loops(exe):
+    """A bounded While (an inferred bound of 3) runs inside a captured
+    segment; one with a fed limit (no bound) runs between captured device
+    segments, its condition read on the host each trip. Both give
+    x * w^3 over 3 runs (warm-up, capture, replay)."""
+    for fed in (False, True):
+        prog, startup = pt.Program(), pt.Program()
+        with unique_name.guard(), pt.program_guard(prog, startup):
+            L = pt.layers
+            x = L.data("x", shape=[3], dtype="float32")
+            w = L.create_parameter([1, 3], "float32", name="w_loop")
+            i = L.fill_constant(shape=[1], dtype="int32", value=0)
+            n = (L.data("n", shape=[1], dtype="int32",
+                        append_batch_size=False) if fed
+                 else L.fill_constant(shape=[1], dtype="int32", value=3))
+            y = L.scale(x, scale=1.0)
+            cond = L.less_than(i, n)
+            loop = L.While(cond)
+            with loop.block():
+                L.assign(L.elementwise_mul(y, w), output=y)
+                L.increment(i, 1, in_place=True)
+                L.less_than(i, n, cond=cond)
+            z = L.scale(y, scale=2.0)
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        wv = np.array([[1.5, 0.5, 2.0]], np.float32)
+        scope.set_var("w_loop", torch.from_numpy(wv).to(exe.device))
+        xb = np.arange(6, dtype=np.float32).reshape(2, 3)
+        feed = {"x": xb, **({"n": np.array([3], np.int32)} if fed else {})}
+        got = [exe.run(prog, feed=feed, fetch_list=[z], scope=scope)[0]
+               for _ in range(3)]
+        kinds = [k for k, _ in next(iter(
+            prog.__dict__["_exec_cache"].values())).segments]
+        want = 2 * xb * wv ** 3
+        ok = all(np.allclose(g, want, rtol=1e-6) for g in got)
+        log(f"  While with {'a fed limit (unbounded)' if fed else 'an inferred bound of 3'}: "
+            f"segments {kinds}; 3 runs give x * w^3 * 2: {ok}")
+        if not ok or ("host" in kinds) != fed:
+            raise AssertionError(f"While (fed limit {fed}): {got[-1]} "
+                                 f"against {want}, segments {kinds}")
+
+
+def predictor_and_beam_paths(smi):
+    """Phase 15. Returns its flash launches, which must be (0, 0)."""
+    rows = predictor_paths(smi)
+    release()
+    rows["beam_search"] = beam_search_path(smi)
+    return {"generation_predictor": (0, 0), "beam_search": (0, 0)}, rows
+
+
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
@@ -3754,6 +4278,11 @@ def main(argv=None):
                   "through DecodeEngine, dense, paged and paged with prefix "
                   "reuse, each decode chunk a captured CUDA graph")
             paths.update(generation_paths(smi)[0])
+            release()
+            phase("generation behind the serving front (GenerationPredictor, "
+                  "paged with prefix reuse and dense) and beam search (the "
+                  "machine-translation decode, its While captured)")
+            paths.update(predictor_and_beam_paths(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

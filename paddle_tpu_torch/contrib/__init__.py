@@ -1,1 +1,1 @@
-from . import mixed_precision  # noqa: F401
+from . import decoder, mixed_precision  # noqa: F401

@@ -98,6 +98,7 @@ from .core.types import dtype_to_torch
 from .framework import Block, Variable, default_main_program
 from .ir import pipeline
 from .place import CUDAPlace, Place
+from .ops.kernels_control import trip_bound
 from .registry import EmitContext
 from .testing import faults as _faults
 from .utils.flags import FLAGS
@@ -255,6 +256,11 @@ def _is_persistable(block: Block, name: str) -> bool:
 
 
 def _is_host(op: OpDesc) -> bool:
+    """Ops that run between device segments, outside any capture: host
+    I/O, and a ``while`` with no static trip bound, whose condition is
+    read on the host every trip (a graph would fix one trip count)."""
+    if op.type == "while":
+        return trip_bound(op.attrs) <= 0
     return registry.has_op(op.type) and registry.lookup(op.type).is_host
 
 
@@ -312,14 +318,23 @@ def _coerce_feed(value, name: str, block: Block, device: torch.device):
     return value.to(device=device, dtype=want)
 
 
+# op types whose programs build (for byte-identical descs) but whose
+# emitters wait for a ROADMAP item
+_WAITING = {"recurrent": "A11 (StaticRNN and the sequence/RNN training "
+                         "ops)",
+            "while_grad": "A11 (backward through a while loop)"}
+
+
 def _emitter(op_type: str):
     """The op's emitter; a ``<type>_grad`` without one of its own takes
     the generic vjp."""
     try:
         return registry.resolve_grad_emitter(op_type)
     except KeyError:
-        raise NotImplementedError(f"operator {op_type!r} has no emitter in "
-                                  "paddle_tpu_torch yet") from None
+        waits = _WAITING.get(op_type)
+        raise NotImplementedError(
+            f"operator {op_type!r} has no emitter in paddle_tpu_torch yet"
+            + (f": it waits for ROADMAP {waits}" if waits else "")) from None
 
 
 def run_ops(op_list: List[OpDesc], env: Dict[str, Any], ctx: EmitContext):
@@ -699,15 +714,20 @@ class Executor:
             for kind, seg in plan.segments:
                 if kind == "host":
                     run_ops(seg, env, EmitContext(
-                        self.device, amp=program._amp, scope=scope))
-                    _write_state(scope, [n for op in seg
-                                         for n in op.output_arg_names()
-                                         if n and _is_persistable(block, n)],
-                                 env)
+                        self.device, amp=program._amp, scope=scope,
+                        program=program))
+                    written = [n for op in seg
+                               for n in op.output_arg_names() if n]
+                    _write_state(scope, [n for n in written
+                                         if _is_persistable(block, n)], env)
+                    # a host op (an unbounded while) may rebind a name an
+                    # earlier segment computed: the fetch is the new value
+                    results.update((n, env[n].clone()) for n in written
+                                   if n in fetch_names)
                     continue
                 ctx = EmitContext(self.device, generator=generator,
                                   amp=program._amp, scope=scope,
-                                  consts=seg.consts)
+                                  consts=seg.consts, program=program)
                 if not captured:
                     outs = self._run_eager(seg, env, scope, ctx, iterations,
                                            warm_up=self.device.type == "cuda"

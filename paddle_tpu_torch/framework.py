@@ -364,6 +364,21 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new sub-block (a loop body), made the current block; its
+        parent is the current block unless ``parent_idx`` names one."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.desc.append_block(parent)
+        b = Block(self, len(self.desc.blocks) - 1)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump()
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def global_block(self) -> Block:
         return self.blocks[0]
 

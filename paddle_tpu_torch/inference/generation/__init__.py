@@ -2,14 +2,17 @@
 ``paddle_tpu/inference/generation``): bucketed prefill through the
 executor's plans into a resident KV cache (dense, or paged with radix
 prefix reuse), one captured CUDA graph per decode chunk, and greedy and
-temperature/top-k sampling with a per-slot counter-based stream. The JAX
-package's ``GenerationPredictor`` (continuous batching behind the serving
-front) and ``trace_span_coverage`` wait for ROADMAP A7.3."""
+temperature/top-k sampling with a per-slot counter-based stream, and
+``GenerationPredictor``: continuous batching behind the serving front.
+The JAX package's ``trace_span_coverage`` (request traces) waits for
+ROADMAP A10."""
 
 from .engine import (DecodeEngine, PagedSlotState, SlotState,
                      collect_tokens, naive_generate)
+from .predictor import GenerationPredictor
 from .sampling import SamplingParams
 from .spec import GenerationSpec
 
 __all__ = ["DecodeEngine", "SlotState", "PagedSlotState", "GenerationSpec",
-           "SamplingParams", "naive_generate", "collect_tokens"]
+           "GenerationPredictor", "SamplingParams", "naive_generate",
+           "collect_tokens"]

@@ -21,6 +21,8 @@ __all__ = [
     "unsqueeze", "slice", "gather", "cast", "conv2d", "pool2d",
     "batch_norm", "cross_entropy", "accuracy", "topk", "mean", "concat",
     "kv_cache_write", "kv_cache_gather_paged", "kv_cache_write_paged",
+    "split", "expand", "sequence_pool", "sequence_softmax", "beam_search",
+    "beam_search_decode",
 ]
 
 
@@ -521,3 +523,94 @@ def mean(x, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="mean", inputs={"X": x}, outputs={"Out": out})
     return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    ndim = len(input.shape)
+    dim = dim % ndim
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+    else:
+        num = 0
+        sections = list(num_or_sections)
+    n_out = num or len(sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n_out)]
+    helper.append_op(type="split", inputs={"X": input}, outputs={"Out": outs},
+                     attrs={"axis": dim, "num": num, "sections": sections})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="expand", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def sequence_pool(input, pool_type, length=None):
+    """Pool [B, T, ...] over each row's first ``length`` steps:
+    sum, average, sqrt, max, last or first."""
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    max_index = helper.create_variable_for_type_inference("int32", True)
+    inputs = {"X": input}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(type="sequence_pool", inputs=inputs,
+                     outputs={"Out": out, "MaxIndex": max_index},
+                     attrs={"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_softmax(input, length=None, name=None):
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": input}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(type="sequence_softmax", inputs=inputs,
+                     outputs={"Out": out})
+    return out
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None):
+    """One step of beam expansion over the dense [batch*beam] layout;
+    returns (selected_ids, selected_scores, parent_idx)."""
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_variable_for_type_inference(ids.dtype)
+    sel_scores = helper.create_variable_for_type_inference(scores.dtype)
+    parent_idx = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="beam_search",
+        inputs={"pre_ids": pre_ids, "pre_scores": pre_scores,
+                "ids": ids, "scores": scores},
+        outputs={"selected_ids": sel_ids, "selected_scores": sel_scores,
+                 "parent_idx": parent_idx},
+        attrs={"beam_size": beam_size, "end_id": end_id, "level": level,
+               "is_accumulated": is_accumulated})
+    return sel_ids, sel_scores, parent_idx
+
+
+def beam_search_decode(ids, parent_idx, scores=None, beam_size=None,
+                       end_id=0, name=None):
+    """Backtrack stacked per-step ids/parents [T, batch*beam] into
+    sentences [batch*beam, T] (and the final scores when given)."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent_ids = helper.create_variable_for_type_inference(ids.dtype)
+    inputs = {"Ids": ids, "ParentIdx": parent_idx}
+    outputs = {"SentenceIds": sent_ids}
+    ret = [sent_ids]
+    if scores is not None:
+        inputs["Scores"] = scores
+        sent_scores = helper.create_variable_for_type_inference(
+            scores.dtype)
+        outputs["SentenceScores"] = sent_scores
+        ret.append(sent_scores)
+    helper.append_op(type="beam_search_decode", inputs=inputs,
+                     outputs=outputs, attrs={"end_id": end_id})
+    return ret[0] if len(ret) == 1 else tuple(ret)

@@ -6,9 +6,10 @@ import numpy as np
 
 from ..core.types import convert_dtype
 from ..framework import Variable
-from ..layer_helper import LayerHelper
+from ..layer_helper import LayerHelper, ParamAttr
 
-__all__ = ["cast", "assign", "fill_constant", "concat"]
+__all__ = ["cast", "assign", "fill_constant", "fill_constant_batch_size_like",
+           "concat", "create_parameter"]
 
 
 def cast(x, dtype):
@@ -54,3 +55,30 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                "value": float(value)})
     out.stop_gradient = True
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """fill_constant whose dim ``output_dim_idx`` is ``input``'s dim
+    ``input_dim_idx`` at run time (the batch of a dynamic-batch var)."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": input}, outputs={"Out": out},
+        attrs={"shape": list(shape), "dtype": convert_dtype(dtype),
+               "value": float(value), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
+    out.stop_gradient = True
+    return out
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter of ``shape``; an explicit ``name`` is used verbatim
+    (reference tensor.py: ``ParamAttr(name=name)``)."""
+    helper = LayerHelper("create_parameter", name=name)
+    if attr is None:
+        attr = ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)

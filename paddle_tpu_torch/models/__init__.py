@@ -1,1 +1,1 @@
-from . import bert, resnet, transformer  # noqa: F401
+from . import bert, machine_translation, resnet, transformer  # noqa: F401

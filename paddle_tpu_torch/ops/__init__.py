@@ -11,4 +11,6 @@ from . import kernels_optim  # noqa: F401
 from . import kernels_fused  # noqa: F401
 from . import kernels_image  # noqa: F401
 from . import kernels_cache  # noqa: F401
+from . import kernels_rnn  # noqa: F401
+from . import kernels_search  # noqa: F401
 from . import flash_attention  # noqa: F401

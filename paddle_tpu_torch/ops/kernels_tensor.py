@@ -43,6 +43,24 @@ def fill_constant(ctx, ins, attrs):
                                dtype=_attr_dtype(attrs), device=ctx.device)]}
 
 
+def _fcbsl_infer(op: OpDesc, block):
+    shp = list(op.attrs.get("shape", []))
+    for n in op.output("Out"):
+        set_out_var(block, n, shp, op.attrs.get("dtype", DataType.FP32))
+
+
+@register_op("fill_constant_batch_size_like", no_grad=True,
+             infer=_fcbsl_infer)
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    """fill_constant with dim ``output_dim_idx`` of ``shape`` taken from
+    dim ``input_dim_idx`` of Input (the batch of a dynamic-batch var)."""
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = ins["Input"][0].shape[
+        attrs.get("input_dim_idx", 0)]
+    return {"Out": [torch.full(tuple(shape), attrs.get("value", 0.0),
+                               dtype=_attr_dtype(attrs), device=ctx.device)]}
+
+
 @register_op("fill_zeros_like", no_grad=True, infer=same_shape_infer())
 def fill_zeros_like(ctx, ins, attrs):
     return {"Out": [torch.zeros_like(x(ins))]}
@@ -270,6 +288,58 @@ def _concat_infer(op: OpDesc, block):
 @register_op("concat", infer=_concat_infer)
 def concat(ctx, ins, attrs):
     return {"Out": [torch.cat(list(ins["X"]), dim=attrs.get("axis", 0))]}
+
+
+def _split_infer(op: OpDesc, block):
+    in_shp = in_shape(block, op, "X")
+    dt = in_dtype(block, op, "X")
+    outs = op.output("Out")
+    if in_shp is None:
+        return
+    axis = op.attrs.get("axis", 0) % len(in_shp)
+    sections = op.attrs.get("sections", [])
+    num = op.attrs.get("num", 0)
+    if sections:
+        sizes = sections
+    else:
+        num = num or len(outs)
+        sizes = [in_shp[axis] // num] * num
+    for n, s in zip(outs, sizes):
+        shp = list(in_shp)
+        shp[axis] = s
+        set_out_var(block, n, shp, dt)
+
+
+@register_op("split", infer=_split_infer)
+def split(ctx, ins, attrs):
+    """``num`` equal parts along ``axis``, or parts of ``sections`` (the
+    last one takes the rest, as ``jnp.split`` at the sections' running
+    sums does)."""
+    xv = x(ins)
+    axis = attrs.get("axis", 0) % xv.dim()
+    sections = list(attrs.get("sections", []))
+    if sections:
+        sizes = sections[:-1] + [xv.shape[axis] - sum(sections[:-1])]
+    else:
+        num = attrs.get("num", 1)
+        sizes = [xv.shape[axis] // num] * num
+    return {"Out": list(torch.split(xv, sizes, dim=axis))}
+
+
+def _expand_infer(op: OpDesc, block):
+    in_shp = in_shape(block, op, "X")
+    dt = in_dtype(block, op, "X")
+    times = op.attrs.get("expand_times", [])
+    if in_shp is not None:
+        shp = [s * t for s, t in zip(in_shp, times)]
+        for n in op.output("Out"):
+            set_out_var(block, n, shp, dt)
+
+
+@register_op("expand", infer=_expand_infer)
+def expand(ctx, ins, attrs):
+    """X tiled ``expand_times`` along each dim (``jnp.tile``)."""
+    return {"Out": [torch.tile(x(ins), tuple(attrs["expand_times"]))]}
 
 
 @register_op("assign", infer=same_shape_infer())

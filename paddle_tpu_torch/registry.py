@@ -35,17 +35,19 @@ class EmitContext:
     """Per-run context handed to emitters: the device every tensor of
     the run lives on, the ``torch.Generator`` random ops draw from (on
     that device), the bf16 autocast flag, and the constants of the
-    executor's plan (``constant``)."""
+    executor's plan (``constant``), and the program whose blocks the
+    control-flow ops (``while``) run as their bodies."""
 
-    __slots__ = ("generator", "device", "amp", "scope", "consts")
+    __slots__ = ("generator", "device", "amp", "scope", "consts", "program")
 
     def __init__(self, device: torch.device, generator=None, amp=False,
-                 scope=None, consts=None):
+                 scope=None, consts=None, program=None):
         self.device = device
         self.generator = generator
         self.amp = amp
         self.scope = scope
         self.consts = consts
+        self.program = program
 
     def constant(self, attrs, make):
         """A copy of the literal ``make()`` builds from an op's ``attrs``,

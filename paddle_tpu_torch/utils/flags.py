@@ -38,6 +38,9 @@ _DEFAULTS: Dict[str, Any] = {
     "generation_paged": True,
     "generation_page_size": 8,
     "generation_prefix_cache": True,
+    # a GenerationPredictor with live slots that completes no decode step
+    # for this many seconds reads healthy=false (0 disables)
+    "generation_stall_budget_s": 120.0,
 }
 
 
@@ -46,6 +49,8 @@ def _coerce(default, raw: str):
         return raw.lower() in ("1", "true", "yes", "on")
     if isinstance(default, int):
         return int(raw)
+    if isinstance(default, float):
+        return float(raw)
     return raw
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-14) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-15) on the CPU at a tiny
 Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow
 12-layer BERT (d_model 24, T 16, batch 4), phase 13's serving front
-with fewer requests a window and phase 14's generation at a narrow LM
-(d_model 16, vocab 256), to find faults in the script's Python before a
-run on the card.
+with fewer requests a window, phase 14's generation and phase 15's
+predictor at a narrow LM (d_model 16, vocab 256) and phase 15's machine
+translation at 40-word dictionaries and width 16, to find faults in the
+script's Python before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
 
@@ -49,13 +50,17 @@ BERT_TINY = dict(vocab_size=100, max_len=16, max_masked=4, n_layer=12,
 # phase 14's buckets and traffic need max_positions 256
 GEN_TINY = dict(vocab=256, n_layer=2, n_head=2, d_model=16, d_inner_hid=32,
                 max_positions=256, eos_id=1)
+# phase 15's machine translation at 40-word dictionaries, width 16, with
+# the phase's beam, batch and 50 steps
+MT_TINY = dict(src_dict_size=40, tgt_dict_size=40, emb_dim=16, hid=16,
+               max_len=50, beam_size=4, decode_max_len=50)
 
 
 def _d2h_copies(fn):
-    """chip_smoke.d2h_copies without a trace: the two host arrays a
-    decode chunk returns, its tokens and done flags."""
-    toks, dones = fn()
-    return 2, toks.nbytes + dones.nbytes
+    """chip_smoke.d2h_copies without a trace: the host arrays fn returns
+    (a decode chunk's tokens and done flags, a decode call's fetches)."""
+    outs = fn()
+    return len(outs), sum(o.nbytes for o in outs)
 
 
 def _count_launches():
@@ -130,11 +135,19 @@ def main():
     cs.GEN_LM = GEN_TINY
     cs.d2h_copies = _d2h_copies
     gen, _ = cs.generation_paths("CPU rehearsal")
+    # phase 15: the predictor at the same narrow LM with 16 of its 48
+    # requests (naive_generate from 8 threads is slow on the CPU); the
+    # machine translation at MT_TINY
+    cs.MT = MT_TINY
+    cs.PRED_REQUESTS = 16
+    t15 = time.perf_counter()
+    pred, _ = cs.predictor_and_beam_paths("CPU rehearsal")
+    print(f"phase 15 rehearsed in {time.perf_counter() - t15:.1f} s")
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
-          f"phase 13 {front}, phase 14 {gen}")
+          f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}")
 
 
 if __name__ == "__main__":

@@ -598,6 +598,24 @@ def test_registry_flags_the_passes_read_match_jax():
             assert getattr(p, flag) == getattr(j, flag), (op_type, flag)
 
 
+def test_registry_counts():
+    """The port's op types: 145 of the JAX package's, plus its 3 grad types
+    of its own (``_OPAQUE_GRAD_TYPES``); every one has an emitter but
+    ``recurrent``, registered for its grad maker (StaticRNN programs build
+    byte-identically; running one waits for ROADMAP A11)."""
+    from paddle_tpu import registry as jreg
+    reg = pt.registry._REGISTRY
+    assert len(reg) == 148
+    assert sum(jreg.has_op(t) for t in reg) == 145
+    assert sorted(t for t, i in reg.items() if i.emitter is None) == [
+        "recurrent"]
+    for op_type in ("while", "array_write", "array_read", "beam_search",
+                    "beam_search_decode", "gru", "sequence_pool",
+                    "sequence_softmax", "expand", "split",
+                    "fill_constant_batch_size_like"):
+        assert reg[op_type].emitter is not None, op_type
+
+
 # ---------------------------------------------------------------------------
 # registry passes
 # ---------------------------------------------------------------------------

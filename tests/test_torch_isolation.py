@@ -51,6 +51,15 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.inference.generation.paging\n"
         "import paddle_tpu_torch.inference.generation.sampling\n"
         "import paddle_tpu_torch.inference.generation.spec\n"
+        "import paddle_tpu_torch.inference.generation.predictor\n"
+        "import paddle_tpu_torch.ops.kernels_rnn\n"
+        "import paddle_tpu_torch.ops.kernels_search\n"
+        "import paddle_tpu_torch.ops.kernels_control\n"
+        "import paddle_tpu_torch.layers.rnn\n"
+        "import paddle_tpu_torch.layers.control_flow\n"
+        "import paddle_tpu_torch.contrib.decoder\n"
+        "import paddle_tpu_torch.contrib.decoder.beam_search_decoder\n"
+        "import paddle_tpu_torch.models.machine_translation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

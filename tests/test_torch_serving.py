@@ -174,8 +174,7 @@ def test_create_paddle_predictor_wraps_as_the_jax_package(model_dir):
 
 
 def test_inference_exports_the_jax_names():
-    waiting = {"CppPredictor", "DecodeEngine", "GenerationPredictor",
-               "GenerationSpec", "SamplingParams"}  # ROADMAP A13, A7
+    waiting = {"CppPredictor"}  # ROADMAP A13
     assert sorted(pinference.__all__) == sorted(
         set(jinference.__all__) - waiting)
     assert sorted(pserving.__all__) == sorted(jserving.__all__)
