@@ -4117,16 +4117,993 @@ def predictor_and_beam_paths(smi):
     return {"generation_predictor": (0, 0), "beam_search": (0, 0)}, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the runtime around the training step
+# ---------------------------------------------------------------------------
+
+ELASTIC_EVERY = 8      # async cadence checkpoints, in steps
+ELASTIC_KILL_AT = 16   # SIGKILL once a checkpoint of this step or later is
+                       # marked and the child has trained past it
+ELASTIC_END = 40       # the resumed and the uninterrupted runs end here
+ELASTIC_EPOCH = 64     # batches in an epoch of the synthetic reader
+ELASTIC_KEEP = 2       # checkpoints kept (each about 1.1 GB of files)
+ELASTIC_TIMED = 24     # steps in each arm of the cadence timing
+ELASTIC_WAIT_S = 300   # the longest one child's part may take
+# the command of a phase-16(A) child (chip_smoke.py itself)
+ELASTIC_CHILD = [sys.executable, os.path.abspath(__file__)]
+ACCUM = (1, 2, 4)      # microbatches of batch 16
+ACCUM_RUNS = 3
+# accumulation against the unaccumulated batch, both bf16 AMP: the
+# microbatches' products run on other GEMM shapes, so a bf16 output may
+# round the other way (2^-8 relative). The mean gradient of step 1, as a
+# relative L2 distance over every parameter: 2^-5, eight such roundings;
+# a half batch's gradient (the control), a zeroed, negated or summed one
+# are 0.5 or more away. The losses: about 5x the 7.3e-7 relative that
+# the card reads at these widths in deterministic mode (the first loss is
+# ln(32000) to within 1e-3 at any gradient, so the loss alone shows little)
+ACCUM_GRAD_REL = 2.0 ** -5
+ACCUM_LOSS_REL = 4e-6
+# phase 16(C): Transformer-base widths, depth cut to 2 + 2 layers (the
+# dense attention of a dropout build is about 3x the flash one's memory
+# and time; the dropout sites and the generator are the same at any depth)
+DROPOUT_MODEL = dict(MODEL, n_layer=2, dropout_rate=0.1)
+DROPOUT_SIGMAS = 6     # the keep rate against its binomial deviation
+DROPOUT_STEPS = 8      # the uninterrupted run; the cut one stops after 6
+DROPOUT_EVERY = 4      # ... with its checkpoint at step 4
+LOADER_BATCHES = 4     # distinct ResNet-50 batches, cycled
+LOADER_ROUNDS = 8
+
+
+def elastic_epoch(cfg, epoch):
+    """The synthetic reader of phase 16(A): batch i of an epoch is seeded
+    by (epoch, i), so every pass over an epoch gives the same batches."""
+    for i in range(ELASTIC_EPOCH):
+        yield train_batch(cfg, TRAIN_BATCH, SEED + 100000 * (epoch + 1) + i)
+
+
+def elastic_setup():
+    """Phase 16(A)'s trainer in this process: Transformer-base (the
+    unfused build under bench.py's BuildStrategy, AMP) from the seeded
+    startup, and a DataLoader over the epoch-seeded reader."""
+    with unique_name.guard():
+        m = transformer.build(attention_impl="unfused", **MODEL)
+    m["startup"].random_seed = SEED
+    exe = pt.Executor()
+    exe.run(m["startup"])
+    amp_main = mixed_precision.decorate(m["main"].clone())
+    target = pt.CompiledProgram(amp_main,
+                                build_strategy=bench_build_strategy())
+    blk = amp_main.global_block()
+    loader = pt.reader.DataLoader([blk.var(n) for n in TRAIN_FEEDS],
+                                  device=exe.device)
+    loader.set_batch_generator(lambda: elastic_epoch(
+        m["config"], loader.state_dict()["epoch"]))
+    return m, exe, target, loader
+
+
+def state_digest(scope, program):
+    """sha256 of every persistable's bytes."""
+    import hashlib
+    out = {}
+    for v in program.list_vars():
+        if v.persistable:
+            t = scope.find_var(v.name).detach().reshape(-1).contiguous()
+            out[v.name] = hashlib.sha256(
+                t.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def _dump(obj, path):
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def elastic_child(role, ckpt, out):
+    """One process of phase 16(A) (``--elastic-child ROLE CKPT OUT``):
+    ``killed`` trains until the parent kills it; ``resumed`` restores
+    from ``ckpt``, trains to ELASTIC_END, writes its results and trains on
+    until SIGTERM, when the trainer writes its emergency checkpoint and
+    exits with RESUME_EXIT_CODE; ``reference`` trains to ELASTIC_END
+    without interruption (beside the killed child), then waits for the
+    file ``OUT.go`` (the parent makes it when the card is its alone),
+    times steps with and without cadence checkpoints, a synchronous and
+    an asynchronous save, traces two steps and writes its results. Each
+    step's loss goes to ``OUT.steps``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.launches = fa.bwd_launches = 0
+    m, exe, target, loader = elastic_setup()
+    loss_name = m["loss"].name
+    program = target.program
+    res = {"role": role}
+    steps_log = open(out + ".steps", "a")
+    with deterministic() as warned:
+        tr = pt.elastic.ElasticTrainer(
+            exe, ckpt, main_program=target, loader=loader,
+            save_every_steps=ELASTIC_EVERY, max_num_checkpoints=ELASTIC_KEEP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["start"] = tr.restore()
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t0
+        losses, walls = {}, []
+        last = [time.perf_counter()]
+
+        def on_step(step, fetched):
+            loss = float(np.asarray(fetched[0]).reshape(-1)[0])
+            now = time.perf_counter()
+            walls.append(now - last[0])
+            last[0] = now
+            losses[step] = loss.hex()
+            steps_log.write(json.dumps([step, loss.hex()]) + "\n")
+            steps_log.flush()
+            if step == ELASTIC_END and role != "killed":
+                res.update(losses=dict(losses), walls=walls[:2],
+                           digest=state_digest(pt.global_scope(), program),
+                           peak_bytes=torch.cuda.max_memory_allocated())
+                if role == "resumed":
+                    # its deterministic-mode warnings are read when the
+                    # mode ends, which SIGTERM's exit skips; the
+                    # uninterrupted child runs the same ops and reports
+                    res["calls"] = (fa.launches, fa.bwd_launches)
+                    _dump(res, out)
+
+        end = ELASTIC_END if role == "reference" else 10 ** 9
+        while tr.global_step < end:
+            tr.run(loader, fetch_list=[loss_name], max_steps=end,
+                   on_step=on_step, save_on_exit=False)
+        tr.close()
+        if role != "reference":
+            raise AssertionError(f"{role}: the run ended by itself")
+        while not os.path.exists(out + ".go"):
+            time.sleep(0.05)
+
+        def forever():
+            while True:
+                yield from loader
+
+        feeds = forever()
+
+        def plain(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                exe.run(target, feed=next(feeds), fetch_list=[loss_name])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        def cadence(n, d):
+            tr2 = pt.elastic.ElasticTrainer(
+                exe, d, main_program=target, save_every_steps=ELASTIC_EVERY,
+                max_num_checkpoints=ELASTIC_KEEP,
+                install_signal_handler=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr2.run(feeds, fetch_list=[loss_name], max_steps=n,
+                    save_on_exit=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            stats = dict(tr2._ckpt.stats)
+            t0 = time.perf_counter()
+            tr2.close()
+            stats["drain_s"] = time.perf_counter() - t0
+            return ms, stats
+
+        timing = {"plain_ms": [], "cadence_ms": [], "cadence_stats": []}
+        for r, arm in enumerate(("plain", "cadence", "cadence", "plain")):
+            if arm == "plain":
+                timing["plain_ms"].append(plain(ELASTIC_TIMED))
+            else:
+                ms, stats = cadence(ELASTIC_TIMED,
+                                    os.path.join(ckpt, f"timed{r}"))
+                timing["cadence_ms"].append(ms)
+                timing["cadence_stats"].append(stats)
+        d_sync = os.path.join(ckpt, "sync")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.io.save_checkpoint(exe, d_sync, 1, main_program=target)
+        timing["sync_save_s"] = time.perf_counter() - t0
+        timing["bytes"] = _dir_bytes(d_sync)
+        ac = pt.io.AsyncCheckpointer()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        ac.save(exe, os.path.join(ckpt, "async"), 1, main_program=target)
+        timing["snapshot_bytes"] = torch.cuda.memory_allocated() - before
+        t0 = time.perf_counter()
+        ac.close()
+        timing["async"] = dict(ac.stats, drain_s=time.perf_counter() - t0)
+        res["timing"] = timing
+        # the wrappers' calls of this process's path (eager runs and
+        # captures), read before the trace zeroes them
+        res["calls"] = (fa.launches, fa.bwd_launches)
+        with traced_launches() as counted:
+            for _ in range(2):
+                exe.run(target, feed=next(feeds), fetch_list=[loss_name])
+        res["traced"] = counted["traced"]
+    res["warned"] = list(warned)
+    _dump(res, out)
+
+
+def _child_steps(path):
+    """{step: loss hex} of a child's step log (a line cut by a kill is
+    left out)."""
+    got = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    step, loss = json.loads(line)
+                except ValueError:
+                    continue
+                got[step] = loss
+    return got
+
+
+def _tail(path, n=3000):
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def elastic_path(smi):
+    """Phase 16(A): three child processes (the trainer killed with
+    SIGKILL and the uninterrupted run side by side, then the killed
+    one's resume); the resumed losses and the persistables at
+    ELASTIC_END bitwise the uninterrupted run's; the SIGTERM arm; the
+    checkpoint costs, taken by the uninterrupted child alone on the
+    card. Returns the path's flash launches (the wrappers' calls in the
+    uninterrupted child)."""
+    import shutil
+    import signal
+    base = tempfile.mkdtemp(prefix="chip_smoke_elastic_",
+                            dir=_build.BUILD_DIR)
+    procs = []
+
+    def spawn(role, ckpt):
+        out = os.path.join(base, f"{role}.json")
+        logf = open(os.path.join(base, f"{role}.log"), "w")
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        p = subprocess.Popen(ELASTIC_CHILD + ["--elastic-child", role, ckpt,
+                                              out],
+                             stdout=logf, stderr=subprocess.STDOUT, env=env)
+        procs.append(p)
+        return p, out
+
+    def wait_for(p, role, ready, what):
+        deadline = time.time() + ELASTIC_WAIT_S
+        while not ready():
+            if p.poll() is not None:
+                raise AssertionError(
+                    f"{role} child exited {p.returncode} before {what}:\n"
+                    + _tail(os.path.join(base, f"{role}.log")))
+            if time.time() > deadline:
+                raise AssertionError(f"{role} child: no {what} in "
+                                     f"{ELASTIC_WAIT_S} s")
+            time.sleep(0.005)
+
+    try:
+        ckpt = os.path.join(base, "ckpt")
+        t0 = time.perf_counter()
+        # the uninterrupted run trains beside the killed one; it times
+        # its checkpoints only once the card is its alone
+        ref_p, ref_out = spawn("reference", os.path.join(base, "ref"))
+        p, out = spawn("killed", ckpt)
+        marked = [0]
+
+        def past_a_checkpoint():
+            try:  # the child's retention may remove a directory meanwhile
+                marked[0] = (pt.io.read_train_state(ckpt) or {}).get(
+                    "step", 0)
+            except OSError:
+                return False
+            steps = _child_steps(out + ".steps")
+            return (marked[0] >= ELASTIC_KILL_AT and bool(steps)
+                    and max(steps) > marked[0])
+
+        wait_for(p, "killed", past_a_checkpoint,
+                 f"a marked checkpoint of step >= {ELASTIC_KILL_AT}")
+        p.send_signal(signal.SIGKILL)
+        p.wait(timeout=60)
+        if p.returncode != -signal.SIGKILL:
+            raise AssertionError(f"killed child: exit {p.returncode}")
+        killed = _child_steps(out + ".steps")
+        killed_at = max(killed)
+        left = sorted(os.listdir(ckpt))
+        log(f"16(A) killed child: SIGKILL after step {killed_at} (checkpoint "
+            f"of step {marked[0]} marked), {time.perf_counter() - t0:.1f} s; "
+            f"left in the checkpoint dir: {left}")
+
+        t0 = time.perf_counter()
+        p, out = spawn("resumed", ckpt)
+        wait_for(p, "resumed", lambda: os.path.exists(out),
+                 f"its results at step {ELASTIC_END}")
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=ELASTIC_WAIT_S)
+        with open(out) as f:
+            resumed = json.load(f)
+        # the trainer checkpoints the last step it completed
+        said = max(_child_steps(out + ".steps"))
+        emergency = (pt.io.read_train_state(ckpt) or {}).get("step")
+        log(f"16(A) resumed child: restored step {resumed['start']} in "
+            f"{resumed['restore_s']:.2f} s; the first step after it "
+            f"{resumed['walls'][0]:.2f} s (the warm-up), the second "
+            f"{resumed['walls'][1]:.2f} s (the capture); SIGTERM after step "
+            f"{ELASTIC_END}: exit {rc} after step {said}, the newest "
+            f"complete checkpoint of step {emergency}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if rc != pt.elastic.RESUME_EXIT_CODE or emergency != said or \
+                emergency < ELASTIC_END:
+            raise AssertionError(
+                f"SIGTERM arm: exit {rc}, preempted at {said}, newest "
+                f"complete checkpoint {emergency}:\n"
+                + _tail(os.path.join(base, "resumed.log")))
+
+        t0 = time.perf_counter()
+        open(ref_out + ".go", "w").close()
+        rc = ref_p.wait(timeout=ELASTIC_WAIT_S)
+        if rc != 0:
+            raise AssertionError(f"reference child exited {rc}:\n"
+                                 + _tail(os.path.join(base,
+                                                      "reference.log")))
+        with open(ref_out) as f:
+            ref = json.load(f)
+        log(f"16(A) uninterrupted child: its timing part "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(base, ignore_errors=True)
+
+    start = resumed["start"]
+    if not ELASTIC_KILL_AT <= start < min(killed_at, ELASTIC_END):
+        raise AssertionError(f"resumed from step {start}")
+    steps = range(start + 1, ELASTIC_END + 1)
+    if sorted(map(int, resumed["losses"])) != list(steps):
+        raise AssertionError(f"the resumed run logged steps "
+                             f"{sorted(resumed['losses'])}")
+    differ = [s for s in steps if resumed["losses"][str(s)]
+              != ref["losses"][str(s)]]
+    before = [s for s in killed if s <= ELASTIC_END
+              and killed[s] != ref["losses"][str(s)]]
+    state = [n for n in ref["digest"]
+             if resumed["digest"].get(n) != ref["digest"][n]]
+    log(f"16(A) resumed steps {start + 1}-{ELASTIC_END} against the "
+        f"uninterrupted run: {len(differ)} losses differ; the killed run's "
+        f"steps 1-{min(killed_at, ELASTIC_END)}: {len(before)} differ; "
+        f"{len(state)} of {len(ref['digest'])} persistables differ at step "
+        f"{ELASTIC_END} (sha256 of their bytes); losses at steps "
+        f"{start + 1} and {ELASTIC_END}: "
+        f"{float.fromhex(ref['losses'][str(start + 1)]):.6f}, "
+        f"{float.fromhex(ref['losses'][str(ELASTIC_END)]):.6f}")
+    warned = ref["warned"]
+    if differ or before or state or len(ref["digest"]) != len(
+            resumed["digest"]):
+        raise AssertionError("16(A): the resumed run is not bitwise the "
+                             f"uninterrupted one ({differ}, {before}, "
+                             f"{state[:5]})")
+    if warned:
+        raise AssertionError(f"16(A): ops without a deterministic "
+                             f"implementation: {warned}")
+
+    t = ref["timing"]
+    plain_ms, cad_ms = np.mean(t["plain_ms"]), np.mean(t["cadence_ms"])
+    stall = max(s["stall_s"] for s in t["cadence_stats"])
+    join = max(s["join_s"] for s in t["cadence_stats"])
+    write = max(s["write_s"] for s in t["cadence_stats"])
+    log(f"16(A) checkpoint of {t['bytes'] / 2 ** 30:.3f} GiB "
+        f"({t['bytes']} bytes of files): synchronous save "
+        f"{t['sync_save_s'] * 1e3:.1f} ms; async: the step loop's stall "
+        f"{t['async']['stall_s'] * 1e3:.2f} ms (a device copy of "
+        f"{t['snapshot_bytes'] / 2 ** 30:.3f} GiB), the writer "
+        f"{t['async']['write_s'] * 1e3:.1f} ms, drain (close) "
+        f"{t['async']['drain_s'] * 1e3:.1f} ms [{smi}]")
+    log(f"16(A) steps with cadence checkpoints every {ELASTIC_EVERY} steps "
+        f"{cad_ms:.2f} ms a step (means of {t['cadence_ms']}) against "
+        f"{plain_ms:.2f} ms without ({t['plain_ms']}), "
+        f"{cad_ms / plain_ms:.3f}x; in the cadence arms the largest stall "
+        f"{stall * 1e3:.2f} ms, join of the previous writer "
+        f"{join * 1e3:.1f} ms, writer {write * 1e3:.1f} ms; peak memory "
+        f"at step {ELASTIC_END} {ref['peak_bytes'] / 2 ** 30:.2f} GiB")
+    traced = tuple(ref["traced"])
+    # on the card a child's plan passes through the wrappers twice (the
+    # warm-up and the capture); every later step is a replay
+    want = (2 * FWD_PER_STEP, 2 * BWD_PER_STEP)
+    calls = [tuple(ref["calls"]), tuple(resumed["calls"])]
+    log(f"16(A) flash wrapper calls in the uninterrupted child {calls[0]}, "
+        f"in the resumed one {calls[1]} (want {want} each on the card); "
+        f"two traced replays: {traced[0]} forward + {traced[1]} backward "
+        f"flash kernels by name (two steps' {want})")
+    on_card = pt.Executor().device.type == "cuda"
+    if (on_card and calls != [want, want]) or not all(traced) \
+            or not all(calls[0]) or not all(calls[1]):
+        raise AssertionError(f"16(A) flash wrapper calls {calls}, traced "
+                             f"{traced}")
+    return calls[0]
+
+
+def noam_lr(step, d_model=512, warmup=8000):
+    return d_model ** -0.5 * min(step ** -0.5 if step else float("inf"),
+                                 step * warmup ** -1.5)
+
+
+def grad_distance(a, b):
+    """Relative L2 distance of two sets of tensors {name: tensor}, over
+    all their elements: |a - b| / |b|."""
+    num = sum(float((a[n].double() - b[n].double()).pow(2).sum()) for n in b)
+    den = sum(float(b[n].double().pow(2).sum()) for n in b)
+    return (num / den) ** 0.5
+
+
+@contextlib.contextmanager
+def graphs_kept():
+    """The CUDA graphs the executor captures in the body keep their
+    cudaGraph_t (``keep_graph``: instantiated at the first replay, which
+    the capture makes), for ``graph_flash_nodes``. Yields the list they
+    are appended to."""
+    real, kept = torch.cuda.CUDAGraph, []
+
+    def make(*args, **kwargs):
+        graph = real(*args, keep_graph=True, **kwargs)
+        graph.enable_debug_mode()
+        kept.append(graph)
+        return graph
+
+    torch.cuda.CUDAGraph = make
+    try:
+        yield kept
+    finally:
+        torch.cuda.CUDAGraph = real
+
+
+def graph_flash_nodes(graph):
+    """(forward, backward) flash kernel nodes of a graph kept by
+    ``graphs_kept``, and its kernel nodes, from its DOT dump
+    (cudaGraphDebugDotPrint): a replay launches each kernel node once."""
+    path = os.path.join(_build.BUILD_DIR, f"graph_{os.getpid()}.dot")
+    graph.debug_dump(path)
+    with open(path) as f:
+        text = f.read()
+    os.remove(path)
+    # a node's definition starts a line; an edge names two nodes
+    nodes = re.split(r'^"graph_\d+_node_\d+"\[', text, flags=re.M)[1:]
+    kernels = [n for n in nodes if 'label="{KERNEL' in n]
+    return (sum("flash_fwd_kernel" in n for n in kernels),
+            sum("flash_bwd_" in n for n in kernels)), len(kernels)
+
+
+def accumulation_path(smi):
+    """Phase 16(B): Transformer-base AMP (the fused build: no pass runs
+    under accumulation, as in the JAX package) through CompiledProgram
+    with gradient_accumulation_steps K = 1, 2 and 4 over batch 16 of full
+    length (equal token counts in every microbatch, so the mean of the
+    microbatch losses is the batch loss and the mean of their gradients
+    the batch gradient), 3 steps each: captured against eager bitwise
+    (deterministic mode); the accumulated mean gradient of step 1 (Adam's
+    moment1 after it, (1 - beta1) x the gradient) against K = 1's within
+    ACCUM_GRAD_REL, which a half batch's gradient must exceed; losses
+    within ACCUM_LOSS_REL; the flash wrappers' calls K times a step's
+    and a traced replay's kernels by name exact; a traced replay's device
+    time; peak memory. Returns the wrappers' calls."""
+    with unique_name.guard():
+        m = transformer.build(**MODEL)
+    m["startup"].random_seed = SEED
+    exe = pt.Executor()
+    init = pt.Scope()
+    exe.run(m["startup"], scope=init)
+    state = {n: init.find_var(n) for n in init.var_names()}
+    amp_main = mixed_precision.decorate(m["main"].clone())
+    cfg, loss_name = m["config"], m["loss"].name
+    feeds = []
+    for i in range(ACCUM_RUNS):
+        f = transformer.make_fake_batch(TRAIN_BATCH, cfg, seed=SEED + 700 + i)
+        feeds.append({k: f[k] for k in TRAIN_FEEDS})
+    params = [p.name for p in m["main"].all_parameters()]
+    moments = [v.name for v in amp_main.list_vars()
+               if v.persistable and "_moment1" in v.name]
+    if not moments:
+        raise AssertionError("16(B): no moment1 accumulator")
+    runs = {}
+    launches = [0, 0]
+    for k in ACCUM:
+        fa.launches = fa.bwd_launches = 0
+        bs = pt.BuildStrategy()
+        bs.gradient_accumulation_steps = k
+        target = pt.CompiledProgram(amp_main, build_strategy=bs)
+        arms = {}
+        with deterministic() as warned, graphs_kept() as graphs:
+            for arm in ("eager", "captured"):
+                scope = copy_state(state, exe.device)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                secs = []
+                with jit_cache(arm == "captured"):
+                    losses = []
+                    for f in feeds:
+                        t0 = time.perf_counter()
+                        losses += run_tensors(exe, target, feed=f,
+                                              fetch_list=[loss_name],
+                                              scope=scope)
+                        torch.cuda.synchronize()
+                        secs.append(time.perf_counter() - t0)
+                        if len(losses) == 1:
+                            first = {n: scope.find_var(n).clone()
+                                     for n in moments}
+                arms[arm] = dict(scope=scope, losses=losses, secs=secs,
+                                 moment1=first,
+                                 peak=torch.cuda.max_memory_allocated())
+        cap, eag = arms["captured"], arms["eager"]
+        label = f"16(B) K={k}"
+        hold(label, f"captured against eager, losses of {ACCUM_RUNS} steps",
+             max(map(distance, cap["losses"], eag["losses"])), 0.0)
+        hold(label, "captured against eager, persistables",
+             scope_distance(cap["scope"], eag["scope"])[0], 0.0)
+        if warned:
+            raise AssertionError(f"{label}: {warned}")
+        # the wrappers' calls of this K's eager arm and its capture
+        calls = (fa.launches, fa.bwd_launches)
+        # every microbatch of the eager arm's steps, and of the captured
+        # arm's warm-up and capture (on the card; every run elsewhere),
+        # passes through the wrappers: K times a step's launches
+        runs_in = ACCUM_RUNS + (2 if exe.device.type == "cuda"
+                                else ACCUM_RUNS)
+        want = (runs_in * k * FWD_PER_STEP, runs_in * k * BWD_PER_STEP)
+        launches = [a + b for a, b in zip(launches, calls)]
+
+        def replay():
+            exe.run(target, feed=feeds[0], fetch_list=[loss_name],
+                    scope=cap["scope"])
+
+        # the flash kernel nodes of the step's graph, exact: a trace of a
+        # replay has read one forward kernel short now and then (a trace
+        # shows that they run); the device time from a trace with the
+        # host's activity too (device_rows)
+        step = (k * FWD_PER_STEP, k * BWD_PER_STEP)
+        if exe.device.type == "cuda":
+            if len(graphs) != 1:
+                raise AssertionError(f"{label}: {len(graphs)} graphs "
+                                     "captured, want 1")
+            nodes, n_nodes = graph_flash_nodes(graphs[0])
+        else:  # no graph on the CPU: the rehearsal's eager step
+            nodes, n_nodes = step, None
+        with traced_launches() as counted:
+            replay()
+        traced = counted["traced"]
+        rows, busy = device_rows(replay)
+        also = (sum(r[2] for r in rows if "flash_fwd_kernel" in r[0]),
+                sum(r[2] for r in rows if "flash_bwd_" in r[0]))
+        log(f"{label}: losses " + ", ".join(
+            f"{float(x):.6f}" for x in cap["losses"]) + f"; eager steps "
+            + ", ".join(f"{s:.2f}" for s in eag["secs"]) + " s; captured: "
+            f"warm-up {cap['secs'][0]:.2f} s, capture {cap['secs'][1]:.2f} "
+            f"s, replay {cap['secs'][2] * 1e3:.1f} ms; flash wrapper calls "
+            f"{calls} (want {want}); the step's graph: flash kernel nodes "
+            f"{nodes} of {n_nodes} kernel nodes (want {step}); a traced "
+            f"replay: flash kernels {traced} by name, and in a trace with the "
+            f"host's activity {also}, {busy:.2f} ms of device time; peak "
+            f"memory captured {cap['peak'] / 2 ** 30:.2f} GiB, eager "
+            f"{eag['peak'] / 2 ** 30:.2f} GiB [{smi}]")
+        if calls != want or tuple(nodes) != step or not all(traced):
+            raise AssertionError(f"{label}: wrapper calls {calls}, want "
+                                 f"{want}; graph nodes {nodes}, want "
+                                 f"{step}; traced {traced}")
+        runs[k] = cap
+        del arms, eag
+        exe.close()
+        release()
+
+    # the control: K = 1 on the first half of step 1's batch (the first
+    # microbatch of K = 2), whose gradient the gate must tell apart
+    target = pt.CompiledProgram(amp_main, build_strategy=pt.BuildStrategy())
+    half = copy_state(state, exe.device)
+    with deterministic():
+        exe.run(target, feed={n: v[:TRAIN_BATCH // 2]
+                              for n, v in feeds[0].items()},
+                fetch_list=[loss_name], scope=half)
+    control = grad_distance({n: half.find_var(n) for n in moments},
+                            runs[1]["moment1"])
+    del half
+    exe.close()
+    # Adam moves an element by at most about lr_t a step (|m^/sqrt(v^)|
+    # <= 1.0 for betas 0.9 and 0.98 in the first steps), so two runs from
+    # one state part by at most the sum of both runs' rates, over the
+    # ACCUM_RUNS steps and the two traced replays; under accumulation the
+    # noam rate ops, of the forward role, run before the counter's
+    # increment and take the previous step's rate (0 at step 1), as in
+    # the JAX package; doubled for margin
+    bound = 2 * sum(noam_lr(t, MODEL["d_model"])
+                    + noam_lr(t - 1, MODEL["d_model"])
+                    for t in range(1, ACCUM_RUNS + 3))
+    log(f"16(B) control: K=1 on the first half of step 1's batch, its "
+        f"gradient (moment1) {control:.3e} from the whole batch's, "
+        f"relative L2 (bound {ACCUM_GRAD_REL:.3e} must fail it)")
+    if not control > ACCUM_GRAD_REL:
+        raise AssertionError(f"16(B): the half batch's gradient is "
+                             f"{control} from the batch's, within the "
+                             f"bound {ACCUM_GRAD_REL}")
+    for k in ACCUM[1:]:
+        rel = max(abs(float(a) - float(b)) / abs(float(b))
+                  for a, b in zip(runs[k]["losses"], runs[1]["losses"]))
+        grad = grad_distance(runs[k]["moment1"], runs[1]["moment1"])
+        worst = max(distance(runs[k]["scope"].find_var(n),
+                             runs[1]["scope"].find_var(n)) for n in params)
+        log(f"16(B) K={k} against K=1: the mean gradient of step 1 "
+            f"(moment1) within {grad:.3e} relative L2 (bound "
+            f"{ACCUM_GRAD_REL:.3e}); losses of {ACCUM_RUNS} steps within "
+            f"{rel:.3e} relative (bound {ACCUM_LOSS_REL:.1e}); parameters "
+            f"after {ACCUM_RUNS + 2} steps within {worst:.3e} (bound "
+            f"{bound:.3e}, twice the rates of both runs)")
+        if not (grad <= ACCUM_GRAD_REL and rel <= ACCUM_LOSS_REL
+                and worst <= bound):
+            raise AssertionError(f"16(B) K={k}: gradient {grad}, loss "
+                                 f"{rel}, parameters {worst}")
+    del runs
+    release()
+    return tuple(launches)
+
+
+def dropout_path(smi):
+    """Phase 16(C): Transformer-base widths at 2 + 2 layers with dropout
+    0.1 (every attention the dense chain), bf16 AMP, on a plain
+    Executor under the deterministic mode. Returns the flash wrappers'
+    calls over the path's runs, (0, 0), and checks a traced replay's
+    flash kernels, none."""
+    fa.launches = fa.bwd_launches = 0
+    with unique_name.guard():
+        m = transformer.build(**DROPOUT_MODEL)
+    m["startup"].random_seed = m["main"].random_seed = SEED
+    types = [o.type for o in m["main"].global_block().desc.ops]
+    if "flash_attention" in types or "dropout" not in types:
+        raise AssertionError("16(C): the dropout build has a flash op or "
+                             "no dropout")
+    exe = pt.Executor()
+    init = pt.Scope()
+    exe.run(m["startup"], scope=init)
+    state = {n: init.find_var(n) for n in init.var_names()}
+    main = mixed_precision.decorate(m["main"].clone())
+    cfg, loss_name = m["config"], m["loss"].name
+    p = DROPOUT_MODEL["dropout_rate"]
+    op = next(o for o in main.global_block().desc.ops if o.type == "dropout")
+    mask_name = op.output("Mask")[0]
+    x_grad = op.input("X")[0] + "@GRAD"
+    out_grad = op.output("Out")[0] + "@GRAD"
+    feeds = [train_batch(cfg, TRAIN_BATCH, SEED + 800 + i)
+             for i in range(DROPOUT_STEPS)]
+    fetch = [loss_name, mask_name, x_grad, out_grad]
+    label = "16(C)"
+    with deterministic() as warned:
+        scope = copy_state(state, exe.device)
+        stats0 = dict(exe.capture_stats)
+        got = [run_tensors(exe, main, feed=f, fetch_list=fetch, scope=scope)
+               for f in feeds[:4]]
+        if (exe.device.type == "cuda"
+                and exe.capture_stats["captures"] - stats0["captures"] != 1):
+            raise AssertionError(f"{label}: {exe.capture_stats}")
+        n = got[0][1].numel()
+        sigma = (p * (1 - p) / n) ** 0.5
+        rates = [float(g[1].float().mean()) for g in got]
+        log(f"{label}: {types.count('dropout')} dropout ops; the embedding "
+            f"dropout's keep rate over {n} elements in 4 runs (warm-up, "
+            f"capture, 2 replays): " + ", ".join(f"{r:.6f}" for r in rates)
+            + f" (want {1 - p} within {DROPOUT_SIGMAS} sigma = "
+            f"{DROPOUT_SIGMAS * sigma:.2e})")
+        if any(abs(r - (1 - p)) > DROPOUT_SIGMAS * sigma for r in rates):
+            raise AssertionError(f"{label}: keep rates {rates}")
+        same = [i for i in range(1, 4) for j in range(i)
+                if torch.equal(got[i][1], got[j][1])]
+        hold(label, "runs whose mask repeats an earlier run's (each replay "
+             "draws a fresh one)", float(len(same)), 0.0)
+        gd = max(distance(g[2], (g[3] * g[1].to(g[3].dtype)) / (1.0 - p))
+                 for g in got)
+        hold(label, "X@GRAD against Out@GRAD * Mask / (1 - p) of the same "
+             "run (the grad reads the forward's mask)", gd, 0.0)
+
+        # a restored generator state continues the stream through the
+        # graph already captured (every run below replays it: one plan,
+        # one fetch list)
+        gen = scope._generators[str(exe.device)]
+        saved = gen.get_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = [run_tensors(exe, main, feed=f, fetch_list=fetch,
+                             scope=scope)[1] for f in feeds[4:6]]
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3 / 2
+        gen.set_state(saved)
+        again = [run_tensors(exe, main, feed=f, fetch_list=fetch,
+                             scope=scope)[1] for f in feeds[4:6]]
+        hold(label, "masks of 2 replays after set_state(saved state) "
+             "against the 2 replays after get_state", max(
+                 map(distance, first, again)), 0.0)
+
+        # a checkpoint restored in place into the captured scope: the
+        # graph stays, and the next steps repeat the steps after the save
+        d = tempfile.mkdtemp(prefix="chip_smoke_dropout_",
+                             dir=_build.BUILD_DIR)
+        try:
+            caps = exe.capture_stats["captures"]
+            pt.io.save_checkpoint(exe, os.path.join(d, "inplace"), 1,
+                                  main_program=main, scope=scope)
+            after = [run_tensors(exe, main, feed=f, fetch_list=fetch,
+                                 scope=scope)[0] for f in feeds[6:8]]
+            pt.io.load_checkpoint(exe, os.path.join(d, "inplace"),
+                                  main_program=main, scope=scope)
+            redo = [run_tensors(exe, main, feed=f, fetch_list=fetch,
+                                scope=scope)[0] for f in feeds[6:8]]
+            hold(label, "2 steps after load_checkpoint (in place) against "
+                 "the 2 steps after the save", max(map(distance, after,
+                                                       redo)), 0.0)
+            if exe.capture_stats["captures"] != caps:
+                raise AssertionError(f"{label}: {exe.capture_stats}: a "
+                                     "capture after the first (the in-place "
+                                     "restore dropped the graph)")
+
+            # ElasticTrainer: uninterrupted; cut after step 6 (its
+            # checkpoint at 4); resumed with a fresh scope and executor
+            def trainer(e, ckpt, sc):
+                return pt.elastic.ElasticTrainer(
+                    e, ckpt, main_program=main, scope=sc,
+                    save_every_steps=DROPOUT_EVERY,
+                    install_signal_handler=False)
+
+            ref, cut, resumed = {}, {}, {}
+
+            def record(into, stop=None):
+                def on_step(s, o):
+                    into[s] = float(np.asarray(o[0]).reshape(-1)[0]).hex()
+                    if s == stop:
+                        raise KeyboardInterrupt  # the process dies here
+                return on_step
+
+            ref_scope = copy_state(state, exe.device)
+            tr = trainer(exe, os.path.join(d, "ref"), ref_scope)
+            tr.run(iter(feeds), fetch_list=[loss_name], on_step=record(ref))
+            tr.close()
+            tr = trainer(exe, os.path.join(d, "cut"),
+                         copy_state(state, exe.device))
+            try:
+                tr.run(iter(feeds), fetch_list=[loss_name],
+                       on_step=record(cut, DROPOUT_STEPS - 2))
+            except KeyboardInterrupt:
+                tr._ckpt.wait()
+            tr.close()
+            exe2, scope2 = pt.Executor(), copy_state(state, exe.device)
+            tr = trainer(exe2, os.path.join(d, "cut"), scope2)
+            start = tr.restore()
+            tr.run(iter(feeds[start:]), fetch_list=[loss_name],
+                   on_step=record(resumed))
+            tr.close()
+        finally:
+            import shutil
+            shutil.rmtree(d, ignore_errors=True)
+        differ = [s for s in resumed if resumed[s] != ref[s]]
+        sd = scope_distance(scope2, ref_scope)[0]
+        log(f"{label}: ElasticTrainer cut after step {DROPOUT_STEPS - 2}, "
+            f"resumed from step {start} in a fresh scope and executor: "
+            f"steps {sorted(resumed)} against the uninterrupted run, "
+            f"{len(differ)} losses differ; persistables {sd:.3e} apart")
+        if start != DROPOUT_EVERY or differ or sd or \
+                sorted(resumed) != list(range(start + 1, DROPOUT_STEPS + 1)):
+            raise AssertionError(f"{label}: resume from {start}: {differ}, "
+                                 f"{sd}")
+    if warned:
+        raise AssertionError(f"{label}: {warned}")
+    log(f"{label}: a captured step {replay_ms:.2f} ms (mean of 2); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        f"[{smi}]")
+    calls = no_flash(label, lambda: run_tensors(
+        exe, main, feed=feeds[0], fetch_list=fetch, scope=scope))
+    exe.close()
+    exe2.close()
+    return calls
+
+
+def no_flash(label, replay):
+    """The flash wrappers' calls since they were last zeroed, which must
+    be (0, 0), and a traced ``replay`` with no flash kernel. Returns the
+    calls."""
+    calls = (fa.launches, fa.bwd_launches)
+    log(f"  {label}: flash wrapper calls over the path's runs {calls}")
+    if calls != (0, 0):
+        raise AssertionError(f"{label}: flash wrapper calls {calls}, want "
+                             "(0, 0)")
+    with traced_launches() as counted:
+        replay()
+    check_launches(f"{label}, a traced replay", counted, (0, 0))
+    return calls
+
+
+def loader_path(smi):
+    """Phase 16(D): ResNet-50 AMP at batch 128 through CompiledProgram
+    (bench BuildStrategy), fed by numpy feed dicts against a DataLoader
+    over the same batches: bitwise the same losses (deterministic mode),
+    then both in turns, with each arm's device time and idle share.
+    Returns the flash wrappers' calls over the path's runs, (0, 0), and
+    checks a traced replay's flash kernels, none."""
+    fa.launches = fa.bwd_launches = 0
+    with unique_name.guard():
+        m = resnet.build(dataset="flowers", depth=50,
+                         class_dim=RESNET_CLASSES,
+                         image_shape=list(RESNET_IMAGE), lr=0.1)
+    m["startup"].random_seed = SEED
+    exe = pt.Executor()
+    init = pt.Scope()
+    exe.run(m["startup"], scope=init)
+    state = {n: init.find_var(n) for n in init.var_names()}
+    amp_main = mixed_precision.decorate(m["main"].clone())
+    target = pt.CompiledProgram(amp_main,
+                                build_strategy=bench_build_strategy())
+    loss_name = m["loss"].name
+    batches = [resnet_batch(RESNET_BATCH, SEED + 900 + i)
+               for i in range(LOADER_BATCHES)]
+    blk = amp_main.global_block()
+    label = "16(D)"
+
+    def arms():
+        loader = pt.reader.DataLoader([blk.var("data"), blk.var("label")],
+                                      capacity=2, device=exe.device)
+        loader.set_batch_generator(lambda: iter(batches))
+
+        def forever():
+            while True:
+                yield from loader
+
+        it = forever()
+        s1 = copy_state(state, exe.device)
+        s2 = copy_state(state, exe.device)
+        return [("feed dict", lambda i: run_tensors(
+                    exe, target, feed=batches[i % LOADER_BATCHES],
+                    fetch_list=[loss_name], scope=s1)[0]),
+                ("DataLoader", lambda i: run_tensors(
+                    exe, target, feed=next(it), fetch_list=[loss_name],
+                    scope=s2)[0])]
+
+    with deterministic() as warned:
+        check = arms()
+        losses = [[fn(i) for i in range(3)] for _, fn in check]
+    hold(label, "3 steps fed by the DataLoader against feed dicts, losses "
+         "(warm-up, capture, replay)", max(map(distance, *losses)), 0.0)
+    if warned:
+        raise AssertionError(f"{label}: {warned}")
+    del check
+    turns = arms()
+    for _, fn in turns:
+        for i in range(2):  # warm-up and capture
+            fn(i)
+    med = in_turns([(n, lambda i, fn=fn: float(fn(i))) for n, fn in turns],
+                   list(range(LOADER_ROUNDS)), start=1)
+    busy = [device_rows(lambda fn=fn: float(fn(0)))[1] for _, fn in turns]
+    log(f"{label}: ResNet-50 AMP at batch {RESNET_BATCH} "
+        f"({RESNET_BATCH * int(np.prod(RESNET_IMAGE)) * 4 / 1e6:.1f} MB "
+        f"fp32 images a step), {LOADER_ROUNDS} rounds in turns, medians of "
+        f"rounds 1-{LOADER_ROUNDS - 1}: " + ", ".join(
+            f"{n} {ms:.2f} ms ({RESNET_BATCH / ms * 1e3:.1f} images/s; one "
+            f"traced step {b:.2f} ms of device time, the card idle "
+            f"{max(0.0, 1 - b / ms):.1%})"
+            for (n, _), ms, b in zip(turns, med, busy))
+        + f"; the DataLoader {med[0] / med[1]:.3f}x [{smi}]")
+    calls = no_flash(label, lambda: float(turns[1][1](0)))
+    exe.close()
+    return calls
+
+
+def py_reader_path():
+    """Phase 16(D), the program-level reader: a regression trained through
+    ``py_reader``/``read_file`` (the ``read`` host op splits the plan;
+    the device segment after it captures and replays) against the same
+    steps fed as dicts, bitwise; EOF after the last batch. Returns the
+    flash wrappers' calls over its runs, (0, 0), and checks a traced
+    replay's flash kernels, none."""
+    fa.launches = fa.bwd_launches = 0
+    def build(feeds):
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = SEED
+        with unique_name.guard(), pt.program_guard(main, startup):
+            if feeds:
+                reader = None
+                x = pt.layers.data("x", shape=[256])
+                y = pt.layers.data("y", shape=[1])
+            else:
+                reader = pt.layers.py_reader(
+                    capacity=4, shapes=[[-1, 256], [-1, 1]],
+                    dtypes=["float32", "float32"], name="chip_reader")
+                x, y = pt.layers.read_file(reader)
+            h = pt.layers.fc(x, size=512, act="relu")
+            loss = pt.layers.mean(pt.layers.square_error_cost(
+                pt.layers.fc(h, size=1), y))
+            pt.optimizer.SGD(learning_rate=0.01).minimize(loss)
+        return main, startup, reader, loss
+
+    rng = np.random.RandomState(SEED)
+    data = [(rng.rand(64, 256).astype(np.float32),
+             rng.rand(64, 1).astype(np.float32)) for _ in range(6)]
+    exe = pt.Executor()
+    main, startup, reader, loss = build(False)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    reader.decorate_batch_generator(lambda: iter(data))
+    caps = dict(exe.capture_stats)
+    got = []
+    with deterministic() as warned, pt.scope_guard(scope):
+        reader.start()
+        while True:
+            try:
+                got += run_tensors(exe, main, fetch_list=[loss])
+            except pt.core.EOFException:
+                reader.reset()
+                break
+        fmain, fstart, _, floss = build(True)
+        fscope = pt.Scope()
+        exe.run(fstart, scope=fscope)
+        want = [run_tensors(exe, fmain, feed={"x": x, "y": y},
+                            fetch_list=[floss], scope=fscope)[0]
+                for x, y in data]
+    kinds = [k for k, _ in next(iter(main.__dict__["_exec_cache"].values()))
+             .segments]
+    made = exe.capture_stats["captures"] - caps["captures"]
+    log(f"  16(D) py_reader: {len(got)} steps then EOF; segments {kinds}; "
+        f"{made} captures for both programs")
+    hold("16(D) py_reader", "losses against the same steps fed as dicts",
+         max(map(distance, got, want)) if len(got) == len(want) else
+         float("inf"), 0.0)
+    if kinds != ["host", "device"] or warned or (
+            exe.device.type == "cuda" and made != 2):
+        raise AssertionError(f"16(D) py_reader: segments {kinds}, "
+                             f"{made} captures, {warned}")
+
+    def replay():
+        with pt.scope_guard(scope):
+            reader.start()
+            run_tensors(exe, main, fetch_list=[loss])
+            reader.reset()
+
+    calls = no_flash("16(D) py_reader", replay)
+    exe.close()
+    return calls
+
+
+def runtime_paths(smi):
+    """Phase 16; returns the flash launches of its paths."""
+    t0 = time.perf_counter()
+    out = {"elastic_training": elastic_path(smi)}
+    release()
+    t1 = time.perf_counter()
+    out["grad_accumulation"] = accumulation_path(smi)
+    release()
+    t2 = time.perf_counter()
+    out["dropout"] = dropout_path(smi)
+    release()
+    t3 = time.perf_counter()
+    out["data_loader"] = tuple(a + b for a, b in zip(loader_path(smi),
+                                                     py_reader_path()))
+    release()
+    log(f"16: (A) {t1 - t0:.1f} s, (B) {t2 - t1:.1f} s, (C) {t3 - t2:.1f} "
+        f"s, (D) {time.perf_counter() - t3:.1f} s")
+    return out
+
+
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
     args.add_argument("--kernels", action="store_true",
                       help="phases 1-4 only, then the kernels line and no "
                       "contract line")
+    # one process of phase 16(A), started by the phase itself
+    args.add_argument("--elastic-child", nargs=3, help=argparse.SUPPRESS,
+                      metavar=("ROLE", "CKPT", "OUT"))
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.elastic_child:
+        elastic_child(*args.elastic_child)
+        return 0
     # cuBLAS's deterministic workspace, for phase 11's bitwise gates; read
     # when the first cuBLAS handle is made
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4283,6 +5260,11 @@ def main(argv=None):
                   "paged with prefix reuse and dense) and beam search (the "
                   "machine-translation decode, its While captured)")
             paths.update(predictor_and_beam_paths(smi)[0])
+            release()
+            phase("the runtime around the training step: ElasticTrainer "
+                  "with async cadence checkpoints, SIGKILL and resume, "
+                  "SIGTERM; gradient accumulation; dropout; the DataLoader")
+            paths.update(runtime_paths(smi))
             release()
 
     def bert_shape(rows, errors, per_step):

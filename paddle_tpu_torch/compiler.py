@@ -7,6 +7,9 @@ ir/pipeline.py: ``fuse_attention_ops``, ``memory_optimize``,
 ``fuse_elewise_add_act_ops``, ``fuse_all_optimizer_ops`` and
 ``fuse_conv_ops``. The executor runs them on the live op list and
 memoizes the result per program version, fetch names and flags.
+``gradient_accumulation_steps`` M > 1 runs each step as M microbatches
+with one optimizer update (executor.py, ``_Accumulation``); no pass runs
+then, as in the JAX package.
 
 Knobs whose machinery is not ported raise ``NotImplementedError`` naming
 the ROADMAP item that ports it, when the program runs (or, for the
@@ -58,7 +61,7 @@ class BuildStrategy:
         self.enable_inplace = True
         self.num_trainers = 1
         self.trainer_id = 0
-        self.gradient_accumulation_steps = 1    # ROADMAP A8
+        self.gradient_accumulation_steps = 1    # executor.py _Accumulation
 
 
 class ExecutionStrategy:
@@ -107,7 +110,3 @@ class CompiledProgram:
         if getattr(bs, "auto_parallel", False):
             raise NotImplementedError(
                 f"BuildStrategy.auto_parallel waits for {_A12}")
-        if int(getattr(bs, "gradient_accumulation_steps", 1) or 1) > 1:
-            raise NotImplementedError(
-                "BuildStrategy.gradient_accumulation_steps > 1 waits for "
-                "ROADMAP A8 (the runtime around the step)")

@@ -114,6 +114,13 @@ def dtype_to_torch(dtype) -> torch.dtype:
     return _DTYPE_TO_TORCH[convert_dtype(dtype)]
 
 
+def dtype_to_str(dtype) -> str:
+    dtype = convert_dtype(dtype)
+    if dtype == DataType.BF16:
+        return "bfloat16"
+    return dtype_to_numpy(dtype).name
+
+
 def dtype_to_numpy(dtype):
     """DataType -> numpy dtype. bfloat16 has none: use dtype_to_torch."""
     dtype = convert_dtype(dtype)

@@ -73,6 +73,24 @@ steps in one plan (one graph holds all K, step k reading slice k), with
 fetches stacked [K, ...]; a block with host ops takes K single-step runs
 instead, with a warning (``fuse_fallbacks`` counts them).
 
+Gradient accumulation (``BuildStrategy.gradient_accumulation_steps`` or
+``program._gradient_accumulation_steps`` M > 1; the JAX package's
+BatchMergePass analog, reference ir/multi_batch_merge_pass.h): a device
+segment holding optimizer ops splits at the optimizer boundary (ops of the
+OPTIMIZE or LRSCHED role run once per step); its forward and backward run
+M times, on the M microbatches of each feed's batch axis (a batch not
+divisible by M raises); the first microbatch's gradients start the sums,
+state written by the forward (batch_norm's statistics) threads from one
+microbatch to the next, and the optimizer runs once on the mean
+gradients. A fetch the forward makes is the mean over the microbatches
+(the last one for an integer). The pass pipeline does not run on such a
+program, as in the JAX package. On the card the M microbatches are
+unrolled in the segment's one graph: the allocator reuses a microbatch's
+temporaries for the next inside the graph's pool, so the peak holds one
+microbatch's activations and the gradient sums, and a step is one replay
+(an f+b graph replayed M times would add M launches and a host loop per
+step for no smaller peak).
+
 ``Executor()`` with no place runs on ``CUDAPlace(0)`` and raises when
 there is no CUDA device; the host runs only when the caller passes
 ``CPUPlace()``.
@@ -94,7 +112,8 @@ import torch
 from . import registry
 from .compiler import CompiledProgram
 from .core.desc import OpDesc
-from .core.types import dtype_to_torch
+from .core.types import (OP_ROLE_ATTR_NAME, OP_ROLE_VAR_ATTR_NAME, OpRole,
+                         dtype_to_torch)
 from .framework import Block, Variable, default_main_program
 from .ir import pipeline
 from .place import CUDAPlace, Place
@@ -402,6 +421,15 @@ def _write_state(scope: Scope, names, env: Dict[str, Any],
             scope.set_var(n, val)
 
 
+def _accum_steps(program, build_strategy) -> int:
+    """The microbatches of a step: the BuildStrategy's
+    ``gradient_accumulation_steps`` or the program's
+    ``_gradient_accumulation_steps``, whichever is larger."""
+    return max(1, int(getattr(build_strategy, "gradient_accumulation_steps",
+                              1) or 1),
+               int(getattr(program, "_gradient_accumulation_steps", 1) or 1))
+
+
 def _fetch_names(fetch_list) -> List[str]:
     return [f.name if isinstance(f, Variable) else str(f)
             for f in (fetch_list or [])]
@@ -463,6 +491,7 @@ class _Segment:
         self.outputs = outputs      # fetched or read by later segments
         self.needs_rng = needs_rng
         self.consts: Dict[int, torch.Tensor] = {}
+        self.accum: Optional[_Accumulation] = None
         self.drop_graph()
 
     def drop_graph(self):
@@ -478,6 +507,89 @@ class _Segment:
             if scope.find_var(n) is not ref():
                 return True
         return False
+
+
+def _is_post_op(op: OpDesc) -> bool:
+    """An op past the optimizer boundary: it runs once per accumulated
+    step."""
+    role = int(op.attrs.get(OP_ROLE_ATTR_NAME, 0) or 0)
+    return bool(role & int(OpRole.OPTIMIZE) or role & int(OpRole.LRSCHED))
+
+
+class _Accumulation:
+    """How one device segment accumulates over ``steps`` microbatches:
+    its forward+backward ops and the ops after the optimizer boundary,
+    the inputs split on their batch axis, the gradients summed, the
+    values carried from one microbatch to the next and the fetches the
+    forward makes."""
+
+    def __init__(self, steps: int, ops: List[OpDesc], inputs, block: Block,
+                 state_out, outputs, fetch_names):
+        self.steps = steps
+        self.post_ops = [op for op in ops if _is_post_op(op)]
+        self.fb_ops = [op for op in ops if not _is_post_op(op)]
+        fb_written = {n for op in self.fb_ops
+                      for n in op.output_arg_names() if n}
+        # a feed whose declared leading dim is static is a loop constant
+        self.split = []
+        for n in inputs:
+            d = block.vars[n].desc if block.has_var(n) else None
+            if d is None or not d.shape or d.shape[0] is None \
+                    or d.shape[0] < 0:
+                self.split.append(n)
+        self.grads = sorted({g for op in ops for g in
+                             (op.attrs.get(OP_ROLE_VAR_ATTR_NAME)
+                              or [])[1::2] if g in fb_written})
+        post_reads = {n for op in self.post_ops
+                      for n in op.input_arg_names() if n}
+        self.fetches = [n for n in fetch_names if n in fb_written]
+        self.carry = sorted(
+            n for n in fb_written
+            if (n in state_out or n in post_reads
+                or (n in outputs and n not in self.fetches))
+            and n not in self.grads)
+
+    def run(self, step: Dict[str, Any], ctx: EmitContext) -> Dict[str, Any]:
+        """One accumulated step on the inputs in ``step`` (the optimizer's
+        results bound into it); returns the forward's fetches, each the
+        mean over the microbatches (the last one for an integer)."""
+        m = self.steps
+        micro = {}
+        for n in self.split:
+            v = step[n]
+            if v.dim() == 0:
+                continue
+            if v.shape[0] % m:
+                raise ValueError(
+                    f"gradient accumulation: feed {n!r} batch dim "
+                    f"{tuple(v.shape)} not divisible by accum={m}")
+            micro[n] = v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+        const = {n: v for n, v in step.items() if n not in micro}
+        sums: Dict[str, Any] = {}
+        carry: Dict[str, Any] = {}
+        fetched: Dict[str, List[Any]] = {n: [] for n in self.fetches}
+        for i in range(m):
+            env = dict(const)
+            env.update(carry)
+            env.update((n, v[i]) for n, v in micro.items())
+            run_ops(self.fb_ops, env, ctx)
+            for n in self.grads:
+                sums[n] = env[n] if i == 0 else sums[n] + env[n]
+            carry = {n: env[n] for n in self.carry if n in env}
+            for n in self.fetches:
+                fetched[n].append(env[n])
+            del env  # its temporaries go before the next microbatch's
+        step.update(carry)
+        for n in self.grads:
+            step[n] = sums[n] / m
+        means = {}
+        for n, vals in fetched.items():
+            means[n] = (torch.stack(vals).mean(dim=0)
+                        if vals[0].is_floating_point() else vals[-1])
+            if n not in self.carry:
+                step[n] = means[n]
+        run_ops(self.post_ops, step, ctx)
+        return means
 
 
 class _Plan:
@@ -497,11 +609,12 @@ class _Plan:
 
 
 def _make_plan(ops: List[OpDesc], feed_names, fetch_names, block: Block,
-               scope: Scope) -> _Plan:
+               scope: Scope, accum: int = 1) -> _Plan:
     """Split ``ops`` at host ops and analyse each device segment: the
     names it reads before writing, from the run (feeds, earlier
     segments) or from the scope, the persistables it writes and the
-    values later segments or the fetches take from it."""
+    values later segments or the fetches take from it; with ``accum``
+    > 1, how a segment holding optimizer ops accumulates."""
     split = _split_segments(ops)
     available = set(feed_names)
     segments = []
@@ -535,8 +648,13 @@ def _make_plan(ops: List[OpDesc], feed_names, fetch_names, block: Block,
         state_out = [n for n in written if _is_persistable(block, n)]
         outputs = [n for n in written
                    if n in later_reads or n in fetch_names]
-        segments.append(("device", _Segment(seg_ops, inputs, state_in,
-                                            state_out, outputs, needs_rng)))
+        seg = _Segment(seg_ops, inputs, state_in, state_out, outputs,
+                       needs_rng)
+        if accum > 1 and any(_is_post_op(op) for op in seg_ops) \
+                and not all(_is_post_op(op) for op in seg_ops):
+            seg.accum = _Accumulation(accum, seg_ops, inputs, block,
+                                      state_out, outputs, fetch_names)
+        segments.append(("device", seg))
         available.update(written)
     return _Plan(segments, scope)
 
@@ -569,7 +687,8 @@ class Executor:
         program, build_strategy = self._unwrap(program)
         with self._lock:
             return self._prepare(program, build_strategy,
-                                 _fetch_names(fetch_list))
+                                 _fetch_names(fetch_list),
+                                 _accum_steps(program, build_strategy))
 
     @staticmethod
     def _unwrap(program):
@@ -587,18 +706,23 @@ class Executor:
                 "ROADMAP A14")
         return program, build_strategy
 
-    def _flags(self, build_strategy):
+    def _flags(self, build_strategy, accum=1):
+        """The pass groups a run takes: none under gradient accumulation
+        (the JAX package's rule), whose split at the optimizer boundary
+        the rewrites would have to respect."""
+        if accum > 1:
+            return ()
         return pipeline.effective_flags(pipeline.fingerprint(build_strategy),
                                         self.device.type)
 
-    def _prepare(self, program, build_strategy, fetch_names):
+    def _prepare(self, program, build_strategy, fetch_names, accum=1):
         """The op list of a run: block 0's live ops, rewritten by the
         pipeline (memoized) when the BuildStrategy selects passes."""
         block = program.global_block()
         ops = _live_ops([op for op in block.desc.ops
                          if op.type not in ("feed", "fetch")],
                         fetch_names, block)
-        flags = self._flags(build_strategy)
+        flags = self._flags(build_strategy, accum)
         if not flags:
             return ops
         memo = program.__dict__.setdefault("_pass_memo", {})
@@ -625,21 +749,23 @@ class Executor:
         """The cached plan of this run's key (made on a miss), or a plan
         for this run alone when ``FLAGS.jit_cache`` is off."""
         block = program.global_block()
-        flags = self._flags(build_strategy)
+        accum = _accum_steps(program, build_strategy)
+        flags = self._flags(build_strategy, accum)
         signature = tuple(sorted(
             (n, tuple(np.shape(_unwrap_fetch_handle(v))),
              str(_feed_dtype(n, _unwrap_fetch_handle(v), block)))
             for n, v in feed.items()))
         key = (program._version, tuple(fetch_names), flags, signature,
-               iterations, program._amp, str(self.device), scope._token)
+               iterations, accum, program._amp, str(self.device),
+               scope._token)
         cache = program.__dict__.setdefault("_exec_cache", {})
         plan = cache.get(key) if FLAGS.jit_cache else None
         if plan is not None:
             if flags:
                 self.pipeline_stats["memo_hits"] += 1
             return plan
-        ops = self._prepare(program, build_strategy, fetch_names)
-        plan = _make_plan(ops, list(feed), fetch_names, block, scope)
+        ops = self._prepare(program, build_strategy, fetch_names, accum)
+        plan = _make_plan(ops, list(feed), fetch_names, block, scope, accum)
         if FLAGS.jit_cache:
             # plans of scopes that are gone cannot run again: drop them
             for k in [k for k, p in cache.items() if p.scope_ref() is None]:
@@ -775,11 +901,15 @@ class Executor:
         for k in range(iterations):
             step = {n: (env[n][k] if iterations > 1 else env[n])
                     for n in seg.inputs}
-            run_ops(seg.ops, step, ctx)
+            fetched = {}
+            if seg.accum is not None:
+                fetched = seg.accum.run(step, ctx)
+            else:
+                run_ops(seg.ops, step, ctx)
             missing = [n for n in seg.outputs if n not in step]
             if missing:
                 raise KeyError(f"{missing} not computed by this run")
-            outs = detach({n: step[n] for n in seg.outputs})
+            outs = detach({n: fetched.get(n, step[n]) for n in seg.outputs})
             _write_state(scope, seg.state_out, step, capturing)
             per_step.append(detach(outs))
         if iterations == 1:

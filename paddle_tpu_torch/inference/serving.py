@@ -90,6 +90,7 @@ import torch
 
 from .. import executor as _executor
 from ..core.types import dtype_to_numpy
+from ..staging import PinnedStaging
 from ..testing import faults as _faults
 
 __all__ = ["DEFAULT_BATCH_BUCKETS", "BucketLadder", "BucketedPredictor",
@@ -231,52 +232,6 @@ def _wait(tensors: Sequence[torch.Tensor]):
             return
 
 
-class _Staging:
-    """The card's feed path of one predictor: per (bucket, feed name) two
-    pinned host buffers used in turns, each with the event of its last
-    copy to the card, and one copy stream."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
-        self.buffers: Dict[Tuple[str, str], list] = {}
-        self.lock = threading.Lock()
-
-    def stage(self, key: str, name: str, value: np.ndarray,
-              shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
-        """``value`` zero-padded to ``shape`` in the next buffer of
-        (key, name), sent to the card on the copy stream; the current
-        stream waits for that copy. Returns the device tensor."""
-        with self.lock:
-            ring = self.buffers.get((key, name))
-            if ring is None:
-                ring = self.buffers[key, name] = [
-                    [torch.empty(shape, dtype=dtype, pin_memory=True),
-                     torch.cuda.Event()] for _ in range(2)] + [0]
-            slot = ring[ring[2]]
-            ring[2] ^= 1
-            buf, done = slot
-            # the buffer's previous copy must have left before it is
-            # rewritten (a fresh event has recorded nothing and returns)
-            done.synchronize()
-            src = torch.from_numpy(np.ascontiguousarray(value))
-            region = buf[tuple(slice(0, n) for n in src.shape)]
-            region.copy_(src)
-            # the pad: every element outside the request's extent
-            for d, n in enumerate(src.shape):
-                if n < shape[d]:
-                    buf[tuple([slice(0, m) for m in src.shape[:d]]
-                              + [slice(n, None)])].zero_()
-            with torch.cuda.stream(self.stream):
-                dev = buf.to(self.device, non_blocking=True)
-                done.record(self.stream)
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(done)
-            # made on the copy stream, read on the compute stream
-            dev.record_stream(compute)
-        return dev
-
-
 class BucketedPredictor:
     """Shape-bucketing wrapper around a Native/Analysis predictor.
 
@@ -324,10 +279,10 @@ class BucketedPredictor:
         self._lock = threading.Lock()
         self._staging = self._new_staging()
 
-    def _new_staging(self) -> Optional[_Staging]:
+    def _new_staging(self) -> Optional[PinnedStaging]:
         device = getattr(self._base, "device", None)
         if device is not None and device.type == "cuda":
-            return _Staging(device)
+            return PinnedStaging(device, depth=2)
         return None
 
     # -- predictor surface ------------------------------------------------
@@ -437,7 +392,7 @@ class BucketedPredictor:
         pinned staging buffers of the cell (device tensors), on the host
         with numpy."""
         block = self._program.global_block()
-        padded = {}
+        padded, items = {}, []
         for n, v in feed.items():
             shape = list(v.shape)
             shape[0] = bucket
@@ -449,9 +404,12 @@ class BucketedPredictor:
                     p = _pad_dim(p, self._seq_dim, seq_b)
                 padded[n] = p
             else:
-                padded[n] = self._staging.stage(
-                    key, n, v, tuple(shape),
-                    _executor._feed_dtype(n, v, block))
+                items.append(((key, n), v, shape,
+                              _executor._feed_dtype(n, v, block)))
+        if items:
+            tensors, done = self._staging.stage(items)
+            self._staging.hand_off(tensors, done)
+            padded.update(zip((i[0][1] for i in items), tensors))
         return padded
 
     def _run_chunk(self, feed: Dict[str, np.ndarray], rows: int,

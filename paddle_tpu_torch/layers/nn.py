@@ -20,6 +20,7 @@ __all__ = [
     "logical_not", "sequence_mask", "fused_attention", "matmul", "softmax",
     "unsqueeze", "slice", "gather", "cast", "conv2d", "pool2d",
     "batch_norm", "cross_entropy", "accuracy", "topk", "mean", "concat",
+    "dropout", "square_error_cost",
     "kv_cache_write", "kv_cache_gather_paged", "kv_cache_write_paged",
     "split", "expand", "sequence_pool", "sequence_softmax", "beam_search",
     "beam_search_decode",
@@ -478,6 +479,32 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                "is_test": is_test, "data_layout": data_layout,
                "use_global_stats": use_global_stats})
     return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Drop elements of ``x`` with probability ``dropout_prob``; the uint8
+    keep mask is the op's ``Mask`` output, which its grad reads."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8",
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": x},
+        outputs={"Out": out, "Mask": mask},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed or 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, elementwise."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": input, "Y": label}, outputs={"Out": out})
+    return out
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):

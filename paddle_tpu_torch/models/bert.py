@@ -22,8 +22,8 @@ from .. import layers, optimizer
 from ..framework import Program, program_guard
 from ..initializer import NormalInitializer
 from ..layer_helper import ParamAttr
-from .transformer import (_no_dropout, check_attention_impl,
-                          multi_head_attention, positionwise_feed_forward)
+from .transformer import (check_attention_impl, multi_head_attention,
+                          positionwise_feed_forward)
 
 
 def encoder_layer(x, n_head, d_key, d_value, d_model, d_inner_hid,
@@ -49,13 +49,18 @@ def build(vocab_size=30522, max_len=128, max_masked=20, n_layer=12,
     """BERT programs: ``main`` (forward, loss and, with ``is_train``, the
     backward and the Adam update), ``startup`` and ``test`` (the clone
     before the optimizer), with ``loss``, ``mlm_loss``, ``nsp_loss``,
-    ``feeds`` and ``config``. Dropout is not ported (ROADMAP A1):
-    ``dropout_rate`` must be 0. ``attention_impl`` is "fused" or
-    "unfused"; the JAX package's sequence-parallel "ring", "ulysses" and
-    "usp" are ROADMAP A12. ``length_masks=False`` drops the key bias
-    (full-length batches)."""
+    ``feeds`` and ``config``. ``dropout_rate`` > 0 drops the embeddings'
+    layer norm, the attention weights (the dense chain then serves) and
+    the FFN hidden layer (upscale_in_train), and needs
+    ``attention_impl="fused"``, as in the JAX package. ``attention_impl``
+    is "fused" or "unfused"; the JAX package's sequence-parallel "ring",
+    "ulysses" and "usp" are ROADMAP A12. ``length_masks=False`` drops the
+    key bias (full-length batches)."""
     check_attention_impl(attention_impl)
-    _no_dropout(dropout_rate, "build")
+    if attention_impl != "fused" and dropout_rate:
+        raise ValueError(
+            f"build(attention_impl={attention_impl!r}) requires "
+            f"dropout_rate=0 (got {dropout_rate})")
     d_key = d_value = d_model // n_head
     main, startup = Program(), Program()
     with program_guard(main, startup):
@@ -87,6 +92,9 @@ def build(vocab_size=30522, max_len=128, max_masked=20, n_layer=12,
         x = layers.elementwise_add(
             layers.elementwise_add(word_emb, pos_emb), sent_emb)
         x = layers.layer_norm(x, begin_norm_axis=len(x.shape) - 1)
+        if dropout_rate:
+            x = layers.dropout(x, dropout_prob=dropout_rate,
+                               dropout_implementation="upscale_in_train")
 
         if length_masks:
             key_bias = layers.scale(layers.cast(layers.sequence_mask(

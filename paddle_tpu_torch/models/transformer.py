@@ -8,7 +8,10 @@ Static [batch, max_len] shapes with length-derived key masks. With
 self, cross) is one ``flash_attention`` op; with ``"unfused"`` it is the
 matmul -> key-bias add -> [causal add] -> softmax -> matmul chain, which
 ``BuildStrategy.fuse_attention_ops`` rewrites into ``flash_attention``.
-``build`` trains with the noam schedule and Adam (dropout 0).
+``build`` trains with the noam schedule and Adam. With ``dropout_rate``
+> 0 the JAX package's dropout sites apply (upscale_in_train): the
+embeddings, each residual branch, the FFN hidden layer and the attention
+weights; attention then takes the dense chain, never the flash op.
 
 ``build_lm`` is the decoder-only LM of the generation engine
 (inference/generation): a prefill program per prompt bucket, a
@@ -31,12 +34,6 @@ from ..layer_helper import ParamAttr
 _IMPLS = ("fused", "unfused")
 # the JAX package's sequence-parallel kernels (ROADMAP A12)
 _SP_IMPLS = ("ring", "ulysses", "usp")
-
-
-def _no_dropout(dropout_rate, where):
-    if dropout_rate:
-        raise ValueError(f"{where}(dropout_rate={dropout_rate}): dropout is "
-                         "not ported yet (ROADMAP A1); pass dropout_rate=0")
 
 
 def check_attention_impl(attention_impl, where="build"):
@@ -63,10 +60,11 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
     the dict is rebound to the grown variables and the dense chain
     attends over them (the reference's incremental decode; shapes grow
     per step, so the generation engine's fixed-capacity
-    ``kv_cache_write`` cache serves instead). Attention dropout (ROADMAP
-    A1) and the sequence-parallel impls (A12) are not ported."""
+    ``kv_cache_write`` cache serves instead). With ``dropout_rate`` > 0
+    the attention weights are dropped (upscale_in_train) on the dense
+    chain, which then serves every impl, as in the JAX package. The
+    sequence-parallel impls (A12) are not ported."""
     check_attention_impl(attention_impl, "multi_head_attention")
-    _no_dropout(dropout_rate, "multi_head_attention")
     keys = queries if keys is None else keys
     values = keys if values is None else values
     q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2,
@@ -87,7 +85,8 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
     if cache is not None:
         k = cache["k"] = layers.concat([cache["k"], k], axis=2)
         v = cache["v"] = layers.concat([cache["v"], v], axis=2)
-    if attn_bias is None and attention_impl == "fused" and cache is None:
+    if (attn_bias is None and not dropout_rate and attention_impl == "fused"
+            and cache is None):
         out = layers.fused_attention(q, k, v, causal=causal,
                                      scale=d_key ** -0.5, key_bias=key_bias)
     else:
@@ -100,7 +99,12 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
             product = layers.elementwise_add(product, kb)
         if causal:
             product = _causal_add(product)
-        out = layers.matmul(layers.softmax(product), v)
+        weights = layers.softmax(product)
+        if dropout_rate:
+            weights = layers.dropout(
+                weights, dropout_prob=dropout_rate,
+                dropout_implementation="upscale_in_train")
+        out = layers.matmul(weights, v)
     b, t = queries.shape[0], queries.shape[1]
     out = layers.transpose(out, [0, 2, 1, 3])
     out = layers.reshape(out, [b, t, n_head * d_value])
@@ -110,57 +114,63 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
 
 def positionwise_feed_forward(x, d_inner_hid, d_hid, dropout_rate=0.0,
                               name=""):
-    _no_dropout(dropout_rate, "positionwise_feed_forward")
     hidden = layers.fc(x, size=d_inner_hid, num_flatten_dims=2, act="relu",
                        param_attr=ParamAttr(name=f"{name}_ffn1.w"))
+    if dropout_rate:
+        hidden = layers.dropout(hidden, dropout_prob=dropout_rate,
+                                dropout_implementation="upscale_in_train")
     return layers.fc(hidden, size=d_hid, num_flatten_dims=2,
                      param_attr=ParamAttr(name=f"{name}_ffn2.w"))
 
 
-def pre_post_process_layer(prev_out, out, process_cmd):
-    """'n' layer_norm / 'a' residual add ('d' dropout is a no-op at
-    rate 0)."""
+def pre_post_process_layer(prev_out, out, process_cmd, dropout_rate=0.0):
+    """'n' layer_norm / 'a' residual add / 'd' dropout (none at rate 0)."""
     for cmd in process_cmd:
         if cmd == "a" and prev_out is not None:
             out = layers.elementwise_add(out, prev_out)
         elif cmd == "n":
             out = layers.layer_norm(out, begin_norm_axis=len(out.shape) - 1)
+        elif cmd == "d" and dropout_rate:
+            out = layers.dropout(out, dropout_prob=dropout_rate,
+                                 dropout_implementation="upscale_in_train")
     return out
 
 
 def encoder_layer(enc_input, n_head, d_key, d_value, d_model, d_inner_hid,
-                  name="", key_bias=None, attention_impl="fused"):
+                  dropout_rate=0.0, name="", key_bias=None,
+                  attention_impl="fused"):
     attn = multi_head_attention(
         pre_post_process_layer(None, enc_input, "n"), None, None, None,
-        d_key, d_value, d_model, n_head, name=f"{name}_att",
+        d_key, d_value, d_model, n_head, dropout_rate, name=f"{name}_att",
         key_bias=key_bias, attention_impl=attention_impl)
-    attn_out = pre_post_process_layer(enc_input, attn, "da")
+    attn_out = pre_post_process_layer(enc_input, attn, "da", dropout_rate)
     ffn = positionwise_feed_forward(
         pre_post_process_layer(None, attn_out, "n"), d_inner_hid, d_model,
-        name=f"{name}")
-    return pre_post_process_layer(attn_out, ffn, "da")
+        dropout_rate, name=f"{name}")
+    return pre_post_process_layer(attn_out, ffn, "da", dropout_rate)
 
 
 def decoder_layer(dec_input, enc_output, n_head, d_key, d_value, d_model,
-                  d_inner_hid, name="", src_key_bias=None,
+                  d_inner_hid, dropout_rate=0.0, name="", src_key_bias=None,
                   trg_key_bias=None, attention_impl="fused"):
     self_attn = multi_head_attention(
         pre_post_process_layer(None, dec_input, "n"), None, None, None,
-        d_key, d_value, d_model, n_head, name=f"{name}_satt", causal=True,
-        key_bias=trg_key_bias, attention_impl=attention_impl)
-    x = pre_post_process_layer(dec_input, self_attn, "da")
+        d_key, d_value, d_model, n_head, dropout_rate, name=f"{name}_satt",
+        causal=True, key_bias=trg_key_bias, attention_impl=attention_impl)
+    x = pre_post_process_layer(dec_input, self_attn, "da", dropout_rate)
     cross = multi_head_attention(
         pre_post_process_layer(None, x, "n"), enc_output, enc_output, None,
-        d_key, d_value, d_model, n_head, name=f"{name}_catt",
+        d_key, d_value, d_model, n_head, dropout_rate, name=f"{name}_catt",
         key_bias=src_key_bias, attention_impl=attention_impl)
-    x = pre_post_process_layer(x, cross, "da")
+    x = pre_post_process_layer(x, cross, "da", dropout_rate)
     ffn = positionwise_feed_forward(
         pre_post_process_layer(None, x, "n"), d_inner_hid, d_model,
-        name=f"{name}")
-    return pre_post_process_layer(x, ffn, "da")
+        dropout_rate, name=f"{name}")
+    return pre_post_process_layer(x, ffn, "da", dropout_rate)
 
 
-def _embed(ids, vocab_size, d_model, max_len, pos_ids, name=""):
+def _embed(ids, vocab_size, d_model, max_len, pos_ids, dropout_rate=0.0,
+           name=""):
     word = layers.embedding(
         ids, size=[vocab_size, d_model],
         param_attr=ParamAttr(name=f"{name}_word_emb",
@@ -170,7 +180,11 @@ def _embed(ids, vocab_size, d_model, max_len, pos_ids, name=""):
     pos = layers.embedding(pos_ids, size=[max_len, d_model],
                            param_attr=ParamAttr(name=f"{name}_pos_emb"))
     pos.stop_gradient = True
-    return layers.elementwise_add(word, pos)
+    out = layers.elementwise_add(word, pos)
+    if dropout_rate:
+        out = layers.dropout(out, dropout_prob=dropout_rate,
+                             dropout_implementation="upscale_in_train")
+    return out
 
 
 def _length_key_bias(length, max_len):
@@ -188,11 +202,12 @@ def build(batch_size=16, src_vocab=10000, tgt_vocab=10000, max_len=64,
     Adam update under the noam schedule of ``warmup_steps``), ``startup``
     (parameter and optimizer-state initializers) and ``test`` (the
     inference clone), with ``logits``, ``loss``, ``feeds`` and ``config``.
-    ``lr`` is unused, as in the JAX package (noam sets the rate). Dropout
-    is not ported: ``dropout_rate`` must be 0. ``attention_impl`` is
-    "fused" or "unfused" (the JAX package's sequence-parallel kernels,
-    "ring", "ulysses" and "usp", are ROADMAP A12)."""
-    _no_dropout(dropout_rate, "build")
+    ``lr`` is unused, as in the JAX package (noam sets the rate).
+    ``dropout_rate`` defaults to 0 here (the JAX package's ``build``
+    defaults to 0.1; pass it to build the same program). With a rate > 0
+    every attention is the dense chain. ``attention_impl`` is "fused" or
+    "unfused" (the JAX package's sequence-parallel kernels, "ring",
+    "ulysses" and "usp", are ROADMAP A12)."""
     check_attention_impl(attention_impl)
     d_key = d_value = d_model // n_head
     main, startup = Program(), Program()
@@ -207,17 +222,20 @@ def build(batch_size=16, src_vocab=10000, tgt_vocab=10000, max_len=64,
         src_kb = _length_key_bias(src_len, max_len)
         trg_kb = _length_key_bias(trg_len, max_len)
 
-        enc = _embed(src, src_vocab, d_model, max_len, src_pos, "src")
+        enc = _embed(src, src_vocab, d_model, max_len, src_pos,
+                     dropout_rate, "src")
         for i in range(n_layer):
             enc = encoder_layer(enc, n_head, d_key, d_value, d_model,
-                                d_inner_hid, name=f"enc{i}", key_bias=src_kb,
+                                d_inner_hid, dropout_rate, name=f"enc{i}",
+                                key_bias=src_kb,
                                 attention_impl=attention_impl)
         enc = pre_post_process_layer(None, enc, "n")
 
-        dec = _embed(trg, tgt_vocab, d_model, max_len, trg_pos, "trg")
+        dec = _embed(trg, tgt_vocab, d_model, max_len, trg_pos,
+                     dropout_rate, "trg")
         for i in range(n_layer):
             dec = decoder_layer(dec, enc, n_head, d_key, d_value, d_model,
-                                d_inner_hid, name=f"dec{i}",
+                                d_inner_hid, dropout_rate, name=f"dec{i}",
                                 src_key_bias=src_kb, trg_key_bias=trg_kb,
                                 attention_impl=attention_impl)
         dec = pre_post_process_layer(None, dec, "n")

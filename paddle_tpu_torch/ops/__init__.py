@@ -6,6 +6,7 @@ from . import kernels_math  # noqa: F401
 from . import kernels_nn  # noqa: F401
 from . import kernels_sequence  # noqa: F401
 from . import kernels_host  # noqa: F401
+from . import kernels_reader  # noqa: F401
 from . import kernels_control  # noqa: F401
 from . import kernels_optim  # noqa: F401
 from . import kernels_fused  # noqa: F401

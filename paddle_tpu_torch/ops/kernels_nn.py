@@ -1,7 +1,8 @@
 """NN ops (counterpart of ``paddle_tpu/ops/kernels_nn.py``): conv2d and
 depthwise_conv2d with their grads, pool2d, batch_norm, layer_norm,
-softmax_with_cross_entropy with its grad, cross_entropy, accuracy, and
-the ``fc`` op that fc_fuse_pass writes.
+softmax_with_cross_entropy with its grad, cross_entropy,
+square_error_cost, accuracy, dropout with its grad, and the ``fc`` op that
+fc_fuse_pass writes.
 
 Convolutions go to ``torch.nn.functional.conv2d`` (cuDNN on the card), as
 the JAX package left them to ``lax.conv_general_dilated``. A tensor the
@@ -19,8 +20,9 @@ import torch.nn.functional as F
 
 from ..core.desc import OpDesc
 from ..core.types import GRAD_SUFFIX, DataType
-from ..registry import register_op
-from .common import ZERO, amp_cast, in_dtype, in_shape, opt, set_out_var, x
+from ..registry import register_grad_maker, register_op
+from .common import (ZERO, amp_cast, in_dtype, in_shape, opt,
+                     same_shape_infer, set_out_var, x)
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +423,76 @@ def cross_entropy(ctx, ins, attrs):
     y = y.masked_fill((lab == attrs.get("ignore_index", -100)).unsqueeze(-1),
                       0.0)
     return {"Y": [y]}
+
+
+@register_op("square_error_cost", infer=same_shape_infer())
+def square_error_cost(ctx, ins, attrs):
+    d = ins["X"][0] - ins["Y"][0]
+    return {"Out": [d * d]}
+
+
+# ---------------------------------------------------------------------------
+# dropout
+# ---------------------------------------------------------------------------
+
+def _dropout_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    dt = in_dtype(block, op, "X")
+    for n in op.output("Out"):
+        set_out_var(block, n, xs, dt)
+    for n in op.output("Mask"):
+        set_out_var(block, n, xs, DataType.UINT8)
+
+
+def _dropout_apply(xv, mask, p, impl):
+    """The kept values of ``xv`` under ``mask`` (X's dtype): scaled by
+    1 / (1 - p) under upscale_in_train, zero at p = 1."""
+    if impl == "upscale_in_train":
+        return xv * mask / (1.0 - p) if p < 1.0 else torch.zeros_like(xv)
+    return xv * mask
+
+
+@register_op("dropout", intermediate_outputs=("Mask",), needs_rng=True,
+             infer=_dropout_infer)
+def dropout(ctx, ins, attrs):
+    """dropout_op.cc with both implementations: downgrade_in_infer (the
+    default) trains y = x * mask and infers y = x * (1 - p);
+    upscale_in_train trains y = x * mask / (1 - p) and infers y = x. The
+    keep mask is uniform < 1 - p over X's shape, drawn from the run's
+    generator (the JAX package's ``bernoulli`` on its key stream; the
+    streams differ, the rule does not). Mask is uint8; the grad reads it
+    rather than drawing again."""
+    xv = ins["X"][0]
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False):
+        y = xv if impl == "upscale_in_train" else xv * (1.0 - p)
+        return {"Out": [y], "Mask": [torch.ones_like(xv, dtype=torch.uint8)]}
+    keep = torch.rand(xv.shape, generator=ctx.generator, device=xv.device,
+                      dtype=torch.float32) < (1.0 - p)
+    return {"Out": [_dropout_apply(xv, keep.to(xv.dtype), p, impl)],
+            "Mask": [keep.to(torch.uint8)]}
+
+
+@register_grad_maker("dropout")
+def _dropout_grad_maker(op: OpDesc, no_grad_set, grad_sub_block=None):
+    xn = op.input("X")[0]
+    if xn in no_grad_set:
+        return [], {}
+    g = OpDesc("dropout_grad",
+               {"Mask": op.output("Mask"),
+                "Out" + GRAD_SUFFIX: [op.output("Out")[0] + GRAD_SUFFIX]},
+               {"X" + GRAD_SUFFIX: [xn + GRAD_SUFFIX]}, dict(op.attrs))
+    return [g], {xn + GRAD_SUFFIX: xn}
+
+
+@register_op("dropout_grad", no_grad=True)
+def dropout_grad(ctx, ins, attrs):
+    og = ins["Out" + GRAD_SUFFIX][0]
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    return {"X" + GRAD_SUFFIX: [_dropout_apply(og, ins["Mask"][0].to(og.dtype),
+                                               p, impl)]}
 
 
 def _acc_infer(op: OpDesc, block):

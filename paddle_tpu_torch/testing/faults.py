@@ -29,10 +29,13 @@ Sites in this package (grep ``faults.fire`` for ground truth):
 - ``serving.dispatch``        BatchingPredictor device call (per try)
 - ``serving.dispatcher``      dispatcher loop tick (crash the thread)
 - ``serving.bucket_dispatch`` BucketedPredictor padded chunk call
+- ``ckpt_write``              a checkpoint's staging directory written,
+                              before it is published and marked (sync
+                              save and the async writer)
+- ``preemption``              ElasticTrainer step boundary (pass
+                              ``exc=elastic.Preempted``)
 
-The JAX package's other sites wait for the modules that fire them:
-``ckpt_write`` (checkpoint writes) and ``preemption`` (ElasticTrainer
-step boundary) for ROADMAP A8, ``cluster.rank_delay`` for A10 and A12.
+The JAX package's ``cluster.rank_delay`` waits for ROADMAP A10 and A12.
 ``executor.compile`` has no counterpart: the port builds no executable
 that could fail apart from the run that uses it.
 

@@ -41,6 +41,13 @@ _DEFAULTS: Dict[str, Any] = {
     # a GenerationPredictor with live slots that completes no decode step
     # for this many seconds reads healthy=false (0 disables)
     "generation_stall_budget_s": 120.0,
+    # checkpoints (io.save_checkpoint, AsyncCheckpointer): how long rank 0
+    # waits for every rank's directory before leaving a checkpoint
+    # unmarked (load_checkpoint then takes the previous complete one)
+    "ckpt_rank_wait_s": 120.0,
+    # ElasticTrainer.health(): unhealthy when the newest complete
+    # checkpoint is older than this many seconds (0 disables)
+    "ckpt_age_budget_s": 0.0,
 }
 
 

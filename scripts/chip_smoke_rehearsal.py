@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-15) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-16) on the CPU at a tiny
 Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow
 12-layer BERT (d_model 24, T 16, batch 4), phase 13's serving front
 with fewer requests a window, phase 14's generation and phase 15's
 predictor at a narrow LM (d_model 16, vocab 256) and phase 15's machine
-translation at 40-word dictionaries and width 16, to find faults in the
-script's Python before a run on the card.
+translation at 40-word dictionaries and width 16, and phase 16 at the
+tiny Transformer (its three trainer processes run this script with
+``--elastic-child``, which sets up the same CPU patches) and the small
+ResNet-50, to find faults in the script's Python before a run on the
+card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
 
@@ -102,17 +105,35 @@ def _traced_launches():
     got["calls_by_dtype"] = dict(fa.launch_dtypes)
 
 
-def main():
+def _on_the_cpu():
+    """The patches every rehearsal process takes: the CPU for the card,
+    the tiny widths, the stubbed CUDA calls and counted launches."""
     cs.MODEL = TINY
+    cs.DROPOUT_MODEL = dict(TINY, n_layer=2, dropout_rate=0.1)
+    # phase 16(B)'s loss bound is 5x what the card reads at Transformer-
+    # base's widths; the tiny model's losses sit about 1e-5 apart on the
+    # CPU, so the rehearsal holds them to 1e-4 (the gradient bound stays)
+    cs.ACCUM_LOSS_REL = 1e-4
+    cs.ELASTIC_CHILD = [sys.executable, os.path.abspath(__file__)]
     pexecutor.CUDAPlace = papi.CUDAPlace = pengine.CUDAPlace = \
         lambda device=0: pt.CPUPlace()
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.reset_peak_memory_stats = lambda *a: None
     torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.memory_allocated = lambda *a: 0
     FLAGS.fuse_optimizer_ops_on_cpu = True
     cs.device_rows = _device_rows
     cs.traced_launches = _traced_launches
     _count_launches()
+
+
+def main():
+    if "--elastic-child" in sys.argv:
+        _on_the_cpu()
+        i = sys.argv.index("--elastic-child")
+        cs.elastic_child(*sys.argv[i + 1:i + 4])
+        return
+    _on_the_cpu()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -143,11 +164,17 @@ def main():
     t15 = time.perf_counter()
     pred, _ = cs.predictor_and_beam_paths("CPU rehearsal")
     print(f"phase 15 rehearsed in {time.perf_counter() - t15:.1f} s")
+    # phase 16 at the tiny Transformer and the 64x64 batch-4 ResNet-50
+    t16 = time.perf_counter()
+    cs.RESNET_IMAGE, cs.RESNET_BATCH = (3, 64, 64), 4
+    runtime = cs.runtime_paths("CPU rehearsal")
+    print(f"phase 16 rehearsed in {time.perf_counter() - t16:.1f} s")
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
-          f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}")
+          f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
+          f"{runtime}")
 
 
 if __name__ == "__main__":

@@ -425,7 +425,8 @@ def test_attention_goes_through_the_flash_wrappers(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,error,item", [
-    ({"dropout_rate": 0.1}, ValueError, "A1"),
+    ({"dropout_rate": 0.1, "attention_impl": "unfused"}, ValueError,
+     "dropout_rate=0"),
     ({"attention_impl": "ring"}, NotImplementedError, "A12"),
     ({"attention_impl": "usp", "length_masks": False},
      NotImplementedError, "A12"),

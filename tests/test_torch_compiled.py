@@ -314,7 +314,6 @@ def _tiny_compiled(**bs_attrs):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("auto_parallel", True, "A12"),
-    ("gradient_accumulation_steps", 2, "A8"),
     ("verify_passes", True, "A14"),
 ])
 def test_unported_build_strategy_knobs_raise(knob, value, item):

@@ -60,6 +60,12 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.contrib.decoder\n"
         "import paddle_tpu_torch.contrib.decoder.beam_search_decoder\n"
         "import paddle_tpu_torch.models.machine_translation\n"
+        "import paddle_tpu_torch.staging, paddle_tpu_torch.elastic\n"
+        "import paddle_tpu_torch.reader.data_loader\n"
+        "import paddle_tpu_torch.reader.decorator\n"
+        "import paddle_tpu_torch.ops.kernels_reader\n"
+        "import paddle_tpu_torch.data_feeder, paddle_tpu_torch.lod_tensor\n"
+        "import paddle_tpu_torch.metrics, paddle_tpu_torch.average\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"

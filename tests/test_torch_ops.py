@@ -46,6 +46,8 @@ def _dt(name):
 
 LN_X = f32(2, 5, 8)
 CASES = {
+    "square_error_cost": ("square_error_cost",
+                          {"X": [f32(6, 1)], "Y": [f32(6, 1)]}, {}),
     "mul_fc": ("mul", {"X": [f32(2, 5, 8)], "Y": [f32(8, 6)]},
                {"x_num_col_dims": 2, "y_num_col_dims": 1}),
     "mul_flatten": ("mul", {"X": [f32(3, 4, 5)], "Y": [f32(20, 7)]},
@@ -299,6 +301,9 @@ def _generic_grad_both(fwd_type, ins, attrs, amp=False):
 
 
 GRAD_CASES = {
+    "square_error_cost": ("square_error_cost",
+                          {"X": [f32(6, 1)], "Y": [f32(6, 1)],
+                           "Out@GRAD": [f32(6, 1)]}, {}),
     "mul": ("mul", {"X": [f32(2, 5, 8)], "Y": [f32(8, 6)],
                     "Out@GRAD": [f32(2, 5, 6)]},
             {"x_num_col_dims": 2, "y_num_col_dims": 1}),
@@ -407,7 +412,8 @@ def test_grad_flags_match_jax():
                     "fill_constant", "uniform_random", "gaussian_random",
                     "softmax_with_cross_entropy", "reduce_sum", "sum", "pow",
                     "increment", "adam", "lookup_table_grad",
-                    "softmax_with_cross_entropy_grad", "fill_zeros_like"):
+                    "softmax_with_cross_entropy_grad", "fill_zeros_like",
+                    "square_error_cost"):
         j, p = jreg.lookup(op_type), preg.lookup(op_type)
         assert p.no_grad == j.no_grad, op_type
         assert p.intermediate_outputs == j.intermediate_outputs, op_type

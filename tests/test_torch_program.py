@@ -136,8 +136,16 @@ def test_clone_for_test_keeps_parameters(built):
 
 
 def test_dropout_is_refused_until_ported():
-    with pytest.raises(ValueError, match="dropout"):
-        ptransformer.build(dropout_rate=0.1, **TINY)
+    """Dropout is ported: the build at the JAX package's default rate 0.1
+    is its program, byte for byte, with dropout ops and no flash op
+    (tests/test_torch_dropout.py holds the op)."""
+    with junique.guard():
+        j = jtransformer.build(dropout_rate=0.1, **TINY)
+    with punique.guard():
+        p = ptransformer.build(dropout_rate=0.1, **TINY)
+    assert p["main"].desc.to_bytes() == j["main"].desc.to_bytes()
+    types = {o.type for o in p["main"].global_block().desc.ops}
+    assert "dropout" in types and "flash_attention" not in types
 
 
 def test_make_fake_batch_matches_jax():
