@@ -259,6 +259,36 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    inferred bound runs inside a captured segment and one with a fed
    limit between captured segments, both x * w^3.
 
+16. the runtime around the training step, after phase 15: (A)
+   Transformer-base AMP under ``ElasticTrainer`` in three child
+   processes (one SIGKILLed and resumed bitwise), (B) gradient
+   accumulation K = 1, 2, 4, (C) dropout at 2 + 2 layers, (D) the
+   ``DataLoader`` and a ``py_reader`` program on ResNet-50 AMP.
+
+17. the model zoo, after phase 16, each model at its JAX build's
+   defaults through ``CompiledProgram`` under bench.py's BuildStrategy,
+   ZOO_RUNS steps (DeepFM DEEPFM_RUNS) captured against eager from the
+   same state and generator, bitwise (fetches and every persistable,
+   deterministic mode), ZOO_TRACED replays traced (device time, idle
+   share, no flash kernel), peak memory, rows, images or tokens per second: (A)
+   DeepFM, fp32, batch 2048: 64 steps, the ``auc`` op's int64 stat
+   buckets equal to a numpy recount of the fed labels in the buckets of
+   the fetched probabilities, past 2^31 positive x negative pairs, the
+   fetched AUC within 1e-6 of a float64 numpy AUC of them, and the test
+   program's ``predict`` served by ``AnalysisPredictor`` (its
+   ``fusion_repeated_fc_relu``) within 1e-5 of the executor's; (B) MNIST
+   LeNet, batch 64, the loss halving over 50 steps on one batch; (C)
+   SE-ResNeXt-50 (224x224, 102 classes, dropout 0.5) at batch 32 and
+   VGG-16 at cifar10 at batch 128, AMP, and a batch-2 SE-ResNeXt-50 AMP
+   step replayed op by op on the CPU at phase 9's per-op bounds (the
+   CPU's dropout mask under the card's arithmetic); (D) the stacked LSTM
+   (dict 5000, width 512, 3 layers, T 100), fp32, batch 32, its ``lstm``
+   op on the card against the CPU within 1e-5 relative, its softmax
+   served by ``AnalysisPredictor`` with the default passes
+   (``fused_embedding_fc_lstm``) and without ``fc_fuse_pass``
+   (``fusion_lstm`` as well), each within 1e-5 of the executor's; then
+   fit_a_line, word2vec, recommender and both understand_sentiment nets.
+
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
@@ -266,8 +296,8 @@ calling the wrappers, whose counts then cover the eager runs and the
 captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
-(phases 14-15) hold the wrappers' counts at 0: no call, so no flash
-kernel in any graph either.
+(phases 14-15) and the model zoo (17) hold the wrappers' counts at 0:
+no call, so no flash kernel in any graph either.
 
 TF32 stays off for matrix products and convolutions throughout (both
 default settings are the caller's; cuDNN's benchmark and deterministic
@@ -304,10 +334,14 @@ from paddle_tpu_torch.inference.generation import (DecodeEngine,
                                                    SamplingParams,
                                                    collect_tokens,
                                                    naive_generate)
-from paddle_tpu_torch.models import (bert, machine_translation, resnet,
-                                     transformer)
+from paddle_tpu_torch.models import (bert, deepfm, fit_a_line,
+                                     machine_translation, mnist, recommender,
+                                     resnet, se_resnext, stacked_lstm,
+                                     transformer, understand_sentiment, vgg,
+                                     word2vec)
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops.kernels_nn import _dropout_apply
 from paddle_tpu_torch.utils import unique_name
 from paddle_tpu_torch.utils.flags import FLAGS
 
@@ -1480,31 +1514,43 @@ def replay_each_op(ops, block, scope, feed, device, amp, label, rel=None,
                    tops=None):
     """Run ``ops`` in order on the CPU from ``feed`` and ``scope`` (CPU
     tensors), and each op once more on ``device`` on the CPU's input
-    values: every output within ``rel[op type]`` (by default
+    values (a ``dropout`` op: the CPU's mask, drawn from a seeded CPU
+    generator, under the card's arithmetic; no other random op): every output within ``rel[op type]`` (by default
     ``rel["*"]``, by default OP_REPLAY_REL) of its largest magnitude on
     the CPU, or of the magnitude ``tops[op type](ins, attrs)`` gives by
     output slot. Returns the CPU run's values by name."""
     rel = rel or {"*": OP_REPLAY_REL[amp]}
     tops = tops or {}
     cpu = torch.device("cpu")
-    ctx_cpu = pt.registry.EmitContext(cpu, amp=amp)
+    ctx_cpu = pt.registry.EmitContext(
+        cpu, generator=torch.Generator().manual_seed(SEED), amp=amp)
     ctx_card = pt.registry.EmitContext(device, amp=amp)
     env = {n: pt.executor._coerce_feed(v, n, block, cpu)
            for n, v in feed.items()}
     worst, n_out, t0 = {}, 0, time.perf_counter()
     with torch.no_grad():
         for op in ops:
-            if pt.registry.has_op(op.type) and \
+            if op.type != "dropout" and pt.registry.has_op(op.type) and \
                     pt.registry.lookup(op.type).needs_rng:
                 raise AssertionError(f"{op.type} draws random numbers")
             emit = pt.executor._emitter(op.type)
             ins = {slot: [None if not n else env[n] if n in env
                           else scope.find_var(n) for n in names]
                    for slot, names in op.inputs.items()}
-            got = emit(ctx_card, {slot: [None if v is None else v.to(device)
-                                         for v in vals]
-                                  for slot, vals in ins.items()}, op.attrs)
             want = emit(ctx_cpu, ins, op.attrs)
+            if op.type == "dropout":
+                # the CPU's mask under the card's arithmetic
+                xv = ins["X"][0].to(device)
+                mask = want["Mask"][0].to(device)
+                got = {"Out": [_dropout_apply(
+                    xv, mask.to(xv.dtype),
+                    float(op.attrs.get("dropout_prob", 0.5)),
+                    op.attrs.get("dropout_implementation",
+                                 "downgrade_in_infer"))], "Mask": [mask]}
+            else:
+                got = emit(ctx_card, {
+                    slot: [None if v is None else v.to(device) for v in vals]
+                    for slot, vals in ins.items()}, op.attrs)
             read = {n: v for slot, names in op.inputs.items()
                     for n, v in zip(names, ins[slot]) if n}
             top = tops[op.type](ins, op.attrs) if op.type in tops else {}
@@ -5088,6 +5134,422 @@ def runtime_paths(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the model zoo
+# ---------------------------------------------------------------------------
+
+ZOO_RUNS = 4           # captured steps against eager steps, per path
+ZOO_TRACED = 5         # replays in a path's traced window
+DEEPFM = {}            # deepfm.build()'s defaults: 26 fields, 13 dense,
+                       # vocab 100003, embed 16, tower 400-400-400
+DEEPFM_BATCH = 2048
+DEEPFM_RUNS = 8        # captured against eager, bitwise
+DEEPFM_STEPS = 64      # stat buckets past 2^31 positive x negative pairs
+DEEPFM_AUC_TOL = 1e-6
+DEEPFM_MIN_PAIRS = 2 ** 31  # positive x negative pairs the stats must pass
+SERVE_TOL = 1e-5       # AnalysisPredictor against the executor, fp32
+MNIST_BATCH = 64
+MNIST_FALL = 50        # steps on one batch; the loss falls
+SE_RESNEXT = {}        # se_resnext.build()'s defaults: 224x224, 102
+                       # classes, cardinality 32, dropout 0.5
+SE_RESNEXT_BATCH = 32
+VGG = dict(dataset="cifar10")
+VGG_BATCH = 128
+STACKED_LSTM = {}      # stacked_lstm.build()'s defaults: dict 5000, emb
+                       # 512, lstm 512, 3 layers, T 100
+STACKED_LSTM_BATCH = 32
+LSTM_REL = 1e-5        # the lstm op on the card against the CPU, fp32
+# the rest of the zoo at its defaults: (module, build kwargs, batch)
+ZOO_SMALL = {"fit_a_line": ("fit_a_line", {}, 64),
+             "word2vec": ("word2vec", {}, 256),
+             "recommender": ("recommender", {}, 256),
+             "sentiment_conv": ("understand_sentiment", {"net": "conv"}, 128),
+             "sentiment_lstm": ("understand_sentiment",
+                                {"net": "stacked_lstm"}, 128)}
+
+
+def zoo_build(mod, **kw):
+    """A zoo model built, its startup run on the card from SEED; returns
+    (build, initial state on the card, executor)."""
+    with unique_name.guard():
+        m = mod.build(**kw)
+    m["startup"].random_seed = m["main"].random_seed = SEED
+    exe = pt.Executor()
+    init = pt.Scope()
+    exe.run(m["startup"], scope=init)
+    return m, {n: init.find_var(n) for n in init.var_names()}, exe
+
+
+def zoo_train(label, exe, target, state, fetch, feeds, unit, smi,
+              runs=ZOO_RUNS):
+    """``runs`` steps of ``target`` (a CompiledProgram) eager
+    (``FLAGS.jit_cache = False``) and then captured (warm-up, capture,
+    replays), each arm from a copy of ``state`` and a fresh generator
+    from the program's seed, under the deterministic mode: every fetch of
+    every step and every persistable bitwise. Then ZOO_TRACED replays
+    traced (no flash kernel; device time a replay against the median
+    replay: the idle share). Returns the captured arm's scope, its steps
+    [(feed, fetches)] in order (the traced replays last) and the path's
+    numbers."""
+    arms = {}
+    with deterministic() as warned:
+        for arm in ("eager", "captured"):
+            scope = copy_state(state, exe.device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            caps = exe.capture_stats["captures"]
+            outs, secs = [], []
+            with jit_cache(arm == "captured"):
+                for feed in feeds[:runs]:
+                    t0 = time.perf_counter()
+                    outs.append(run_tensors(exe, target, feed=feed,
+                                            fetch_list=fetch, scope=scope))
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+            arms[arm] = dict(scope=scope, outs=outs, secs=secs,
+                             peak=torch.cuda.max_memory_allocated(),
+                             captures=exe.capture_stats["captures"] - caps)
+    eager, cap = arms["eager"], arms["captured"]
+    if warned:
+        raise AssertionError(f"{label}: {warned}")
+    if exe.device.type == "cuda" and cap["captures"] < 1:
+        raise AssertionError(f"{label}: the captured arm captured nothing")
+    hold(label, f"captured against eager, {len(fetch)} fetches of {runs} "
+         "steps", max(distance(c, e) for co, eo in zip(cap["outs"],
+                                                        eager["outs"])
+                      for c, e in zip(co, eo)), 0.0)
+    sd, differ = scope_distance(cap["scope"], eager["scope"])
+    hold(label, f"captured against eager, {len(state)} persistables after "
+         f"{runs} steps ({len(differ)} differ)", sd, 0.0)
+    losses = [float(o[0].float().reshape(-1)[0]) for o in eager["outs"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    traced = []
+
+    def window():
+        for _ in range(ZOO_TRACED):
+            traced.append(run_tensors(exe, target, feed=feeds[0],
+                                      fetch_list=fetch, scope=cap["scope"]))
+
+    try:
+        rows, busy = device_rows(window)
+    except RuntimeError as e:
+        # a trace of a small graph's replays (fit_a_line's 30 kernels)
+        # has come back without its device records; once more
+        log(f"  {label}: {e}; tracing the window once more")
+        rows, busy = device_rows(window)
+    busy /= ZOO_TRACED
+    flash = [r for r in rows if "flash_" in r[0] and r[2]]
+    if flash:
+        raise AssertionError(f"{label}: flash kernels in a traced replay: "
+                             f"{flash}")
+    eager_ms = float(np.median(eager["secs"][1:])) * 1e3
+    cap_ms = float(np.median(cap["secs"][2:])) * 1e3
+    per = unit[1] / cap_ms * 1e3
+    res = {"eager_ms": eager_ms, "captured_ms": cap_ms, "device_ms": busy,
+           "idle": max(0.0, 1 - busy / cap_ms), "per_s": per,
+           "peak_gib": max(eager["peak"], cap["peak"]) / 2 ** 30,
+           "warmup_s": cap["secs"][0], "capture_s": cap["secs"][1]}
+    log(f"  {label}: losses " + ", ".join(f"{v:.6f}" for v in losses))
+    log(f"  {label}: captured step {cap_ms:.3f} ms ({per:.1f} {unit[0]}/s), "
+        f"eager {eager_ms:.3f} ms ({eager_ms / cap_ms:.2f}x); a traced replay "
+        f"{busy:.3f} ms of device time over "
+        f"{sum(r[2] for r in rows) / ZOO_TRACED:.0f} kernels (a window of "
+        f"{ZOO_TRACED}): the card idle {res['idle']:.1%}; warm-up "
+        f"{res['warmup_s']:.2f} s, capture + first replay "
+        f"{res['capture_s']:.2f} s; peak eager {eager['peak'] / 2 ** 30:.2f} "
+        f"GiB, captured {cap['peak'] / 2 ** 30:.2f} GiB [{smi}]")
+    steps = list(zip(feeds[:runs], cap["outs"])) + [(feeds[0], t)
+                                                     for t in traced]
+    return cap["scope"], steps, res
+
+
+def zoo_serve(label, exe, m, scope, feed, served, target, passes=None,
+              want_types=()):
+    """The test program's ``target`` saved from ``scope`` and served by
+    ``AnalysisPredictor`` on the card (``passes``, else the default
+    list): the rewritten program holds ``want_types``, and its output is
+    within SERVE_TOL of the executor's test-program run on ``feed``
+    (every feed the test program reads)."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_zoo_", dir=_build.BUILD_DIR)
+    try:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, served, [target], exe,
+                                       main_program=m["test"])
+        cfg = AnalysisConfig(d)
+        if passes is not None:
+            cfg.pass_builder_set(passes)
+        pred = create_paddle_predictor(cfg)
+        types = [o.type for o in pred._program.global_block().desc.ops]
+        missing = [t for t in want_types if t not in types]
+        if missing:
+            raise AssertionError(f"{label}: {missing} not in the rewritten "
+                                 f"program {types}")
+        req = {k: feed[k] for k in served}
+        got = [pred.run(req)[0].as_tensor() for _ in range(3)][-1]
+        pred.close()
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    (want,) = run_tensors(exe, m["test"], feed=feed, fetch_list=[target],
+                          scope=scope)
+    err = distance(got.float(), want.float())
+    top = want.abs().max().item()
+    log(f"  {label}: AnalysisPredictor ({len(types)} ops: "
+        + ", ".join(sorted(set(want_types))) + f") against the executor's "
+        f"test program: {err:.3e} of |out| {top:.3e} (bound {SERVE_TOL})")
+    if not (got.shape == want.shape and err <= SERVE_TOL * max(top, 1.0)):
+        raise AssertionError(f"{label}: served output {err:.3e} from the "
+                             "executor's")
+
+
+def numpy_auc(stat_pos, stat_neg):
+    """A float64 trapezoid AUC of the stat buckets (auc_op.h)."""
+    tp = np.cumsum(stat_pos[::-1].astype(np.float64))
+    fp = np.cumsum(stat_neg[::-1].astype(np.float64))
+    tp0 = np.concatenate([[0.0], tp[:-1]])
+    fp0 = np.concatenate([[0.0], fp[:-1]])
+    denom = tp[-1] * fp[-1]
+    return float(np.sum((fp - fp0) * (tp + tp0) / 2.0) / denom) \
+        if denom > 0 else 0.0
+
+
+def deepfm_path(smi):
+    """17(A): DeepFM at its defaults, fp32, batch 2048, through
+    CompiledProgram: DEEPFM_RUNS steps captured against eager, bitwise;
+    DEEPFM_STEPS steps in all, the auc stat buckets equal to a numpy
+    recount of the fed labels in the buckets of the fetched probabilities
+    (exact integers, int64 past 2^31 positive x negative pairs) and the
+    fetched AUC within DEEPFM_AUC_TOL of a float64 numpy AUC of them;
+    the test program's ``predict`` served by AnalysisPredictor within
+    SERVE_TOL of the executor's."""
+    label = "17(A) DeepFM"
+    m, state, exe = zoo_build(deepfm, **DEEPFM)
+    cfg = m["config"]
+    target = pt.CompiledProgram(m["main"], build_strategy=bench_build_strategy())
+    auc_op = next(o for o in m["main"].global_block().desc.ops
+                  if o.type == "auc")
+    stats = [auc_op.input("StatPos")[0], auc_op.input("StatNeg")[0]]
+    nthr = int(auc_op.attrs["num_thresholds"])
+    feeds = [deepfm.make_fake_batch(DEEPFM_BATCH, cfg, seed=SEED + 1700 + i)
+             for i in range(DEEPFM_STEPS)]
+    fetch = [m["loss"].name, m["auc"].name, m["predict"].name]
+    types = [o.type for o in exe.lowered_ops(target, fetch)]
+    log(f"{label}: vocab {cfg['sparse_vocab']}, {cfg['num_fields']} fields, "
+        f"batch {DEEPFM_BATCH}; the rewritten step holds "
+        f"{types.count('auc')} auc, {types.count('fused_adam')} fused_adam, "
+        f"{types.count('adam')} adam ({len(types)} ops)")
+    if types.count("auc") != 1:
+        raise AssertionError(f"{label}: the pipeline dropped or merged auc")
+    scope, steps, res = zoo_train(label, exe, target, state, fetch, feeds,
+                                  ("rows", DEEPFM_BATCH), smi,
+                                  runs=DEEPFM_RUNS)
+    for feed in feeds[DEEPFM_RUNS + 1:]:
+        steps.append((feed, run_tensors(exe, target, feed=feed,
+                                        fetch_list=fetch, scope=scope)))
+    recount = [np.zeros(nthr + 1, np.int64) for _ in range(2)]
+    for feed, out in steps:
+        prob = out[2].cpu().numpy().reshape(-1)
+        bucket = np.clip((prob * nthr).astype(np.int32), 0, nthr)
+        pos = feed["click"].reshape(-1) > 0
+        np.add.at(recount[0], bucket[pos], 1)
+        np.add.at(recount[1], bucket[~pos], 1)
+    got = [scope.find_var(n) for n in stats]
+    if any(g.dtype != torch.int64 for g in got):
+        raise AssertionError(f"{label}: stat buckets {[g.dtype for g in got]}")
+    wrong = sum(int((g.cpu().numpy() != r).sum()) for g, r in zip(got,
+                                                                   recount))
+    pairs = int(recount[0].sum()) * int(recount[1].sum())
+    want_auc = numpy_auc(*recount)
+    fetched = float(steps[-1][1][1].reshape(-1)[0])
+    log(f"  {label}: after {len(steps)} steps ({len(steps) * DEEPFM_BATCH} "
+        f"rows, {recount[0].sum()} positive, {pairs:.4e} positive x "
+        f"negative pairs, {pairs / 2 ** 31:.2f}x 2^31): {wrong} buckets "
+        f"differ from the numpy recount; AUC {fetched:.7f} fetched, "
+        f"{want_auc:.7f} from the stats in float64 "
+        f"({abs(fetched - want_auc):.2e}, bound {DEEPFM_AUC_TOL})")
+    if wrong or pairs <= DEEPFM_MIN_PAIRS or not abs(fetched - want_auc) <= \
+            DEEPFM_AUC_TOL:
+        raise AssertionError(f"{label}: stats or AUC wrong")
+    zoo_serve(label, exe, m, scope, feeds[0], ["feat_ids", "dense_input"],
+              m["predict"], want_types=("fusion_repeated_fc_relu",))
+    exe.close()
+    return res
+
+
+def mnist_path(smi):
+    """17(B): MNIST LeNet, fp32, batch 64, through CompiledProgram:
+    ZOO_RUNS steps captured against eager, bitwise; the loss falls over
+    MNIST_FALL steps on one batch."""
+    label = "17(B) MNIST LeNet"
+    m, state, exe = zoo_build(mnist)
+    target = pt.CompiledProgram(m["main"], build_strategy=bench_build_strategy())
+    feeds = [mnist.make_fake_batch(MNIST_BATCH, seed=SEED + 1750 + i)
+             for i in range(ZOO_RUNS)]
+    scope, _, res = zoo_train(label, exe, target, state,
+                              [m["loss"].name, m["acc"].name], feeds,
+                              ("images", MNIST_BATCH), smi)
+    scope = copy_state(state, exe.device)
+    losses = [float(run_tensors(exe, target, feed=feeds[0],
+                                fetch_list=[m["loss"].name],
+                                scope=scope)[0].reshape(-1)[0])
+              for _ in range(MNIST_FALL)]
+    log(f"  {label}: {MNIST_FALL} steps on one batch: loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"{label}: the loss does not fall: {losses}")
+    exe.close()
+    return res
+
+
+def image_batch(shape, classes, batch, seed):
+    rng = np.random.RandomState(seed)
+    return {"data": rng.rand(batch, *shape).astype(np.float32),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+
+
+def cnn_path(smi, name):
+    """17(C): SE-ResNeXt-50 at its defaults (224x224, 102 classes,
+    dropout 0.5) at batch 32, or VGG-16 at cifar10 at batch 128, AMP,
+    through CompiledProgram: ZOO_RUNS steps captured against eager from
+    the same generator state, bitwise (the dropout masks included).
+    SE-ResNeXt-50 also replays a batch-2 AMP step op by op on the card
+    against the CPU (phase 9's per-op bounds; the CPU's dropout mask
+    under the card's arithmetic)."""
+    mod, kw, batch = ((se_resnext, SE_RESNEXT, SE_RESNEXT_BATCH)
+                      if name == "se_resnext" else (vgg, VGG, VGG_BATCH))
+    label = f"17(C) {'SE-ResNeXt-50' if name == 'se_resnext' else 'VGG-16'}"
+    m, state, exe = zoo_build(mod, **kw)
+    main = mixed_precision.decorate(m["main"].clone())
+    target = pt.CompiledProgram(main, build_strategy=bench_build_strategy())
+    shape = list(m["main"].global_block().var("data").shape[1:])
+    classes = int(m["predict"].shape[-1])
+    feeds = [image_batch(shape, classes, batch, SEED + 1800 + i)
+             for i in range(ZOO_RUNS)]
+    _, _, res = zoo_train(label, exe, target, state,
+                          [m["loss"].name, m["acc"].name], feeds,
+                          ("images", batch), smi)
+    if name == "se_resnext":
+        replay_each_op(exe.lowered_ops(target, [m["loss"].name]),
+                       m["main"].global_block(),
+                       copy_state(state, torch.device("cpu")),
+                       image_batch(shape, classes, 2, SEED + 1850),
+                       exe.device, True, f"{label} AMP step at batch 2")
+    exe.close()
+    return res
+
+
+def lstm_op_on_the_card(label, device, hdim, t, batch):
+    """The lstm op at the path's shape on the card against the CPU on the
+    same inputs, fp32: Hidden and Cell within LSTM_REL of their largest
+    magnitude."""
+    g = torch.Generator().manual_seed(SEED)
+    ins = {"Input": [torch.randn(batch, t, 4 * hdim, generator=g)],
+           "Weight": [torch.randn(hdim, 4 * hdim, generator=g) * 0.05],
+           "Bias": [torch.randn(4 * hdim, generator=g) * 0.1],
+           "Length": [torch.randint(t // 2, t + 1, (batch,), generator=g,
+                                    dtype=torch.int32)]}
+    attrs = {"use_peepholes": False, "is_reverse": False}
+    emit = pt.registry.lookup("lstm").emitter
+    want = emit(pt.registry.EmitContext(torch.device("cpu")), ins, attrs)
+    got = emit(pt.registry.EmitContext(device),
+               {k: [v[0].to(device)] for k, v in ins.items()}, attrs)
+    for slot in ("Hidden", "Cell"):
+        w, c = want[slot][0], got[slot][0].cpu()
+        err, top = distance(c, w), w.abs().max().item()
+        log(f"  {label}: the lstm op's {slot} [{batch}, {t}, {hdim}] on the "
+            f"card against the CPU: {err:.3e} of {top:.3e} (bound "
+            f"{LSTM_REL} relative)")
+        if not err <= LSTM_REL * top:
+            raise AssertionError(f"{label}: lstm {slot} {err:.3e}")
+
+
+def softmax_out(m):
+    """stacked_lstm's prediction: the softmax its accuracy reads."""
+    op = [o for o in m["test"].global_block().desc.ops
+          if o.type == "softmax"][-1]
+    return m["test"].global_block().var(op.output("Out")[0])
+
+
+def stacked_lstm_path(smi):
+    """17(D): stacked_lstm at its defaults, fp32, batch 32, through
+    CompiledProgram: ZOO_RUNS steps captured against eager, bitwise; the
+    lstm op on the card against the CPU; the test program's softmax
+    served by AnalysisPredictor with the default passes
+    (fused_embedding_fc_lstm) and without fc_fuse_pass (fusion_lstm),
+    each within SERVE_TOL of the executor's."""
+    label = "17(D) stacked LSTM"
+    m, state, exe = zoo_build(stacked_lstm, **STACKED_LSTM)
+    target = pt.CompiledProgram(m["main"], build_strategy=bench_build_strategy())
+    max_len = int(m["main"].global_block().var("words").shape[1])
+    dict_size = STACKED_LSTM.get("dict_size", 5000)
+    feeds = [stacked_lstm.make_fake_batch(STACKED_LSTM_BATCH, dict_size,
+                                          max_len, seed=SEED + 1900 + i)
+             for i in range(ZOO_RUNS)]
+    tokens = int(np.median([f["length"].sum() for f in feeds]))
+    scope, _, res = zoo_train(label, exe, target, state,
+                              [m["loss"].name, m["acc"].name], feeds,
+                              ("tokens", tokens), smi)
+    op = next(o for o in m["main"].global_block().desc.ops
+              if o.type == "lstm")
+    hdim = int(m["main"].global_block().var(op.input("Weight")[0]).shape[0])
+    lstm_op_on_the_card(label, exe.device, hdim, max_len, STACKED_LSTM_BATCH)
+    target_var = softmax_out(m)
+    no_fc_fuse = [p for p in AnalysisConfig.DEFAULT_PASSES
+                  if p != "fc_fuse_pass"]
+    for passes, want in ((None, ("fused_embedding_fc_lstm",)),
+                         (no_fc_fuse, ("fused_embedding_fc_lstm",
+                                       "fusion_lstm"))):
+        zoo_serve(label, exe, m, scope, feeds[0], ["words", "length"],
+                  target_var, passes, want)
+    exe.close()
+    return res
+
+
+def zoo_small_path(smi, name):
+    """17(D): the rest of the zoo at its defaults: ZOO_RUNS steps
+    captured against eager, bitwise, finite losses."""
+    modname, kw, batch = ZOO_SMALL[name]
+    mod = {"fit_a_line": fit_a_line, "word2vec": word2vec,
+           "recommender": recommender,
+           "understand_sentiment": understand_sentiment}[modname]
+    label = f"17(D) {name}"
+    m, state, exe = zoo_build(mod, **kw)
+    target = pt.CompiledProgram(m["main"], build_strategy=bench_build_strategy())
+    feeds = [mod.make_fake_batch(batch, seed=SEED + 1950 + i)
+             for i in range(ZOO_RUNS)]
+    _, _, res = zoo_train(label, exe, target, state, [m["loss"].name],
+                          feeds, ("rows", batch), smi)
+    exe.close()
+    return res
+
+
+def zoo_paths(smi):
+    """Phase 17; returns the flash launches of its paths (the wrappers'
+    calls over each path's runs, (0, 0); each path's traced replay holds
+    no flash kernel) and each path's numbers."""
+    out, numbers, secs = {}, {}, {}
+    runs = [("deepfm", deepfm_path), ("mnist", mnist_path),
+            ("se_resnext", lambda s: cnn_path(s, "se_resnext")),
+            ("vgg", lambda s: cnn_path(s, "vgg")),
+            ("stacked_lstm", stacked_lstm_path)] + [
+        (n, lambda s, n=n: zoo_small_path(s, n)) for n in ZOO_SMALL]
+    for name, fn in runs:
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        numbers[name] = fn(smi)
+        calls = (fa.launches, fa.bwd_launches)
+        if calls != (0, 0):
+            raise AssertionError(f"17 {name}: flash wrapper calls {calls}")
+        out[f"zoo_{name}"] = calls
+        secs[name] = time.perf_counter() - t0
+        release()
+    log("17: " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
+    log("17: " + json.dumps({n: {k: round(v, 4) for k, v in r.items()}
+                             for n, r in numbers.items()}))
+    return out, numbers
+
+
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
@@ -5265,6 +5727,12 @@ def main(argv=None):
                   "with async cadence checkpoints, SIGKILL and resume, "
                   "SIGTERM; gradient accumulation; dropout; the DataLoader")
             paths.update(runtime_paths(smi))
+            release()
+            phase("the model zoo: DeepFM, MNIST LeNet, SE-ResNeXt-50, "
+                  "VGG-16, stacked LSTM and the rest of the zoo through "
+                  "CompiledProgram, captured against eager; DeepFM and the "
+                  "LSTM served through AnalysisPredictor")
+            paths.update(zoo_paths(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

@@ -15,7 +15,7 @@ its grad run hand-written CUDA kernels on the card.
 """
 
 from . import core, ops, registry  # noqa: F401  (ops registers emitters)
-from . import initializer, io, layers, optimizer  # noqa: F401
+from . import initializer, io, layers, nets, optimizer  # noqa: F401
 from . import backward, clip, contrib, ir, regularizer  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)

@@ -192,7 +192,9 @@ def set_params_from_numpy(scope, arrays: Dict[str, np.ndarray], device,
     """Place ``arrays`` (name -> ndarray, e.g. the JAX package's trained
     or initialized parameters) into ``scope`` as tensors on ``device``.
     The names must be exactly the program's persistable variables, each
-    with the shape and dtype the program declares."""
+    with the shape and dtype the program declares; an int64 variable
+    (``auc``'s stat buckets, a step counter) also takes the int32 array
+    the JAX package holds it in (x64 off), widened."""
     program = program or default_main_program()
     want = {v.name: v for v in program.list_vars() if v.persistable}
     missing = sorted(set(want) - set(arrays))
@@ -208,6 +210,8 @@ def set_params_from_numpy(scope, arrays: Dict[str, np.ndarray], device,
             raise ValueError(f"set_params_from_numpy: {name} has shape "
                              f"{list(arr.shape)}, the program declares "
                              f"{list(var.shape)}")
+        if var.dtype == DataType.INT64 and arr.dtype == np.int32:
+            arr = arr.astype(np.int64)
         if var.dtype == DataType.BF16 or arr.dtype != dtype_to_numpy(
                 var.dtype):
             raise TypeError(f"set_params_from_numpy: {name} is "

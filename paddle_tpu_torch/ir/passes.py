@@ -7,17 +7,20 @@ reaches (is_test, identity_scale_op_clean, fc_fuse, infer_clean_graph,
 fuse_elewise_add_act, repeated_fc_relu_fuse), the conv passes
 (conv_bn_fuse and conv_affine_channel_fuse, which fold values from the
 Scope; the conv_elementwise_add fusions; fuse_relu_depthwise_conv;
-conv_layout_nhwc), squared_mat_sub_fuse (the FM trick) and the registry
-wrappers of the BuildStrategy op-list
+conv_layout_nhwc), squared_mat_sub_fuse (the FM trick), the RNN and
+sequence fusions (fc_gru_fuse, fc_lstm_fuse and embedding_fc_lstm_fuse,
+which fold values from the Scope when they have it; seqpool_concat_fuse)
+and the registry wrappers of the BuildStrategy op-list
 stages (cse, constant_fold, dead_op_elimination, fuse_optimizer_ops,
 fuse_attention, fuse_conv_epilogue). Each rewrites a program to the op
 list the JAX package's pass gives.
 
-Not ported: the RNN and sequence fusions and graph_viz. They are
-registered under their names with a guard: a graph that holds every op
-type the pass's pattern needs raises ``NotImplementedError`` naming the
-ROADMAP item that ports the pass; any other graph is left unchanged,
-since the pass cannot match without its anchor ops.
+Not ported: seqconv_eltadd_relu_fuse (``sequence_conv`` is not ported)
+and graph_viz. They are registered under their names with a guard: a
+graph that holds every op type the pass's pattern needs raises
+``NotImplementedError`` naming the ROADMAP item that ports the pass; any
+other graph is left unchanged, since the pass cannot match without its
+anchor ops.
 """
 
 from __future__ import annotations
@@ -948,7 +951,7 @@ class FuseAttentionPass(_OpListPass):
 
 
 # ---------------------------------------------------------------------------
-# passes not ported yet: registered under their names behind a guard
+# FM and detection fusions
 # ---------------------------------------------------------------------------
 
 @register_pass
@@ -1021,6 +1024,224 @@ class SquaredMatSubFusePass(Pass):
                 drop.update(m.op_indices())
             _splice(graph, fused_at, drop)
 
+
+
+# ---------------------------------------------------------------------------
+# RNN and sequence fusions
+# ---------------------------------------------------------------------------
+
+class _FCRNNFuseBase(Pass):
+    """fc_gru_fuse_pass.cc / fc_lstm_fuse_pass.cc analog: mul(X, WeightX)
+    [-> elementwise_add(bias)] -> gru/lstm collapses into fusion_gru /
+    fusion_lstm. With the Scope the projection bias is summed into the
+    recurrence's Bias by value (in float32 numpy, as the JAX pass sums
+    it; a peephole [7H] bias does not fold and its match is skipped);
+    without it only the bias-free form fuses. The fused op takes the
+    RNN's slot, so inputs made between the mul and the RNN are live."""
+
+    rnn_type = ""
+    fused_type = ""
+    out_slots: Tuple[str, ...] = ()
+
+    def apply(self, graph: Graph):
+        from .pattern import GraphPatternDetector, PNode, intermediates_safe
+        protected = self.attrs.get("protected", set())
+        scope = self.attrs.get("scope")
+        persistable = GraphPatternDetector.persistable
+        for with_bias in (True, False):
+            if with_bias and scope is None:
+                continue
+            pattern = [PNode("mul", "mul", inputs={"X": "x", "Y": "wx"},
+                             outputs={"Out": "mul_out"},
+                             predicate=persistable("Y"))]
+            rnn_in = "mul_out"
+            if with_bias:
+                pattern.append(PNode(
+                    "add", "elementwise_add",
+                    inputs={"X": "mul_out", "Y": "fc_bias"},
+                    outputs={"Out": "add_out"},
+                    predicate=persistable("Y")))
+                rnn_in = "add_out"
+            pattern.append(PNode(
+                "rnn", self.rnn_type,
+                inputs={"Input": rnn_in, "Weight": "wh"},
+                outputs={s: f"out_{s}" for s in self.out_slots}))
+            keep = ["x", "wx", "wh", "fc_bias"] + [
+                f"out_{s}" for s in self.out_slots]
+            drop = set()
+            fused_at = {}
+            for m in GraphPatternDetector(graph).detect(pattern):
+                if not intermediates_safe(graph, m, keep, protected):
+                    continue
+                rnn = graph.ops[m.ops["rnn"]]
+                rnn_bias = rnn.input("Bias")
+                bias_in = list(rnn_bias or [])
+                if with_bias:
+                    fcb = _scope_array(scope, m.vars["fc_bias"])
+                    if rnn_bias and scope.find_var(rnn_bias[0]) is not None:
+                        rb = _scope_array(scope, rnn_bias[0])
+                        if rb.shape[-1] != fcb.size:
+                            continue
+                        _scope_store(scope, rnn_bias[0],
+                                     (rb + fcb.reshape(rb.shape)).astype(
+                                         rb.dtype),
+                                     scope.find_var(rnn_bias[0]))
+                    else:
+                        bias_in = [m.vars["fc_bias"]]
+                ins = {"X": [m.vars["x"]], "WeightX": [m.vars["wx"]],
+                       "WeightH": [m.vars["wh"]], "Bias": bias_in}
+                for slot in ("H0", "C0", "Length"):
+                    if rnn.input(slot):
+                        ins[slot] = list(rnn.input(slot))
+                fused_at[m.ops["rnn"]] = OpDesc(
+                    self.fused_type, ins,
+                    {s: [m.vars[f"out_{s}"]] for s in self.out_slots},
+                    dict(rnn.attrs))
+                drop.update(m.op_indices())
+            _splice(graph, fused_at, drop)
+
+
+@register_pass
+class FCGRUFusePass(_FCRNNFuseBase):
+    name = "fc_gru_fuse_pass"
+    rnn_type = "gru"
+    fused_type = "fusion_gru"
+    out_slots = ("Hidden",)
+
+
+@register_pass
+class FCLSTMFusePass(_FCRNNFuseBase):
+    name = "fc_lstm_fuse_pass"
+    rnn_type = "lstm"
+    fused_type = "fusion_lstm"
+    out_slots = ("Hidden", "Cell")
+
+
+@register_pass
+class EmbeddingFCLSTMFusePass(Pass):
+    """embedding_fc_lstm_fuse_pass.cc analog: lookup_table -> mul(WeightX)
+    [-> elementwise_add(fc bias)] -> lstm becomes fused_embedding_fc_lstm
+    by folding the projection into the table by value, Embeddings = table
+    @ WeightX (+ the fc bias on every row), computed in float64 numpy and
+    stored in the table's dtype, as the JAX pass does. The folded table is
+    a new persistable, named after the table and the projection (a table
+    shared by two lstms through different weights folds twice). Needs
+    the Scope."""
+
+    name = "embedding_fc_lstm_fuse_pass"
+
+    def apply(self, graph: Graph):
+        scope = self.attrs.get("scope")
+        if scope is None:
+            raise ValueError(
+                "embedding_fc_lstm_fuse_pass needs set('scope', scope)")
+        from .pattern import GraphPatternDetector, PNode, intermediates_safe
+        protected = self.attrs.get("protected", set())
+        persistable = GraphPatternDetector.persistable
+        for with_bias in (True, False):
+            pattern = [
+                PNode("emb", "lookup_table",
+                      inputs={"W": "table", "Ids": "ids"},
+                      outputs={"Out": "emb_out"}, predicate=persistable("W")),
+                PNode("mul", "mul", inputs={"X": "emb_out", "Y": "wx"},
+                      outputs={"Out": "mul_out"}, predicate=persistable("Y")),
+            ]
+            lstm_in = "mul_out"
+            if with_bias:
+                pattern.append(PNode(
+                    "add", "elementwise_add",
+                    inputs={"X": "mul_out", "Y": "fc_bias"},
+                    outputs={"Out": "add_out"}, predicate=persistable("Y")))
+                lstm_in = "add_out"
+            pattern.append(PNode(
+                "lstm", "lstm", inputs={"Input": lstm_in, "Weight": "wh"},
+                outputs={"Hidden": "hidden", "Cell": "cell"}))
+            drop = set()
+            fused_at = {}
+            for m in GraphPatternDetector(graph).detect(pattern):
+                if not intermediates_safe(
+                        graph, m, ("table", "ids", "wx", "wh", "fc_bias",
+                                   "hidden", "cell"), protected):
+                    continue
+                # the fused op sits at the lstm's slot but must read the
+                # Ids the lookup read: no write of them after the lookup
+                if not _reads_same_at(graph, m.vars["ids"], m.ops["emb"]):
+                    continue
+                table_like = scope.find_var(m.vars["table"])
+                table = _scope_array(scope, m.vars["table"])
+                wx = _scope_array(scope, m.vars["wx"])
+                folded = table.astype(np.float64) @ wx.astype(np.float64)
+                if with_bias:
+                    fcb = _scope_array(scope, m.vars["fc_bias"]).reshape(-1)
+                    if fcb.shape[0] != folded.shape[-1]:
+                        continue
+                    folded = folded + fcb
+                emb_name = (m.vars["table"] + "@" + m.vars["wx"]
+                            + "@fc_folded")
+                _scope_store(scope, emb_name, folded.astype(table.dtype),
+                             table_like)
+                if emb_name not in graph.desc.vars:
+                    graph.desc.vars[emb_name] = VarDesc(
+                        emb_name, VarType.DENSE_TENSOR, None,
+                        [int(folded.shape[0]), int(folded.shape[1])],
+                        persistable=True)
+                lstm = graph.ops[m.ops["lstm"]]
+                ins = {"Ids": [m.vars["ids"]], "Embeddings": [emb_name],
+                       "WeightH": [m.vars["wh"]],
+                       "Bias": list(lstm.input("Bias") or [])}
+                for slot in ("H0", "C0", "Length"):
+                    if lstm.input(slot):
+                        ins[slot] = list(lstm.input(slot))
+                fused_at[m.ops["lstm"]] = OpDesc(
+                    "fused_embedding_fc_lstm", ins,
+                    {"Hidden": [m.vars["hidden"]],
+                     "Cell": [m.vars["cell"]]},
+                    dict(lstm.attrs))
+                drop.update(m.op_indices())
+            _splice(graph, fused_at, drop)
+
+
+@register_pass
+class SeqPoolConcatFusePass(Pass):
+    """fusion_seqpool_concat_op.cc route: a concat whose every input is a
+    single-consumer sequence_pool, all of one pooltype, fuses into one
+    fusion_seqpool_concat. The fused op takes the concat's slot, where
+    every branch's input is live."""
+
+    name = "seqpool_concat_fuse_pass"
+
+    def apply(self, graph: Graph):
+        protected = self.attrs.get("protected", set())
+        ops = graph.ops
+        drop = set()
+        fused_at = {}
+        for ci, cop in enumerate(ops):
+            if cop.type != "concat" or len(cop.input("X")) < 2:
+                continue
+            pools = []
+            for v in cop.input("X"):
+                pi = graph.producer(v)
+                if (pi is None or ops[pi].type != "sequence_pool"
+                        or graph.single_consumer(v) != ci
+                        or graph.is_fetched(v, protected) or pi in drop):
+                    break
+                pools.append(pi)
+            else:
+                ptypes = {ops[pi].attrs.get("pooltype", "SUM")
+                          for pi in pools}
+                if len(ptypes) != 1:
+                    continue
+                lens = [(ops[pi].input("Length") or [""])[0] for pi in pools]
+                ins = {"X": [ops[pi].input("X")[0] for pi in pools]}
+                if any(lens):
+                    ins["Length"] = lens
+                fused_at[ci] = OpDesc(
+                    "fusion_seqpool_concat", ins,
+                    {"Out": list(cop.output("Out"))},
+                    {"pooltype": ptypes.pop(),
+                     "axis": int(cop.attrs.get("axis", 1))})
+                drop.update(pools)
+        _splice(graph, fused_at, drop)
 
 @register_pass
 class TransposeFlattenConcatFusePass(Pass):
@@ -1095,6 +1316,10 @@ class TransposeFlattenConcatFusePass(Pass):
             list(fop.attrs.get("shape", ()))[1])
 
 
+# ---------------------------------------------------------------------------
+# passes not ported yet: registered under their names behind a guard
+# ---------------------------------------------------------------------------
+
 _A10 = "ROADMAP A10 (observability)"
 _A11 = "ROADMAP A11 (RNN, sequence and detection fusions)"
 
@@ -1126,14 +1351,8 @@ def _not_ported(name: str, needs: Sequence[Tuple[str, ...]], roadmap: str):
 
 
 for _name, _needs, _item in (
-        ("embedding_fc_lstm_fuse_pass",
-         (("lookup_table",), ("mul",), ("lstm",)), _A11),
-        ("fc_gru_fuse_pass", (("mul",), ("gru",)), _A11),
-        ("fc_lstm_fuse_pass", (("mul",), ("lstm",)), _A11),
         ("seqconv_eltadd_relu_fuse_pass",
          (("sequence_conv",), ("elementwise_add",), ("relu",)), _A11),
-        ("seqpool_concat_fuse_pass", (("sequence_pool",), ("concat",)),
-         _A11),
         # writes a .dot file of any graph: nothing to match, always raises
         ("graph_viz_pass", (), _A10)):
     _not_ported(_name, _needs, _item)

@@ -1,6 +1,6 @@
 """NN layers (reference python/paddle/fluid/layers/nn.py): the ones the
-Transformer, ResNet and BERT build and the training API (clips, schedules)
-appends. Each builds descs via LayerHelper; no device
+Transformer, ResNet, BERT and the model zoo build and the training API
+(clips, schedules) appends. Each builds descs via LayerHelper; no device
 work happens here."""
 
 from __future__ import annotations
@@ -23,23 +23,34 @@ __all__ = [
     "dropout", "square_error_cost",
     "kv_cache_write", "kv_cache_gather_paged", "kv_cache_write_paged",
     "split", "expand", "sequence_pool", "sequence_softmax", "beam_search",
-    "beam_search_decode",
+    "beam_search_decode", "auc", "cos_sim", "log_loss",
 ]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully connected over one input: mul + bias + act, the reference
-    decomposition (a list of inputs, summed, is not ported yet)."""
+    """Fully connected: a mul per input (a list of inputs is summed), then
+    bias and act, the reference decomposition."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
-    param_shape = [int(np.prod(input.shape[num_flatten_dims:])), size]
-    w = helper.create_parameter(helper.param_attr, param_shape, input.dtype)
-    tmp = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op(
-        type="mul", inputs={"X": input, "Y": w}, outputs={"Out": tmp},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
-    pre_act = helper.append_bias_op(tmp, dim_start=num_flatten_dims)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    mul_results = []
+    for inp in inputs:
+        param_shape = [int(np.prod(inp.shape[num_flatten_dims:])), size]
+        w = helper.create_parameter(helper.param_attr, param_shape,
+                                    inp.dtype)
+        tmp = helper.create_variable_for_type_inference(inp.dtype)
+        helper.append_op(
+            type="mul", inputs={"X": inp, "Y": w}, outputs={"Out": tmp},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": pre_bias})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -507,6 +518,27 @@ def square_error_cost(input, label):
     return out
 
 
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity (cos_sim_op.h); Y may be [1, D]."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype, True)
+    yn = helper.create_variable_for_type_inference(X.dtype, True)
+    helper.append_op(type="cos_sim", inputs={"X": X, "Y": Y},
+                     outputs={"Out": out, "XNorm": xn, "YNorm": yn})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """Negative log likelihood of a probability (log_loss_op.h)."""
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": input, "Labels": label},
+                     outputs={"Loss": out}, attrs={"epsilon": epsilon})
+    return out
+
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
     helper = LayerHelper("cross_entropy")
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -534,6 +566,28 @@ def accuracy(input, label, k=1, correct=None, total=None):
         outputs={"Accuracy": acc_out, "Correct": correct, "Total": total})
     return acc_out
 
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Streaming AUC: the stat buckets live in two persistable int64 vars
+    (zeros from the startup program) that every run updates."""
+    helper = LayerHelper("auc")
+    stat_pos = helper.create_global_variable(
+        persistable=True, dtype="int64", shape=[num_thresholds + 1])
+    stat_neg = helper.create_global_variable(
+        persistable=True, dtype="int64", shape=[num_thresholds + 1])
+    for v in (stat_pos, stat_neg):
+        helper.set_variable_initializer(v, ConstantInitializer(0))
+    auc_out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="auc",
+        inputs={"Predict": input, "Label": label, "StatPos": stat_pos,
+                "StatNeg": stat_neg},
+        outputs={"AUC": auc_out, "StatPosOut": stat_pos,
+                 "StatNegOut": stat_neg},
+        attrs={"curve": curve, "num_thresholds": num_thresholds})
+    return auc_out, [stat_pos, stat_neg]
 
 def topk(input, k=1, name=None):
     helper = LayerHelper("top_k", name=name)

@@ -4,6 +4,7 @@ package registers everything."""
 from . import kernels_tensor  # noqa: F401
 from . import kernels_math  # noqa: F401
 from . import kernels_nn  # noqa: F401
+from . import kernels_loss  # noqa: F401
 from . import kernels_sequence  # noqa: F401
 from . import kernels_host  # noqa: F401
 from . import kernels_reader  # noqa: F401

@@ -4,10 +4,12 @@
 ``fusion_repeated_fc_relu`` (repeated_fc_relu_fuse_pass),
 ``fusion_squared_mat_sub`` (squared_mat_sub_fuse_pass),
 ``fusion_transpose_flatten_concat`` (transpose_flatten_concat_fuse_pass),
-``conv2d_fusion``
+``fusion_gru`` and ``fusion_lstm`` (fc_gru_fuse_pass, fc_lstm_fuse_pass),
+``fused_embedding_fc_lstm`` (embedding_fc_lstm_fuse_pass),
+``fusion_seqpool_concat`` (seqpool_concat_fuse_pass), ``conv2d_fusion``
 (the inference conv passes) and ``fused_conv2d`` (the pipeline's conv
 stages). Each composes the torch ops, or the registered emitters, of the
-ops it replaces; the RNN and sequence fusions wait for ROADMAP A11.
+ops it replaces.
 
 ``fused_elemwise_activation`` and ``fused_conv2d`` have no grad emitter of
 their own: their grad ops run the generic vjp, which re-runs the forward
@@ -119,6 +121,102 @@ def fusion_transpose_flatten_concat(ctx, ins, attrs):
         outs.append(t.reshape(lead, -1))
     return {"Out": [torch.cat(outs, dim=int(attrs.get("concat_axis", 1)))]}
 
+
+
+def _fusion_rnn(ctx, ins, attrs, rnn_type: str, proj=None):
+    """The projected input (X @ WeightX, unless the embedding-folded op
+    passes its lookup as ``proj``), then the registered gru or lstm
+    emitter: the same loop, so the fused op's outputs are the unfused
+    recurrence's."""
+    if proj is None:
+        xv = ins["X"][0]
+        proj = xv @ ins["WeightX"][0].to(xv.dtype)
+    sub_ins = {"Input": [proj], "Weight": ins["WeightH"],
+               "Bias": ins.get("Bias", [None]),
+               "H0": ins.get("H0", [None]),
+               "Length": ins.get("Length", [None])}
+    if rnn_type == "lstm":
+        sub_ins["C0"] = ins.get("C0", [None])
+    return lookup(rnn_type).emitter(ctx, sub_ins, attrs)
+
+
+def _fusion_rnn_infer(n_gates: int, with_cell: bool):
+    def infer(op: OpDesc, block):
+        xs = in_shape(block, op, "X")
+        ws = in_shape(block, op, "WeightX")
+        if xs is None or ws is None:
+            return
+        h = ws[-1] // n_gates
+        for slot in ("Hidden", "Cell") if with_cell else ("Hidden",):
+            for n in op.output(slot):
+                set_out_var(block, n, xs[:-1] + [h],
+                            in_dtype(block, op, "X"))
+    return infer
+
+
+@register_op("fusion_gru", no_grad=True, infer=_fusion_rnn_infer(3, False))
+def fusion_gru(ctx, ins, attrs):
+    """fused/fusion_gru_op.cc, the product of fc_gru_fuse_pass."""
+    return {"Hidden": _fusion_rnn(ctx, ins, attrs, "gru")["Hidden"]}
+
+
+@register_op("fusion_lstm", no_grad=True, infer=_fusion_rnn_infer(4, True))
+def fusion_lstm(ctx, ins, attrs):
+    """fused/fusion_lstm_op.cc, the product of fc_lstm_fuse_pass."""
+    out = _fusion_rnn(ctx, ins, attrs, "lstm")
+    return {"Hidden": out["Hidden"], "Cell": out["Cell"]}
+
+
+@register_op("fusion_seqpool_concat", no_grad=True, infer=_dtype_only_infer)
+def fusion_seqpool_concat(ctx, ins, attrs):
+    """fused/fusion_seqpool_concat_op.cc: N sequence_pools (each with its
+    Length, if any) and one concat."""
+    pool = lookup("sequence_pool").emitter
+    lengths = ins.get("Length", [])
+    pooled = []
+    for i, xv in enumerate(ins["X"]):
+        n = lengths[i] if i < len(lengths) else None
+        pooled.append(pool(ctx, {"X": [xv], "Length": [n]},
+                           {"pooltype": attrs.get("pooltype", "SUM")})
+                      ["Out"][0])
+    return {"Out": [torch.cat(pooled, dim=int(attrs.get("axis", 1)))]}
+
+
+def _ids_bt(ids):
+    """(B, T) of an id layout: [B, T, 1], [B, T], a flat [N, 1] (one
+    sequence) or [N]."""
+    if len(ids) == 3:
+        return ids[0], ids[1]
+    if len(ids) == 2:
+        return (1, ids[0]) if ids[1] == 1 else (ids[0], ids[1])
+    return 1, ids[0]
+
+
+def _fused_emb_fc_lstm_infer(op: OpDesc, block):
+    ids = in_shape(block, op, "Ids")
+    wh = in_shape(block, op, "WeightH")
+    if ids is None or wh is None:
+        return
+    d = wh[0]
+    b, t = _ids_bt(ids)
+    dt = in_dtype(block, op, "Embeddings")
+    for slot, width in (("Hidden", d), ("Cell", d), ("XX", 4 * d)):
+        for n in op.output(slot):
+            set_out_var(block, n, [b, t, width], dt)
+
+
+@register_op("fused_embedding_fc_lstm", no_grad=True,
+             infer=_fused_emb_fc_lstm_infer)
+def fused_embedding_fc_lstm(ctx, ins, attrs):
+    """fused/fused_embedding_fc_lstm_op.cc: embedding_fc_lstm_fuse_pass
+    folds the input fc into the table (each row of Embeddings is already
+    the 4H gate pre-projection, in the lstm's c, i, f, o layout), so the
+    op is a lookup and the lstm recurrence."""
+    ids = ins["Ids"][0]
+    b, t = _ids_bt(list(ids.shape))
+    proj = ins["Embeddings"][0][ids.reshape(b, t).long()]   # [B, T, 4H]
+    out = _fusion_rnn(ctx, ins, attrs, "lstm", proj=proj)
+    return {"Hidden": out["Hidden"], "Cell": out["Cell"], "XX": [proj]}
 
 _CONV_ACTS = {
     "relu": torch.relu,

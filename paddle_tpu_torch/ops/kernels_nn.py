@@ -1,8 +1,8 @@
 """NN ops (counterpart of ``paddle_tpu/ops/kernels_nn.py``): conv2d and
 depthwise_conv2d with their grads, pool2d, batch_norm, layer_norm,
 softmax_with_cross_entropy with its grad, cross_entropy,
-square_error_cost, accuracy, dropout with its grad, and the ``fc`` op that
-fc_fuse_pass writes.
+square_error_cost, accuracy, the streaming ``auc``, dropout with its grad,
+and the ``fc`` op that fc_fuse_pass writes.
 
 Convolutions go to ``torch.nn.functional.conv2d`` (cuDNN on the card), as
 the JAX package left them to ``lax.conv_general_dilated``. A tensor the
@@ -517,6 +517,50 @@ def accuracy(ctx, ins, attrs):
     return {"Accuracy": [acc.reshape(1)], "Correct": [correct.reshape(1)],
             "Total": [total]}
 
+
+
+def _auc_infer(op: OpDesc, block):
+    for n in op.output("AUC"):
+        set_out_var(block, n, [1], DataType.FP32)
+    for out_slot, in_slot in (("StatPosOut", "StatPos"),
+                              ("StatNegOut", "StatNeg")):
+        for n in op.output(out_slot):
+            set_out_var(block, n, in_shape(block, op, in_slot),
+                        in_dtype(block, op, in_slot))
+
+
+@register_op("auc", no_grad=True, infer=_auc_infer)
+def auc(ctx, ins, attrs):
+    """metrics/auc_op.cc: the streaming ROC AUC over stat buckets that
+    persistable int64 vars hold (StatPosOut is StatPos, StatNegOut is
+    StatNeg; the executor copies the new counts into them). A row's bucket
+    is int32(p * num_thresholds), truncated toward zero and clipped to
+    [0, num_thresholds]; the trapezoid integration runs in float64, as
+    auc_op.h's does, and the AUC is cast to float32. The counts are exact
+    integer index_adds, so any order of atomics gives the same bits."""
+    preds = ins["Predict"][0]
+    label = ins["Label"][0].reshape(-1)
+    stat_pos, stat_neg = ins["StatPos"][0], ins["StatNeg"][0]
+    num_thresh = stat_pos.shape[0] - 1
+    pos_score = (preds[:, 1] if preds.dim() == 2 and preds.shape[1] == 2
+                 else preds.reshape(-1))
+    bucket = torch.clamp((pos_score * num_thresh).to(torch.int32), 0,
+                         num_thresh).long()
+    is_pos = label > 0
+    stat_pos = stat_pos.index_add(0, bucket, is_pos.to(stat_pos.dtype))
+    stat_neg = stat_neg.index_add(0, bucket, (~is_pos).to(stat_neg.dtype))
+    # integrate over descending thresholds
+    tp = torch.cumsum(torch.flip(stat_pos, (0,)), 0)
+    fp = torch.cumsum(torch.flip(stat_neg, (0,)), 0)
+    zero = tp[:1] * 0
+    tp0 = torch.cat([zero, tp[:-1]])
+    fp0 = torch.cat([zero, fp[:-1]])
+    area = torch.sum((fp - fp0).double() * (tp + tp0).double() / 2.0)
+    denom = tp[-1].double() * fp[-1].double()
+    auc_val = torch.where(denom > 0, area / (denom + 1e-12),
+                          torch.zeros_like(area))
+    return {"AUC": [auc_val.reshape(1).float()],
+            "StatPosOut": [stat_pos], "StatNegOut": [stat_neg]}
 
 def _fc_infer(op: OpDesc, block):
     xs = in_shape(block, op, "Input")

@@ -1,14 +1,18 @@
 """Recurrent ops (counterpart of ``paddle_tpu/ops/kernels_rnn.py``): the
-``gru`` forward over a padded [B, T, 3H] batch.
+``lstm`` and ``gru`` forwards over a padded [B, T, 4H] or [B, T, 3H] batch.
 
-Gate layout (the reference's gru_kernel.h, ``origin_mode=False``): the
-input is pre-projected x·Wx + bias; Weight [H, 3H] holds the update and
-reset gates' [H, 2H] and the candidate's [H, H], and
-h = (1 - u) * h_prev + u * c. A row past its ``Length`` keeps its hidden
-state; ``is_reverse`` runs each row backwards within its length (the
+The input is pre-projected (x·Wx, plus the bias the op adds); the op runs
+the recurrence h_{t-1}·Wh + gates. LSTM gates sit on the 4H axis in the
+reference's order c, i, f, o (lstm_op.cc, math/detail/lstm_cpu_kernel.h),
+with the peephole weights W_ic, W_fc, W_oc in Bias[4H:7H] when
+``use_peepholes``. GRU follows gru_kernel.h, ``origin_mode=False``: Weight
+[H, 3H] holds the update and reset gates' [H, 2H] and the candidate's
+[H, H], and h = (1 - u) * h_prev + u * c. A row past its ``Length`` keeps
+its state; ``is_reverse`` runs each row backwards within its length (the
 padding stays where it is). The recurrence is a loop of T steps, T
-static, so the op can be captured in a CUDA graph. Its backward
-(``gru_grad``) waits for ROADMAP A11.
+static, so the op can be captured in a CUDA graph. Their grads run the
+generic vjp, which re-runs the loop under ``torch.func.vjp`` (``gru``'s is
+not held against the JAX package's yet: ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -34,6 +38,79 @@ def _seq_flip(xv, length):
     return torch.take_along_dim(
         xv, src.reshape(src.shape + (1,) * (xv.dim() - 2)), dim=1)
 
+
+def _lstm_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "Input")
+    dt = in_dtype(block, op, "Input")
+    if xs is None:
+        return
+    h = xs[-1] // 4
+    for slot in ("Hidden", "Cell"):
+        for n in op.output(slot):
+            set_out_var(block, n, xs[:-1] + [h], dt)
+
+
+@register_op("lstm", intermediate_outputs=("BatchGate", "BatchCellPreAct"),
+             infer=_lstm_infer)
+def lstm(ctx, ins, attrs):
+    """lstm_op.cc over Input [B, T, 4H], Weight [H, 4H], optional Bias
+    [4H] or [7H] (with peepholes), H0 and C0 [B, H] and Length [B]:
+    Hidden and Cell [B, T, H]. Under AMP the recurrent product takes bf16
+    operands, as the JAX op's does."""
+    xv = ins["Input"][0]
+    w = ins["Weight"][0]
+    bias = opt(ins, "Bias")
+    bsz, t = xv.shape[0], xv.shape[1]
+    hdim = xv.shape[2] // 4
+    h, c = opt(ins, "H0"), opt(ins, "C0")
+    if h is None:
+        h = torch.zeros((bsz, hdim), dtype=xv.dtype, device=xv.device)
+    if c is None:
+        c = torch.zeros((bsz, hdim), dtype=xv.dtype, device=xv.device)
+    length = opt(ins, "Length")
+    gate_act = _ACT[attrs.get("gate_activation", "sigmoid")]
+    cell_act = _ACT[attrs.get("cell_activation", "tanh")]
+    cand_act = _ACT[attrs.get("candidate_activation", "tanh")]
+    peep = (bool(attrs.get("use_peepholes", False)) and bias is not None
+            and bias.shape[-1] == 7 * hdim)
+    reverse = bool(attrs.get("is_reverse", False))
+
+    gates_in = xv
+    if bias is not None:
+        gates_in = gates_in + bias[..., :4 * hdim].reshape(1, 1, 4 * hdim)
+    if reverse:
+        gates_in = _seq_flip(gates_in, length)
+    if peep:
+        w_ic = bias[..., 4 * hdim:5 * hdim]
+        w_fc = bias[..., 5 * hdim:6 * hdim]
+        w_oc = bias[..., 6 * hdim:7 * hdim]
+    hs, cs = [], []
+    for tt in range(t):
+        hp, wc = amp_cast(ctx, h, w)
+        g = gates_in[:, tt] + hp @ wc
+        gc, gi, gf, go = torch.split(g, hdim, dim=-1)
+        if peep:
+            gi = gi + w_ic * c
+            gf = gf + w_fc * c
+        c_new = gate_act(gf) * c + gate_act(gi) * cand_act(gc)
+        if peep:
+            go = go + w_oc * c_new
+        h_new = gate_act(go) * cell_act(c_new)
+        if length is not None:
+            valid = (tt < length).reshape(-1, 1)
+            h_new = torch.where(valid, h_new, h)
+            c_new = torch.where(valid, c_new, c)
+        h, c = h_new, c_new
+        hs.append(h)
+        cs.append(c)
+    hidden = torch.stack(hs, dim=1)
+    cell = torch.stack(cs, dim=1)
+    if reverse:
+        hidden = _seq_flip(hidden, length)
+        cell = _seq_flip(cell, length)
+    z = torch.zeros((0,), dtype=xv.dtype, device=xv.device)
+    return {"Hidden": [hidden], "Cell": [cell], "BatchGate": [z],
+            "BatchCellPreAct": [z]}
 
 def _gru_infer(op: OpDesc, block):
     xs = in_shape(block, op, "Input")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-16) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-17) on the CPU at a tiny
 Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow
 12-layer BERT (d_model 24, T 16, batch 4), phase 13's serving front
 with fewer requests a window, phase 14's generation and phase 15's
@@ -7,10 +7,11 @@ predictor at a narrow LM (d_model 16, vocab 256) and phase 15's machine
 translation at 40-word dictionaries and width 16, and phase 16 at the
 tiny Transformer (its three trainer processes run this script with
 ``--elastic-child``, which sets up the same CPU patches) and the small
-ResNet-50, to find faults in the script's Python before a run on the
-card.
+ResNet-50, and phase 17 at small widths (ZOO_TINY), to find faults in
+the script's Python before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --zoo  # 17 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -57,6 +58,28 @@ GEN_TINY = dict(vocab=256, n_layer=2, n_head=2, d_model=16, d_inner_hid=32,
 # the phase's beam, batch and 50 steps
 MT_TINY = dict(src_dict_size=40, tgt_dict_size=40, emb_dim=16, hid=16,
                max_len=50, beam_size=4, decode_max_len=50)
+
+
+# phase 17 at small widths: DeepFM at vocab 1000 (its 2^31-pair gate
+# needs the card's 131072 rows), SE-ResNeXt-50 at 64x64, the stacked LSTM
+# at width 16 and T 10; the rest of the zoo at its defaults
+ZOO_TINY = dict(
+    DEEPFM=dict(sparse_vocab=1000, num_fields=5, dense_dim=3, embed_dim=4,
+                fc_sizes=(16, 16, 16)),
+    DEEPFM_BATCH=256, DEEPFM_RUNS=4, DEEPFM_STEPS=8, DEEPFM_MIN_PAIRS=0,
+    SE_RESNEXT=dict(image_shape=[3, 64, 64], class_dim=10),
+    SE_RESNEXT_BATCH=4, VGG_BATCH=8,
+    STACKED_LSTM=dict(dict_size=100, emb_dim=16, lstm_size=16, max_len=10),
+    STACKED_LSTM_BATCH=4)
+
+
+def _zoo():
+    for k, v in ZOO_TINY.items():
+        setattr(cs, k, v)
+    t17 = time.perf_counter()
+    zoo, _ = cs.zoo_paths("CPU rehearsal")
+    print(f"phase 17 rehearsed in {time.perf_counter() - t17:.1f} s")
+    return zoo
 
 
 def _d2h_copies(fn):
@@ -134,6 +157,9 @@ def main():
         cs.elastic_child(*sys.argv[i + 1:i + 4])
         return
     _on_the_cpu()
+    if "--zoo" in sys.argv:
+        print(f"rehearsal passed: phase 17 {_zoo()}")
+        return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -169,12 +195,13 @@ def main():
     cs.RESNET_IMAGE, cs.RESNET_BATCH = (3, 64, 64), 4
     runtime = cs.runtime_paths("CPU rehearsal")
     print(f"phase 16 rehearsed in {time.perf_counter() - t16:.1f} s")
+    zoo = _zoo()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
           f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
-          f"{runtime}")
+          f"{runtime}, phase 17 {zoo}")
 
 
 if __name__ == "__main__":

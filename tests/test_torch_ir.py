@@ -15,7 +15,7 @@ the passes that fold values from the Scope (conv_bn_fuse,
 conv_affine_channel_fuse) also leave the JAX package's folded tensors,
 bit for bit.
 
-The guarded passes (RNN, sequence fusions, graph_viz) are checked for
+The guarded passes (seqconv_eltadd_relu, graph_viz) are checked for
 their claim: the JAX package's own pass leaves the Transformer inference
 program unchanged, the port's does too, and the port's raises on a graph
 that holds the pass's anchor ops.
@@ -599,14 +599,16 @@ def test_registry_flags_the_passes_read_match_jax():
 
 
 def test_registry_counts():
-    """The port's op types: 150 of the JAX package's, plus its 3 grad types
+    """The port's op types: 158 of the JAX package's, plus its 3 grad types
     of its own (``_OPAQUE_GRAD_TYPES``); every one has an emitter but
     ``recurrent``, registered for its grad maker (StaticRNN programs build
-    byte-identically; running one waits for ROADMAP A11)."""
+    byte-identically; running one waits for ROADMAP A11). The model zoo
+    added ``auc``, ``log_loss``, ``cos_sim``, ``lstm`` and the four fused
+    ops of the RNN and sequence passes."""
     from paddle_tpu import registry as jreg
     reg = pt.registry._REGISTRY
-    assert len(reg) == 153
-    assert sum(jreg.has_op(t) for t in reg) == 150
+    assert len(reg) == 161
+    assert sum(jreg.has_op(t) for t in reg) == 158
     assert sorted(t for t, i in reg.items() if i.emitter is None) == [
         "recurrent"]
     for op_type in ("while", "array_write", "array_read", "beam_search",
@@ -614,7 +616,9 @@ def test_registry_counts():
                     "sequence_softmax", "expand", "split",
                     "fill_constant_batch_size_like", "dropout",
                     "dropout_grad", "square_error_cost", "create_py_reader",
-                    "read"):
+                    "read", "auc", "log_loss", "cos_sim", "lstm",
+                    "fusion_lstm", "fusion_gru", "fusion_seqpool_concat",
+                    "fused_embedding_fc_lstm"):
         assert reg[op_type].emitter is not None, op_type
 
 
@@ -833,22 +837,40 @@ def test_analysis_default_passes_on_the_inference_program(transformers,
 
 
 # ---------------------------------------------------------------------------
-# the guarded passes
+# the guarded passes, and the RNN and sequence fusions ported since
 # ---------------------------------------------------------------------------
 
 GUARDED = sorted(n for n, cls in pir.PASS_REGISTRY.items()
                  if issubclass(cls, pir.passes._NotPortedPass))
+# the passes guarded before the RNN and sequence fusions were ported;
+# each keeps its checks: a guard raises on its anchor ops, a ported pass
+# does what the JAX package's does on that graph
+ONCE_GUARDED = {
+    "embedding_fc_lstm_fuse_pass": (("lookup_table",), ("mul",), ("lstm",)),
+    "fc_gru_fuse_pass": (("mul",), ("gru",)),
+    "fc_lstm_fuse_pass": (("mul",), ("lstm",)),
+    "graph_viz_pass": (),
+    "seqconv_eltadd_relu_fuse_pass": (("sequence_conv",),
+                                      ("elementwise_add",), ("relu",)),
+    "seqpool_concat_fuse_pass": (("sequence_pool",), ("concat",)),
+}
 
 
 def test_every_jax_pass_is_registered_in_the_port():
     assert sorted(pir.PASS_REGISTRY) == sorted(jir.PASS_REGISTRY)
     assert set(AnalysisConfig.DEFAULT_PASSES) <= set(pir.PASS_REGISTRY)
-    # squared_mat_sub_fuse_pass (ROADMAP C1) and
-    # transpose_flatten_concat_fuse_pass (with concat) are ported, the
-    # rest guarded
-    assert len(GUARDED) == 6
-    assert "squared_mat_sub_fuse_pass" not in GUARDED
-    assert "transpose_flatten_concat_fuse_pass" not in GUARDED
+    # squared_mat_sub_fuse_pass (ROADMAP C1),
+    # transpose_flatten_concat_fuse_pass (with concat) and the RNN and
+    # sequence fusions are ported; seqconv_eltadd_relu (sequence_conv is
+    # not ported) and graph_viz are guarded
+    assert len(pir.PASS_REGISTRY) == 27
+    assert GUARDED == ["graph_viz_pass", "seqconv_eltadd_relu_fuse_pass"]
+    assert set(GUARDED) <= set(ONCE_GUARDED)
+    for name in ("squared_mat_sub_fuse_pass",
+                 "transpose_flatten_concat_fuse_pass",
+                 "embedding_fc_lstm_fuse_pass", "fc_gru_fuse_pass",
+                 "fc_lstm_fuse_pass", "seqpool_concat_fuse_pass"):
+        assert name not in GUARDED
 
 
 @pytest.fixture(scope="module")
@@ -868,12 +890,14 @@ def inference_program():
     return m["test"], m["logits"].name, scope
 
 
-@pytest.mark.parametrize("name", [n for n in GUARDED if n != "graph_viz_pass"])
+@pytest.mark.parametrize("name", sorted(n for n in ONCE_GUARDED
+                                        if n != "graph_viz_pass"))
 def test_guarded_pass_leaves_the_transformer_unchanged(inference_program,
                                                        name):
     """The guard's claim, pinned against the JAX package: its own pass
     changes nothing in the Transformer inference program (the anchor ops
-    are missing), and the port's guarded pass changes nothing either."""
+    are missing), and the port's pass, guarded or ported, changes nothing
+    either."""
     jprog, fetch, scope = inference_program
     jmain, pmain = jprog.clone(), to_port(jprog)
     before = [(o.type, o.inputs, o.outputs, dict(o.attrs))
@@ -885,12 +909,25 @@ def test_guarded_pass_leaves_the_transformer_unchanged(inference_program,
     assert_same_ops(_ops(jmain), _ops(pmain))
 
 
-@pytest.mark.parametrize("name", GUARDED)
+@pytest.mark.parametrize("name", sorted(ONCE_GUARDED))
 def test_guarded_pass_raises_on_its_anchor_ops(name):
-    """A graph holding one op type of each of the pattern's needs raises
-    and names the ROADMAP item; the same graph short of one need is left
-    alone."""
+    """A guarded pass: a graph holding one op type of each of the
+    pattern's needs raises and names the ROADMAP item; the same graph
+    short of one need is left alone. A pass ported since does with that
+    graph what the JAX package's pass does (its anchor ops have no
+    inputs, so neither matches)."""
+    needs = ONCE_GUARDED[name]
+    if name not in GUARDED:
+        jprog = fluid.Program()
+        jprog.global_block().desc.ops = [JOpDesc(alts[0]) for alts in needs]
+        pprog = to_port(jprog)
+        jir.apply_passes(jprog, [name], scope=fluid.Scope())
+        pir.apply_passes(pprog, [name], scope=pt.Scope())
+        assert_same_ops(_ops(jprog), _ops(pprog))
+        assert [o.type for o in _ops(pprog)] == [alts[0] for alts in needs]
+        return
     cls = pir.PASS_REGISTRY[name]
+    assert cls.needs == needs
     prog = pt.Program()
     blk = prog.global_block().desc
     blk.ops = [POpDesc(alts[0]) for alts in cls.needs]

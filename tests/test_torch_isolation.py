@@ -66,6 +66,15 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.ops.kernels_reader\n"
         "import paddle_tpu_torch.data_feeder, paddle_tpu_torch.lod_tensor\n"
         "import paddle_tpu_torch.metrics, paddle_tpu_torch.average\n"
+        "import paddle_tpu_torch.nets, paddle_tpu_torch.ops.kernels_loss\n"
+        "import paddle_tpu_torch.models.fit_a_line\n"
+        "import paddle_tpu_torch.models.mnist, paddle_tpu_torch.models.vgg\n"
+        "import paddle_tpu_torch.models.deepfm\n"
+        "import paddle_tpu_torch.models.word2vec\n"
+        "import paddle_tpu_torch.models.se_resnext\n"
+        "import paddle_tpu_torch.models.recommender\n"
+        "import paddle_tpu_torch.models.understand_sentiment\n"
+        "import paddle_tpu_torch.models.stacked_lstm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
