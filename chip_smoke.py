@@ -289,6 +289,28 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (``fusion_lstm`` as well), each within 1e-5 of the executor's; then
    fit_a_line, word2vec, recommender and both understand_sentiment nets.
 
+18. recurrent training and structured prediction, after phase 17, each
+   path through ``CompiledProgram`` under bench.py's BuildStrategy,
+   REC_RUNS steps on one batch (the While WHILE_STEPS on a new batch
+   each) captured against eager from the same state, bitwise (fetches and
+   every persistable, deterministic mode), the loss falling, ZOO_TRACED
+   replays traced (device time, kernels, idle share, no flash kernel),
+   peak memory, tokens or rows per second: (A) ``machine_translation``
+   at the Fluid benchmark's widths (MT: 30000-word dictionaries, 512
+   wide, max_len 50), fp32, Adam, batch 32 (the decoder one
+   ``recurrent`` op of 50 steps, its backward the generic vjp of the
+   whole loop); then phase 15's decode program on the trained scope, 3
+   captured runs against 2 eager bitwise, and ROADMAP C4's probes through
+   ``top_k`` and ``beam_search`` on the card against the JAX package's
+   results (literals here); (B) ``label_semantic_roles`` at the book's
+   widths (SRL: hidden 512, eight lstm layers, T 40, 59 labels), batch
+   10 of conll05 rows, SGD, and the test program's ``crf_decoding``
+   paths equal to a numpy Viterbi of the card's emissions; (C)
+   tests/test_control_flow.py's bounded While (y = x * w^2,
+   max_trip_count 4) at batch 4096, 40 SGD steps, the last loss below
+   0.2 of the first, and the float64 build's ``while_grad`` within
+   WHILE_FD_REL of central differences of its loss on the card.
+
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
@@ -296,8 +318,8 @@ calling the wrappers, whose counts then cover the eager runs and the
 captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
-(phases 14-15) and the model zoo (17) hold the wrappers' counts at 0:
-no call, so no flash kernel in any graph either.
+(phases 14-15), the model zoo (17) and recurrent training (18) hold the
+wrappers' counts at 0: no call, so no flash kernel in any graph either.
 
 TF32 stays off for matrix products and convolutions throughout (both
 default settings are the caller's; cuDNN's benchmark and deterministic
@@ -334,7 +356,9 @@ from paddle_tpu_torch.inference.generation import (DecodeEngine,
                                                    SamplingParams,
                                                    collect_tokens,
                                                    naive_generate)
+from paddle_tpu_torch.dataset import conll05
 from paddle_tpu_torch.models import (bert, deepfm, fit_a_line,
+                                     label_semantic_roles,
                                      machine_translation, mnist, recommender,
                                      resnet, se_resnext, stacked_lstm,
                                      transformer, understand_sentiment, vgg,
@@ -5550,6 +5574,325 @@ def zoo_paths(smi):
     return out, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 18: recurrent training and structured prediction
+# ---------------------------------------------------------------------------
+
+REC_RUNS = 3           # captured steps against eager steps on one batch
+MT_TRAIN_BATCH = 32    # the Fluid benchmark's machine_translation batch
+# label_semantic_roles at the book's widths: word_dim 32, mark_dim 5 (the
+# db_lstm default), hidden 512, depth 8 (eight lstm layers), max_len 40,
+# 59 labels (conll05.LABEL_COUNT); batch 10, SGD
+SRL = dict(max_len=40, word_dim=32, hidden_dim=512, depth=8)
+SRL_BATCH = 10
+# tests/test_control_flow.py::test_while_trains's pow loop (y = x * w^2
+# through a While with max_trip_count 4, a square error to 4x): its
+# feature width is 3, so batch 4096; 40 SGD steps at 0.05
+WHILE_BATCH = 4096
+WHILE_STEPS = 40
+WHILE_FALL = 0.2       # the last loss below this of the first
+WHILE_FD_EPS = 1e-6    # central differences in float64
+WHILE_FD_REL = 1e-6    # of the gradient's largest magnitude
+# ROADMAP C4's probes and the JAX package's results for them (lax.top_k
+# on the CPU, tests/test_torch_conv_ops.py and test_torch_beam_search.py):
+# (X, k, indices, values)
+C4_TOP_K = [([[0.5, -0.0, 0.0, -1.0]], 2, [[0, 2]], [[0.5, 0.0]]),
+            ([[1.0, -float("nan"), -float("inf"), 2.0]], 4, [[3, 0, 2, 1]],
+             [[2.0, 1.0, -float("inf"), -float("nan")]])]
+# beam_search over 2 hypotheses x 2 accumulated candidates (ids 10-13):
+# (scores, selected ids)
+C4_BEAM = [([[-0.0, 0.5], [0.0, -1.0]], [11, 12]),
+           ([[1.0, -float("nan")], [-float("inf"), 2.0]], [13, 10])]
+
+
+def c4_on_the_card(device):
+    """ROADMAP C4's probes through the port's ``top_k`` and ``beam_search``
+    emitters on the card, against the JAX package's results: indices and
+    values bitwise (+0 above -0, a negative NaN below -inf)."""
+    ctx = pt.registry.EmitContext(device)
+    for x, k, idx, vals in C4_TOP_K:
+        out = pt.registry.lookup("top_k").emitter(
+            ctx, {"X": [torch.tensor(x, device=device)]}, {"k": k})
+        got_idx = out["Indices"][0].cpu().tolist()
+        got = out["Out"][0].cpu().numpy()
+        want = np.array(vals, np.float32)
+        same = (got_idx == idx and got.tobytes() == want.tobytes())
+        log(f"  C4 top_k {x} k={k}: indices {got_idx} (JAX {idx}), values "
+            f"{got.tolist()} bitwise the JAX values: {same}")
+        if not same:
+            raise AssertionError(f"C4: top_k on the card gives {got_idx} "
+                                 f"{got.tolist()}, JAX {idx} {vals}")
+    for scores, ids in C4_BEAM:
+        out = pt.registry.lookup("beam_search").emitter(ctx, {
+            "pre_ids": [torch.tensor([5, 6], device=device)],
+            "pre_scores": [torch.zeros(2, device=device)],
+            "ids": [torch.tensor([[10, 11], [12, 13]], device=device)],
+            "scores": [torch.tensor(scores, device=device)]},
+            {"beam_size": 2, "end_id": 1, "is_accumulated": True})
+        got = out["selected_ids"][0].cpu().tolist()
+        log(f"  C4 beam_search over {scores}: selected {got} (JAX {ids})")
+        if got != ids:
+            raise AssertionError(f"C4: beam_search on the card selects "
+                                 f"{got}, JAX {ids}")
+
+
+def falls(label, steps):
+    """The losses of a path's captured steps (zoo_train's ``steps``, on
+    one batch) must fall: the last below the first."""
+    losses = [float(o[0].float().reshape(-1)[0]) for _, o in steps]
+    log(f"  {label}: losses on one batch " + ", ".join(
+        f"{v:.6f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss does not fall: {losses}")
+    return losses
+
+
+def top_kernels(label, exe, target, feed, fetch, scope, n=8):
+    """One more captured step of ``target`` traced: its ``n`` kernels of
+    most device time printed (the candidates for fusion)."""
+    rows, busy = device_rows(lambda: run_tensors(
+        exe, target, feed=feed, fetch_list=fetch, scope=scope))
+    log(f"  {label}: one traced step, {busy:.3f} ms of device time over "
+        f"{sum(r[2] for r in rows)} kernels; the top {n}:")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:n]:
+        log(f"    {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% x{count:<6} "
+            f"{key[:90]}")
+
+
+def mt_train_path(smi):
+    """18(A): machine_translation.build at the Fluid benchmark's widths
+    (MT: 30000-word dictionaries, 512 wide, max_len 50), fp32, Adam,
+    batch 32, through CompiledProgram: REC_RUNS steps captured against
+    eager bitwise (the decoder one ``recurrent`` op of 50 steps, its
+    backward the generic vjp of the whole loop), the loss falling on one
+    batch; then phase 15's decode program (beam 4, 50 steps, batch 16) on
+    the trained scope, 2 eager runs against 3 captured bitwise, scores
+    finite, ids inside the dictionary; then C4's probes on the card."""
+    label = "18(A) MT training"
+    m, state, exe = zoo_build(machine_translation, **MT)
+    cfg = m["config"]
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    feed = machine_translation.make_fake_batch(MT_TRAIN_BATCH, cfg,
+                                               seed=SEED + 2000)
+    tokens = int(feed["tgt_len"].sum())
+    log(f"  machine_translation.build {MT}: {len(state)} persistables, "
+        f"{sum(t.numel() for t in state.values()) / 1e6:.1f} M values; "
+        f"batch {MT_TRAIN_BATCH}, {tokens} target tokens")
+    scope, steps, res = zoo_train(label, exe, target, state,
+                                  [m["loss"].name], [feed] * REC_RUNS,
+                                  ("tokens", tokens), smi, runs=REC_RUNS)
+    res["losses"] = falls(label, steps)
+    top_kernels(label, exe, target, feed, [m["loss"].name], scope)
+
+    prog = m["decode"]["program"]
+    fetch = [m["decode"]["sentences"].name, "init_scores"]
+    dfeed = mt_feed(cfg, SEED + 2001)
+    with deterministic() as found:
+        with jit_cache(False):
+            eager = [mt_run(exe, prog, dfeed, scope, fetch)
+                     for _ in range(2)]
+        captured = [mt_run(exe, prog, dfeed, scope, fetch)
+                    for _ in range(3)]
+    if found:
+        raise AssertionError(f"{label}: decode: {found}")
+    for i, name in enumerate(("sentences", "final scores")):
+        hold(label, f"decode on the trained scope, {name}: 3 captured runs "
+             "against eager", max(distance(torch.from_numpy(c[i]),
+                                           torch.from_numpy(e[i]))
+                                  for c in captured for e in eager), 0.0)
+    sent, scores = captured[0]
+    ok = (sent.shape == (MT_BATCH * cfg["beam_size"], cfg["decode_max_len"])
+          and np.isfinite(scores).all() and (scores <= 0).all()
+          and sent.min() >= 0 and sent.max() < cfg["tgt_dict_size"])
+    log(f"  {label}: decode on the trained scope: sentences {sent.shape}, "
+        f"best hypothesis of sentence 0 {sent[0][:12].tolist()}, final "
+        f"scores in [{scores.min():.4f}, {scores.max():.4f}]")
+    if not ok:
+        raise AssertionError(f"{label}: the decode's sentences or scores")
+    c4_on_the_card(exe.device)
+    exe.close()
+    return res
+
+
+def numpy_viterbi(em, trans, length):
+    """crf_decoding's Viterbi in numpy float32, one row of emissions
+    [T, N] over its first ``length`` steps (the same float32 additions as
+    the op; the first maximum on a tie), the path padded with 0."""
+    start, end, w = trans[0], trans[1], trans[2:]
+    alpha = start + em[0]
+    bps = []
+    for t in range(1, length):
+        scores = alpha[:, None] + w
+        bps.append(scores.argmax(axis=0))
+        alpha = scores.max(axis=0) + em[t]
+    tag = int(np.argmax(alpha + end))
+    path = [tag]
+    for bp in reversed(bps):
+        tag = int(bp[tag])
+        path.append(tag)
+    return path[::-1] + [0] * (em.shape[0] - length)
+
+
+def srl_path(smi):
+    """18(B): label_semantic_roles at the book's widths (SRL), batch 10 of
+    the synthetic conll05 rows, SGD, through CompiledProgram: REC_RUNS
+    steps captured against eager bitwise, the loss falling on one batch;
+    the test program's crf_decoding paths against a numpy Viterbi of the
+    same emissions, fetched from the card, exactly."""
+    label = "18(B) label_semantic_roles"
+    m, state, exe = zoo_build(label_semantic_roles, **SRL)
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    feed = label_semantic_roles.make_batch(
+        list(conll05.train()())[:SRL_BATCH], SRL["max_len"])
+    tokens = int(feed["length"].sum())
+    scope, steps, res = zoo_train(label, exe, target, state,
+                                  [m["loss"].name], [feed] * REC_RUNS,
+                                  ("tokens", tokens), smi, runs=REC_RUNS)
+    res["losses"] = falls(label, steps)
+    top_kernels(label, exe, target, feed, [m["loss"].name], scope)
+    dec = next(o for o in m["test"].global_block().ops
+               if o.type == "crf_decoding")
+    em, path = run_tensors(exe, m["test"], feed=feed,
+                           fetch_list=[dec.input("Emission")[0],
+                                       m["decode"].name], scope=scope)
+    em = em.cpu().numpy()
+    trans = scope.find_var(dec.input("Transition")[0]).cpu().numpy()
+    path = path.cpu().numpy()
+    want = np.array([numpy_viterbi(em[r], trans, int(feed["length"][r]))
+                     for r in range(SRL_BATCH)])
+    log(f"  {label}: crf_decoding's paths ({path.dtype}, {path.shape}) "
+        f"against a numpy Viterbi of the card's emissions: "
+        f"{int((path != want).sum())} of {want.size} tags differ; row 0 "
+        f"{path[0][:int(feed['length'][0])].tolist()}")
+    if path.dtype != np.int64 or not np.array_equal(path, want):
+        raise AssertionError(f"{label}: Viterbi paths differ from numpy's")
+    exe.close()
+    return res
+
+
+def pow_loop(dtype, train):
+    """test_while_trains's program in ``dtype``: y = x * w^2 through a
+    While with max_trip_count 4, loss mean((y - t)^2); SGD 0.05 with
+    ``train``, else the gradient of w appended. Returns (main, startup,
+    loss, fetch names)."""
+    main, startup = pt.Program(), pt.Program()
+    with unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        x = L.data("x", shape=[3], dtype=dtype)
+        w = L.create_parameter([1, 3], dtype, name="w_loop")
+        i = L.fill_constant(shape=[1], dtype="int32", value=0)
+        limit = L.fill_constant(shape=[1], dtype="int32", value=2)
+        y = L.elementwise_add(x, L.fill_constant(shape=[1], dtype=dtype,
+                                                 value=0.0))
+        cond = L.less_than(i, limit)
+        loop = L.While(cond, max_trip_count=4)
+        with loop.block():
+            L.assign(L.elementwise_mul(y, w), output=y)
+            L.increment(i, 1, in_place=True)
+            L.less_than(i, limit, cond=cond)
+        t = L.data("t", shape=[3], dtype=dtype)
+        loss = L.mean(L.square_error_cost(y, t))
+        if train:
+            pt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+            return main, startup, loss, [loss.name]
+        grads = dict((p.name, g.name)
+                     for p, g in pt.backward.append_backward(loss))
+    return main, startup, loss, [loss.name, grads[w.name]]
+
+
+def while_batch(rng, dtype=np.float32):
+    xb = (rng.rand(WHILE_BATCH, 3) + 0.5).astype(dtype)
+    return {"x": xb, "t": xb * 4.0}
+
+
+def while_train_path(smi):
+    """18(C): test_while_trains's bounded While (pow_loop) at batch 4096
+    through CompiledProgram: WHILE_STEPS SGD steps on a new batch each,
+    captured against eager bitwise, the last loss below WHILE_FALL of the
+    first, w near 2; then the float64 build's while_grad against central
+    differences of its own loss on the card."""
+    label = "18(C) While trained"
+    main, startup, loss, fetch = pow_loop("float32", train=True)
+    main.random_seed = startup.random_seed = SEED
+    exe = pt.Executor()
+    init = pt.Scope()
+    exe.run(startup, scope=init)
+    init.set_var("w_loop", torch.full((1, 3), 0.5, device=exe.device))
+    state = {n: init.find_var(n) for n in init.var_names()}
+    rng = np.random.RandomState(SEED + 2100)
+    feeds = [while_batch(rng) for _ in range(WHILE_STEPS)]
+    target = pt.CompiledProgram(main, build_strategy=bench_build_strategy())
+    scope, steps, res = zoo_train(label, exe, target, state, fetch, feeds,
+                                  ("rows", WHILE_BATCH), smi,
+                                  runs=WHILE_STEPS)
+    losses = [float(o[0].reshape(-1)[0]) for _, o in steps[:WHILE_STEPS]]
+    w_end = scope.find_var("w_loop").cpu().numpy()
+    log(f"  {label}: losses {losses[0]:.6f} -> {losses[-1]:.6e} over "
+        f"{WHILE_STEPS} steps; w {w_end.tolist()}")
+    if not (losses[-1] < WHILE_FALL * losses[0]
+            and np.allclose(w_end, 2.0, rtol=1e-3)):
+        raise AssertionError(f"{label}: the loop did not train: "
+                             f"{losses[::8]}, w {w_end}")
+    res["losses"] = [losses[0], losses[-1]]
+
+    main64, start64, _, fetch64 = pow_loop("float64", train=False)
+    s64 = pt.Scope()
+    exe.run(start64, scope=s64)
+    w0 = np.array([[1.2, 0.8, 1.6]])
+    feed = while_batch(np.random.RandomState(SEED + 2101), np.float64)
+
+    def run(wv):
+        s64.set_var("w_loop", torch.from_numpy(wv).to(exe.device))
+        with jit_cache(False):
+            lv, gv = run_tensors(exe, main64, feed=feed, fetch_list=fetch64,
+                                 scope=s64)
+        return float(lv.reshape(-1)[0]), gv.cpu().numpy()
+
+    _, grad = run(w0)
+    num = np.zeros_like(w0)
+    for j in range(3):
+        wp, wm = w0.copy(), w0.copy()
+        wp[0, j] += WHILE_FD_EPS
+        wm[0, j] -= WHILE_FD_EPS
+        num[0, j] = (run(wp)[0] - run(wm)[0]) / (2 * WHILE_FD_EPS)
+    err = float(np.abs(grad - num).max() / np.abs(num).max())
+    log(f"  {label}: float64 while_grad {grad.tolist()} against central "
+        f"differences {num.tolist()}: {err:.3e} of the largest (bound "
+        f"{WHILE_FD_REL})")
+    if not err <= WHILE_FD_REL:
+        raise AssertionError(f"{label}: while_grad {err:.3e} from the "
+                             "finite differences")
+    res["fd_rel"] = err
+    exe.close()
+    return res
+
+
+def recurrent_paths(smi):
+    """Phase 18; returns the flash launches of its paths (the wrappers'
+    calls over each path's runs, which must be (0, 0): no path holds an
+    attention op) and each path's numbers."""
+    out, numbers, secs = {}, {}, {}
+    for name, fn in (("mt_train", mt_train_path), ("srl", srl_path),
+                     ("while_train", while_train_path)):
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        numbers[name] = fn(smi)
+        calls = (fa.launches, fa.bwd_launches)
+        if calls != (0, 0):
+            raise AssertionError(f"18 {name}: flash wrapper calls {calls}")
+        out[name] = calls
+        secs[name] = time.perf_counter() - t0
+        release()
+    log("18: " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
+    log("18: " + json.dumps({n: {k: (round(v, 4) if isinstance(v, float)
+                                     else v) for k, v in r.items()
+                                 if k != "losses"}
+                             for n, r in numbers.items()}))
+    return out, numbers
+
+
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
@@ -5733,6 +6076,13 @@ def main(argv=None):
                   "CompiledProgram, captured against eager; DeepFM and the "
                   "LSTM served through AnalysisPredictor")
             paths.update(zoo_paths(smi)[0])
+            release()
+            phase("recurrent training and structured prediction: machine "
+                  "translation training at the Fluid benchmark's widths and "
+                  "its beam decode on the trained scope, label_semantic_roles "
+                  "at the book's widths with its Viterbi, a bounded While "
+                  "trained, through CompiledProgram, captured against eager")
+            paths.update(recurrent_paths(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

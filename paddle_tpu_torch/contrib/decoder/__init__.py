@@ -1,8 +1,9 @@
 """contrib.decoder: seq2seq decoder abstractions (counterpart of
 ``paddle_tpu/contrib/decoder``): ``BeamSearchDecoder`` builds a dense
 beam search in a ``While`` loop, and ``GenerationDecoder`` /
-``dynamic_decode`` decode on the KV-cache ``DecodeEngine``.
-``TrainingDecoder`` waits for ROADMAP A11."""
+``dynamic_decode`` decode on the KV-cache ``DecodeEngine``, and
+``TrainingDecoder`` trains a ``StateCell`` teacher-forced over
+``DynamicRNN``."""
 
 from .beam_search_decoder import (BeamSearchDecoder, GenerationDecoder,
                                   InitState, StateCell, TrainingDecoder,

@@ -15,8 +15,10 @@ TrainingDecoder :384, BeamSearchDecoder :523).
 - ``GenerationDecoder`` and ``dynamic_decode`` keep the decoder surface
   over :class:`~paddle_tpu_torch.inference.generation.DecodeEngine`:
   prefill through the bucket ladder, then captured decode chunks.
-- ``TrainingDecoder`` rides ``DynamicRNN`` (the ``recurrent`` op), which
-  waits for ROADMAP A11: constructing one raises.
+- ``TrainingDecoder`` rides ``DynamicRNN``: the teacher-forced decode is
+  one ``recurrent`` op, a loop over the static T that the executor runs
+  (and captures) with the rest of the program; a ``StateCell`` inside it
+  turns its states into the loop's memories at their first use.
 """
 
 from __future__ import annotations
@@ -25,6 +27,11 @@ from ... import layers
 
 __all__ = ["InitState", "StateCell", "TrainingDecoder",
            "BeamSearchDecoder", "GenerationDecoder", "dynamic_decode"]
+
+
+class _DecoderType:
+    TRAINING = 1
+    BEAM_SEARCH = 2
 
 
 class InitState:
@@ -56,8 +63,9 @@ class StateCell:
     """Named step inputs + named hidden states + one updater function.
 
     The updater reads inputs and states with get_input/get_state and
-    writes new states with set_state; the decoder commits them (a
-    reorder by the beam's parents, then an assign)."""
+    writes new states with set_state; the owning decoder decides how a
+    state is committed (a DynamicRNN memory update, or a reorder by the
+    beam's parents and an assign)."""
 
     def __init__(self, inputs, states, out_state, name=None):
         self._cur_states = {}
@@ -74,6 +82,7 @@ class StateCell:
         self._state_updater = None
         self._out_state = out_state
         self._decoder = None
+        self._memories = None   # training: state name -> rnn pre-state
         if out_state not in self._cur_states:
             raise ValueError("out_state must be one state in states")
 
@@ -87,9 +96,29 @@ class StateCell:
         if self._decoder is not decoder:
             raise ValueError("StateCell is not in this decoder")
         self._decoder = None
+        self._memories = None
+
+    def _in_training_block(self):
+        return (self._decoder is not None
+                and self._decoder.type == _DecoderType.TRAINING
+                and self._decoder._in_block)
+
+    def _materialize_memories(self):
+        """Training: the InitStates become DynamicRNN memories at the
+        first access inside the block."""
+        if self._memories is not None:
+            return
+        rnn = self._decoder.dynamic_rnn
+        self._memories = {}
+        for name in self._state_names:
+            pre = rnn.memory(init=self._init_states[name].value)
+            self._memories[name] = pre
+            self._cur_states[name] = pre
 
     # -- user API ---------------------------------------------------------
     def get_state(self, state_name):
+        if self._in_training_block():
+            self._materialize_memories()
         if state_name not in self._cur_states:
             raise ValueError(f"unknown state {state_name!r}")
         return self._next_states.get(state_name,
@@ -118,6 +147,8 @@ class StateCell:
 
     def compute_state(self, inputs):
         """Run the registered updater against this step's inputs."""
+        if self._in_training_block():
+            self._materialize_memories()
         for name, value in inputs.items():
             if name not in self._inputs:
                 raise ValueError(f"unknown step input {name!r}")
@@ -127,10 +158,17 @@ class StateCell:
         self._state_updater(self)
 
     def update_states(self):
-        """Commit this step's set_state() values (the decoder reorders
-        and assigns them after the beam selection)."""
-        for name, new in self._next_states.items():
-            self._cur_states[name] = new
+        """Commit this step's set_state() values: as the DynamicRNN's
+        memory updates in training, else for the beam decoder to reorder
+        and assign after its selection."""
+        if (self._decoder is not None
+                and self._decoder.type == _DecoderType.TRAINING):
+            rnn = self._decoder.dynamic_rnn
+            for name, new in self._next_states.items():
+                rnn.update_memory(self._memories[name], new)
+        else:
+            for name, new in self._next_states.items():
+                self._cur_states[name] = new
         self._next_states = {}
 
     def out_state(self):
@@ -138,13 +176,82 @@ class StateCell:
 
 
 class TrainingDecoder:
-    """Teacher-forced decoder over DynamicRNN: waits for ROADMAP A11 (the
-    ``recurrent`` op and the sequence/RNN training ops)."""
+    """Teacher-forced decoder over DynamicRNN (one ``recurrent`` op).
+
+    ``length`` holds the per-row target lengths of the padded batch (the
+    stand-in for the reference's LoD-driven step count)."""
+
+    BEFORE_DECODER = 0
+    IN_DECODER = 1
+    AFTER_DECODER = 2
 
     def __init__(self, state_cell, length=None, name=None):
-        raise NotImplementedError(
-            "TrainingDecoder runs on DynamicRNN (the recurrent op), which "
-            "waits for ROADMAP A11")
+        self._status = TrainingDecoder.BEFORE_DECODER
+        self._dynamic_rnn = layers.DynamicRNN(length=length, name=name)
+        self._type = _DecoderType.TRAINING
+        self._state_cell = state_cell
+        self._state_cell._enter_decoder(self)
+        self._in_block = False
+
+    def block(self):
+        if self._status != TrainingDecoder.BEFORE_DECODER:
+            raise ValueError("decoder.block() can only be invoked once")
+        self._status = TrainingDecoder.IN_DECODER
+        return _TrainingDecoderGuard(self)
+
+    @property
+    def state_cell(self):
+        self._assert_in_block("state_cell")
+        return self._state_cell
+
+    @property
+    def dynamic_rnn(self):
+        return self._dynamic_rnn
+
+    @property
+    def type(self):
+        return self._type
+
+    def step_input(self, x):
+        self._assert_in_block("step_input")
+        return self._dynamic_rnn.step_input(x)
+
+    def static_input(self, x):
+        self._assert_in_block("static_input")
+        return self._dynamic_rnn.static_input(x)
+
+    def output(self, *outputs):
+        self._assert_in_block("output")
+        self._dynamic_rnn.output(*outputs)
+
+    def __call__(self, *args, **kwargs):
+        if self._status != TrainingDecoder.AFTER_DECODER:
+            raise ValueError("visit the decoder output outside block()")
+        return self._dynamic_rnn(*args, **kwargs)
+
+    def _assert_in_block(self, method):
+        if self._status != TrainingDecoder.IN_DECODER:
+            raise ValueError(
+                f"{method} must be called inside decoder.block()")
+
+
+class _TrainingDecoderGuard:
+    def __init__(self, decoder):
+        self._decoder = decoder
+        self._rnn_guard = decoder._dynamic_rnn.block()
+
+    def __enter__(self):
+        self._rnn_guard.__enter__()
+        self._decoder._in_block = True
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self._decoder._in_block = False
+        out = self._rnn_guard.__exit__(exc_type, exc_val, exc_tb)
+        if exc_type is None:
+            self._decoder._status = TrainingDecoder.AFTER_DECODER
+            self._decoder._state_cell._leave_decoder(self._decoder)
+        return out
 
 
 class BeamSearchDecoder:
@@ -162,6 +269,7 @@ class BeamSearchDecoder:
                  topk_size=50, sparse_emb=True, max_len=100,
                  beam_size=1, end_id=1, name=None, emb_param_attr=None,
                  param_attr=None, bias_attr=None):
+        self._type = _DecoderType.BEAM_SEARCH
         self._state_cell = state_cell
         self._state_cell._enter_decoder(self)
         self._init_ids = init_ids
@@ -178,6 +286,11 @@ class BeamSearchDecoder:
         self._param_attr = param_attr
         self._bias_attr = bias_attr
         self._decoded = False
+        self._in_block = False
+
+    @property
+    def type(self):
+        return self._type
 
     @property
     def state_cell(self):
@@ -208,6 +321,7 @@ class BeamSearchDecoder:
 
         cond = layers.less_than(x=i, y=limit)
         w = layers.While(cond=cond)
+        self._in_block = True
         with w.block():
             emb = layers.embedding(
                 pre_ids, size=[self._target_dict_dim, self._word_dim],
@@ -244,6 +358,7 @@ class BeamSearchDecoder:
             layers.array_write(parent, i, array=par_hist)
             layers.increment(i, value=1, in_place=True)
             layers.less_than(x=i, y=limit, cond=cond)
+        self._in_block = False
         self._state_cell._leave_decoder(self)
 
         self._translation_ids = layers.beam_search_decode(

@@ -337,23 +337,15 @@ def _coerce_feed(value, name: str, block: Block, device: torch.device):
     return value.to(device=device, dtype=want)
 
 
-# op types whose programs build (for byte-identical descs) but whose
-# emitters wait for a ROADMAP item
-_WAITING = {"recurrent": "A11 (StaticRNN and the sequence/RNN training "
-                         "ops)",
-            "while_grad": "A11 (backward through a while loop)"}
-
-
 def _emitter(op_type: str):
     """The op's emitter; a ``<type>_grad`` without one of its own takes
     the generic vjp."""
     try:
         return registry.resolve_grad_emitter(op_type)
     except KeyError:
-        waits = _WAITING.get(op_type)
         raise NotImplementedError(
-            f"operator {op_type!r} has no emitter in paddle_tpu_torch yet"
-            + (f": it waits for ROADMAP {waits}" if waits else "")) from None
+            f"operator {op_type!r} has no emitter in paddle_tpu_torch "
+            "yet") from None
 
 
 def run_ops(op_list: List[OpDesc], env: Dict[str, Any], ctx: EmitContext):

@@ -1,7 +1,7 @@
 """Control-flow layers (reference python/paddle/fluid/layers/
 control_flow.py): ``While`` and its counter ops, the dense tensor-array
-ops, ``StaticRNN`` (construction only: the ``recurrent`` op waits for
-ROADMAP A11) and ``Print``.
+ops, ``StaticRNN`` and ``DynamicRNN`` (the ``recurrent`` op) and
+``Print``.
 
 A ``While`` body is a sub-block; the ``while`` op runs it
 (ops/kernels_control.py). A loop that matches the bounded-counter pattern
@@ -19,7 +19,7 @@ from ..framework import Variable, default_main_program
 from ..layer_helper import LayerHelper
 
 __all__ = ["While", "increment", "array_write", "array_read", "less_than",
-           "StaticRNN", "Print"]
+           "StaticRNN", "DynamicRNN", "Print"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -198,9 +198,8 @@ def array_read(array, i):
 
 class StaticRNN:
     """layers/control_flow.py StaticRNN: a per-timestep sub-block run by
-    the ``recurrent`` op over [B, T, ...] inputs. The port builds the op
-    (and appends its backward) as the JAX package does; running it waits
-    for ROADMAP A11.
+    the ``recurrent`` op over [B, T, ...] inputs, one step per t of a
+    static T (ops/kernels_control.py), forward and backward.
 
         rnn = StaticRNN()
         with rnn.step():
@@ -364,6 +363,21 @@ class _StaticRNNBlockGuard:
         self.main_program._rollback()
         self.rnn._finalize(self.main_program.current_block())
         return True
+
+
+class DynamicRNN(StaticRNN):
+    """layers/control_flow.py DynamicRNN: the StaticRNN loop with a
+    ``length`` [B]: past each row's length its state freezes and its step
+    outputs are zero (the LoD-driven loop on the padded convention)."""
+
+    def __init__(self, length, name=None, is_reverse=False):
+        super().__init__(name=name, length=length, is_reverse=is_reverse)
+
+    def block(self):
+        return self.step()
+
+    def static_input(self, x):
+        return x
 
 
 def Print(input, first_n=-1, message=None, summarize=-1,

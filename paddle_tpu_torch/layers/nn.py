@@ -24,6 +24,7 @@ __all__ = [
     "kv_cache_write", "kv_cache_gather_paged", "kv_cache_write_paged",
     "split", "expand", "sequence_pool", "sequence_softmax", "beam_search",
     "beam_search_decode", "auc", "cos_sim", "log_loss",
+    "linear_chain_crf", "crf_decoding", "chunk_eval",
 ]
 
 
@@ -695,3 +696,70 @@ def beam_search_decode(ids, parent_idx, scores=None, beam_size=None,
     helper.append_op(type="beam_search_decode", inputs=inputs,
                      outputs=outputs, attrs={"end_id": end_id})
     return ret[0] if len(ret) == 1 else tuple(ret)
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None,
+                     name=None):
+    """layers/nn.py linear_chain_crf (linear_chain_crf_op.h): makes the
+    [size + 2, size] transition parameter (rows: start, end, pairwise)
+    and returns the per-row negative log-likelihood to minimize."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr,
+                         name=name)
+    size = input.shape[-1]
+    transition = helper.create_parameter(helper.param_attr,
+                                         shape=[size + 2, size],
+                                         dtype=input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype, True)
+    inputs = {"Emission": input, "Transition": transition,
+              "Label": label}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(type="linear_chain_crf", inputs=inputs,
+                     outputs={"LogLikelihood": ll, "Alpha": alpha})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None, name=None):
+    """layers/nn.py crf_decoding (crf_decoding_op.h Viterbi), on the
+    transition parameter ``linear_chain_crf`` made under ``param_attr``'s
+    name."""
+    from ..framework import default_main_program
+    helper = LayerHelper("crf_decoding", param_attr=param_attr, name=name)
+    transition = default_main_program().global_block().vars[
+        helper.param_attr.name]
+    path = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": input, "Transition": transition}
+    if label is not None:
+        inputs["Label"] = label
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": path})
+    return path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, length=None):
+    """layers/nn.py chunk_eval (chunk_eval_op.cc): precision, recall,
+    F1 and the inferred, labelled and correct chunk counts."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_variable_for_type_inference("float32")
+    recall = helper.create_variable_for_type_inference("float32")
+    f1 = helper.create_variable_for_type_inference("float32")
+    num_infer = helper.create_variable_for_type_inference("int64")
+    num_label = helper.create_variable_for_type_inference("int64")
+    num_correct = helper.create_variable_for_type_inference("int64")
+    inputs = {"Inference": input, "Label": label}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(
+        type="chunk_eval", inputs=inputs,
+        outputs={"Precision": precision, "Recall": recall,
+                 "F1-Score": f1, "NumInferChunks": num_infer,
+                 "NumLabelChunks": num_label,
+                 "NumCorrectChunks": num_correct},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, num_infer, num_label, num_correct

@@ -9,7 +9,7 @@ from ..framework import Variable
 from ..layer_helper import LayerHelper, ParamAttr
 
 __all__ = ["cast", "assign", "fill_constant", "fill_constant_batch_size_like",
-           "concat", "create_parameter"]
+           "concat", "sums", "create_parameter"]
 
 
 def cast(x, dtype):
@@ -24,6 +24,15 @@ def cast(x, dtype):
 def concat(input, axis=0, name=None):
     from . import nn
     return nn.concat(input, axis, name)
+
+
+def sums(input, out=None):
+    """The elementwise sum of the variables in ``input`` (one ``sum``
+    op)."""
+    helper = LayerHelper("sum")
+    out = out or helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": out})
+    return out
 
 
 def assign(input, output=None):

@@ -7,11 +7,14 @@ GRU decoder on StaticRNN for training, and a beam-search decode program
 
 The training and decode programs are built under separate
 ``unique_name.guard()``s with the same layer order, so their parameter
-names match and both run against one scope. The port builds the
-training program (byte-identical to the JAX package's); running it waits
-for ROADMAP A11 (the ``recurrent`` op). The decode program runs: its
-``While`` has a static trip bound, so on the card the whole decode is
-one device segment, captured in a CUDA graph from its second run."""
+names match and both run against one scope: the decode program runs
+against the scope the training program trained. The training program
+(byte-identical to the JAX package's) runs its decoder as one
+``recurrent`` op, a loop over the static target length whose backward is
+the generic vjp of the whole loop. The decode program's ``While`` has a
+static trip bound. So on the card a train step and a whole decode are
+each one device segment, captured in a CUDA graph from its second
+run."""
 
 from __future__ import annotations
 

@@ -110,3 +110,42 @@ def amp_cast(ctx, *tensors):
         return tensors
     return tuple(t.to(torch.bfloat16) if t.dtype == torch.float32 else t
                  for t in tensors)
+
+
+def length_or_full(ins, batch: int, max_len: int, device,
+                   slot: str = "Length") -> torch.Tensor:
+    """The padded convention's [B] int32 valid lengths from ``slot``, or
+    ``max_len`` for every row when the slot is absent (the JAX package's
+    ``length_or_full``)."""
+    length = opt(ins, slot)
+    if length is not None:
+        return length.reshape(-1).to(torch.int32)
+    return torch.full((batch,), max_len, dtype=torch.int32, device=device)
+
+
+_ORDER_INT = {torch.float64: torch.int64, torch.float32: torch.int32,
+              torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def total_order_key(v: torch.Tensor) -> torch.Tensor:
+    """An integer key of ``v`` whose order is IEEE 754's total order, the
+    order ``lax.top_k`` ranks by: -NaN < -inf < ... < -0 < +0 < ... < +inf
+    < +NaN. It is the float's bits as a signed integer with the magnitude
+    bits flipped where the sign bit is set: a view and two bit
+    operations, so sorting on it reads nothing on the host and can be
+    captured. torch's float sort instead ties -0 with +0 and ranks every
+    NaN highest."""
+    it = _ORDER_INT[v.dtype]
+    bits = v.contiguous().view(it)
+    sign = bits >> (torch.iinfo(it).bits - 1)   # -1 where negative, else 0
+    return bits ^ (sign & torch.iinfo(it).max)
+
+
+def top_k_total_order(v: torch.Tensor, k: int):
+    """The ``k`` largest of ``v`` along its last dim in ``lax.top_k``'s
+    order: total order, equal keys in index order (a stable descending
+    sort of :func:`total_order_key`). Returns (values, int64 indices)."""
+    _, idx = torch.sort(total_order_key(v), dim=-1, descending=True,
+                        stable=True)
+    idx = idx[..., :k]
+    return torch.take_along_dim(v, idx, dim=-1), idx

@@ -1,5 +1,6 @@
 """Control-flow ops (counterpart of ``paddle_tpu/ops/kernels_control.py``):
-``increment``, ``while`` and the dense tensor-array ops ``array_write``
+``increment``, ``while`` and its backward ``while_grad``, ``recurrent``
+(StaticRNN, DynamicRNN) and the dense tensor-array ops ``array_write``
 and ``array_read``.
 
 ``while`` runs its body sub-block (attr ``sub_block``) on the carried
@@ -14,7 +15,18 @@ trip count is within the bound (the JAX ``_while_scan``). Values the body
 only reads (the parameters among them) pass through unselected. Without
 a bound the condition is read on the host each trip, and the executor
 runs the op between device segments, outside any capture
-(``executor._is_host``).
+(``executor._is_host``). ``while_grad`` runs the bounded loop again
+under ``torch.func.vjp`` with respect to the floating-point carried
+values; a loop without a bound has no backward, and ``append_backward``
+says so.
+
+``recurrent`` runs its step sub-block once per time step of a static T
+(``X[0].shape[1]``), in a Python loop: sequence inputs [B, T, ...] give
+the step their slice at t, the states are carried from ``__state_pre__``
+to ``__state_post__``, and the step outputs stack back to [B, T, ...].
+With a ``Length`` input a row's state freezes and its outputs are zero
+from its length on (``torch.where`` on a tensor compare, so the loop can
+be captured). Its backward is the generic vjp of the whole loop.
 
 ``array_write``/``array_read`` take their index as
 ``lax.dynamic_update_slice`` and ``lax.dynamic_slice`` do (negative from
@@ -30,7 +42,7 @@ import torch
 
 from ..core.desc import OpDesc
 from ..registry import register_grad_maker, register_op
-from .common import same_shape_infer, x
+from .common import opt, same_shape_infer, x
 
 
 @register_op("increment", no_grad=True, infer=same_shape_infer())
@@ -44,31 +56,49 @@ def increment(ctx, ins, attrs):
 
 
 def trip_bound(attrs) -> int:
-    """The while op's static trip bound: ``max_trip_count``, else the
-    bound inferred at build time, else 0 (unbounded)."""
+    """The while op's static trip bound (the JAX ``_resolve_trip_bound``):
+    ``max_trip_count``, else the bound inferred at build time, else 0
+    (unbounded, not differentiable)."""
     return (int(attrs.get("max_trip_count", 0) or 0)
             or int(attrs.get("__inferred_trip_bound__", 0) or 0))
+
+
+_UNBOUNDED_WHILE_GRAD_MSG = (
+    "backward through `while` requires a static trip bound: none was "
+    "given and the loop did not match the bounded-counter pattern "
+    "(cond = less_than(i, n) with constant start/limit and a single "
+    "positive-step increment of i before the comparison in the body) "
+    "from which one is inferred. Fix: build the loop with "
+    "fluid.layers.While(cond, max_trip_count=N), N an upper bound on "
+    "the trip count (an overestimate is safe — iterations past the "
+    "condition are masked out; lax.while_loop itself is not "
+    "reverse-differentiable).")
 
 
 def _body_writes(body_ops: List[OpDesc]) -> set:
     return {n for op in body_ops for n in op.output_arg_names() if n}
 
 
-@register_op("while")
-def while_op(ctx, ins, attrs):
-    """Run the body sub-block over the carried values (module doc)."""
+def _program(ctx, op_type):
+    if ctx.program is None:
+        raise ValueError(f"the {op_type} op needs its program's blocks: "
+                         "run it through an Executor")
+    return ctx.program
+
+
+def _while_loop(ctx, attrs, xs, cond, bound):
+    """The while body over the carried values ``xs`` (in
+    ``__x_names__`` order) from the condition ``cond``: ``bound`` masked
+    trips when ``bound`` > 0, else trips until the condition, read on the
+    host, drops. Returns the final carried values."""
     from ..executor import run_ops
 
-    if ctx.program is None:
-        raise ValueError("the while op needs its program's blocks: run it "
-                         "through an Executor")
-    body = ctx.program.block(attrs["sub_block"]).desc.ops
+    body = _program(ctx, "while").block(attrs["sub_block"]).desc.ops
     names = list(attrs["__x_names__"])
     cond_name = attrs["__cond_name__"]
-    vals: Dict[str, torch.Tensor] = dict(zip(names, ins["X"]))
-    cond = ins["Condition"][0].reshape(())
+    vals: Dict[str, torch.Tensor] = dict(zip(names, xs))
+    cond = cond.reshape(())
     written = [n for n in names if n in _body_writes(body)]
-    bound = trip_bound(attrs)
 
     def trip(cur_cond):
         env = dict(vals)
@@ -88,16 +118,131 @@ def while_op(ctx, ins, attrs):
             for n in written:
                 vals[n] = env[n]
             cond = env[cond_name].reshape(())
-    return {"Out": [vals[n] for n in names]}
+    return [vals[n] for n in names]
+
+
+@register_op("while")
+def while_op(ctx, ins, attrs):
+    """Run the body sub-block over the carried values (module doc)."""
+    return {"Out": _while_loop(ctx, attrs, list(ins["X"]),
+                               ins["Condition"][0], trip_bound(attrs))}
+
+
+@register_op("while_grad", no_grad=True)
+def while_grad(ctx, ins, attrs):
+    """Backward of the bounded while: the masked loop run again under
+    ``torch.func.vjp``, differentiating only the floating-point carried
+    values (counters and predicates are constants of the vjp); a missing
+    cotangent is zeros. As in the generic vjp, the forward runs twice."""
+    bound = trip_bound(attrs)
+    if bound <= 0:
+        raise ValueError(_UNBOUNDED_WHILE_GRAD_MSG)
+    xs = list(ins["X"])
+    cond0 = ins["Condition"][0]
+    diff = [i for i, v in enumerate(xs)
+            if v is not None and v.is_floating_point()]
+
+    def fwd(*diff_vals):
+        vals = list(xs)
+        for i, v in zip(diff, diff_vals):
+            vals[i] = v
+        finals = _while_loop(ctx, attrs, vals, cond0, bound)
+        return tuple(finals[i] for i in diff)
+
+    primals, vjp_fn = torch.func.vjp(fwd, *(xs[i] for i in diff))
+    out_grads = ins.get("Out@GRAD", [])
+    cots = []
+    for i, p in zip(diff, primals):
+        g = out_grads[i] if i < len(out_grads) else None
+        cots.append(g.to(p.dtype) if g is not None else torch.zeros_like(p))
+    grads = vjp_fn(tuple(cots))
+    out = [None] * len(xs)
+    for i, g in zip(diff, grads):
+        out[i] = g
+    return {"X@GRAD": out}
 
 
 @register_grad_maker("while")
-def _while_grad_maker(op: OpDesc, no_grad_set, grad_sub_block=None):
-    """The JAX package differentiates a bounded loop through its masked
-    scan and a step-grad sub-block (``while_grad``); the port runs the
-    forward only."""
-    raise NotImplementedError(
-        "backward through a while loop waits for ROADMAP A11 (while_grad)")
+def while_grad_maker(op: OpDesc, no_grad_set, grad_sub_block=None):
+    """The JAX package's maker: X, Condition, Out@GRAD -> X@GRAD ("" for
+    carried values in ``no_grad_set``). It raises here, at
+    ``append_backward`` time, when the loop has no static trip bound. With
+    ``grad_sub_block`` it attaches the body SSA-renamed
+    (``__ssa_sub_block__``, ``__ssa_init__``/``__ssa_final__``/
+    ``__ssa_cond_final__``) and the step-grad block walked from it
+    (``__grad_sub_block__``, ``__grad_reads__``), so that a train program
+    holding a While is byte-identical to the JAX package's; the port's
+    ``while_grad`` does not read them."""
+    if trip_bound(op.attrs) <= 0:
+        raise ValueError(_UNBOUNDED_WHILE_GRAD_MSG)
+    from ..core.types import GRAD_SUFFIX
+
+    inputs = {"X": list(op.inputs["X"]),
+              "Condition": list(op.inputs["Condition"]),
+              "Out@GRAD": [n + GRAD_SUFFIX for n in op.outputs["Out"]]}
+    grad_to_var = {}
+    outs = []
+    for n in op.inputs["X"]:
+        if n in no_grad_set:
+            outs.append("")
+        else:
+            outs.append(n + GRAD_SUFFIX)
+            grad_to_var[n + GRAD_SUFFIX] = n
+    gop = OpDesc("while_grad", inputs, {"X@GRAD": outs}, dict(op.attrs))
+    if grad_sub_block is not None:
+        program = grad_sub_block.program
+        sub = program.block(op.attrs["sub_block"])
+        carried = list(op.attrs["__x_names__"])
+        ssa_idx, init_names, final_names = _ssa_body(
+            program, sub, carried + [op.attrs["__cond_name__"]])
+        seeds = [final_names[n] + GRAD_SUFFIX for n in carried]
+        reads = [init_names[n] + GRAD_SUFFIX for n in carried]
+        gidx, reads_mask = _build_step_grad_block(
+            program, program.block(ssa_idx), seeds, reads, no_grad_set)
+        gop.attrs["__ssa_sub_block__"] = ssa_idx
+        gop.attrs["__ssa_init__"] = [init_names[n] for n in carried]
+        gop.attrs["__ssa_final__"] = [final_names[n] for n in carried]
+        gop.attrs["__ssa_cond_final__"] = final_names[
+            op.attrs["__cond_name__"]]
+        gop.attrs["__grad_sub_block__"] = gidx
+        gop.attrs["__grad_reads__"] = reads_mask
+    return [gop], grad_to_var
+
+
+def _ssa_body(program, sub, tracked):
+    """Copy ``sub``'s ops into a new sub-block with in-place rebinds
+    SSA-renamed: each write to a name already bound (or tracked) makes a
+    fresh ``name@V{k}``, and reads take the current version. Returns
+    (block index, init, final): each tracked name's first and last SSA
+    name (init is the plain name: a body reads its carried state before
+    rebinding it)."""
+    cur = {}
+    counter = {}
+
+    def read_name(n):
+        return cur.get(n, n)
+
+    def write_name(n):
+        if n in cur or n in tracked:
+            k = counter.get(n, 0)
+            counter[n] = k + 1
+            v = f"{n}@V{k}"
+        else:
+            v = n
+        cur[n] = v
+        return v
+
+    blk = program._create_block(parent_idx=sub.idx)
+    program._rollback()
+    for sop in sub.desc.ops:
+        ins = {slot: [read_name(n) for n in names]
+               for slot, names in sop.inputs.items()}
+        outs = {slot: [write_name(n) for n in names]
+                for slot, names in sop.outputs.items()}
+        blk.desc.ops.append(OpDesc(sop.type, ins, outs, dict(sop.attrs)))
+    init = {n: n for n in tracked}
+    final = {n: cur.get(n, n) for n in tracked}
+    return blk.idx, init, final
 
 
 def _index(ins, arr) -> torch.Tensor:
@@ -127,16 +272,17 @@ def array_read(ctx, ins, attrs):
 
 
 # ---------------------------------------------------------------------------
-# recurrent (StaticRNN): its desc-level backward only
+# recurrent (StaticRNN, DynamicRNN)
 # ---------------------------------------------------------------------------
 
 @register_grad_maker("recurrent")
 def recurrent_grad_maker(op: OpDesc, no_grad_set, grad_sub_block=None):
-    """The JAX package's maker: the default vjp desc, plus a step-grad
-    sub-block (the step ops reversed through their own grad makers) and
-    its seeds and reads in the attrs, so that a program with a StaticRNN
-    appends the same backward, byte for byte. The ``recurrent`` op itself
-    has no emitter yet (ROADMAP A11)."""
+    """The JAX package's maker: the default vjp desc (its emitter, the
+    generic vjp, runs the whole loop again under ``torch.func.vjp``),
+    plus a step-grad sub-block (the step ops reversed through their own
+    grad makers) and its seeds and reads in the attrs, so that a program
+    with a StaticRNN appends the same backward, byte for byte. The port
+    does not read the step-grad block."""
     from ..core.types import GRAD_SUFFIX
     from ..registry import default_vjp_grad_maker
 
@@ -156,6 +302,54 @@ def recurrent_grad_maker(op: OpDesc, no_grad_set, grad_sub_block=None):
     gop.attrs["__grad_sub_block__"] = gblk_idx
     gop.attrs["__grad_reads__"] = reads_mask
     return g_ops, g2v
+
+
+@register_op("recurrent")
+def recurrent(ctx, ins, attrs):
+    """The step sub-block over T = ``X[0].shape[1]`` steps (module doc),
+    in reverse with ``is_reverse``. The step reads the outer values it
+    uses (the weights) from ``Params`` (``__param_names__``), so their
+    gradients flow through the vjp. Outputs ``Out`` [B, T, ...] per step
+    output and ``HFinal`` per state."""
+    from ..executor import run_ops
+
+    body = _program(ctx, "recurrent").block(attrs["sub_block"]).desc.ops
+    seq_names = attrs["__seq_names__"]
+    pre_names = attrs["__state_pre__"]
+    post_names = attrs["__state_post__"]
+    out_names = attrs["__out_names__"]
+    seqs = ins["X"]
+    state = list(ins["H0"])
+    params = dict(zip(attrs["__param_names__"], ins.get("Params", [])))
+    length = opt(ins, "Length")
+    if length is not None:
+        length = length.reshape(-1)
+    t_len = seqs[0].shape[1]
+    steps = range(t_len)
+    if attrs.get("is_reverse", False):
+        steps = reversed(steps)
+
+    def live_rows(live, v):
+        return live.reshape((-1,) + (1,) * (v.dim() - 1))
+
+    outs = [[None] * t_len for _ in out_names]
+    for t in steps:
+        env = dict(params)
+        env.update((n, s[:, t]) for n, s in zip(seq_names, seqs))
+        env.update(zip(pre_names, state))
+        run_ops(body, env, ctx)
+        live = None if length is None else t < length
+        new_state = [env[n] for n in post_names]
+        if live is not None:
+            new_state = [torch.where(live_rows(live, nv), nv, old)
+                         for nv, old in zip(new_state, state)]
+        state = new_state
+        for k, n in enumerate(out_names):
+            ov = env[n]
+            if live is not None:
+                ov = torch.where(live_rows(live, ov), ov, 0)
+            outs[k][t] = ov
+    return {"Out": [torch.stack(o, dim=1) for o in outs], "HFinal": state}
 
 
 def _build_step_grad_block(program, sub, seeds, reads, no_grad_set):

@@ -11,8 +11,7 @@ with the peephole weights W_ic, W_fc, W_oc in Bias[4H:7H] when
 its state; ``is_reverse`` runs each row backwards within its length (the
 padding stays where it is). The recurrence is a loop of T steps, T
 static, so the op can be captured in a CUDA graph. Their grads run the
-generic vjp, which re-runs the loop under ``torch.func.vjp`` (``gru``'s is
-not held against the JAX package's yet: ROADMAP A11).
+generic vjp, which re-runs the loop under ``torch.func.vjp``.
 """
 
 from __future__ import annotations

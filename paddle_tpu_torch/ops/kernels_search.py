@@ -13,7 +13,7 @@ import torch
 
 from ..core.desc import OpDesc
 from ..registry import register_op
-from .common import in_shape, opt, set_out_var
+from .common import in_shape, opt, set_out_var, top_k_total_order
 
 
 def _beam_infer(op: OpDesc, block):
@@ -28,8 +28,9 @@ def _beam_infer(op: OpDesc, block):
 def beam_search(ctx, ins, attrs):
     """One beam step: from [batch*beam] hypotheses and their [batch*beam,
     K] candidates (ids, scores), the top ``beam_size`` continuations of
-    each batch row over its beam*K candidates, equal scores in index
-    order (``lax.top_k``'s order, from a stable descending sort). With
+    each batch row over its beam*K candidates in ``lax.top_k``'s order
+    (IEEE total order, equal scores in index order:
+    ``common.top_k_total_order``). With
     ``is_accumulated`` false the scores are probabilities and accumulate
     as pre_score + log(score). An ended hypothesis offers one candidate,
     itself at its score; its other columns score ``finfo.min``."""
@@ -54,9 +55,7 @@ def beam_search(ctx, ins, attrs):
     ids_eff = torch.where(ended, end_id, cand_ids)
 
     flat = total.reshape(b, beam * k)
-    top_scores, top_idx = torch.sort(flat, dim=1, descending=True,
-                                     stable=True)
-    top_scores, top_idx = top_scores[:, :beam], top_idx[:, :beam]
+    top_scores, top_idx = top_k_total_order(flat, beam)
     parent = (torch.arange(b, device=flat.device)[:, None] * beam
               + torch.div(top_idx, k, rounding_mode="floor"))
     sel_ids = torch.take_along_dim(ids_eff.reshape(b, beam * k), top_idx,

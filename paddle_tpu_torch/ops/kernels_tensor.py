@@ -20,7 +20,8 @@ import torch
 from ..core.desc import OpDesc
 from ..core.types import GRAD_SUFFIX, DataType, dtype_to_torch
 from ..registry import register_op
-from .common import in_dtype, in_shape, same_shape_infer, set_out_var, x
+from .common import (in_dtype, in_shape, same_shape_infer, set_out_var,
+                     top_k_total_order, x)
 
 
 def _attr_dtype(attrs, key="dtype"):
@@ -487,9 +488,9 @@ def _topk_infer(op: OpDesc, block):
 
 @register_op("top_k", no_grad=True, infer=_topk_infer)
 def top_k(ctx, ins, attrs):
-    """The k largest along the last dim, equal values in index order
-    (``lax.top_k``'s order; a stable descending sort gives it, where
-    ``torch.topk`` does not promise one)."""
-    k = attrs.get("k", 1)
-    vals, idx = torch.sort(x(ins), dim=-1, descending=True, stable=True)
-    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
+    """The k largest along the last dim in ``lax.top_k``'s order: IEEE
+    total order (+0 above -0, a NaN ranked by its sign), equal values in
+    index order (``common.top_k_total_order``; ``torch.topk`` promises
+    neither)."""
+    vals, idx = top_k_total_order(x(ins), attrs.get("k", 1))
+    return {"Out": [vals], "Indices": [idx]}

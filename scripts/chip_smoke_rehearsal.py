@@ -7,11 +7,15 @@ predictor at a narrow LM (d_model 16, vocab 256) and phase 15's machine
 translation at 40-word dictionaries and width 16, and phase 16 at the
 tiny Transformer (its three trainer processes run this script with
 ``--elastic-child``, which sets up the same CPU patches) and the small
-ResNet-50, and phase 17 at small widths (ZOO_TINY), to find faults in
-the script's Python before a run on the card.
+ResNet-50, phase 17 at small widths (ZOO_TINY) and phase 18 at small
+widths (machine translation at MT_TINY, label_semantic_roles at
+SRL_TINY), to find faults in the script's Python before a run on the
+card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --zoo  # 17 only
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --recurrent
+                                                                  # 18 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -71,6 +75,20 @@ ZOO_TINY = dict(
     SE_RESNEXT_BATCH=4, VGG_BATCH=8,
     STACKED_LSTM=dict(dict_size=100, emb_dim=16, lstm_size=16, max_len=10),
     STACKED_LSTM_BATCH=4)
+
+
+# phase 18 at small widths: MT_TINY's machine translation and
+# label_semantic_roles at max_len 12, word_dim 8, hidden 16, depth 2; the
+# While at its batch of 4096
+SRL_TINY = dict(max_len=12, word_dim=8, hidden_dim=16, depth=2)
+
+
+def _recurrent():
+    cs.MT, cs.SRL = MT_TINY, SRL_TINY
+    t18 = time.perf_counter()
+    rec, _ = cs.recurrent_paths("CPU rehearsal")
+    print(f"phase 18 rehearsed in {time.perf_counter() - t18:.1f} s")
+    return rec
 
 
 def _zoo():
@@ -160,6 +178,9 @@ def main():
     if "--zoo" in sys.argv:
         print(f"rehearsal passed: phase 17 {_zoo()}")
         return
+    if "--recurrent" in sys.argv:
+        print(f"rehearsal passed: phase 18 {_recurrent()}")
+        return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -196,12 +217,13 @@ def main():
     runtime = cs.runtime_paths("CPU rehearsal")
     print(f"phase 16 rehearsed in {time.perf_counter() - t16:.1f} s")
     zoo = _zoo()
+    rec = _recurrent()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
           f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
-          f"{runtime}, phase 17 {zoo}")
+          f"{runtime}, phase 17 {zoo}, phase 18 {rec}")
 
 
 if __name__ == "__main__":

@@ -28,9 +28,14 @@ the CPU.
   scores within 1e-5 relative. ``BeamSearchDecoder`` decoding with the
   parameters the JAX package trained (tests/test_contrib_decoder.py).
   ``dynamic_decode`` equals ``DecodeEngine.generate``.
-- **Waiting for A11.** Running the training program (the ``recurrent``
-  op), a ``TrainingDecoder`` and the backward of a while loop raise
-  errors naming ROADMAP A11.
+- **Training.** ``machine_translation.build()``'s train program, 5 Adam
+  steps from the JAX startup's parameters (losses within 1e-5 relative,
+  every parameter within 1e-4 of the largest parameter magnitude), then
+  the decode program on each package's trained scope: sentences equal.
+  The backward of a bounded While: the train program byte-identical and
+  its gradient the JAX package's.
+- **C4.** ``beam_search`` ranks its candidates in ``lax.top_k``'s total
+  order (signed zeros, a negative NaN).
 """
 
 import numpy as np
@@ -53,7 +58,6 @@ from paddle_tpu.utils.flags import FLAGS as JFLAGS
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import executor as pexecutor
-from paddle_tpu_torch import layers as players
 from paddle_tpu_torch import registry as preg
 from paddle_tpu_torch.contrib import decoder as pdecoder
 from paddle_tpu_torch.core.types import DataType
@@ -146,6 +150,28 @@ def test_beam_search(accumulated):
     assert p["parent_idx"][0].dtype == np.int32
     # the ended row keeps only itself: end_id at its own score
     assert 1 in p["parent_idx"][0].tolist()
+
+
+@pytest.mark.parametrize("probe", ["signed_zeros", "negative_nan"])
+def test_beam_search_follows_lax_total_order(probe):
+    """ROADMAP C4: one batch row of 2 hypotheses x 2 accumulated
+    candidates. lax.top_k ranks +0 above -0 and a negative NaN below
+    -inf; torch's float sort would pick [-0 at 0] and [NaN at 1]."""
+    flat = {"signed_zeros": [-0.0, 0.5, 0.0, -1.0],
+            "negative_nan": [1.0, -np.nan, -np.inf, 2.0]}[probe]
+    ins = {"pre_ids": [np.array([5, 6], np.int64)],
+           "pre_scores": [np.zeros(2, np.float32)],
+           "ids": [np.array([[10, 11], [12, 13]], np.int64)],
+           "scores": [np.array(flat, np.float32).reshape(2, 2)]}
+    attrs = {"beam_size": 2, "end_id": 1, "level": 0,
+             "is_accumulated": True}
+    j, p = _run_both("beam_search", ins, attrs)
+    want = {"signed_zeros": [11, 12], "negative_nan": [13, 10]}[probe]
+    assert j["selected_ids"][0].tolist() == want
+    assert p["selected_ids"][0].tolist() == want
+    assert (p["selected_scores"][0].tobytes()
+            == j["selected_scores"][0].tobytes())
+    _same(j, p)
 
 
 def test_beam_search_decode():
@@ -317,13 +343,44 @@ def test_while_loop_against_jax(case):
     assert ("while" in kinds.get("device", [])) == (bound > 0)
 
 
-def test_while_backward_waits_for_a11():
-    with punique.guard():
-        main, startup, y = _pow_loop(pt, max_trip_count=5)
-        with pt.program_guard(main, startup):
-            loss = players.mean(y)
-            with pytest.raises(NotImplementedError, match="A11"):
-                pt.backward.append_backward(loss)
+def test_while_backward_program_and_gradient_match_jax():
+    """mean(x * w^3) through a While with max_trip_count 5: the train
+    program (the SSA body and step-grad blocks the grad maker attaches
+    included) byte-identical, and w's gradient the JAX package's and
+    3 w^2 mean_b(x) / 3."""
+    progs = {}
+    for name, pkg, guard in (("jax", fluid, junique.guard),
+                             ("port", pt, punique.guard)):
+        with guard():
+            main, startup, y = _pow_loop(pkg, max_trip_count=5)
+            with pkg.program_guard(main, startup):
+                loss = pkg.layers.mean(y)
+                grads = pkg.backward.append_backward(loss)
+        progs[name] = (main, startup, dict((p.name, g.name)
+                                           for p, g in grads))
+    (jmain, jstart, jg), (pmain, pstart, pg) = progs["jax"], progs["port"]
+    assert pmain.desc.to_bytes() == jmain.desc.to_bytes()
+    assert pg == jg and "w_loop" in pg
+    op = next(o for o in pmain.global_block().ops if o.type == "while_grad")
+    assert "__ssa_sub_block__" in op.attrs
+    wv = np.array([[1.5, 0.5, 2.0]], np.float32)
+    xb = np.array([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]], np.float32)
+    js = JScope()
+    jexe = fluid.Executor(fluid.CPUPlace())
+    jexe.run(jstart, scope=js)
+    js.set_var("w_loop", jnp.asarray(wv))
+    (want,) = jexe.run(jmain, feed={"x": xb}, fetch_list=[jg["w_loop"]],
+                       scope=js)
+    ps = pt.Scope()
+    pexe = pt.Executor(pt.CPUPlace())
+    pexe.run(pstart, scope=ps)
+    ps.set_var("w_loop", torch.from_numpy(wv))
+    (got,) = pexe.run(pmain, feed={"x": xb}, fetch_list=[pg["w_loop"]],
+                      scope=ps)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(got, wv ** 2 * xb.mean(axis=0, keepdims=True),
+                               rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -523,13 +580,71 @@ def test_dynamic_decode_equals_the_engine():
         pdecoder.GenerationDecoder(spec, place=pt.CPUPlace(), end_id=7)
 
 
-def test_training_paths_wait_for_a11():
-    p = pmt.build(**MT_TINY)
-    exe = pt.Executor(pt.CPUPlace())
-    scope = pt.Scope()
-    exe.run(p["startup"], scope=scope)
-    with pytest.raises(NotImplementedError, match="A11"):
-        exe.run(p["main"], feed=pmt.make_fake_batch(2, p["config"]),
-                fetch_list=[p["loss"]], scope=scope)
-    with pytest.raises(NotImplementedError, match="A11"):
-        pdecoder.TrainingDecoder(None)
+def _max_rel(js, ps, names):
+    """The largest |port - JAX| over the float persistables ``names``,
+    and the largest |JAX value| among them."""
+    diff = top = 0.0
+    for n in names:
+        a = np.asarray(js.find_var(n))
+        if a.dtype.kind != "f":
+            continue
+        diff = max(diff, float(np.abs(ps.find_var(n).numpy() - a).max()))
+        top = max(top, float(np.abs(a).max()))
+    return diff, top
+
+
+def test_machine_translation_trains_and_decodes_against_jax():
+    """MT_TINY: 5 Adam steps on one batch of 4 from the JAX startup's
+    parameters through both packages' train programs (the decoder one
+    ``recurrent`` op, its backward the generic vjp of the whole loop):
+    losses within 5-step tolerance 1e-5 relative, and every parameter
+    and Adam moment within 1e-4 of the largest magnitude among them.
+    (An element-wise relative bound would not hold: the attention
+    score's bias ``fc_5.b_0`` has a gradient that is 0 in exact
+    arithmetic, since the softmax is shift-invariant, so Adam moves it
+    by its rounding noise; ROADMAP C, "Adam near zero gradients".) Then
+    each package's decode program on its trained scope: the same
+    sentences, final scores within SCORE_REL."""
+    j, p = jmt.build(**MT_TINY), pmt.build(**MT_TINY)
+    assert p["main"].desc.to_bytes() == j["main"].desc.to_bytes()
+    cfg = j["config"]
+    js = JScope()
+    jexe = fluid.Executor(fluid.CPUPlace())
+    j["startup"].random_seed = 5
+    jexe.run(j["startup"], scope=js)
+    names = [v.name for v in p["startup"].list_vars() if v.persistable]
+    ps = pt.Scope()
+    pt.io.set_params_from_numpy(
+        ps, {n: np.asarray(js.find_var(n)) for n in names}, "cpu",
+        program=p["startup"])
+    pexe = pt.Executor(pt.CPUPlace())
+    batch = pmt.make_fake_batch(4, cfg, seed=1)
+    losses = []
+    for _ in range(5):
+        (jl,) = jexe.run(j["main"], feed=batch, fetch_list=[j["loss"]],
+                         scope=js)
+        (pl,) = pexe.run(p["main"], feed=batch, fetch_list=[p["loss"]],
+                         scope=ps)
+        losses.append((float(np.asarray(jl).reshape(-1)[0]),
+                       float(pl.reshape(-1)[0])))
+    for jl, pl in losses:
+        assert abs(pl - jl) <= 1e-5 * abs(jl), losses
+    assert losses[-1][1] < losses[0][1]
+    diff, top = _max_rel(js, ps, names)
+    assert diff <= 1e-4 * top, (diff, top)
+
+    b, w = 4, cfg["beam_size"]
+    feed = {"src": batch["src"], "src_len": batch["src_len"],
+            "start_ids": np.zeros((b * w,), np.int64),
+            "init_scores": np.tile(np.array([0.0] + [-1e9] * (w - 1),
+                                            np.float32), b)}
+    jd, pd = j["decode"], p["decode"]
+    jsent, jscore = jexe.run(jd["program"], feed=feed,
+                             fetch_list=[jd["sentences"], "init_scores"],
+                             scope=js)
+    psent, pscore = pexe.run(pd["program"], feed=feed,
+                             fetch_list=[pd["sentences"], "init_scores"],
+                             scope=ps)
+    assert psent.tolist() == np.asarray(jsent).tolist()
+    np.testing.assert_allclose(pscore, np.asarray(jscore), rtol=SCORE_REL,
+                               atol=0)

@@ -349,6 +349,31 @@ def test_top_k_and_accuracy_match_jax(k, label_dtype):
                                "Indices": [idx], "Label": [label]}, {}))
 
 
+# ROADMAP C4's probes: lax.top_k ranks by IEEE total order (+0 above -0,
+# a NaN with its sign bit set below -inf), where torch's float sort ties
+# the zeros and ranks every NaN highest
+TOTAL_ORDER_PROBES = {
+    "signed_zeros": (np.array([[0.5, -0.0, 0.0, -1.0]], np.float32), 2,
+                     [0.5, 0.0], [0, 2]),
+    "negative_nan": (np.array([[1.0, -np.nan, -np.inf, 2.0]], np.float32), 4,
+                     None, [3, 0, 2, 1]),
+}
+
+
+@pytest.mark.parametrize("probe", sorted(TOTAL_ORDER_PROBES))
+def test_top_k_follows_lax_total_order(probe):
+    x, k, want_vals, want_idx = TOTAL_ORDER_PROBES[probe]
+    jouts, pouts = _both("top_k", {"X": [x]}, {"k": k})
+    jv, pv = np.asarray(jouts["Out"][0]), pouts["Out"][0].numpy()
+    assert np.asarray(jouts["Indices"][0]).tolist() == [want_idx]
+    assert pouts["Indices"][0].numpy().tolist() == [want_idx]
+    # values, signs and NaNs included, bit for bit
+    assert pv.tobytes() == jv.tobytes()
+    if want_vals is not None:
+        assert pv.tolist() == [want_vals]
+        assert not np.signbit(pv).any()
+
+
 def test_mean_transpose_affine_channel_match_jax():
     _check(*_both("mean", {"X": [f32(3, 4, 5)]}, {}))
     _check(*_both("transpose", {"X": [f32(2, 3, 4, 5)]},

@@ -599,26 +599,27 @@ def test_registry_flags_the_passes_read_match_jax():
 
 
 def test_registry_counts():
-    """The port's op types: 158 of the JAX package's, plus its 3 grad types
-    of its own (``_OPAQUE_GRAD_TYPES``); every one has an emitter but
-    ``recurrent``, registered for its grad maker (StaticRNN programs build
-    byte-identically; running one waits for ROADMAP A11). The model zoo
-    added ``auc``, ``log_loss``, ``cos_sim``, ``lstm`` and the four fused
-    ops of the RNN and sequence passes."""
+    """The port's op types: 162 of the JAX package's, plus its 3 grad types
+    of its own (``_OPAQUE_GRAD_TYPES``), and every one has an emitter.
+    Recurrent training and structured prediction added ``recurrent``'s
+    emitter and ``while_grad``, ``linear_chain_crf``, ``crf_decoding`` and
+    ``chunk_eval``; the model zoo ``auc``, ``log_loss``, ``cos_sim``,
+    ``lstm`` and the four fused ops of the RNN and sequence passes."""
     from paddle_tpu import registry as jreg
     reg = pt.registry._REGISTRY
-    assert len(reg) == 161
-    assert sum(jreg.has_op(t) for t in reg) == 158
-    assert sorted(t for t, i in reg.items() if i.emitter is None) == [
-        "recurrent"]
-    for op_type in ("while", "array_write", "array_read", "beam_search",
+    assert len(reg) == 165
+    assert sum(jreg.has_op(t) for t in reg) == 162
+    assert sorted(t for t, i in reg.items() if i.emitter is None) == []
+    for op_type in ("while", "while_grad", "recurrent", "array_write",
+                    "array_read", "beam_search",
                     "beam_search_decode", "gru", "sequence_pool",
                     "sequence_softmax", "expand", "split",
                     "fill_constant_batch_size_like", "dropout",
                     "dropout_grad", "square_error_cost", "create_py_reader",
                     "read", "auc", "log_loss", "cos_sim", "lstm",
                     "fusion_lstm", "fusion_gru", "fusion_seqpool_concat",
-                    "fused_embedding_fc_lstm"):
+                    "fused_embedding_fc_lstm", "linear_chain_crf",
+                    "crf_decoding", "chunk_eval"):
         assert reg[op_type].emitter is not None, op_type
 
 

@@ -75,6 +75,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.models.recommender\n"
         "import paddle_tpu_torch.models.understand_sentiment\n"
         "import paddle_tpu_torch.models.stacked_lstm\n"
+        "import paddle_tpu_torch.ops.kernels_crf\n"
+        "import paddle_tpu_torch.dataset, paddle_tpu_torch.dataset.conll05\n"
+        "import paddle_tpu_torch.models.label_semantic_roles\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
