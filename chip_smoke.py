@@ -311,6 +311,28 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    0.2 of the first, and the float64 build's ``while_grad`` within
    WHILE_FD_REL of central differences of its loss on the card.
 
+19. conditional control flow, the sequence ops and CTC, after phase 18:
+   (A) Fluid's ocr_recognition CRNN-CTC (``testing.models.crnn_ctc``:
+   [1, 48, 512] images, conv groups of 16/32/64/128 filters,
+   ``im2sequence`` to 32 steps of 384, GRU 200 each way, 96 classes,
+   ``warpctc`` normalised by time, Momentum with L2), batch 32, through
+   ``CompiledProgram``: REC_RUNS steps captured against eager bitwise, the
+   loss falling over CRNN_STEPS steps on one batch, the test program
+   (``ctc_greedy_decoder``, ``edit_distance``) captured against eager
+   bitwise with its distances a numpy Levenshtein's, and ``warpctc`` within
+   CTC_YARDSTICK_REL of ``F.ctc_loss`` (a yardstick the port never calls);
+   (B) test_mnist_if_else_op.py's ``IfElse`` program, batch 128, captured
+   against eager, one device segment in one graph, the merged rows the
+   branches' where; (C) its ``Switch`` piecewise learning rate equal to
+   numpy's at every captured step across three boundaries, and a
+   hand-built ``conditional_block`` captured on one branch and replayed
+   on the other; (D) the op bank: each of the slice's 36 types on the card
+   against the CPU (batch 64, T 128, width 256, rows of length 0, 1 and T),
+   the gradful ones' vjps too; (E) a text CNN of ``sequence_conv(relu)``
+   served by ``AnalysisPredictor``, rewritten to the JAX pipeline's op
+   list (``fusion_seqconv_eltadd_relu``) and within SERVE_TOL of
+   ``NativePredictor``.
+
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
@@ -318,8 +340,9 @@ calling the wrappers, whose counts then cover the eager runs and the
 captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
-(phases 14-15), the model zoo (17) and recurrent training (18) hold the
-wrappers' counts at 0: no call, so no flash kernel in any graph either.
+(phases 14-15), the model zoo (17), recurrent training (18) and phase 19
+hold the wrappers' counts at 0: no call, so no flash kernel in any graph
+either.
 
 TF32 stays off for matrix products and convolutions throughout (both
 default settings are the caller's; cuDNN's benchmark and deterministic
@@ -366,6 +389,7 @@ from paddle_tpu_torch.models import (bert, deepfm, fit_a_line,
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.kernels_nn import _dropout_apply
+from paddle_tpu_torch.testing import models as tmodels
 from paddle_tpu_torch.utils import unique_name
 from paddle_tpu_torch.utils.flags import FLAGS
 
@@ -5195,8 +5219,14 @@ ZOO_SMALL = {"fit_a_line": ("fit_a_line", {}, 64),
 def zoo_build(mod, **kw):
     """A zoo model built, its startup run on the card from SEED; returns
     (build, initial state on the card, executor)."""
+    return built_on_card(lambda: mod.build(**kw))
+
+
+def built_on_card(build):
+    """(build, initial state on the card, executor): ``build()`` under a
+    fresh name guard, its startup run on the card from SEED."""
     with unique_name.guard():
-        m = mod.build(**kw)
+        m = build()
     m["startup"].random_seed = m["main"].random_seed = SEED
     exe = pt.Executor()
     init = pt.Scope()
@@ -5893,6 +5923,558 @@ def recurrent_paths(smi):
     return out, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 19: conditional control flow, the sequence ops and CTC
+# ---------------------------------------------------------------------------
+
+# 19(A): Fluid's ocr_recognition CRNN-CTC (crnn_ctc_model.py) at its
+# widths, testing.models.crnn_ctc's defaults: gray [1, 48, 512] images,
+# conv groups of 16/32/64/128 filters, T 32 steps of 384, GRU 200 each
+# way, 95 classes and the blank, Momentum 1e-3 / 0.9, L2 4e-4; batch 32 of
+# seeded images and labels of 1-16 ids
+CRNN = {}
+CRNN_BATCH = 32
+CRNN_STEPS = 20        # steps on one batch (REC_RUNS captured against
+                       # eager, the traced window, then more); the loss falls
+CTC_YARDSTICK_REL = 1e-4   # warpctc against F.ctc_loss, relative
+# 19(B-C): test_mnist_if_else_op.py's shape (testing.models.if_else_mnist's
+# defaults): image 784, rows routed by label < 5, each branch fc 100 tanh
+# and fc 10 softmax, Momentum 0.9 on a Switch piecewise rate (boundaries 3,
+# 6, 9); batch 128 of seeded MNIST-shaped rows
+IFELSE = {}
+IFELSE_BATCH = 128
+IFELSE_RUNS = 12       # captured against eager; with the traced window the
+                       # steps cross all three boundaries
+COND_WIDTH = 4096      # the hand-built conditional_block's x
+# 19(D): the op bank, every type of the slice on the card and on the CPU
+# on the same seeded inputs: batch 64, T 128, width 256, rows of length
+# 0, 1 and T among them
+BANK_B, BANK_T, BANK_D = 64, 128, 256
+BANK_REL = 1e-5        # float outputs, of each output's largest magnitude
+BANK_REL_CTC = 1e-4    # warpctc and edit_distance
+BANK_VJP_REL = 1e-4    # the gradful types' vjps, of each gradient's largest
+# 19(E): testing.models.text_cnn at phase 17's understand_sentiment conv
+# widths (dict 5000, emb 32, 32 filters of widths 3 and 4, max_len 64),
+# batch 128, served by AnalysisPredictor against NativePredictor
+TEXT_CNN = {}
+TEXT_CNN_BATCH = 128
+# its op types after AnalysisConfig's default passes, the JAX package's
+# pipeline's (tests/test_torch_ir.py TEXT_CNN_ANALYSIS_TYPES)
+TEXT_CNN_TYPES = ["lookup_table", "fusion_seqconv_eltadd_relu",
+                  "sequence_pool", "fusion_seqconv_eltadd_relu",
+                  "sequence_pool", "mul", "mul", "sum", "elementwise_add",
+                  "softmax"]
+
+
+def levenshtein(a, b):
+    """The edit distance of two id lists (a row-by-row table)."""
+    d = list(range(len(b) + 1))
+    for i, ca in enumerate(a):
+        new = [i + 1]
+        for k, cb in enumerate(b):
+            new.append(min(d[k + 1] + 1, new[k] + 1, d[k] + (ca != cb)))
+        d = new
+    return d[-1]
+
+
+def crnn_path(smi):
+    """19(A): the CRNN-CTC through CompiledProgram under bench.py's
+    BuildStrategy, fp32: REC_RUNS steps captured against eager bitwise,
+    then captured steps to CRNN_STEPS on the same batch, the loss falling;
+    the test program (ctc_greedy_decoder, edit_distance) 3 captured runs
+    against 2 eager bitwise, its distances those of a numpy Levenshtein of
+    the decoded rows; warpctc on the card against F.ctc_loss on the same
+    log-softmax (a yardstick, within CTC_YARDSTICK_REL); edit_distance's
+    kernels a call."""
+    label = "19(A) CRNN-CTC"
+    m, state, exe = built_on_card(lambda: tmodels.crnn_ctc(pt, **CRNN))
+    cfg = m["config"]
+    dev = exe.device
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    feed = tmodels.crnn_batch(CRNN_BATCH, cfg["image"], cfg["classes"],
+                              cfg["max_label"], seed=SEED + 1900)
+    log(f"  crnn_ctc {cfg}: {len(state)} persistables, "
+        f"{sum(t.numel() for t in state.values()) / 1e6:.2f} M values; batch "
+        f"{CRNN_BATCH}, label lengths {int(feed['label_length'].min())}-"
+        f"{int(feed['label_length'].max())}")
+    scope, steps, res = zoo_train(label, exe, target, state,
+                                  [m["loss"].name], [feed] * REC_RUNS,
+                                  ("images", CRNN_BATCH), smi, runs=REC_RUNS)
+    losses = [float(o[0].float().reshape(-1)[0]) for _, o in steps]
+    while len(losses) < CRNN_STEPS:
+        (loss,) = run_tensors(exe, target, feed=feed,
+                              fetch_list=[m["loss"].name], scope=scope)
+        losses.append(float(loss.float().reshape(-1)[0]))
+    log(f"  {label}: losses over {len(losses)} steps on one batch "
+        + ", ".join(f"{v:.5f}" for v in losses))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: the loss does not fall: {losses}")
+    res["losses"] = losses
+    top_kernels(label, exe, target, feed, [m["loss"].name], scope, n=12)
+
+    fetch = [m["decoded"].name, m["decoded_length"].name,
+             m["distance"].name, m["logits"].name]
+    with deterministic() as found:
+        with jit_cache(False):
+            eager = [run_tensors(exe, m["test"], feed=feed, fetch_list=fetch,
+                                 scope=scope) for _ in range(2)]
+        captured = [run_tensors(exe, m["test"], feed=feed, fetch_list=fetch,
+                                scope=scope) for _ in range(3)]
+    if found:
+        raise AssertionError(f"{label}: test program: {found}")
+    for i, name in enumerate(("decoded rows", "decoded lengths",
+                              "edit distances", "logits")):
+        hold(label, f"test program {name}: 3 captured runs against 2 eager",
+             max(distance(c[i], e[i]) for c in captured for e in eager), 0.0)
+    dec, dec_len, dist, logits = captured[-1]
+    dec_n, len_n = dec.cpu().numpy(), dec_len.cpu().numpy()
+    want = [float(levenshtein(dec_n[r, :len_n[r]].tolist(),
+                              feed["label"][r, :feed["label_length"][r]]
+                              .tolist())) for r in range(CRNN_BATCH)]
+    got = dist.cpu().reshape(-1).tolist()
+    log(f"  {label}: decoded ({dec_n.dtype}) row 0 {dec_n[0, :len_n[0]]}"
+        f"; edit distances {got[:8]}... against a numpy Levenshtein of the "
+        f"decoded rows: {sum(g != w for g, w in zip(got, want))} of "
+        f"{len(got)} differ")
+    if dec_n.dtype != np.int64 or got != want:
+        raise AssertionError(f"{label}: edit distances {got} against "
+                             f"numpy's {want}")
+    rows, busy = device_rows(lambda: run_tensors(
+        exe, m["test"], feed=feed, fetch_list=fetch, scope=scope))
+    res["test_kernels"] = sum(r[2] for r in rows)
+    res["test_device_ms"] = busy
+
+    ctx = pt.registry.EmitContext(dev)
+    ed_ins = {"Hyps": [dec], "Refs": [torch.from_numpy(feed["label"]).to(dev)],
+              "HypsLength": [dec_len],
+              "RefsLength": [torch.from_numpy(feed["label_length"]).to(dev)]}
+    ed = pt.registry.lookup("edit_distance").emitter
+    rows, busy = device_rows(lambda: ed(ctx, ed_ins, {"normalized": False}))
+    res["edit_distance_kernels"] = sum(r[2] for r in rows)
+    res["edit_distance_ms"] = time_ms(
+        lambda: ed(ctx, ed_ins, {"normalized": False}))
+
+    wc = pt.registry.lookup("warpctc").emitter
+    lab = torch.from_numpy(feed["label"]).to(dev)
+    lab_len = torch.from_numpy(feed["label_length"]).to(dev)
+    wc_ins = {"Logits": [logits], "Label": [lab], "LabelLength": [lab_len]}
+    wc_attrs = {"blank": cfg["classes"]}
+    port = wc(ctx, wc_ins, wc_attrs)["Loss"][0].reshape(-1).double()
+    steps_t = torch.full((CRNN_BATCH,), logits.shape[1], dtype=torch.long,
+                         device=dev)
+
+    def library():
+        return torch.nn.functional.ctc_loss(
+            torch.log_softmax(logits, dim=-1).transpose(0, 1), lab, steps_t,
+            lab_len, blank=cfg["classes"], reduction="none")
+
+    ref = library().double()
+    rel = float(((port - ref).abs() / ref.abs()).max())
+    res["warpctc_ms"] = time_ms(lambda: wc(ctx, wc_ins, wc_attrs))
+    res["ctc_loss_ms"] = time_ms(library, graph=False)
+    log(f"  {label}: warpctc on the card against F.ctc_loss on the same "
+        f"log-softmax: {rel:.3e} relative at most (bound "
+        f"{CTC_YARDSTICK_REL}); losses {port[:3].tolist()}; warpctc "
+        f"forward {res['warpctc_ms']:.4f} ms a call (graph replay), "
+        f"F.ctc_loss {res['ctc_loss_ms']:.4f} ms (eager); the test program "
+        f"{res['test_kernels']} kernels, {res['test_device_ms']:.3f} ms of "
+        f"device time a call; edit_distance alone "
+        f"{res['edit_distance_kernels']} kernels, "
+        f"{res['edit_distance_ms']:.4f} ms a call [{smi}]")
+    if not rel <= CTC_YARDSTICK_REL:
+        raise AssertionError(f"{label}: warpctc {rel:.3e} from F.ctc_loss")
+    res["ctc_rel"] = rel
+    exe.close()
+    return res
+
+
+def numpy_piecewise(step, boundaries, values):
+    for b, v in zip(boundaries, values):
+        if step < b:
+            return np.float32(v)
+    return np.float32(values[-1])
+
+
+def if_else_path(smi):
+    """19(B-C): the IfElse MNIST program with its Switch learning rate,
+    fp32, batch 128: IFELSE_RUNS steps captured against eager bitwise, each
+    plan one device segment held in one CUDA graph (no host read); at
+    every step the merged rows equal a where of the two branches' outputs
+    and the learning rate numpy's piecewise value of the fetched global
+    step, across all three boundaries."""
+    label = "19(B) IfElse + Switch"
+    m, state, exe = built_on_card(lambda: tmodels.if_else_mnist(pt,
+                                                                **IFELSE))
+    rng = np.random.RandomState(SEED + 1901)
+    in_dim = m["main"].global_block().var("img").shape[-1]
+    feed = {"img": rng.rand(IFELSE_BATCH, in_dim).astype(np.float32),
+            "label": rng.randint(0, 10, (IFELSE_BATCH, 1)).astype(np.int64)}
+    fetch = [m["loss"].name, m["lr"].name, m["step"].name, m["prob"].name,
+             m["true_out"], m["false_out"]]
+    scope, steps, res = zoo_train(label, exe, m["main"], state, fetch,
+                                  [feed] * IFELSE_RUNS,
+                                  ("rows", IFELSE_BATCH), smi,
+                                  runs=IFELSE_RUNS)
+    res["losses"] = falls(label, steps)
+    plans = list(m["main"].__dict__["_exec_cache"].values())
+    kinds = [[k for k, _ in p.segments] for p in plans]
+    graphs = [seg.graph is not None for p in plans for k, seg in p.segments]
+    log(f"  {label}: {len(plans)} plan(s), segments {kinds}, captured "
+        f"{graphs}")
+    if (not plans or any(k != ["device"] for k in kinds)
+            or (exe.device.type == "cuda" and not all(graphs))):
+        raise AssertionError(f"{label}: the step is not one captured graph")
+    routed = torch.from_numpy(feed["label"] < 5).to(exe.device)
+    lrs = []
+    for i, (_, o) in enumerate(steps):
+        if not torch.equal(o[3], torch.where(routed, o[4], o[5])):
+            raise AssertionError(f"{label}: step {i}: the merged rows are "
+                                 "not the branches' where")
+        step = float(o[2].reshape(-1)[0])
+        lr = np.float32(o[1].reshape(-1)[0].item())
+        want = numpy_piecewise(step, m["boundaries"], m["values"])
+        if lr != want:
+            raise AssertionError(f"{label}: step {step}: learning rate "
+                                 f"{lr} against numpy's {want}")
+        lrs.append((step, float(lr)))
+    log(f"  {label}: merged rows the where of the branches at all "
+        f"{len(steps)} captured steps; (global step, learning rate) "
+        + ", ".join(f"({s:g}, {v:g})" for s, v in lrs)
+        + " equal to numpy's")
+    if len({v for _, v in lrs}) != len(m["values"]):
+        raise AssertionError(f"{label}: the steps do not cross every "
+                             f"boundary: {lrs}")
+    exe.close()
+    return res
+
+
+def conditional_block_path(smi):
+    """19(C): the hand-built conditional_block (testing.models), x of
+    COND_WIDTH, run eager and captured in turns with x whose sum is
+    negative (the sub-block's value) and positive (the prior value): the
+    capture made on one branch replays the other; bitwise against eager
+    and equal to numpy's."""
+    label = "19(C) conditional_block"
+    with unique_name.guard():
+        prog, out = tmodels.conditional_block_program(pt, COND_WIDTH)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    rng = np.random.RandomState(SEED + 1902)
+    xs = [(rng.rand(COND_WIDTH).astype(np.float32) + 0.1) * sign
+          for sign in (-1, 1, -1, 1, -1)]
+    with jit_cache(False):
+        eager = [run_tensors(exe, prog, feed={"x": x}, fetch_list=[out.name],
+                             scope=scope)[0] for x in xs]
+    captured = [run_tensors(exe, prog, feed={"x": x}, fetch_list=[out.name],
+                            scope=scope)[0] for x in xs]
+    for x, e, c in zip(xs, eager, captured):
+        want = (3 * x + 1 if x.sum() < 0
+                else np.full(COND_WIDTH, 0.5, np.float32))
+        if not (torch.equal(c, e) and np.array_equal(c.cpu().numpy(),
+                                                     want)):
+            raise AssertionError(f"{label}: sum(x) {x.sum():.2f}: captured "
+                                 "or eager differs from numpy")
+    plans = list(prog.__dict__["_exec_cache"].values())
+    graphs = [seg.graph is not None for p in plans for k, seg in p.segments]
+    log(f"  {label}: {len(xs)} runs alternating the branch, captured "
+        f"({graphs}) bitwise eager and numpy's [{smi}]")
+    if exe.device.type == "cuda" and not all(graphs):
+        raise AssertionError(f"{label}: not captured")
+    exe.close()
+    return {"runs": len(xs)}
+
+
+def bank_cases():
+    """(name, op type, numpy inputs, attrs, tolerance) of the op bank; an
+    array input is a list of arrays."""
+    b, t, d = BANK_B, BANK_T, BANK_D
+    rng = np.random.RandomState(SEED + 1950)
+
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    length = rng.randint(0, t + 1, b).astype(np.int64)
+    length[:3] = [0, 1, t]
+    ids = rng.randint(0, 50, (b, t)).astype(np.int64)
+    x = f(b, t, d)
+    n_cls, n_lab, t2 = 96, min(32, t // 4), min(64, t)
+    label_len = rng.randint(1, n_lab + 1, b).astype(np.int64)
+    logit_len = rng.randint(2 * n_lab + 1, t + 1, b).astype(np.int64)
+    label_len[:3], logit_len[:3] = [0, 0, n_lab], [0, 1, t]
+    ref_len = rng.randint(0, t2 + 1, b).astype(np.int64)
+    ref_len[:3] = [0, 1, t2]
+    array = [f(b, t, d) for _ in range(3)]
+    row_mask = rng.rand(b) < 0.5
+    rows = [
+        ("if_else", {"Cond": [row_mask.reshape(b, 1)], "TrueOut": [x],
+                     "FalseOut": [f(b, t, d)]}, {}),
+        ("switch_merge", {"Conds": [np.array([False]), np.array([True]),
+                                    np.array([True])],
+                          "X": [f(b, d), f(b, d), f(b, d)],
+                          "Default": [f(b, d)]}, {}),
+        ("write_to_array", {"X": [x], "I": [np.array([2])]}, {}),
+        ("read_from_array", {"X": [array], "I": [np.array([1])]}, {}),
+        ("lod_array_length", {"X": [array]}, {}),
+        ("tensor_array_to_tensor", {"X": [array]}, {"axis": 1}),
+        ("max_sequence_len", {"RankTable": [length]}, {}),
+        ("lod_tensor_to_array", {"X": [x]}, {}),
+        ("array_to_lod_tensor", {"X": [f(t, b, d)]}, {}),
+        ("shrink_rnn_memory", {"X": [f(b, d)], "RankTable": [length],
+                               "I": [np.array([5])]}, {}),
+        ("split_lod_tensor", {"X": [x], "Mask": [row_mask]}, {}),
+        ("merge_lod_tensor", {"InTrue": [x], "InFalse": [f(b, t, d)],
+                              "Mask": [row_mask]}, {}),
+        ("is_empty", {"X": [x]}, {}),
+        ("sequence_expand", {"X": [f(b, d)], "Y": [x]}, {}),
+        ("sequence_reverse", {"X": [x], "Length": [length]}, {}),
+        ("sequence_concat", {"X": [x, f(b, t // 4, d)]}, {}),
+        ("sequence_slice", {"X": [x]}, {"offset": 5,
+                                        "length": min(64, t - 5)}),
+        ("sequence_conv", {"X": [x], "Filter": [f(3 * d, 128) * 0.05],
+                           "Length": [length]},
+         {"contextLength": 3, "contextStart": -1}),
+        ("row_conv", {"X": [x], "Filter": [f(3, d)], "Length": [length]}, {}),
+        ("sequence_pad", {"X": [x], "Length": [length],
+                          "PadValue": [np.array([-1.0], np.float32)]},
+         {"maxlen": t + 16}),
+        ("sequence_unpad", {"X": [x], "Length": [length]}, {}),
+        ("sequence_expand_as", {"X": [f(b, d)], "Y": [x]}, {}),
+        ("sequence_reshape", {"X": [x]}, {"new_dim": 2 * d}),
+        ("sequence_scatter", {"X": [x], "Ids": [rng.randint(
+            0, t, (b, 16)).astype(np.int64)], "Updates": [f(b, 16, d)]}, {}),
+        ("sequence_enumerate", {"X": [ids], "Length": [length]},
+         {"win_size": 4, "pad_value": 0}),
+        ("sequence_erase", {"X": [ids], "Length": [length]},
+         {"tokens": [1, 2, 3]}),
+        ("add_position_encoding", {"X": [x]}, {"alpha": 0.5, "beta": 1.5}),
+        ("im2sequence", {"X": [f(b, 16, 12, 64)]},
+         {"kernels": [3, 3], "strides": [1, 2], "paddings": [1, 0, 2, 1]}),
+        ("lod_reset", {"X": [x], "Y": [np.concatenate(
+            [[0], np.cumsum(length)]).astype(np.int64)]}, {}),
+        ("lod_rank_table", {"X": [length]}, {}),
+        ("reorder_lod_tensor_by_rank", {"X": [x], "RankTable": [
+            rng.permutation(b).astype(np.int64)]}, {}),
+        ("warpctc", {"Logits": [f(b, t, n_cls)],
+                     "Label": [rng.randint(0, n_cls - 1, (b, n_lab))
+                               .astype(np.int64)],
+                     "LogitsLength": [logit_len],
+                     "LabelLength": [label_len]},
+         {"blank": n_cls - 1, "norm_by_times": True}),
+        ("ctc_align", {"Input": [rng.randint(0, 8, (b, t)).astype(np.int64)],
+                       "Length": [length]}, {"blank": 0}),
+        ("edit_distance", {"Hyps": [ids % 6], "Refs": [rng.randint(
+            0, 6, (b, t2)).astype(np.int64)], "HypsLength": [length],
+            "RefsLength": [ref_len]}, {"normalized": True}),
+        ("fusion_seqconv_eltadd_relu", {"X": [x],
+                                        "Filter": [f(3 * d, 128) * 0.05],
+                                        "Bias": [f(128)],
+                                        "Length": [length]},
+         {"contextLength": 3, "contextStart": -1}),
+    ]
+    ctc = ("warpctc", "edit_distance")
+    return [(n, ins, attrs, BANK_REL_CTC if n in ctc else BANK_REL)
+            for n, ins, attrs in rows]
+
+
+def _bank_in(v, device):
+    if isinstance(v, list):
+        return [_bank_in(a, device) for a in v]
+    return torch.from_numpy(np.array(v)).to(device)
+
+
+def _bank_flat(outs):
+    """{slot: [tensor or list of tensors]} -> [(slot name, tensor on the
+    CPU)], a list array's slots in order."""
+    flat = []
+    for slot in sorted(outs):
+        for j, v in enumerate(outs[slot]):
+            for k, a in enumerate(v if isinstance(v, list) else [v]):
+                if a is not None:
+                    flat.append((f"{slot}[{j}]{'' if k == 0 else f'[{k}]'}",
+                                 a.detach().cpu()))
+    return flat
+
+
+def bank_error(got, want):
+    """0 for equal integer or bool tensors (raises on unequal ones), else
+    the largest distance over the largest magnitude."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape or dtype {tuple(got.shape)} {got.dtype}"
+                             f" against {tuple(want.shape)} {want.dtype}")
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError("integer outputs differ")
+        return 0.0
+    top = want.abs().max().item() if want.numel() else 0.0
+    return distance(got, want) / max(top, 1e-30)
+
+
+def op_bank_path(smi):
+    """19(D): every type of the slice on the card and on the CPU on the
+    same seeded inputs (bank_cases; conditional_block through
+    testing.models' program at COND_WIDTH): integer outputs equal, float
+    outputs within each case's bound of the largest magnitude; each
+    gradful type's generic vjp on the same cotangents within
+    BANK_VJP_REL."""
+    label = "19(D) op bank"
+    card = pt.Executor()
+    dev, cpu = card.device, torch.device("cpu")
+    worst = {}
+    for name, ins, attrs, tol in bank_cases():
+        info = pt.registry.lookup(name)
+        want, got = [_bank_flat(info.emitter(
+            pt.registry.EmitContext(where),
+            {s: _bank_in(v, where) for s, v in ins.items()}, attrs))
+            for where in (cpu, dev)]
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {name}: outputs differ in number")
+        errs = [bank_error(g, w) for (_, g), (_, w) in zip(got, want)]
+        err = max(errs, default=0.0)
+        line = (f"  {label}: {name}: {len(errs)} outputs, {err:.3e} of the "
+                f"largest (bound {tol})")
+        if err > tol:
+            raise AssertionError(line)
+        vjp_err = None
+        if not info.no_grad:
+            vjp_err = bank_vjp(name, ins, attrs, info, dev)
+            line += f"; vjp {vjp_err:.3e} (bound {BANK_VJP_REL})"
+            if vjp_err > BANK_VJP_REL:
+                raise AssertionError(line)
+        worst[name] = (err, vjp_err)
+        log(line)
+    with unique_name.guard():
+        prog, out = tmodels.conditional_block_program(pt, COND_WIDTH)
+    rng = np.random.RandomState(SEED + 1951)
+    for sign in (-1, 1):
+        x = (rng.rand(COND_WIDTH).astype(np.float32) + 0.1) * sign
+        got = [exe.run(prog, feed={"x": x}, fetch_list=[out.name],
+                       scope=pt.Scope())[0]
+               for exe in (card, pt.Executor(pt.CPUPlace()))]
+        if not np.array_equal(got[0], got[1]):
+            raise AssertionError(f"{label}: conditional_block differs")
+    worst["conditional_block"] = (0.0, None)
+    log(f"  {label}: conditional_block at {COND_WIDTH}: both branches equal "
+        f"on the card and the CPU; {len(worst)} types [{smi}]")
+    if len(worst) != 36:
+        raise AssertionError(f"{label}: {len(worst)} types, not 36")
+    return {"types": len(worst),
+            "max_rel": max(e for e, _ in worst.values()),
+            "max_vjp_rel": max(v for _, v in worst.values() if v is not None)}
+
+
+def bank_vjp(name, ins, attrs, info, dev):
+    """The generic vjp of ``name`` on the card and on the CPU on the same
+    seeded cotangents (the intermediate outputs the CPU's forward made):
+    the largest distance of a gradient over its largest magnitude."""
+    cpu = torch.device("cpu")
+    fwd = info.emitter(pt.registry.EmitContext(cpu),
+                       {s: _bank_in(v, cpu) for s, v in ins.items()}, attrs)
+    rng = np.random.RandomState(SEED + 1952)
+    gins = {s: v for s, v in ins.items()}
+    for slot, vals in fwd.items():
+        if slot in info.intermediate_outputs:
+            gins[slot] = [v.numpy() for v in vals]
+        elif all(v.is_floating_point() for v in vals):
+            gins[slot + "@GRAD"] = [rng.randn(*v.shape).astype(np.float32)
+                                    for v in vals]
+    gattrs = dict(attrs, __fwd_type__=name)
+    want, got = [_bank_flat(pt.registry.generic_vjp_grad_emitter(
+        pt.registry.EmitContext(where),
+        {s: _bank_in(v, where) for s, v in gins.items()}, gattrs))
+        for where in (cpu, dev)]
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"19(D) op bank: {name}: gradients differ in "
+                             "number")
+    return max(bank_error(g, w) for (_, g), (_, w) in zip(got, want))
+
+
+def text_cnn_path(smi):
+    """19(E): testing.models.text_cnn (sequence_conv with relu, sqrt
+    pooling) saved and served by AnalysisPredictor on the card: the
+    default passes rewrite it to TEXT_CNN_TYPES (both branches
+    fusion_seqconv_eltadd_relu), and its output is within SERVE_TOL of
+    NativePredictor's on the same batch."""
+    label = "19(E) text CNN served"
+    with unique_name.guard():
+        m = tmodels.text_cnn(pt, **TEXT_CNN)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(m["startup"], scope=scope)
+    rng = np.random.RandomState(SEED + 1903)
+    max_len = m["main"].global_block().var("words").shape[1]
+    vocab = scope.find_var(next(
+        o.input("W")[0] for o in m["main"].global_block().ops
+        if o.type == "lookup_table")).shape[0]
+    length = rng.randint(1, max_len + 1, TEXT_CNN_BATCH).astype(np.int32)
+    length[:2] = [1, max_len]
+    feed = {"words": rng.randint(0, vocab, (TEXT_CNN_BATCH, max_len, 1))
+            .astype(np.int64), "length": length}
+    d = tempfile.mkdtemp(prefix="chip_smoke_textcnn_", dir=_build.BUILD_DIR)
+    try:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, m["feeds"], [m["predict"]], exe,
+                                       main_program=m["main"])
+        apred = create_paddle_predictor(AnalysisConfig(d))
+        npred = create_paddle_predictor(NativeConfig(d))
+        types = [o.type for o in apred._program.global_block().desc.ops
+                 if o.type not in ("feed", "fetch")]
+        if types != TEXT_CNN_TYPES:
+            raise AssertionError(f"{label}: the rewritten program {types}, "
+                                 f"the JAX pipeline's {TEXT_CNN_TYPES}")
+        got = [apred.run(feed)[0].as_tensor() for _ in range(4)]
+        want = [npred.run(feed)[0].as_tensor() for _ in range(2)]
+        secs = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            apred.run(feed)[0].as_tensor()
+            secs.append(time.perf_counter() - t0)
+        apred.close()
+        npred.close()
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    err = max(distance(g.float(), want[-1].float()) for g in got)
+    top = want[-1].abs().max().item()
+    ms = float(np.median(secs)) * 1e3
+    log(f"  {label}: AnalysisPredictor's {len(types)} ops ({types.count('fusion_seqconv_eltadd_relu')} "
+        f"fusion_seqconv_eltadd_relu) against NativePredictor: {err:.3e} of "
+        f"|out| {top:.3e} (bound {SERVE_TOL}); {ms:.3f} ms a request of "
+        f"{TEXT_CNN_BATCH} rows [{smi}]")
+    if not err <= SERVE_TOL * max(top, 1.0):
+        raise AssertionError(f"{label}: served output {err:.3e} from "
+                             "NativePredictor's")
+    exe.close()
+    return {"request_ms": ms, "err": err}
+
+
+def control_sequence_ctc_paths(smi):
+    """Phase 19; returns the flash launches of its paths (the wrappers'
+    calls over each path's runs, which must be (0, 0): no path holds an
+    attention op) and each path's numbers."""
+    out, numbers, secs = {}, {}, {}
+    for name, fn in (("crnn_ctc", crnn_path), ("if_else_switch", if_else_path),
+                     ("conditional_block", conditional_block_path),
+                     ("op_bank", op_bank_path),
+                     ("text_cnn", text_cnn_path)):
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        numbers[name] = fn(smi)
+        calls = (fa.launches, fa.bwd_launches)
+        if calls != (0, 0):
+            raise AssertionError(f"19 {name}: flash wrapper calls {calls}")
+        out[name] = calls
+        secs[name] = time.perf_counter() - t0
+        release()
+    log("19: " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
+    log("19: " + json.dumps({n: {k: (float(f"{v:.5g}")
+                                     if isinstance(v, float) else v)
+                                 for k, v in r.items()
+                                 if k != "losses"}
+                             for n, r in numbers.items()}))
+    return out, numbers
+
+
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true")
@@ -6083,6 +6665,13 @@ def main(argv=None):
                   "at the book's widths with its Viterbi, a bounded While "
                   "trained, through CompiledProgram, captured against eager")
             paths.update(recurrent_paths(smi)[0])
+            release()
+            phase("conditional control flow, the sequence ops and CTC: "
+                  "CRNN-CTC training at ocr_recognition's widths, IfElse "
+                  "with a Switch learning rate, conditional_block, the op "
+                  "bank on the card against the CPU, the seqconv fusion "
+                  "served")
+            paths.update(control_sequence_ctc_paths(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

@@ -841,7 +841,8 @@ class Executor:
                     # a host op (an unbounded while) may rebind a name an
                     # earlier segment computed: the fetch is the new value
                     results.update((n, env[n].clone()) for n in written
-                                   if n in fetch_names)
+                                   if n in fetch_names
+                                   and isinstance(env[n], torch.Tensor))
                     continue
                 ctx = EmitContext(self.device, generator=generator,
                                   amp=program._amp, scope=scope,
@@ -868,6 +869,14 @@ class Executor:
             else:
                 val = scope.find_var(n)
                 if val is None:
+                    v = block.vars.get(n)
+                    if getattr(v, "_switch_case_local", False):
+                        raise KeyError(
+                            f"fetch target {n!r} was created inside a "
+                            "layers.Switch case and has no merged "
+                            "post-switch value; create it before the "
+                            "switch or fetch a pre-existing var the "
+                            "case assigns into")
                     raise KeyError(f"fetch {n!r} was not computed by this "
                                    "run")
                 val = val.clone()  # the scope's tensor changes in place

@@ -245,6 +245,25 @@ class Block:
 
     def append_op(self, type: str, inputs=None, outputs=None,
                   attrs=None) -> Operator:
+        """Append an op. A variable created inside a ``layers.Switch``
+        case is written only under its case's name, so it has no value
+        after the switch: reading it raises here (in this block or a
+        sub-block), and writing it clears the mark."""
+        names = _to_name_map(inputs)
+        for slot_names in names.values():
+            for n in slot_names:
+                v = self._var_recursive(n) if n else None
+                if v is not None and getattr(v, "_switch_case_local", False):
+                    raise ValueError(
+                        f"variable '{n}' was created inside a "
+                        "layers.Switch case and is undefined after the "
+                        "switch; create it before the switch (so the case "
+                        "write is merged) or read it inside the case")
+        for slot_names in _to_name_map(outputs).values():
+            for n in slot_names:
+                v = self._var_recursive(n) if n else None
+                if v is not None and getattr(v, "_switch_case_local", False):
+                    v._switch_case_local = False
         return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
 
     def _insert_op(self, index: int, type: str, inputs=None, outputs=None,

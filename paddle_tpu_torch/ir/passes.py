@@ -9,18 +9,17 @@ fuse_elewise_add_act, repeated_fc_relu_fuse), the conv passes
 Scope; the conv_elementwise_add fusions; fuse_relu_depthwise_conv;
 conv_layout_nhwc), squared_mat_sub_fuse (the FM trick), the RNN and
 sequence fusions (fc_gru_fuse, fc_lstm_fuse and embedding_fc_lstm_fuse,
-which fold values from the Scope when they have it; seqpool_concat_fuse)
+which fold values from the Scope when they have it; seqpool_concat_fuse,
+seqconv_eltadd_relu_fuse)
 and the registry wrappers of the BuildStrategy op-list
 stages (cse, constant_fold, dead_op_elimination, fuse_optimizer_ops,
 fuse_attention, fuse_conv_epilogue). Each rewrites a program to the op
 list the JAX package's pass gives.
 
-Not ported: seqconv_eltadd_relu_fuse (``sequence_conv`` is not ported)
-and graph_viz. They are registered under their names with a guard: a
-graph that holds every op type the pass's pattern needs raises
-``NotImplementedError`` naming the ROADMAP item that ports the pass; any
-other graph is left unchanged, since the pass cannot match without its
-anchor ops.
+Not ported: graph_viz (ROADMAP A10). It is registered under its name
+with a guard that raises ``NotImplementedError`` naming the ROADMAP item
+that ports it (the guard class takes the op types a pattern needs and
+leaves a graph without them unchanged).
 """
 
 from __future__ import annotations
@@ -1316,12 +1315,56 @@ class TransposeFlattenConcatFusePass(Pass):
             list(fop.attrs.get("shape", ()))[1])
 
 
+@register_pass
+class SeqConvEltAddReluFusePass(Pass):
+    """seqconv_eltadd_relu_fuse_pass.cc analog: sequence_conv +
+    elementwise_add of a persistable bias + relu -> one
+    fusion_seqconv_eltadd_relu op, at the sequence_conv's place, with its
+    Length when it has one."""
+
+    name = "seqconv_eltadd_relu_fuse_pass"
+
+    def apply(self, graph: Graph):
+        from .pattern import GraphPatternDetector, PNode, intermediates_safe
+        protected = self.attrs.get("protected", set())
+        det = GraphPatternDetector(graph)
+        pattern = [
+            PNode("seqconv", "sequence_conv",
+                  inputs={"X": "x", "Filter": "w"},
+                  outputs={"Out": "conv_out"}),
+            PNode("add", "elementwise_add",
+                  inputs={"X": "conv_out", "Y": "bias"},
+                  outputs={"Out": "add_out"},
+                  predicate=GraphPatternDetector.persistable("Y")),
+            PNode("relu", "relu", inputs={"X": "add_out"},
+                  outputs={"Out": "out"}),
+        ]
+        drop = set()
+        fused_at = {}
+        for m in det.detect(pattern):
+            if not intermediates_safe(graph, m, ("x", "w", "bias", "out"),
+                                      protected):
+                continue
+            sc = graph.ops[m.ops["seqconv"]]
+            ins = {"X": [m.vars["x"]], "Filter": [m.vars["w"]],
+                   "Bias": [m.vars["bias"]]}
+            if sc.input("Length"):
+                ins["Length"] = list(sc.input("Length"))
+            # only the window attrs the sequence_conv carries: both ops
+            # derive the same defaults from the filter's shape
+            fused_at[m.ops["seqconv"]] = OpDesc(
+                "fusion_seqconv_eltadd_relu", ins, {"Out": [m.vars["out"]]},
+                {k: sc.attrs[k] for k in ("contextLength", "contextStart")
+                 if k in sc.attrs})
+            drop.update(m.op_indices())
+        _splice(graph, fused_at, drop)
+
+
 # ---------------------------------------------------------------------------
 # passes not ported yet: registered under their names behind a guard
 # ---------------------------------------------------------------------------
 
 _A10 = "ROADMAP A10 (observability)"
-_A11 = "ROADMAP A11 (RNN, sequence and detection fusions)"
 
 
 class _NotPortedPass(Pass):
@@ -1350,9 +1393,5 @@ def _not_ported(name: str, needs: Sequence[Tuple[str, ...]], roadmap: str):
                         "roadmap": roadmap}))
 
 
-for _name, _needs, _item in (
-        ("seqconv_eltadd_relu_fuse_pass",
-         (("sequence_conv",), ("elementwise_add",), ("relu",)), _A11),
-        # writes a .dot file of any graph: nothing to match, always raises
-        ("graph_viz_pass", (), _A10)):
-    _not_ported(_name, _needs, _item)
+# writes a .dot file of any graph: nothing to match, always raises
+_not_ported("graph_viz_pass", (), _A10)

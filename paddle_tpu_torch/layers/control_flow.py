@@ -1,7 +1,8 @@
 """Control-flow layers (reference python/paddle/fluid/layers/
-control_flow.py): ``While`` and its counter ops, the dense tensor-array
-ops, ``StaticRNN`` and ``DynamicRNN`` (the ``recurrent`` op) and
-``Print``.
+control_flow.py): ``While`` and its counter ops, ``IfElse`` and
+``Switch``, the dense tensor-array ops, ``StaticRNN`` and ``DynamicRNN``
+(the ``recurrent`` op), the LoD helpers (``is_empty``, ``lod_rank_table``,
+``reorder_lod_tensor_by_rank``) and ``Print``.
 
 A ``While`` body is a sub-block; the ``while`` op runs it
 (ops/kernels_control.py). A loop that matches the bounded-counter pattern
@@ -18,8 +19,10 @@ from typing import List
 from ..framework import Variable, default_main_program
 from ..layer_helper import LayerHelper
 
-__all__ = ["While", "increment", "array_write", "array_read", "less_than",
-           "StaticRNN", "DynamicRNN", "Print"]
+__all__ = ["While", "IfElse", "increment", "array_write", "array_read",
+           "less_than", "equal", "Switch", "StaticRNN", "DynamicRNN",
+           "Print", "create_array", "array_length", "is_empty",
+           "lod_rank_table", "reorder_lod_tensor_by_rank"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -39,6 +42,15 @@ def less_than(x, y, force_cpu=None, cond=None):
     helper = LayerHelper("less_than")
     cond = cond or helper.create_variable_for_type_inference("bool")
     helper.append_op(type="less_than", inputs={"X": x, "Y": y},
+                     outputs={"Out": cond})
+    return cond
+
+
+def equal(x, y, cond=None):
+    """x == y into ``cond`` (a new bool variable when None)."""
+    helper = LayerHelper("equal")
+    cond = cond or helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="equal", inputs={"X": x, "Y": y},
                      outputs={"Out": cond})
     return cond
 
@@ -171,6 +183,215 @@ class _WhileBlockGuard:
                    "__inferred_trip_bound__": inferred,
                    "is_test": self.while_op.is_test})
         return True
+
+
+class IfElse:
+    """Per-row branching: ``cond`` is an [N, 1] bool tensor; both branch
+    blocks compute over the whole batch (their ops go into the parent
+    block) and one ``if_else`` op merges each pair of outputs row by row.
+    ``input(x)`` returns x whole, not Fluid's gathered row subset: the
+    results are the same whenever the branch ops treat rows independently,
+    Fluid's own use. Differentiable: each row's gradient goes to the
+    branch that made it.
+
+        ie = layers.IfElse(cond)
+        with ie.true_block():
+            ie.output(f(ie.input(x)))
+        with ie.false_block():
+            ie.output(g(ie.input(x)))
+        merged, = ie()
+    """
+
+    OUT_IF_ELSE_BLOCKS = True
+
+    def __init__(self, cond: Variable, name=None):
+        self.helper = LayerHelper("if_else", name=name)
+        self.cond = cond
+        self.true_outs: List[Variable] = []
+        self.false_outs: List[Variable] = []
+        self._cur = None
+        self._merged = None
+
+    def true_block(self):
+        return _IfElseBranchGuard(self, True)
+
+    def false_block(self):
+        return _IfElseBranchGuard(self, False)
+
+    def input(self, x):
+        if self._cur is None:
+            raise RuntimeError("IfElse.input must be called inside "
+                               "true_block()/false_block()")
+        return x
+
+    def output(self, *outs):
+        if self._cur is None:
+            raise RuntimeError("IfElse.output must be called inside "
+                               "true_block()/false_block()")
+        (self.true_outs if self._cur else self.false_outs).extend(outs)
+
+    def __call__(self):
+        if self._merged is not None:
+            return self._merged
+        if len(self.true_outs) != len(self.false_outs):
+            raise ValueError(
+                f"IfElse branches produced {len(self.true_outs)} vs "
+                f"{len(self.false_outs)} outputs; they must pair up")
+        if not self.true_outs:
+            raise ValueError("IfElse has no outputs")
+        merged = [self.helper.create_variable_for_type_inference(t.dtype)
+                  for t in self.true_outs]
+        self.helper.append_op(
+            type="if_else",
+            inputs={"Cond": self.cond, "TrueOut": self.true_outs,
+                    "FalseOut": self.false_outs},
+            outputs={"Out": merged})
+        self._merged = merged
+        return merged
+
+
+class _IfElseBranchGuard:
+    def __init__(self, ie: IfElse, is_true: bool):
+        self.ie = ie
+        self.is_true = is_true
+
+    def __enter__(self):
+        self.ie._cur = self.is_true
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.ie._cur = None
+        return False
+
+
+class Switch:
+    """Exactly the FIRST true case's writes take effect:
+
+        with layers.Switch() as switch:
+            with switch.case(cond1):
+                layers.assign(v1, out)
+            with switch.case(cond2):
+                layers.assign(v2, out)
+            with switch.default():
+                layers.assign(v3, out)
+
+    Every case's ops run, but each case writes to temporaries of its own
+    (``<name>@switch_case<i>``); on exit one ``switch_merge`` op per
+    variable that existed before the switch selects the first true
+    case's value (the default's, else the variable's own, as the
+    fallback). The same results as Fluid's conditional blocks whenever the
+    case bodies are side-effect-free compute, Fluid's own use (learning
+    rate schedules writing through ``assign``). A variable created inside
+    a case has no value after the switch: reading or fetching it raises."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self.block = self.helper.block
+        # [(cond variable or None, {original name: case name})]
+        self._cases = []
+        self._pre_vars = None
+
+    def __enter__(self):
+        self._pre_vars = set(self.block.vars)
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        self._merge()
+        return False
+
+    def case(self, condition):
+        if self._pre_vars is None:
+            raise RuntimeError("use `with Switch() as switch:`")
+        return _SwitchCaseGuard(self, condition)
+
+    def default(self):
+        if self._pre_vars is None:
+            raise RuntimeError("use `with Switch() as switch:`")
+        return _SwitchCaseGuard(self, None)
+
+    def _is_pre_existing(self, name):
+        # alive before the switch: in this block's snapshot, or found in an
+        # enclosing block (a Switch inside a loop body writing outer state)
+        if name in self._pre_vars:
+            return True
+        return (name not in self.block.vars
+                and self.block.has_var_recursive(name))
+
+    def _capture(self, cond, start_idx):
+        """Redirect the writes of the case's ops into per-case names."""
+        idx = len(self._cases)
+        mapping = {}
+        for op in self.block.desc.ops[start_idx:]:
+            for slot, names in op.inputs.items():
+                op.inputs[slot] = [mapping.get(n, n) for n in names]
+            for slot, names in op.outputs.items():
+                renamed = []
+                for n in names:
+                    if not n:
+                        renamed.append(n)
+                        continue
+                    if n not in mapping:
+                        tmp = f"{n}@switch_case{idx}"
+                        src = (self.block.vars.get(n)
+                               or (self.block.var(n)
+                                   if self.block.has_var_recursive(n)
+                                   else None))
+                        self.block.create_var(
+                            name=tmp,
+                            dtype=src.dtype if src is not None
+                            else "float32",
+                            stop_gradient=True)
+                        mapping[n] = tmp
+                        # a variable created in this case has no merged
+                        # value: mark it, so that a later read raises
+                        if (not self._is_pre_existing(n)
+                                and src is not None):
+                            src._switch_case_local = True
+                    renamed.append(mapping[n])
+                op.outputs[slot] = renamed
+        self._cases.append((cond, mapping))
+
+    def _merge(self):
+        written = []
+        for _, mapping in self._cases:
+            for n in mapping:
+                if self._is_pre_existing(n) and n not in written:
+                    written.append(n)
+        for name in written:
+            conds, vals = [], []
+            default_val = name  # no default: the value before the switch
+            for cond, mapping in self._cases:
+                if cond is None:
+                    if name in mapping:
+                        default_val = mapping[name]
+                    continue
+                # every case takes part: a true case that did not write
+                # ``name`` still stops the later ones, with the value
+                # from before the switch
+                conds.append(cond)
+                vals.append(mapping.get(name, name))
+            self.block.append_op(
+                type="switch_merge",
+                inputs={"Conds": conds, "X": vals,
+                        "Default": [default_val]},
+                outputs={"Out": [name]})
+
+
+class _SwitchCaseGuard:
+    def __init__(self, switch: Switch, cond):
+        self._switch = switch
+        self._cond = cond
+
+    def __enter__(self):
+        self._start = len(self._switch.block.desc.ops)
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is None:
+            self._switch._capture(self._cond, self._start)
+        return False
 
 
 def array_write(x, i, array=None):
@@ -397,3 +618,56 @@ def Print(input, first_n=-1, message=None, summarize=-1,
                "print_tensor_shape": print_tensor_shape,
                "print_phase": print_phase})
     return input
+
+
+def create_array(dtype, shape=None, max_len=None):
+    """A dense tensor array: a zero [max_len, *shape] buffer (Fluid's
+    empty LOD_TENSOR_ARRAY grows; a dense one needs its extent up front)."""
+    if shape is None or max_len is None:
+        raise ValueError(
+            "create_array needs shape= and max_len= under XLA static "
+            "shapes (dense [max_len, ...] buffer); see array_write")
+    from .tensor import fill_constant
+    return fill_constant(shape=[int(max_len)] + list(shape),
+                         dtype=dtype, value=0.0)
+
+
+def array_length(array):
+    """The dense array's leading extent, known when the program is built,
+    as an int64 [1] tensor."""
+    from .tensor import fill_constant
+    return fill_constant(shape=[1], dtype="int64",
+                         value=float(int(array.shape[0])))
+
+
+def is_empty(x, cond=None):
+    """numel(x) == 0 (is_empty_op.cc), decided when the op runs."""
+    helper = LayerHelper("is_empty")
+    out = cond
+    if out is None:
+        out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="is_empty", inputs={"X": x},
+                     outputs={"Out": out})
+    return out
+
+
+def lod_rank_table(x, level=0):
+    """Rows ranked by descending length; ``x`` is the Length vector.
+    Returns the order (for reorder_lod_tensor_by_rank)."""
+    helper = LayerHelper("lod_rank_table")
+    order = helper.create_variable_for_type_inference("int32")
+    length = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="lod_rank_table", inputs={"X": x},
+                     outputs={"Out": order, "Length": length},
+                     attrs={"level": level})
+    return order
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """x's batch rows permuted into the rank table's order."""
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="reorder_lod_tensor_by_rank",
+                     inputs={"X": x, "RankTable": rank_table},
+                     outputs={"Out": out})
+    return out

@@ -1,6 +1,7 @@
 """NN layers (reference python/paddle/fluid/layers/nn.py): the ones the
-Transformer, ResNet, BERT and the model zoo build and the training API
-(clips, schedules) appends. Each builds descs via LayerHelper; no device
+Transformer, ResNet, BERT and the model zoo build, the training API
+(clips, schedules) appends, and the sequence and CTC layers over padded
+[B, T, ...] batches with an optional ``length`` [B]. Each builds descs via LayerHelper; no device
 work happens here."""
 
 from __future__ import annotations
@@ -25,6 +26,13 @@ __all__ = [
     "split", "expand", "sequence_pool", "sequence_softmax", "beam_search",
     "beam_search_decode", "auc", "cos_sim", "log_loss",
     "linear_chain_crf", "crf_decoding", "chunk_eval",
+    "sequence_conv", "sequence_first_step", "sequence_last_step",
+    "sequence_expand", "sequence_expand_as", "sequence_pad",
+    "sequence_unpad", "sequence_concat", "sequence_slice",
+    "sequence_reshape", "sequence_reverse", "sequence_scatter",
+    "sequence_enumerate", "sequence_erase", "lod_reset", "row_conv",
+    "im2sequence", "add_position_encoding", "warpctc",
+    "ctc_greedy_decoder", "edit_distance",
 ]
 
 
@@ -763,3 +771,260 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
                "num_chunk_types": num_chunk_types,
                "excluded_chunk_types": excluded_chunk_types or []})
     return precision, recall, f1, num_infer, num_label, num_correct
+
+
+def sequence_reverse(x, length=None, name=None):
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": x}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(type="sequence_reverse", inputs=inputs,
+                     outputs={"Out": out})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """An image [B, C, H, W] as the sequence of its patches
+    [B, oh * ow, C * kh * kw]; ``padding`` is one int, [h, w] or
+    [up, left, down, right]."""
+    helper = LayerHelper("im2sequence", name=name)
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding] * 4
+    elif len(padding) == 2:
+        padding = [padding[0], padding[1], padding[0], padding[1]]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"kernels": list(filter_size),
+                            "strides": list(stride),
+                            "paddings": list(padding)})
+    return out
+
+
+def _seq_op(op_type, inputs, dtype, attrs=None, name=None):
+    """A sequence op with one output ``Out``."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": out},
+                     attrs=attrs or {})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None, length=None):
+    """The context-window projection along the time axis of [B, T, D]:
+    a [filter_size * D, num_filters] filter over the window centred on each
+    step, then a bias shared over time, then ``act``."""
+    helper = LayerHelper("sequence_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    filter_param = helper.create_parameter(helper.param_attr,
+                                           shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": input, "Filter": filter_param}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(
+        type="sequence_conv", inputs=inputs, outputs={"Out": pre_bias},
+        attrs={"contextStride": filter_stride,
+               "contextStart": -int(filter_size // 2),
+               "contextLength": filter_size})
+    # the bias is [num_filters], shared over time
+    pre_act = helper.append_bias_op(pre_bias, dim_start=2)
+    return helper.append_activation(pre_act)
+
+
+def sequence_first_step(input, length=None):
+    return sequence_pool(input, "first", length=length)
+
+
+def sequence_last_step(input, length=None):
+    return sequence_pool(input, "last", length=length)
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    """x's rows repeated over y's time axis."""
+    return _seq_op("sequence_expand", {"X": x, "Y": y}, x.dtype, name=name)
+
+
+def sequence_expand_as(x, y, name=None):
+    return _seq_op("sequence_expand_as", {"X": x, "Y": y}, x.dtype,
+                   name=name)
+
+
+def sequence_pad(x, pad_value, maxlen=None, length=None, name=None):
+    """(Out, Length): ``pad_value`` past each row's length, the time axis
+    padded or cut to ``maxlen`` when given."""
+    inputs = {"X": x, "PadValue": pad_value}
+    if length is not None:
+        inputs["Length"] = length
+    helper = LayerHelper("sequence_pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    len_out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="sequence_pad", inputs=inputs,
+                     outputs={"Out": out, "Length": len_out},
+                     attrs={"maxlen": -1 if maxlen is None else maxlen})
+    return out, len_out
+
+
+def sequence_unpad(x, length, name=None):
+    return _seq_op("sequence_unpad", {"X": x, "Length": length}, x.dtype,
+                   name=name)
+
+
+def sequence_reshape(input, new_dim):
+    return _seq_op("sequence_reshape", {"X": input}, input.dtype,
+                   attrs={"new_dim": new_dim})
+
+
+def sequence_scatter(input, index, updates, name=None):
+    return _seq_op("sequence_scatter",
+                   {"X": input, "Ids": index, "Updates": updates},
+                   input.dtype, name=name)
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None,
+                       length=None):
+    inputs = {"X": input}
+    if length is not None:
+        inputs["Length"] = length
+    return _seq_op("sequence_enumerate", inputs, input.dtype,
+                   attrs={"win_size": win_size, "pad_value": pad_value},
+                   name=name)
+
+
+def sequence_erase(input, tokens, length=None, name=None):
+    """(Out, NewLength): the listed tokens dropped, each row compacted."""
+    helper = LayerHelper("sequence_erase", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    new_len = helper.create_variable_for_type_inference("int64")
+    inputs = {"X": input}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(type="sequence_erase", inputs=inputs,
+                     outputs={"Out": out, "NewLength": new_len},
+                     attrs={"tokens": list(tokens)})
+    return out, new_len
+
+
+def sequence_concat(input, name=None):
+    """The inputs concatenated along the time axis."""
+    helper = LayerHelper("sequence_concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="sequence_concat", inputs={"X": input},
+                     outputs={"Out": out})
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    """Steps [offset, offset + length) of every row (static ints)."""
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="sequence_slice", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"offset": offset, "length": length})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             length=None, name=None):
+    """The lookahead convolution (row_conv_op.cc): a
+    [future_context_size + 1, D] filter over each step and the ones after
+    it."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act,
+                         name=name)
+    dtype = input.dtype
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    filter_param = helper.create_parameter(helper.param_attr,
+                                           shape=filter_shape, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": input, "Filter": filter_param}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(type="row_conv", inputs=inputs, outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    helper = LayerHelper("add_position_encoding", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="add_position_encoding", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"alpha": float(alpha), "beta": float(beta)})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None, name=None):
+    """The data unchanged, the new partition (an integer ``y`` or
+    ``target_lod``, both offset vectors) surfacing as the op's Length
+    output for the sequence ops after it."""
+    helper = LayerHelper("lod_reset", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    length = helper.create_variable_for_type_inference("int32")
+    inputs = {"X": x}
+    if y is not None:
+        inputs["Y"] = y
+    attrs = {}
+    if target_lod is not None:
+        attrs["target_lod"] = [int(v) for v in target_lod]
+    helper.append_op(type="lod_reset", inputs=inputs,
+                     outputs={"Out": out, "Length": length}, attrs=attrs)
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None, name=None):
+    """The CTC loss [B, 1] of padded logits [B, T, C] against labels
+    [B, L]."""
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Logits": input, "Label": label}
+    if input_length is not None:
+        inputs["LogitsLength"] = input_length
+    if label_length is not None:
+        inputs["LabelLength"] = label_length
+    helper.append_op(type="warpctc", inputs=inputs, outputs={"Loss": loss},
+                     attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """The best class of each step, then repeats merged and blanks dropped
+    (``ctc_align``). Returns (decoded [B, T], decoded length [B])."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    _, idx = topk(input, k=1)
+    idx = squeeze(idx, axes=[-1])
+    out = helper.create_variable_for_type_inference("int64")
+    out_len = helper.create_variable_for_type_inference("int64")
+    inputs = {"Input": idx}
+    if input_length is not None:
+        inputs["Length"] = input_length
+    helper.append_op(type="ctc_align", inputs=inputs,
+                     outputs={"Output": out, "OutputLength": out_len},
+                     attrs={"blank": blank, "merge_repeated": True})
+    return out, out_len
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None, name=None):
+    """(distances [B, 1], sequence count): the Levenshtein distance of each
+    row of ``input`` to ``label``, over their lengths when given."""
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    inputs = {"Hyps": input, "Refs": label}
+    if input_length is not None:
+        inputs["HypsLength"] = input_length
+    if label_length is not None:
+        inputs["RefsLength"] = label_length
+    helper.append_op(type="edit_distance", inputs=inputs,
+                     outputs={"Out": out, "SequenceNum": seq_num},
+                     attrs={"normalized": normalized})
+    return out, seq_num

@@ -9,7 +9,20 @@ from ..framework import Variable
 from ..layer_helper import LayerHelper, ParamAttr
 
 __all__ = ["cast", "assign", "fill_constant", "fill_constant_batch_size_like",
-           "concat", "sums", "create_parameter"]
+           "concat", "sums", "create_parameter", "create_global_var",
+           "tensor_array_to_tensor"]
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A variable of the global block that the startup program fills with
+    ``value``."""
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(
+        name=name, dtype=dtype, shape=shape, persistable=persistable)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
 
 
 def cast(x, dtype):
@@ -91,3 +104,16 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
         attr = ParamAttr(name=name)
     return helper.create_parameter(attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def tensor_array_to_tensor(input, axis=1, use_stack=False, name=None):
+    """The array's tensors concatenated (or stacked) along ``axis``;
+    returns (out, out_index), out_index their extents along it."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_index = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="tensor_array_to_tensor",
+                     inputs={"X": input},
+                     outputs={"Out": out, "OutIndex": out_index},
+                     attrs={"axis": axis, "use_stack": use_stack})
+    return out, out_index

@@ -32,6 +32,19 @@ be captured). Its backward is the generic vjp of the whole loop.
 ``lax.dynamic_update_slice`` and ``lax.dynamic_slice`` do (negative from
 the end, then clamped into the array), so a masked trip past the end
 cannot index out of range on the card.
+
+Conditional control flow computes every branch and selects, so nothing
+reads a condition on the host and the step can be captured:
+``conditional_block`` runs its sub-block and keeps each output's prior
+value where ``Cond`` is false (``lax.cond``'s result for a sub-block with
+no side effects); ``if_else`` merges IfElse's two dense branches row by
+row; ``switch_merge`` takes Switch's first true case. The LoD tensor-array
+ops (``write_to_array``, ``read_from_array``, ``lod_array_length``,
+``tensor_array_to_tensor``) are host ops over a Python list of tensors:
+they split the captured segments, as ``chunk_eval`` does. The dense LoD
+compat ops (``max_sequence_len``, ``lod_tensor_to_array``,
+``array_to_lod_tensor``, ``shrink_rnn_memory``, ``split_lod_tensor``,
+``merge_lod_tensor``) run on the device.
 """
 
 from __future__ import annotations
@@ -42,7 +55,7 @@ import torch
 
 from ..core.desc import OpDesc
 from ..registry import register_grad_maker, register_op
-from .common import opt, same_shape_infer, x
+from .common import opt, same_shape_infer, scalar_infer, set_out_var, x
 
 
 @register_op("increment", no_grad=True, infer=same_shape_infer())
@@ -422,3 +435,186 @@ def _build_step_grad_block(program, sub, seeds, reads, no_grad_set):
     for g in grad_ops:
         gblk.desc.ops.append(g)
     return gblk.idx, [n if produced.get(n) else "" for n in reads]
+
+
+# ---------------------------------------------------------------------------
+# conditional control flow: conditional_block, IfElse, Switch
+# ---------------------------------------------------------------------------
+
+@register_op("conditional_block", no_grad=True)
+def conditional_block(ctx, ins, attrs):
+    """The sub-block (attr ``sub_block``) run on ``Input``
+    (``__in_names__``) and the prior outputs, then each output
+    (``__out_names__``) taken from the sub-block where ``Cond`` holds and
+    kept at its ``PriorOut`` value where it does not. No host read of
+    ``Cond``: this is ``lax.cond``'s result for a sub-block without side
+    effects."""
+    from ..executor import run_ops
+
+    body = _program(ctx, "conditional_block").block(
+        attrs["sub_block"]).desc.ops
+    out_names = list(attrs["__out_names__"])
+    cond = ins["Cond"][0].reshape(())
+    prior = list(ins.get("PriorOut", []))
+    env = dict(zip(attrs["__in_names__"], ins.get("Input", [])))
+    for n, v in zip(out_names, prior):
+        env.setdefault(n, v)
+    run_ops(body, env, ctx)
+    return {"Out": [torch.where(cond, env[n], p)
+                    for n, p in zip(out_names, prior)]}
+
+
+def _if_else_infer(op: OpDesc, block):
+    for t_name, o_name in zip(op.input("TrueOut"), op.output("Out")):
+        d = block._find_var_desc_recursive(t_name)
+        if d is not None:
+            set_out_var(block, o_name, d.shape, d.dtype)
+
+
+@register_op("if_else", infer=_if_else_infer)
+def if_else(ctx, ins, attrs):
+    """IfElse's merge: each row from TrueOut where the [N, 1] ``Cond``
+    holds, else from FalseOut. Both branches ran over the whole batch; the
+    generic vjp routes each row's gradient to the branch that made it."""
+    cond = ins["Cond"][0]
+    outs = []
+    for t, f in zip(ins["TrueOut"], ins["FalseOut"]):
+        if t.dtype != f.dtype:
+            raise TypeError(f"if_else branch outputs must share a dtype, "
+                            f"got {t.dtype} vs {f.dtype}")
+        c = cond.reshape((cond.shape[0],) + (1,) * (t.dim() - 1))
+        outs.append(torch.where(c, t, f))
+    return {"Out": outs}
+
+
+@register_op("switch_merge", infer=same_shape_infer(in_slot="Default"))
+def switch_merge(ctx, ins, attrs):
+    """Switch's merge: the value of the FIRST case whose condition holds,
+    else ``Default``, as a where chain built from the last case back. A
+    condition of one element selects as a 0-d tensor, on the device."""
+    out = ins["Default"][0]
+    for c, v in zip(reversed(ins.get("Conds", [])),
+                    reversed(ins.get("X", []))):
+        cond = c.reshape(()) if c.numel() == 1 else c
+        out = torch.where(cond, v, out)
+    return {"Out": [out]}
+
+
+# ---------------------------------------------------------------------------
+# LoD tensor arrays: host ops over a Python list of tensors
+# ---------------------------------------------------------------------------
+
+def _host_index(i) -> int:
+    return int(i.reshape(-1)[0])
+
+
+@register_op("write_to_array", no_grad=True, is_host=True)
+def write_to_array(ctx, ins, attrs):
+    """Out = Array (a new list, the empty list without one) with X at
+    I, grown with None as needed."""
+    arr = opt(ins, "Array")
+    arr = list(arr) if isinstance(arr, (list, tuple)) else []
+    i = _host_index(ins["I"][0])
+    while len(arr) <= i:
+        arr.append(None)
+    arr[i] = ins["X"][0]
+    return {"Out": [arr]}
+
+
+@register_op("read_from_array", no_grad=True, is_host=True)
+def read_from_array(ctx, ins, attrs):
+    arr = ins["X"][0]
+    i = _host_index(ins["I"][0])
+    n = len(arr) if isinstance(arr, (list, tuple)) else 0
+    if i >= n:
+        raise IndexError(f"read_from_array: index {i} out of range ({n})")
+    return {"Out": [arr[i]]}
+
+
+@register_op("lod_array_length", no_grad=True, is_host=True,
+             infer=scalar_infer(dtype="int64", shape=(1,)))
+def lod_array_length(ctx, ins, attrs):
+    arr = ins["X"][0]
+    n = len(arr) if isinstance(arr, (list, tuple)) else 0
+    return {"Out": [torch.tensor([n], dtype=torch.long, device=ctx.device)]}
+
+
+def _array_items(arr):
+    """The tensors of a list array (its unwritten slots skipped), or the
+    rows of a dense [max_len, ...] array."""
+    if isinstance(arr, torch.Tensor):
+        return list(arr.unbind(0))
+    return [a for a in arr if a is not None]
+
+
+@register_op("tensor_array_to_tensor", no_grad=True, is_host=True)
+def tensor_array_to_tensor(ctx, ins, attrs):
+    """The array's tensors concatenated (or stacked, ``use_stack``) along
+    ``axis`` on the device; OutIndex their extents along it."""
+    vals = _array_items(ins["X"][0])
+    axis = int(attrs.get("axis", 0))
+    sizes = [v.shape[axis] for v in vals]
+    out = (torch.stack if attrs.get("use_stack", False) else torch.cat)(
+        vals, dim=axis)
+    return {"Out": [out], "OutIndex": [torch.tensor(
+        sizes, dtype=torch.long, device=out.device)]}
+
+
+# ---------------------------------------------------------------------------
+# the dense LoD compat ops of Fluid's DynamicRNN and IfElse machinery: the
+# "array" is the time-major [T, B, ...] view, shrinking is masking
+# ---------------------------------------------------------------------------
+
+@register_op("max_sequence_len", no_grad=True,
+             infer=scalar_infer(dtype="int64", shape=(1,)))
+def max_sequence_len(ctx, ins, attrs):
+    """The longest length of the RankTable input (the Length vector)."""
+    return {"Out": [ins["RankTable"][0].reshape(-1).max().reshape(1).long()]}
+
+
+@register_op("lod_tensor_to_array")
+def lod_tensor_to_array(ctx, ins, attrs):
+    """Padded [B, T, ...] -> time-major [T, B, ...]. No length sort (the
+    caller reorders with reorder_lod_tensor_by_rank)."""
+    return {"Out": [ins["X"][0].transpose(0, 1).contiguous()]}
+
+
+@register_op("array_to_lod_tensor")
+def array_to_lod_tensor(ctx, ins, attrs):
+    """The inverse of lod_tensor_to_array."""
+    return {"Out": [ins["X"][0].transpose(0, 1).contiguous()]}
+
+
+@register_op("shrink_rnn_memory")
+def shrink_rnn_memory(ctx, ins, attrs):
+    """At step I the rows whose length is at most I are zeroed (Fluid
+    drops them; the batch keeps its shape here)."""
+    xv = ins["X"][0]
+    length = ins["RankTable"][0].reshape(-1)
+    i = ins["I"][0].reshape(-1)[0].to(torch.int32)
+    alive = (length > i).reshape((-1,) + (1,) * (xv.dim() - 1))
+    return {"Out": [xv * alive.to(xv.dtype)]}
+
+
+def _row_mask(mask, like):
+    return mask.reshape(-1).to(torch.bool).reshape(
+        (-1,) + (1,) * (like.dim() - 1))
+
+
+@register_op("split_lod_tensor", no_grad=True)
+def split_lod_tensor(ctx, ins, attrs):
+    """IfElse's row router: rows where Mask holds -> OutTrue, the others ->
+    OutFalse, both of the full shape with the other rows zeroed."""
+    xv = ins["X"][0]
+    m = _row_mask(ins["Mask"][0], xv)
+    zero = torch.zeros_like(xv)
+    return {"OutTrue": [torch.where(m, xv, zero)],
+            "OutFalse": [torch.where(m, zero, xv)]}
+
+
+@register_op("merge_lod_tensor")
+def merge_lod_tensor(ctx, ins, attrs):
+    """The row-wise inverse of split_lod_tensor."""
+    t = ins["InTrue"][0]
+    m = _row_mask(ins["Mask"][0], t)
+    return {"Out": [torch.where(m, t, ins["InFalse"][0])]}

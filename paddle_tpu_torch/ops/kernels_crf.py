@@ -1,6 +1,8 @@
 """Structured-prediction ops (counterpart of ``paddle_tpu/ops/kernels_crf.py``):
 the linear-chain CRF's negative log-likelihood, its Viterbi decode and
-chunk evaluation.
+chunk evaluation; CTC's loss (``warpctc``), its greedy decode's
+post-processing (``ctc_align``) and the Levenshtein distance
+(``edit_distance``).
 
 The batch is padded [B, T, N] emissions with [B] lengths. The
 ``Transition`` parameter is [N + 2, N]: row 0 the start weights, row 1
@@ -13,6 +15,17 @@ products rather than gathers: the values are the same, and the backward
 is a product, deterministic on the card (a gather's backward is a
 scatter-add). ``linear_chain_crf``'s gradient is the generic vjp.
 ``chunk_eval`` is a host op in numpy, as the reference's CPU-only kernel.
+
+``warpctc`` is the log-space alpha recursion over the blank-extended label
+(2L + 1 states) with a -1e30 sentinel for impossible states, so that
+neither the forward nor its vjp meets -inf; its gradient is the generic
+vjp of the whole recursion. It reads the label's log-probabilities with a
+one-hot product (exact, and its backward a product, not a scatter-add), so
+the step stays deterministic on the card; ``F.ctc_loss``'s CUDA backward
+is not. ``edit_distance`` runs the Levenshtein table by anti-diagonals:
+T1 + T2 steps of vector minima instead of T1 x T2 scalar ones. Its
+entries are small integers, exact in float32, so the distances are bitwise
+those of the JAX package's row-by-row scan.
 """
 
 from __future__ import annotations
@@ -214,3 +227,177 @@ def chunk_eval(ctx, ins, attrs):
             "NumLabelChunks": [i64(n_label)],
             "NumCorrectChunks": [i64(n_correct)]}
 
+
+
+# ---------------------------------------------------------------------------
+# CTC
+# ---------------------------------------------------------------------------
+
+NEG = -1e30   # the log of an impossible state
+
+
+def _warpctc_infer(op: OpDesc, block):
+    ls = in_shape(block, op, "Logits")
+    if ls:
+        for n in op.output("Loss"):
+            set_out_var(block, n, [ls[0], 1], in_dtype(block, op, "Logits"))
+
+
+def _shift(v, k):
+    """``v`` [B, S] moved k places to the right along S, NEG shifted in."""
+    return torch.cat([torch.full_like(v[:, :k], NEG), v[:, :-k]], dim=1)
+
+
+@register_op("warpctc", infer=_warpctc_infer)
+def warpctc(ctx, ins, attrs):
+    """warpctc_op.cc: per row, -log p(label | logits) under CTC, from
+    padded Logits [B, T, C] (``LogitsLength``) and Label [B, L]
+    (``LabelLength``); divided by the logit length under
+    ``norm_by_times``, as the JAX package does."""
+    logits = ins["Logits"][0]
+    label = ins["Label"][0]
+    label = label.reshape(label.shape[0], -1).long()
+    b, t, c = logits.shape
+    n_lab = label.shape[1]
+    blank = int(attrs.get("blank", 0))
+    logit_len = length_or_full(ins, b, t, logits.device, "LogitsLength")
+    label_len = length_or_full(ins, b, n_lab, logits.device, "LabelLength")
+
+    logp = torch.log_softmax(logits, dim=-1)
+    s_len = 2 * n_lab + 1
+    # the extended label: blank, l1, blank, l2, ..., blank
+    ext = torch.stack([torch.full_like(label, blank), label], dim=2)
+    ext = torch.cat([ext.reshape(b, 2 * n_lab),
+                     torch.full_like(label[:, :1], blank)], dim=1)
+    hot = _one_hot(ext, c, logp.dtype)                      # [B, S, C]
+    emit = torch.bmm(logp, hot.transpose(1, 2))             # [B, T, S]
+    # a skip from s - 2 lands only on a label differing from the previous
+    prev = torch.cat([torch.full_like(ext[:, :2], -1), ext[:, :-2]], dim=1)
+    can_skip = ((torch.arange(s_len, device=logits.device) % 2 == 1)[None]
+                & (ext != prev))
+
+    first = torch.arange(s_len, device=logits.device) < 2
+    alpha = torch.where(first[None], emit[:, 0], NEG)
+    for ti in range(1, t):
+        skip = torch.where(can_skip, _shift(alpha, 2), NEG)
+        nxt = torch.logsumexp(torch.stack([alpha, _shift(alpha, 1), skip]),
+                              dim=0) + emit[:, ti]
+        alpha = torch.where((ti < logit_len)[:, None], nxt, alpha)
+    # the paths end on the last label or the blank after it (read with a
+    # compare and a sum, which hold the one value exactly)
+    i_last = (2 * label_len).long()[:, None]
+    states = torch.arange(s_len, device=logits.device)[None, :]
+    a_end1 = torch.where(states == i_last, alpha, 0).sum(dim=1)
+    a_end2 = torch.where(states == torch.clamp(i_last - 1, 0, s_len - 1),
+                         alpha, 0).sum(dim=1)
+    # an empty label has only the all-blank path
+    a_end2 = torch.where(label_len > 0, a_end2, NEG)
+    loss = -torch.logsumexp(torch.stack([a_end1, a_end2]), dim=0)
+    loss = loss.reshape(b, 1)
+    if attrs.get("norm_by_times", False):
+        loss = loss / torch.clamp(logit_len, min=1).to(loss.dtype).reshape(
+            b, 1)
+    return {"Loss": [loss]}
+
+
+def _ctc_align_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "Input")
+    if xs is not None and len(xs) >= 2:
+        for n in op.output("Output"):
+            set_out_var(block, n, xs[:2], in_dtype(block, op, "Input"))
+        for n in op.output("OutputLength"):
+            set_out_var(block, n, [xs[0]], "int64")
+
+
+@register_op("ctc_align", no_grad=True, infer=_ctc_align_infer)
+def ctc_align(ctx, ins, attrs):
+    """The greedy decode's post-processing: repeats merged, blanks
+    dropped, each row compacted to the left in order (a stable sort of
+    the 0/1 drop key) and filled with ``blank`` after its new length."""
+    xv = ins["Input"][0]
+    xv = xv.reshape(xv.shape[0], -1)
+    b, t = xv.shape
+    blank = int(attrs.get("blank", 0))
+    length = length_or_full(ins, b, t, xv.device)
+    valid = torch.arange(t, device=xv.device)[None, :] < length[:, None]
+    prev = torch.cat([torch.full_like(xv[:, :1], -1), xv[:, :-1]], dim=1)
+    keep = (xv != prev) & (xv != blank) & valid
+    order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True)[1]
+    compacted = torch.take_along_dim(xv, order, dim=1)
+    new_len = keep.sum(dim=1)
+    tail = torch.arange(t, device=xv.device)[None, :] >= new_len[:, None]
+    return {"Output": [torch.where(tail, blank, compacted)],
+            "OutputLength": [new_len.long()]}
+
+
+def _edit_distance_infer(op: OpDesc, block):
+    hs = in_shape(block, op, "Hyps")
+    if hs:
+        for n in op.output("Out"):
+            set_out_var(block, n, [hs[0], 1], "float32")
+    for n in op.output("SequenceNum"):
+        set_out_var(block, n, [], "int64")
+
+
+def edit_distance_fn(hyp, ref, hyp_len, ref_len):
+    """Levenshtein distances [B] (float32) of hyp [B, T1] against ref
+    [B, T2] over their first hyp_len and ref_len tokens. The table
+    D[i, j] (the distance of hyp[:i] to ref[:j]) is walked by
+    anti-diagonals k = i + j, each a vector over i: D on diagonal k needs
+    only diagonals k - 1 and k - 2, so a step is seven kernels. The
+    diagonals are stacked and each row's D[hyp_len, ref_len] read once at
+    the end."""
+    b, t1 = hyp.shape
+    t2 = ref.shape[1]
+    dev = hyp.device
+    n_diag = t1 + t2 + 1
+    inf = float("inf")
+    i = torch.arange(t1 + 1, device=dev)[:, None]              # [T1 + 1, 1]
+    k = torch.arange(n_diag, device=dev)[None, :]              # [1, K]
+    j = k - i                                                   # the cell (i, j)
+    # cost[b, i, k]: hyp[i - 1] != ref[j - 1], the diagonal move into (i, j)
+    cost = (hyp[:, torch.clamp(i[:, 0] - 1, 0, max(t1 - 1, 0))][:, :, None]
+            != ref[:, torch.clamp(j - 1, 0, max(t2 - 1, 0))]).to(torch.float32)
+    # cells the recurrence does not set: the borders D[0, j] = j and
+    # D[i, 0] = i (both k), +inf off the table
+    on_table = (j >= 0) & (j <= t2)
+    fixed = torch.where(((i == 0) | (j == 0)) & on_table,
+                        k.to(torch.float32), inf)
+    free = (i >= 1) & (j >= 1) & on_table
+
+    def up(d):             # d[i - 1] at i, +inf at i = 0
+        return torch.nn.functional.pad(d, (1, 0), value=inf)[:, :-1]
+
+    diags = [fixed[:, 0].expand(b, -1)]
+    d_prev2 = None
+    for kk in range(1, n_diag):
+        d_prev = diags[-1]
+        cand = torch.minimum(up(d_prev), d_prev) + 1.0
+        if d_prev2 is not None:
+            cand = torch.minimum(cand, up(d_prev2) + cost[:, :, kk])
+        diags.append(torch.where(free[:, kk], cand, fixed[:, kk]))
+        d_prev2 = d_prev
+    table = torch.stack(diags, dim=1)                           # [B, K, T1+1]
+    hyp_len = hyp_len.long()
+    return table[torch.arange(b, device=dev), hyp_len + ref_len.long(),
+                 hyp_len]
+
+
+@register_op("edit_distance", no_grad=True, infer=_edit_distance_infer)
+def edit_distance(ctx, ins, attrs):
+    """edit_distance_op.h: the Levenshtein distance of each hypothesis row
+    to its reference row (``edit_distance_fn``), divided by max(ref
+    length, 1) when ``normalized``; SequenceNum the batch size."""
+    hyp = ins["Hyps"][0]
+    ref = ins["Refs"][0]
+    hyp = hyp.reshape(hyp.shape[0], -1)
+    ref = ref.reshape(ref.shape[0], -1)
+    b, t1 = hyp.shape
+    hyp_len = length_or_full(ins, b, t1, hyp.device, "HypsLength")
+    ref_len = length_or_full(ins, b, ref.shape[1], hyp.device, "RefsLength")
+    dist = edit_distance_fn(hyp, ref, hyp_len, ref_len)
+    if attrs.get("normalized", True):
+        dist = dist / torch.clamp(ref_len, min=1).to(dist.dtype)
+    return {"Out": [dist.reshape(b, 1)],
+            "SequenceNum": [torch.full((), b, dtype=torch.long,
+                                       device=hyp.device)]}

@@ -6,9 +6,10 @@
 ``fusion_transpose_flatten_concat`` (transpose_flatten_concat_fuse_pass),
 ``fusion_gru`` and ``fusion_lstm`` (fc_gru_fuse_pass, fc_lstm_fuse_pass),
 ``fused_embedding_fc_lstm`` (embedding_fc_lstm_fuse_pass),
-``fusion_seqpool_concat`` (seqpool_concat_fuse_pass), ``conv2d_fusion``
-(the inference conv passes) and ``fused_conv2d`` (the pipeline's conv
-stages). Each composes the torch ops, or the registered emitters, of the
+``fusion_seqpool_concat`` (seqpool_concat_fuse_pass),
+``fusion_seqconv_eltadd_relu`` (seqconv_eltadd_relu_fuse_pass),
+``conv2d_fusion`` (the inference conv passes) and ``fused_conv2d`` (the
+pipeline's conv stages). Each composes the torch ops, or the registered emitters, of the
 ops it replaces.
 
 ``fused_elemwise_activation`` and ``fused_conv2d`` have no grad emitter of
@@ -21,7 +22,7 @@ import torch
 
 from ..core.desc import OpDesc
 from ..registry import lookup, register_op
-from .common import fluid_broadcast, in_dtype, in_shape, set_out_var
+from .common import ZERO, fluid_broadcast, in_dtype, in_shape, set_out_var
 
 
 def _fused_elemwise_infer(op: OpDesc, block):
@@ -284,3 +285,15 @@ def fused_conv2d(ctx, ins, attrs):
     if act not in ("", "identity"):
         out = lookup(act).emitter(ctx, {"X": [out]}, {})["Out"][0]
     return {"Output": [out]}
+
+
+@register_op("fusion_seqconv_eltadd_relu", no_grad=True,
+             infer=_dtype_only_infer)
+def fusion_seqconv_eltadd_relu(ctx, ins, attrs):
+    """fusion_seqconv_eltadd_relu_op.cc: sequence_conv, + Bias, relu over
+    padded [B, T, D], the window masked by Length as the unfused op masks
+    it."""
+    conv = lookup("sequence_conv").emitter(
+        ctx, {"X": ins["X"], "Filter": ins["Filter"],
+              "Length": ins.get("Length", [None])}, attrs)["Out"][0]
+    return {"Out": [torch.maximum(conv + ins["Bias"][0], ZERO)]}

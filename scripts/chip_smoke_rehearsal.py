@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-17) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-19) on the CPU at a tiny
 Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow
 12-layer BERT (d_model 24, T 16, batch 4), phase 13's serving front
 with fewer requests a window, phase 14's generation and phase 15's
@@ -9,13 +9,15 @@ tiny Transformer (its three trainer processes run this script with
 ``--elastic-child``, which sets up the same CPU patches) and the small
 ResNet-50, phase 17 at small widths (ZOO_TINY) and phase 18 at small
 widths (machine translation at MT_TINY, label_semantic_roles at
-SRL_TINY), to find faults in the script's Python before a run on the
-card.
+SRL_TINY) and phase 19 at small widths (PHASE19_TINY), to find faults in
+the script's Python before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --zoo  # 17 only
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --recurrent
                                                                   # 18 only
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase19
+                                                                  # 19 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -81,6 +83,28 @@ ZOO_TINY = dict(
 # label_semantic_roles at max_len 12, word_dim 8, hidden 16, depth 2; the
 # While at its batch of 4096
 SRL_TINY = dict(max_len=12, word_dim=8, hidden_dim=16, depth=2)
+
+
+# phase 19 at small widths: the CRNN at a [1, 16, 64] image, filters 4/8,
+# GRU 8, 10 classes, labels of up to 6 ids; the IfElse program at width 20
+# and hidden 16 with the phase's boundaries and steps; the op bank at
+# batch 8, T 16, width 16; the text CNN at its widths
+PHASE19_TINY = dict(
+    CRNN=dict(image=(1, 16, 64), filters=(4, 8), hidden=8, classes=10,
+              max_label=6),
+    CRNN_BATCH=4, CRNN_STEPS=10, IFELSE=dict(hidden=16, in_dim=20),
+    IFELSE_BATCH=16, COND_WIDTH=64, BANK_B=8, BANK_T=16, BANK_D=16)
+
+
+def _phase19():
+    for k, v in PHASE19_TINY.items():
+        setattr(cs, k, v)
+    # the card's CUDA-graph timing has no CPU counterpart
+    cs.time_ms = lambda fn, iters=30, warmup=5, graph=True: (fn(), 0.0)[1]
+    t19 = time.perf_counter()
+    out, _ = cs.control_sequence_ctc_paths("CPU rehearsal")
+    print(f"phase 19 rehearsed in {time.perf_counter() - t19:.1f} s")
+    return out
 
 
 def _recurrent():
@@ -181,6 +205,9 @@ def main():
     if "--recurrent" in sys.argv:
         print(f"rehearsal passed: phase 18 {_recurrent()}")
         return
+    if "--phase19" in sys.argv:
+        print(f"rehearsal passed: phase 19 {_phase19()}")
+        return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -218,12 +245,13 @@ def main():
     print(f"phase 16 rehearsed in {time.perf_counter() - t16:.1f} s")
     zoo = _zoo()
     rec = _recurrent()
+    p19 = _phase19()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
           f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
-          f"{runtime}, phase 17 {zoo}, phase 18 {rec}")
+          f"{runtime}, phase 17 {zoo}, phase 18 {rec}, phase 19 {p19}")
 
 
 if __name__ == "__main__":

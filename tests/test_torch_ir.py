@@ -15,10 +15,11 @@ the passes that fold values from the Scope (conv_bn_fuse,
 conv_affine_channel_fuse) also leave the JAX package's folded tensors,
 bit for bit.
 
-The guarded passes (seqconv_eltadd_relu, graph_viz) are checked for
-their claim: the JAX package's own pass leaves the Transformer inference
-program unchanged, the port's does too, and the port's raises on a graph
-that holds the pass's anchor ops.
+The guarded pass (graph_viz) is checked for its claim: the port's raises
+on any graph. The passes guarded once and ported since
+(seqconv_eltadd_relu and the RNN and sequence fusions) leave the
+Transformer inference program unchanged, as the JAX package's do, and do
+with the guard's anchor-op graph what the JAX package's do.
 """
 
 import enum
@@ -598,17 +599,37 @@ def test_registry_flags_the_passes_read_match_jax():
             assert getattr(p, flag) == getattr(j, flag), (op_type, flag)
 
 
+# conditional control flow, the sequence ops and CTC: 13 + 1 + 18 + 3 + 1
+NEW_CONTROL_SEQUENCE_CTC = (
+    "conditional_block", "if_else", "switch_merge", "write_to_array",
+    "read_from_array", "lod_array_length", "tensor_array_to_tensor",
+    "max_sequence_len", "lod_tensor_to_array", "array_to_lod_tensor",
+    "shrink_rnn_memory", "split_lod_tensor", "merge_lod_tensor",
+    "is_empty",
+    "sequence_expand", "sequence_reverse", "sequence_concat",
+    "sequence_slice", "sequence_conv", "row_conv", "sequence_pad",
+    "sequence_unpad", "sequence_expand_as", "sequence_reshape",
+    "sequence_scatter", "sequence_enumerate", "sequence_erase",
+    "add_position_encoding", "im2sequence", "lod_reset", "lod_rank_table",
+    "reorder_lod_tensor_by_rank",
+    "warpctc", "ctc_align", "edit_distance",
+    "fusion_seqconv_eltadd_relu")
+
+
 def test_registry_counts():
-    """The port's op types: 162 of the JAX package's, plus its 3 grad types
+    """The port's op types: 198 of the JAX package's, plus its 3 grad types
     of its own (``_OPAQUE_GRAD_TYPES``), and every one has an emitter.
     Recurrent training and structured prediction added ``recurrent``'s
     emitter and ``while_grad``, ``linear_chain_crf``, ``crf_decoding`` and
     ``chunk_eval``; the model zoo ``auc``, ``log_loss``, ``cos_sim``,
-    ``lstm`` and the four fused ops of the RNN and sequence passes."""
+    ``lstm`` and the four fused ops of the RNN and sequence passes;
+    conditional control flow, the sequence ops and CTC the 36 types of
+    ``NEW_CONTROL_SEQUENCE_CTC``."""
     from paddle_tpu import registry as jreg
     reg = pt.registry._REGISTRY
-    assert len(reg) == 165
-    assert sum(jreg.has_op(t) for t in reg) == 162
+    assert len(NEW_CONTROL_SEQUENCE_CTC) == 36
+    assert len(reg) == 201
+    assert sum(jreg.has_op(t) for t in reg) == 198
     assert sorted(t for t, i in reg.items() if i.emitter is None) == []
     for op_type in ("while", "while_grad", "recurrent", "array_write",
                     "array_read", "beam_search",
@@ -619,8 +640,9 @@ def test_registry_counts():
                     "read", "auc", "log_loss", "cos_sim", "lstm",
                     "fusion_lstm", "fusion_gru", "fusion_seqpool_concat",
                     "fused_embedding_fc_lstm", "linear_chain_crf",
-                    "crf_decoding", "chunk_eval"):
+                    "crf_decoding", "chunk_eval") + NEW_CONTROL_SEQUENCE_CTC:
         assert reg[op_type].emitter is not None, op_type
+        assert jreg.has_op(op_type), op_type
 
 
 # ---------------------------------------------------------------------------
@@ -746,7 +768,29 @@ def _transpose_flatten_concat(flat=True, same_axes=True):
     return build
 
 
+def _seqconv(act="relu", length=True, bias=True):
+    """tests/test_ir_passes.py's shape for seqconv_eltadd_relu_fuse_pass:
+    a sequence_conv layer (its bias an elementwise_add of a parameter),
+    with or without Length; another activation, or no bias, is not the
+    pattern."""
+    def build():
+        L = fluid.layers
+        x = L.data(name="x", shape=[6, 4], dtype="float32")
+        ln = L.data(name="len", shape=[], dtype="int64") if length else None
+        c = L.sequence_conv(x, num_filters=3, filter_size=3, act=act,
+                            length=ln, bias_attr=None if bias else False)
+        return [c.name]
+    return build
+
+
 PASS_CASES = {
+    "seqconv_eltadd_relu": (_seqconv(), ["seqconv_eltadd_relu_fuse_pass"]),
+    "seqconv_eltadd_relu_no_length": (_seqconv(length=False),
+                                      ["seqconv_eltadd_relu_fuse_pass"]),
+    "seqconv_eltadd_tanh_stays": (_seqconv(act="tanh"),
+                                  ["seqconv_eltadd_relu_fuse_pass"]),
+    "seqconv_relu_no_bias_stays": (_seqconv(bias=False),
+                                   ["seqconv_eltadd_relu_fuse_pass"]),
     "transpose_flatten_concat": (_transpose_flatten_concat(),
                                  ["transpose_flatten_concat_fuse_pass"]),
     "transpose_flatten_concat_not_flat": (
@@ -796,6 +840,11 @@ def test_registry_pass_matches_jax(name):
     assert pmain._version > v0
     types = [o.type for o in _ops(pmain)]
     assert types == {
+        "seqconv_eltadd_relu": ["fusion_seqconv_eltadd_relu"],
+        "seqconv_eltadd_relu_no_length": ["fusion_seqconv_eltadd_relu"],
+        "seqconv_eltadd_tanh_stays": ["sequence_conv", "elementwise_add",
+                                      "tanh"],
+        "seqconv_relu_no_bias_stays": ["sequence_conv", "relu"],
         "squared_mat_sub_fm_scaled": ["fusion_squared_mat_sub"],
         "squared_mat_sub_fm_unscaled": ["fusion_squared_mat_sub"],
         "squared_mat_sub_fm_biased_scale": ["fusion_squared_mat_sub",
@@ -820,6 +869,39 @@ def test_op_list_registry_pass_on_the_train_program(transformers, impl,
     jir.apply_passes(jmain, [passes], protected=[j["loss"].name])
     pir.apply_passes(pmain, [passes], protected=[p["loss"].name])
     assert_same_ops(_ops(jmain), _ops(pmain))
+
+
+# the text CNN's op types after AnalysisConfig's default passes (the
+# literal chip_smoke.py's phase 19(E) holds the card's pipeline against)
+TEXT_CNN_ANALYSIS_TYPES = [
+    "lookup_table", "fusion_seqconv_eltadd_relu", "sequence_pool",
+    "fusion_seqconv_eltadd_relu", "sequence_pool", "mul", "mul", "sum",
+    "elementwise_add", "softmax"]
+
+
+def test_analysis_default_passes_on_the_text_cnn():
+    """testing.models.text_cnn's inference program through AnalysisConfig's
+    default passes: both sequence_conv branches fused, the op list the JAX
+    package's."""
+    from paddle_tpu_torch.testing import models as tmodels
+    old = JFLAGS.op_callstack, PFLAGS.op_callstack
+    JFLAGS.op_callstack = PFLAGS.op_callstack = False
+    try:
+        with junique.guard():
+            j = tmodels.text_cnn(fluid)
+        with punique.guard():
+            p = tmodels.text_cnn(pt)
+    finally:
+        JFLAGS.op_callstack, PFLAGS.op_callstack = old
+    assert p["main"].desc.to_bytes() == j["main"].desc.to_bytes()
+    jmain, pmain = j["main"].clone(), p["main"].clone()
+    fetch = [p["predict"].name]
+    jir.apply_passes(jmain, list(AnalysisConfig.DEFAULT_PASSES),
+                     scope=fluid.Scope(), protected=fetch)
+    pir.apply_passes(pmain, list(AnalysisConfig.DEFAULT_PASSES),
+                     scope=pt.Scope(), protected=fetch)
+    assert_same_ops(_ops(jmain), _ops(pmain))
+    assert [o.type for o in _ops(pmain)] == TEXT_CNN_ANALYSIS_TYPES
 
 
 @pytest.mark.parametrize("impl", ["fused", "unfused"])
@@ -861,16 +943,17 @@ def test_every_jax_pass_is_registered_in_the_port():
     assert sorted(pir.PASS_REGISTRY) == sorted(jir.PASS_REGISTRY)
     assert set(AnalysisConfig.DEFAULT_PASSES) <= set(pir.PASS_REGISTRY)
     # squared_mat_sub_fuse_pass (ROADMAP C1),
-    # transpose_flatten_concat_fuse_pass (with concat) and the RNN and
-    # sequence fusions are ported; seqconv_eltadd_relu (sequence_conv is
-    # not ported) and graph_viz are guarded
+    # transpose_flatten_concat_fuse_pass (with concat), the RNN and
+    # sequence fusions and seqconv_eltadd_relu (with sequence_conv) are
+    # ported; graph_viz is guarded
     assert len(pir.PASS_REGISTRY) == 27
-    assert GUARDED == ["graph_viz_pass", "seqconv_eltadd_relu_fuse_pass"]
+    assert GUARDED == ["graph_viz_pass"]
     assert set(GUARDED) <= set(ONCE_GUARDED)
     for name in ("squared_mat_sub_fuse_pass",
                  "transpose_flatten_concat_fuse_pass",
                  "embedding_fc_lstm_fuse_pass", "fc_gru_fuse_pass",
-                 "fc_lstm_fuse_pass", "seqpool_concat_fuse_pass"):
+                 "fc_lstm_fuse_pass", "seqpool_concat_fuse_pass",
+                 "seqconv_eltadd_relu_fuse_pass"):
         assert name not in GUARDED
 
 

@@ -78,6 +78,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.ops.kernels_crf\n"
         "import paddle_tpu_torch.dataset, paddle_tpu_torch.dataset.conll05\n"
         "import paddle_tpu_torch.models.label_semantic_roles\n"
+        "import paddle_tpu_torch.ops.kernels_sequence\n"
+        "import paddle_tpu_torch.layers.nn, paddle_tpu_torch.layers.tensor\n"
+        "import paddle_tpu_torch.framework, paddle_tpu_torch.executor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
