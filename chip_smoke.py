@@ -333,6 +333,31 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    list (``fusion_seqconv_eltadd_relu``) and within SERVE_TOL of
    ``NativePredictor``.
 
+20. object detection, after phase 19: (A) PaddleCV's MobileNet-SSD on
+   Pascal VOC (``testing.models.mobilenet_ssd``: 300x300, 21 classes,
+   MobileNet v1 at scale 1.0, six prior maps and 1917 priors,
+   ``ssd_loss`` summed, RMSProp with L2Decay on train.py's piecewise
+   rate), batch 32 with 1-8 gt boxes an image, through ``CompiledProgram``:
+   REC_RUNS steps captured against eager bitwise, the loss falling over
+   SSD_STEPS steps on one batch; (B) its test program on the trained
+   scope (``detection_output``, ``detection_map`` 11point) captured
+   against eager bitwise, the program's mAP equal to
+   ``metrics.DetectionMAP`` over the fetched detections, and the
+   inference model served by ``AnalysisPredictor`` fp32 against
+   ``NativePredictor`` (the NMS inputs within DET_SERVE_TOL, each
+   predictor's rows bitwise ``multiclass_nms`` on its own inputs, the
+   rows equal class by class up to a tie at a cut, at least
+   DET_SERVE_SHARE of them compared), on the trained scope and on the
+   initial weights; (C)
+   the three YOLOv3 scales for a 608 input on seeded backbone features,
+   batch 8, captured against eager bitwise, then the ``yolo_box`` +
+   ``multiclass_nms`` decode; (D) the op bank: the 33 detection types on
+   the card against the CPU at realistic shapes (a Faster R-CNN C4 map
+   of [1, 1024, 50, 84] with 15 anchors a cell, ``generate_proposals`` at
+   6000/1000, ``roi_align`` 14x14 over 512 rois, ``multiclass_nms`` at
+   [32, 21, 1917]), the gradful ones' vjps, the random ops' samples at
+   their budgets, and kernels and ms a call of the two NMS ops.
+
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
@@ -340,8 +365,8 @@ calling the wrappers, whose counts then cover the eager runs and the
 captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
-(phases 14-15), the model zoo (17), recurrent training (18) and phase 19
-hold the wrappers' counts at 0: no call, so no flash kernel in any graph
+(phases 14-15), the model zoo (17), recurrent training (18) and phases
+19 and 20 hold the wrappers' counts at 0: no call, so no flash kernel in any graph
 either.
 
 TF32 stays off for matrix products and convolutions throughout (both
@@ -505,8 +530,12 @@ def log(msg=""):
     print(msg, flush=True)
 
 
+_START = time.perf_counter()
+
+
 def phase(name):
-    log(f"== {name}")
+    """A phase's header, with the seconds since the script started."""
+    log(f"== {name} [{time.perf_counter() - _START:.1f} s]")
 
 
 def nvidia_smi_line() -> str:
@@ -2185,20 +2214,30 @@ def hold(label, what, got, bound):
                              f"{bound:.3e}")
 
 
+TRACE_TRIES = 3        # traces of one replay before a short count fails
+
+
 def check_trace(label, fn, want):
     """One replay traced by torch.profiler: its flash kernels counted by
-    name against ``want`` (forward, backward). Returns the call's device
-    ms."""
-    rows, busy = device_rows(fn)
-    traced = (sum(r[2] for r in rows if "flash_fwd_kernel" in r[0]),
-              sum(r[2] for r in rows if "flash_bwd_" in r[0]))
-    log(f"  {label}: one replay traced: {busy:.3f} ms of device time, "
-        f"flash launches {traced[0]} forward + {traced[1]} backward by "
-        f"kernel name; want {want[0]} + {want[1]}")
-    if traced != tuple(want):
-        raise AssertionError(f"{label}: flash launches per replay {traced}, "
-                             f"want {want}")
-    return busy
+    name against ``want`` (forward, backward). A replay of a captured
+    graph launches the same kernels every time, but the profiler drops
+    records in some processes (PERF.md §7), so a reading below ``want``
+    is traced again, up to TRACE_TRIES times; a reading above it, or
+    every reading below it, fails. Returns the call's device ms."""
+    for attempt in range(1, TRACE_TRIES + 1):
+        rows, busy = device_rows(fn)
+        traced = (sum(r[2] for r in rows if "flash_fwd_kernel" in r[0]),
+                  sum(r[2] for r in rows if "flash_bwd_" in r[0]))
+        log(f"  {label}: one replay traced: {busy:.3f} ms of device time, "
+            f"flash launches {traced[0]} forward + {traced[1]} backward by "
+            f"kernel name; want {want[0]} + {want[1]}"
+            + (f" (trace {attempt})" if attempt > 1 else ""))
+        if traced == tuple(want):
+            return busy
+        if attempt == TRACE_TRIES or any(
+                t > w for t, w in zip(traced, want)):
+            raise AssertionError(f"{label}: flash launches per replay "
+                                 f"{traced}, want {want}")
 
 
 def turns_logged(label, arms, feeds, unit, start=1):
@@ -4218,10 +4257,10 @@ def predictor_and_beam_paths(smi):
 ELASTIC_EVERY = 8      # async cadence checkpoints, in steps
 ELASTIC_KILL_AT = 16   # SIGKILL once a checkpoint of this step or later is
                        # marked and the child has trained past it
-ELASTIC_END = 40       # the resumed and the uninterrupted runs end here
+ELASTIC_END = 32       # the resumed and the uninterrupted runs end here
 ELASTIC_EPOCH = 64     # batches in an epoch of the synthetic reader
 ELASTIC_KEEP = 2       # checkpoints kept (each about 1.1 GB of files)
-ELASTIC_TIMED = 24     # steps in each arm of the cadence timing
+ELASTIC_TIMED = 16     # steps in each arm of the cadence timing
 ELASTIC_WAIT_S = 300   # the longest one child's part may take
 # the command of a phase-16(A) child (chip_smoke.py itself)
 ELASTIC_CHILD = [sys.executable, os.path.abspath(__file__)]
@@ -6310,39 +6349,55 @@ def bank_error(got, want):
     return distance(got, want) / max(top, 1e-30)
 
 
-def op_bank_path(smi):
-    """19(D): every type of the slice on the card and on the CPU on the
-    same seeded inputs (bank_cases; conditional_block through
-    testing.models' program at COND_WIDTH): integer outputs equal, float
-    outputs within each case's bound of the largest magnitude; each
-    gradful type's generic vjp on the same cotangents within
-    BANK_VJP_REL."""
-    label = "19(D) op bank"
-    card = pt.Executor()
-    dev, cpu = card.device, torch.device("cpu")
+def run_bank(label, cases, vjp_rel, dev, extra=None):
+    """Every (type, numpy inputs, attrs, bound) of ``cases`` through its
+    emitter on the card and on the CPU: integer outputs equal, float
+    outputs within ``bound`` of the largest magnitude (0.0: equal); each
+    gradful type's generic vjp on the same cotangents within ``vjp_rel``.
+    ``extra(name, info, card inputs, attrs)`` may add to a type's line.
+    Returns {type: (error, vjp error or None)}."""
+    cpu = torch.device("cpu")
     worst = {}
-    for name, ins, attrs, tol in bank_cases():
+    for name, ins, attrs, tol in cases:
+        t0 = time.perf_counter()
         info = pt.registry.lookup(name)
-        want, got = [_bank_flat(info.emitter(
-            pt.registry.EmitContext(where),
-            {s: _bank_in(v, where) for s, v in ins.items()}, attrs))
-            for where in (cpu, dev)]
+        args = {where: {s: _bank_in(v, where) for s, v in ins.items()}
+                for where in (cpu, dev)}
+        outs = {where: info.emitter(pt.registry.EmitContext(where),
+                                    args[where], attrs)
+                for where in (cpu, dev)}
+        want, got = _bank_flat(outs[cpu]), _bank_flat(outs[dev])
         if len(got) != len(want):
             raise AssertionError(f"{label}: {name}: outputs differ in number")
         errs = [bank_error(g, w) for (_, g), (_, w) in zip(got, want)]
         err = max(errs, default=0.0)
         line = (f"  {label}: {name}: {len(errs)} outputs, {err:.3e} of the "
-                f"largest (bound {tol})")
+                f"largest (bound {tol}{', equal' if tol == 0 else ''})")
         if err > tol:
             raise AssertionError(line)
         vjp_err = None
         if not info.no_grad:
-            vjp_err = bank_vjp(name, ins, attrs, info, dev)
-            line += f"; vjp {vjp_err:.3e} (bound {BANK_VJP_REL})"
-            if vjp_err > BANK_VJP_REL:
+            vjp_err = bank_vjp(label, name, ins, attrs, info, dev, outs[cpu])
+            line += f"; vjp {vjp_err:.3e} (bound {vjp_rel})"
+            if vjp_err > vjp_rel:
                 raise AssertionError(line)
+        if extra is not None:
+            line += extra(name, info, args[dev], attrs)
         worst[name] = (err, vjp_err)
-        log(line)
+        log(line + f" [{time.perf_counter() - t0:.1f} s]")
+    return worst
+
+
+def op_bank_path(smi):
+    """19(D): every type of the slice on the card and on the CPU on the
+    same seeded inputs (bank_cases through run_bank; conditional_block
+    through testing.models' program at COND_WIDTH): integer outputs
+    equal, float outputs within each case's bound of the largest
+    magnitude; each gradful type's generic vjp on the same cotangents
+    within BANK_VJP_REL."""
+    label = "19(D) op bank"
+    card = pt.Executor()
+    worst = run_bank(label, bank_cases(), BANK_VJP_REL, card.device)
     with unique_name.guard():
         prog, out = tmodels.conditional_block_program(pt, COND_WIDTH)
     rng = np.random.RandomState(SEED + 1951)
@@ -6363,13 +6418,12 @@ def op_bank_path(smi):
             "max_vjp_rel": max(v for _, v in worst.values() if v is not None)}
 
 
-def bank_vjp(name, ins, attrs, info, dev):
+def bank_vjp(label, name, ins, attrs, info, dev, fwd):
     """The generic vjp of ``name`` on the card and on the CPU on the same
-    seeded cotangents (the intermediate outputs the CPU's forward made):
-    the largest distance of a gradient over its largest magnitude."""
+    seeded cotangents (the intermediate outputs ``fwd``, the CPU's
+    forward, made): the largest distance of a gradient over its largest
+    magnitude."""
     cpu = torch.device("cpu")
-    fwd = info.emitter(pt.registry.EmitContext(cpu),
-                       {s: _bank_in(v, cpu) for s, v in ins.items()}, attrs)
     rng = np.random.RandomState(SEED + 1952)
     gins = {s: v for s, v in ins.items()}
     for slot, vals in fwd.items():
@@ -6384,8 +6438,7 @@ def bank_vjp(name, ins, attrs, info, dev):
         {s: _bank_in(v, where) for s, v in gins.items()}, gattrs))
         for where in (cpu, dev)]
     if len(got) != len(want) or not got:
-        raise AssertionError(f"19(D) op bank: {name}: gradients differ in "
-                             "number")
+        raise AssertionError(f"{label}: {name}: gradients differ in number")
     return max(bank_error(g, w) for (_, g), (_, w) in zip(got, want))
 
 
@@ -6468,6 +6521,699 @@ def control_sequence_ctc_paths(smi):
         release()
     log("19: " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
     log("19: " + json.dumps({n: {k: (float(f"{v:.5g}")
+                                     if isinstance(v, float) else v)
+                                 for k, v in r.items()
+                                 if k != "losses"}
+                             for n, r in numbers.items()}))
+    return out, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 20: object detection
+# ---------------------------------------------------------------------------
+
+# 20(A-B): PaddleCV's MobileNet-SSD on Pascal VOC
+# (object_detection/mobilenet_ssd.py, train.py, eval.py),
+# testing.models.mobilenet_ssd's defaults: 300x300 images, 21 classes,
+# MobileNet v1 at scale 1.0, six prior maps (1917 priors), ssd_loss summed,
+# RMSProp with L2Decay 5e-5 on train.py's piecewise rate; batch 32 of
+# seeded images with 1-8 gt boxes each (padded to 50 rows), labels 1-20;
+# the test program's detection_output (nms_threshold 0.45, nms_top_k 400,
+# keep_top_k 200) and detection_map (11point)
+SSD = {}
+SSD_BATCH = 32
+SSD_STEPS = 20         # steps on one batch (REC_RUNS captured against
+                       # eager, the traced window, then more); the loss falls
+DET_SERVE_TOL = 1e-4   # served NMS inputs (decoded boxes, scores) against
+                       # NativePredictor: AnalysisPredictor folds the 27
+                       # batch_norms into their convolutions
+IOU_EPS = 8.0          # an IoU moves at most 8 x a coordinate's change
+                       # over the box's shortest side
+DET_SERVE_SHARE = 0.9  # the share of NativePredictor's served rows that
+                       # must be compared (served_rows_check)
+# 20(C): the three YOLOv3 scales on seeded backbone features for a 608
+# input (testing.models.yolov3_head's defaults: 19/38/76 cells, the 9 COCO
+# anchors, 80 classes, 50 gt rows), batch 8
+YOLO = {}
+YOLO_BATCH = 8
+# 20(D): the op bank at realistic shapes, on the card against the CPU:
+# a Faster R-CNN C4 map (1333x800 at stride 16: [1, 1024, 50, 84]) with
+# 15 anchors a cell, the SSD shapes at batch 32, YOLOv3's 76x76 head
+DET_BANK = dict(
+    c4=(1024, 50, 84),     # channels, cells of the C4 map (15 anchors a cell)
+    rois=512,              # roi_align 14x14
+    pool_rois=16,          # roi_pool 7x7 on 256 channels
+    ps_rois=300,           # psroi_pool 7x7, 21 classes (R-FCN)
+    quads=128,             # roi_perspective_transform; mask-label rois
+    ssd_batch=32, priors=1917,
+    pre_nms=6000, post_nms=1000,
+    fpn_rois=2000,         # per level; generate_proposal_labels at 512
+    yolo_batch=8, yolo_cells=76,
+    retina=(37800, 9450, 2394))  # anchors of three RetinaNet levels
+DET_BANK_REL = 1e-5    # float outputs, of each output's largest magnitude
+DET_BANK_VJP_REL = 1e-4
+
+
+def ssd_train_path(smi):
+    """20(A): MobileNet-SSD through CompiledProgram under bench.py's
+    BuildStrategy, fp32: REC_RUNS steps captured against eager bitwise,
+    then captured steps to SSD_STEPS on the same batch, the loss falling;
+    returns the trained scope and the initial state for 20(B)."""
+    label = "20(A) MobileNet-SSD"
+    m, state, exe = built_on_card(lambda: tmodels.mobilenet_ssd(pt, **SSD))
+    cfg = m["config"]
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    feed = tmodels.detection_batch(SSD_BATCH, cfg["image"], cfg["classes"],
+                                   cfg["gt_pad"], seed=SEED + 2000)
+    n_gt = (feed["gt_label"] >= 0).sum(1)
+    log(f"  mobilenet_ssd {cfg}: {len(state)} persistables, "
+        f"{sum(t.numel() for t in state.values()) / 1e6:.2f} M values; batch "
+        f"{SSD_BATCH}, {int(n_gt.min())}-{int(n_gt.max())} gt boxes an image")
+    scope, steps, res = zoo_train(label, exe, target, state,
+                                  [m["loss"].name], [feed] * REC_RUNS,
+                                  ("images", SSD_BATCH), smi, runs=REC_RUNS)
+    losses = [float(o[0].float().reshape(-1)[0]) for _, o in steps]
+    while len(losses) < SSD_STEPS:
+        (loss,) = run_tensors(exe, target, feed=feed,
+                              fetch_list=[m["loss"].name], scope=scope)
+        losses.append(float(loss.float().reshape(-1)[0]))
+    log(f"  {label}: losses over {len(losses)} steps on one batch "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: the loss does not fall: {losses}")
+    res["losses"] = losses
+    top_kernels(label, exe, target, feed, [m["loss"].name], scope, n=12)
+    return m, scope, state, exe, feed, res
+
+
+def _row_iou(box, rows, normalized):
+    """IoU of one detection box (x1, y1, x2, y2) with each of ``rows``'
+    boxes, as multiclass_nms measures it (+1 sides unless normalized)."""
+    one = 0.0 if normalized else 1.0
+    iw = np.clip(np.minimum(box[2], rows[:, 2])
+                 - np.maximum(box[0], rows[:, 0]) + one, 0, None)
+    ih = np.clip(np.minimum(box[3], rows[:, 3])
+                 - np.maximum(box[1], rows[:, 1]) + one, 0, None)
+    area = ((box[2] - box[0] + one) * (box[3] - box[1] + one))
+    areas = (rows[:, 2] - rows[:, 0] + one) * (rows[:, 3] - rows[:, 1] + one)
+    return iw * ih / np.maximum(area + areas - iw * ih, 1e-30)
+
+
+def served_rows_check(label, want, got, scores, attrs, tol):
+    """Two predictors' detections [B, K, 6] (``want`` the reference's,
+    ``scores`` [B, C, M] its NMS input scores) held class by class: in
+    rank order, class exact, score and box within ``tol``, a run of
+    scores within ``tol`` compared as a set. A class's rows are compared
+    up to its first difference; that difference must be one a change of
+    ``tol`` in the NMS inputs can make: the two rows' scores within
+    2 tol (an order or nms_top_k flip), or the higher row within 2 tol of
+    a cut (score_threshold, the class's nms_top_k-th input score, the
+    other side's last row when keep_top_k fills it) or overlapping a row
+    kept above it at an IoU within IOU_EPS x tol / the pair's shortest
+    side of nms_threshold (a suppression flip). After it, the class's rows follow
+    other boxes and are not compared. Raises on an unexplained
+    difference; returns (rows compared, live rows of ``want``)."""
+    thr = float(attrs.get("nms_threshold", 0.3))
+    s_thr = float(attrs.get("score_threshold", 0.0))
+    top_k = int(attrs.get("nms_top_k", -1))
+    keep = int(attrs.get("keep_top_k", -1))
+    norm = bool(attrs.get("normalized", True))
+    compared = live = 0
+    for b in range(want.shape[0]):
+        sides = [r[r[:, 0] >= 0] for r in (want[b], got[b])]
+        live += len(sides[0])
+        last = [r[-1, 1] if keep > 0 and len(r) == keep else -np.inf
+                for r in sides]
+        for c in np.unique(np.concatenate([r[:, 0] for r in sides])):
+            w, g = (r[r[:, 0] == c] for r in sides)
+            i, n = 0, min(len(w), len(g))
+            while i < n:
+                e = i + 1
+                while e < n and max(w[e - 1, 1] - w[e, 1],
+                                    g[e - 1, 1] - g[e, 1]) <= tol:
+                    e += 1
+                free = list(range(i, e))
+                for row in w[i:e]:
+                    hit = next((k for k in free if np.abs(
+                        g[k, 1:] - row[1:]).max() <= tol), None)
+                    if hit is None:
+                        break
+                    free.remove(hit)
+                if free:
+                    break
+                i = e
+            compared += i
+            if i == max(len(w), len(g)):
+                continue
+            pair = [r[i] if i < len(r) else None for r in (w, g)]
+            both = pair[0] is not None and pair[1] is not None
+            if both and abs(pair[0][1] - pair[1][1]) <= 2 * tol:
+                continue
+            side = 0 if pair[1] is None or (
+                pair[0] is not None and pair[0][1] >= pair[1][1]) else 1
+            h = pair[side]
+            cls = np.sort(scores[b, int(c)])[::-1]
+            cuts = [s_thr, last[1 - side]]
+            if 0 < top_k < len(cls):
+                cuts += [cls[top_k - 1], cls[top_k]]
+            near_cut = any(abs(h[1] - v) <= 2 * tol for v in cuts) or (
+                h[1] <= last[1 - side] + 2 * tol)
+            above = (w, g)[side][:i, 2:]
+            sides_ = np.minimum(np.minimum(above[:, 2] - above[:, 0],
+                                           above[:, 3] - above[:, 1]),
+                                min(h[4] - h[2], h[5] - h[3]))
+            near_iou = bool(np.any(np.abs(_row_iou(h[2:], above, norm) - thr)
+                                   <= IOU_EPS * tol
+                                   / np.maximum(sides_, 1e-6)))
+            if not (near_cut or near_iou):
+                raise AssertionError(
+                    f"{label}: image {b} class {int(c)}: rows differ at "
+                    f"rank {i} ({pair[0]} against {pair[1]}) with no "
+                    f"score or IoU within the tolerance of a cut")
+    return compared, live
+
+
+def ssd_eval_path(m, scope, initial, exe, feed, smi):
+    """20(B): the test program on 20(A)'s trained scope: 3 captured runs
+    against 2 eager bitwise (its device segment captured, detection_map a
+    host op after it); the mAP the program's detection_map gives equals
+    metrics.DetectionMAP over the fetched detections; the inference model
+    (detection_output, with the NMS inputs as two more targets) served by
+    AnalysisPredictor fp32 against NativePredictor: NativePredictor's
+    detections bitwise the executor's, the NMS inputs within
+    DET_SERVE_TOL, and each predictor's detections bitwise multiclass_nms
+    on its own NMS inputs, and the detections by served_rows_check (a
+    score or IoU within the tolerance of a cut can change which box is
+    kept, and every row after it in its class), at least DET_SERVE_SHARE
+    of the rows compared. The trained scores crowd together, so the model
+    of the initial weights, whose scores spread, is served too."""
+    label = "20(B) SSD evaluation"
+    fetch = [m["detections"].name, m["map"].name]
+    with deterministic() as found:
+        with jit_cache(False):
+            eager = [run_tensors(exe, m["test"], feed=feed, fetch_list=fetch,
+                                 scope=scope) for _ in range(2)]
+        captured = [run_tensors(exe, m["test"], feed=feed, fetch_list=fetch,
+                                scope=scope) for _ in range(3)]
+    if found:
+        raise AssertionError(f"{label}: {found}")
+    for i, name in enumerate(("detections", "mAP")):
+        hold(label, f"{name}: 3 captured runs against 2 eager",
+             max(distance(c[i], e[i]) for c in captured for e in eager), 0.0)
+    dets, m_ap = captured[-1]
+    rows = (dets[..., 0] >= 0).sum(dim=1).cpu().tolist()
+    label5 = np.concatenate([feed["gt_label"][..., None].astype(np.float32),
+                             feed["gt_box"]], axis=2)
+    metric = pt.metrics.DetectionMAP(overlap_threshold=0.5,
+                                     ap_version="11point")
+    metric.update(dets.cpu().numpy(), label5)
+    want = np.float32(metric.eval())
+    got = float(m_ap.reshape(-1)[0])
+    log(f"  {label}: {sum(rows)} detections over {SSD_BATCH} images "
+        f"({min(rows)}-{max(rows)} an image); detection_map {got:.6f}, "
+        f"DetectionMAP over the fetched detections {float(want):.6f}")
+    if got != float(want):
+        raise AssertionError(f"{label}: detection_map {got} against "
+                             f"DetectionMAP {want}")
+    rows_t, busy = device_rows(lambda: run_tensors(
+        exe, m["test"], feed=feed, fetch_list=fetch, scope=scope))
+    res = {"map": got, "detections": sum(rows),
+           "test_kernels": sum(r[2] for r in rows_t),
+           "test_device_ms": busy}
+    t0 = time.perf_counter()
+    for _ in range(5):
+        run_tensors(exe, m["test"], feed=feed, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    res["test_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"  {label}: the test program {res['test_ms']:.3f} ms a batch, "
+        f"{res['test_kernels']} kernels, {busy:.3f} ms of device time "
+        f"[{smi}]")
+
+    res["served"] = serve_ssd(label, m, scope, exe, feed, dets, smi)
+    # the trained scores crowd together (20 steps on synthetic images);
+    # the initial weights' spread with the untrained features
+    res["served_initial"] = serve_ssd(
+        label + ", initial weights", m, copy_state(initial, exe.device),
+        exe, feed, None, smi)
+    exe.close()
+    return res
+
+
+def serve_ssd(label, m, scope, exe, feed, dets, smi):
+    """The inference model of ``scope`` (detection_output, with the NMS
+    inputs as two more targets) served by AnalysisPredictor fp32 against
+    NativePredictor: NativePredictor's detections bitwise ``dets`` (the
+    executor's, where given), the NMS inputs within DET_SERVE_TOL, each
+    predictor's detections bitwise multiclass_nms on its own NMS inputs,
+    and the detections held against each other by served_rows_check, at
+    least DET_SERVE_SHARE of NativePredictor's rows compared."""
+    nms = next(o for o in m["test"].global_block().ops
+               if o.type == "multiclass_nms")
+    pre = [m["test"].global_block().var(nms.input(slot)[0])
+           for slot in ("BBoxes", "Scores")]
+    d = tempfile.mkdtemp(prefix="chip_smoke_ssd_", dir=_build.BUILD_DIR)
+    try:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["image"], [m["detections"]] + pre,
+                                       exe, main_program=m["test"])
+        apred = create_paddle_predictor(AnalysisConfig(d))
+        npred = create_paddle_predictor(NativeConfig(d))
+        req = {"image": feed["image"]}
+        served = [[t.as_tensor() for t in apred.run(req)] for _ in range(3)]
+        native = [[t.as_tensor() for t in npred.run(req)] for _ in range(2)]
+        secs = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            apred.run(req)[0].as_tensor()
+            secs.append(time.perf_counter() - t0)
+        types = [o.type for o in apred._program.global_block().desc.ops]
+        apred.close()
+        npred.close()
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    hold(label, "AnalysisPredictor's 3 requests against each other",
+         max(distance(a[i], served[0][i]) for a in served for i in range(3)),
+         0.0)
+    if dets is not None:
+        hold(label, "NativePredictor's detections against the executor's "
+             "test program", distance(native[-1][0], dets), 0.0)
+    err = max(distance(a, n) for a, n in zip(served[-1][1:], native[-1][1:]))
+    log(f"  {label}: AnalysisPredictor fp32 ({len(types)} ops, "
+        f"{types.count('batch_norm')} batch_norm left) against "
+        f"NativePredictor: the NMS inputs (decoded boxes, class scores) "
+        f"{err:.3e} at most (bound {DET_SERVE_TOL})")
+    if not err <= DET_SERVE_TOL:
+        raise AssertionError(f"{label}: served NMS inputs {err:.3e} from "
+                             "NativePredictor's")
+    ctx = pt.registry.EmitContext(exe.device)
+    nms_emit = pt.registry.lookup("multiclass_nms").emitter
+    for name, outs in (("AnalysisPredictor", served[-1]),
+                       ("NativePredictor", native[-1])):
+        again = nms_emit(ctx, {"BBoxes": [outs[1]], "Scores": [outs[2]]},
+                         dict(nms.attrs))["Out"][0]
+        hold(label, f"{name}'s detections against multiclass_nms on its "
+             "own NMS inputs", distance(again, outs[0]), 0.0)
+    compared, live = served_rows_check(
+        label, native[-1][0].cpu().numpy(), served[-1][0].cpu().numpy(),
+        native[-1][2].cpu().numpy(), nms.attrs, DET_SERVE_TOL)
+    res = {"ms": float(np.median(secs)) * 1e3, "err": err,
+           "compared": compared, "rows": live}
+    if not compared >= DET_SERVE_SHARE * live:
+        raise AssertionError(f"{label}: {compared} of {live} rows compared, "
+                             f"fewer than {DET_SERVE_SHARE} of them")
+    log(f"  {label}: served detections against NativePredictor's: "
+        f"{compared} of {live} rows compared and equal (within "
+        f"{DET_SERVE_TOL}), every difference after a score or IoU within "
+        f"the tolerance of a cut; {res['ms']:.3f} ms a request of "
+        f"{len(feed['image'])} images [{smi}]")
+    return res
+
+
+def yolo_path(smi):
+    """20(C): the YOLOv3 head at batch 8 through CompiledProgram:
+    REC_RUNS steps captured against eager bitwise, the loss falling; then
+    the test program's yolo_box + multiclass_nms decode (on the initial
+    weights), 3 captured runs against 2 eager bitwise, rows of class -1
+    or 0-79, some kept."""
+    label = "20(C) YOLOv3 head"
+    m, state, exe = built_on_card(lambda: tmodels.yolov3_head(pt, **YOLO))
+    cfg = m["config"]
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    feed = tmodels.yolov3_batch(YOLO_BATCH, cfg["image"], cfg["channels"],
+                                cfg["classes"], cfg["gt_pad"],
+                                seed=SEED + 2001)
+    train = {k: feed[k] for k in m["feeds"]}
+    scope, steps, res = zoo_train(label, exe, target, state,
+                                  [m["loss"].name], [train] * REC_RUNS,
+                                  ("images", YOLO_BATCH), smi, runs=REC_RUNS)
+    res["losses"] = falls(label, steps)
+    test_feed = {k: feed[k] for k in ("c5", "c4", "c3", "img_size")}
+    fetch = [m["detections"].name]
+    # a few steps from random weights drive every objectness below
+    # conf_thresh, so the decode runs on the initial weights, where every
+    # cell passes it and the NMS has work
+    scope = copy_state(state, exe.device)
+    with deterministic() as found:
+        with jit_cache(False):
+            eager = [run_tensors(exe, m["test"], feed=test_feed,
+                                 fetch_list=fetch, scope=scope)
+                     for _ in range(2)]
+        captured = [run_tensors(exe, m["test"], feed=test_feed,
+                                fetch_list=fetch, scope=scope)
+                    for _ in range(3)]
+    if found:
+        raise AssertionError(f"{label}: decode: {found}")
+    hold(label, "decode: 3 captured runs against 2 eager",
+         max(distance(c[0], e[0]) for c in captured for e in eager), 0.0)
+    dets = captured[-1][0]
+    cls = dets[..., 0]
+    if not (torch.isfinite(dets).all() and bool((cls >= 0).any()) and (
+            (cls == -1) | ((cls >= 0) & (cls < cfg["classes"]))).all()):
+        raise AssertionError(f"{label}: decode rows out of range")
+    rows_t, busy = device_rows(lambda: run_tensors(
+        exe, m["test"], feed=test_feed, fetch_list=fetch, scope=scope))
+    res.update(decode_kernels=sum(r[2] for r in rows_t),
+               decode_device_ms=busy,
+               detections=int((cls >= 0).sum()))
+    log(f"  {label}: decode {tuple(dets.shape)}, {res['detections']} rows "
+        f"kept; {res['decode_kernels']} kernels, {busy:.3f} ms of device "
+        f"time a batch [{smi}]")
+    exe.close()
+    return res
+
+
+def det_bank_cases():
+    """(op type, numpy inputs, attrs, exact) of the detection op bank at
+    realistic shapes; ``exact``: every output must equal the CPU's (the
+    ops whose floats are selections, constants or host arithmetic). Where
+    a float passes through exp or log the card's and the CPU's may part
+    by an ulp: those cases hold integer outputs equal and floats within
+    DET_BANK_REL. The random ops run here with budgets that keep every
+    candidate (or fixed priorities); det_rng_invariants samples them."""
+    rng = np.random.RandomState(SEED + 2050)
+    z = DET_BANK
+    nb, npr, ns = z["ssd_batch"], z["priors"], z["yolo_cells"]
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def boxes(n, span, lo=0.02, hi=0.4):
+        xy = rng.uniform(0, span * (1 - hi), (n, 2))
+        wh = rng.uniform(span * lo, span * hi, (n, 2))
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    def rois(n, h, w):
+        x1 = rng.uniform(0, w * 0.8, n)
+        y1 = rng.uniform(0, h * 0.8, n)
+        return np.stack([x1, y1, x1 + rng.uniform(16, w * 0.4, n),
+                         y1 + rng.uniform(16, h * 0.4, n)], 1).astype(
+                             np.float32)
+
+    # Faster R-CNN C4: 1333x800 at stride 16, 15 anchors a cell
+    ch, fh, fw = z["c4"]
+    anc_attrs = {"anchor_sizes": [32.0, 64.0, 128.0, 256.0, 512.0],
+                 "aspect_ratios": [0.5, 1.0, 2.0], "stride": [16.0, 16.0]}
+    anc = pt.registry.lookup("anchor_generator").emitter(
+        pt.registry.EmitContext(torch.device("cpu")),
+        {"Input": [torch.zeros(1, 1, fh, fw)]}, anc_attrs)
+    anchors, avar = (anc[k][0].numpy() for k in ("Anchors", "Variances"))
+    im_info = np.float32([[800, 1333, 1.0]])
+    c4 = f(1, ch, fh, fw)
+    gt = boxes(20, 800)
+    # SSD at batch 32: 1917 priors, 21 classes, 50 gt rows
+    prior = boxes(npr, 1.0)
+    pvar = np.tile(np.float32([0.1, 0.1, 0.2, 0.2]), (npr, 1))
+    dist = rng.rand(nb, 50, npr).astype(np.float32)
+    dist[:, 8:] = 0.0
+    match = rng.randint(-1, 50, (nb, npr)).astype(np.int32)
+    match[rng.rand(nb, npr) < 0.9] = -1
+    logits = f(nb, npr, 21)
+    sm = np.exp(logits - logits.max(-1, keepdims=True))
+    sm = (sm / sm.sum(-1, keepdims=True)).transpose(0, 2, 1).astype(
+        np.float32)
+    dec = pt.registry.lookup("box_coder").emitter(
+        pt.registry.EmitContext(torch.device("cpu")),
+        {"PriorBox": [torch.from_numpy(prior)],
+         "PriorBoxVar": [torch.from_numpy(pvar)],
+         "TargetBox": [torch.from_numpy(f(nb, npr, 4, scale=0.5))]},
+        {"code_type": "decode_center_size"})["OutputBox"][0].numpy()
+    yolo_anchors = tmodels.YOLOV3_ANCHORS
+    yb = z["yolo_batch"]
+    ygt = np.zeros((yb, 50, 4), np.float32)
+    ygt[:, :12, :2] = rng.uniform(0.05, 0.95, (yb, 12, 2))
+    ygt[:, :12, 2:] = rng.uniform(0.02, 0.5, (yb, 12, 2))
+    quads = []
+    for _ in range(z["quads"]):
+        cx, cy = rng.uniform(fw * 0.2, fw * 0.8), rng.uniform(fh * 0.2,
+                                                              fh * 0.8)
+        r = rng.uniform(3, 8, 4)
+        ang = np.radians([225, 315, 45, 135])
+        quads.append(np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)],
+                              1).reshape(-1))
+    det_res = np.zeros((nb, 200, 6), np.float32)
+    det_res[..., 0] = rng.randint(-1, 21, (nb, 200))
+    det_res[..., 1] = rng.rand(nb, 200)
+    det_res[..., 2:] = boxes(nb * 200, 1.0).reshape(nb, 200, 4)
+    gt5 = np.full((nb, 50, 5), -1.0, np.float32)
+    gt5[:, :8, 0] = rng.randint(1, 21, (nb, 8))
+    gt5[:, :8, 1:] = boxes(nb * 8, 1.0).reshape(nb, 8, 4)
+    det_res[:, :8, 2:] = gt5[:, :8, 1:] + f(nb, 8, 4, scale=0.02)
+    det_res[:, :8, 0] = gt5[:, :8, 0]
+    segms = np.zeros((4, 2, 8, 2), np.float32)
+    for g in range(4):
+        for q in range(2):
+            a = np.sort(rng.uniform(0, 2 * np.pi, 8))
+            segms[g, q] = rng.uniform(200, 600, 2) + np.stack(
+                [np.cos(a), np.sin(a)], 1) * 60
+    retina_anc = [boxes(n, 800, 0.02, 0.3) for n in z["retina"]]
+    nr = z["rois"]
+    rows = [
+        ("smooth_l1_loss", {"X": [f(nb * npr, 4)], "Y": [f(nb * npr, 4)],
+                            "InsideWeight": [(rng.rand(nb * npr, 4) < 0.1)
+                                             .astype(np.float32)]}, {}, False),
+        ("sigmoid_cross_entropy_with_logits",
+         {"X": [f(nb, 80, npr)], "Label": [rng.rand(nb, 80, npr).astype(
+             np.float32)]}, {}, False),
+        ("interpolate", {"X": [f(yb, 256, fh, fw)]},
+         {"out_h": 2 * fh, "out_w": 2 * fw, "interp_method": "bilinear",
+          "align_corners": False}, False),
+        ("bilinear_interp", {"X": [f(yb, 256, ns // 2, ns // 2)]},
+         {"out_h": ns, "out_w": ns, "align_corners": True}, False),
+        ("nearest_interp", {"X": [f(yb, 256, ns // 2, ns // 2)]},
+         {"out_h": ns, "out_w": ns, "align_corners": False}, False),
+        ("iou_similarity", {"X": [boxes(nb * 50, 1.0)], "Y": [prior]}, {},
+         False),
+        ("box_coder", {"PriorBox": [prior], "PriorBoxVar": [pvar],
+                       "TargetBox": [np.tile(boxes(npr, 1.0), (nb, 1, 1))]},
+         {"code_type": "encode_center_size"}, False),
+        ("prior_box", {"Input": [np.zeros((1, 1, 19, 19), np.float32)],
+                       "Image": [np.zeros((1, 3, 300, 300), np.float32)]},
+         {"min_sizes": [60.0], "aspect_ratios": [2.0], "flip": True,
+          "variances": [0.1, 0.1, 0.2, 0.2]}, True),
+        ("density_prior_box",
+         {"Input": [np.zeros((1, 1, 50, 84), np.float32)],
+          "Image": [np.zeros((1, 3, 800, 1333), np.float32)]},
+         {"fixed_sizes": [32.0, 64.0], "fixed_ratios": [1.0],
+          "densities": [4, 2], "clip": True}, True),
+        ("anchor_generator", {"Input": [np.zeros((1, 1, fh, fw),
+                                                 np.float32)]},
+         anc_attrs, True),
+        ("box_clip", {"Input": [(rng.rand(1, fh * fw * 15, 4) * 1500 - 100)
+                                .astype(np.float32)], "ImInfo": [im_info]},
+         {}, True),
+        ("polygon_box_transform", {"Input": [f(yb, 8, 2 * ns, 2 * ns)]}, {},
+         False),
+        ("roi_pool", {"X": [f(1, 256, fh, fw)],
+                      "ROIs": [rois(z["pool_rois"], 800, 1333)]},
+         {"pooled_height": 7, "pooled_width": 7, "spatial_scale": 1 / 16},
+         False),
+        ("roi_align", {"X": [c4], "ROIs": [rois(nr, 800, 1333)]},
+         {"pooled_height": 14, "pooled_width": 14, "spatial_scale": 1 / 16,
+          "sampling_ratio": 0}, False),
+        ("psroi_pool", {"X": [f(1, 21 * 49, fh, fw)],
+                        "ROIs": [rois(z["ps_rois"], 800, 1333)]},
+         {"output_channels": 21, "pooled_height": 7, "pooled_width": 7,
+          "spatial_scale": 1 / 16}, False),
+        ("bipartite_match", {"DistMat": [dist]},
+         {"match_type": "per_prediction", "dist_threshold": 0.5}, True),
+        ("target_assign", {"X": [np.tile(boxes(50, 1.0), (nb, 1, 1))],
+                           "MatchIndices": [match]}, {}, True),
+        ("mine_hard_examples", {"ClsLoss": [rng.rand(nb, npr).astype(
+            np.float32)], "MatchIndices": [match],
+            "MatchDist": [rng.rand(nb, npr).astype(np.float32)]},
+         {"neg_pos_ratio": 3.0, "neg_overlap": 0.5}, True),
+        ("multiclass_nms", {"BBoxes": [dec], "Scores": [sm]},
+         {"background_label": 0, "score_threshold": 0.01,
+          "nms_threshold": 0.45, "nms_top_k": 400, "keep_top_k": 200}, True),
+        ("detection_map", {"DetectRes": [det_res], "Label": [gt5]},
+         {"overlap_threshold": 0.5, "ap_type": "11point"}, True),
+        ("yolov3_loss", {"X": [f(yb, 3 * 85, ns, ns)], "GTBox": [ygt],
+                         "GTLabel": [rng.randint(0, 80, (yb, 50)).astype(
+                             np.int32)]},
+         {"anchors": yolo_anchors, "anchor_mask": [0, 1, 2],
+          "class_num": 80, "ignore_thresh": 0.7, "downsample_ratio": 8},
+         False),
+        ("generate_proposals",
+         {"Scores": [rng.rand(1, 15, fh, fw).astype(np.float32)],
+          "BboxDeltas": [f(1, 60, fh, fw, scale=0.3)], "ImInfo": [im_info],
+          "Anchors": [anchors], "Variances": [avar]},
+         {"pre_nms_topN": z["pre_nms"], "post_nms_topN": z["post_nms"],
+          "nms_thresh": 0.7,
+          "min_size": 0.0}, False),
+        ("rpn_target_assign", {"Anchor": [anchors], "GtBoxes": [gt]},
+         {"rpn_batch_size_per_im": 10 ** 7, "rpn_fg_fraction": 0.5}, False),
+        ("roi_perspective_transform",
+         {"X": [f(1, 256, fh, fw)], "ROIs": [np.float32(quads)]},
+         {"transformed_height": 8, "transformed_width": 32}, False),
+        ("generate_proposal_labels",
+         {"RpnRois": [rois(z["fpn_rois"], 800, 1333)],
+          "GtClasses": [rng.randint(1, 81, (20, 1)).astype(np.int32)],
+          "IsCrowd": [np.zeros((20, 1), np.int32)], "GtBoxes": [gt],
+          "ImInfo": [im_info]},
+         {"batch_size_per_im": 512, "class_nums": 81, "use_random": False},
+         False),
+        ("yolo_box", {"X": [f(yb, 255, ns // 4, ns // 4)],
+                      "ImgSize": [np.full((yb, 2), 608, np.int32)]},
+         {"anchors": yolo_anchors[12:], "class_num": 80,
+          "conf_thresh": 0.005, "downsample_ratio": 32}, False),
+        ("sigmoid_focal_loss", {"X": [f(sum(z["retina"]), 80)],
+                                "Label": [rng.randint(-1, 81,
+                                                      (sum(z["retina"]), 1))
+                                          .astype(np.int32)],
+                                "FgNum": [np.int32([600])]}, {}, False),
+        ("box_decoder_and_assign",
+         {"PriorBox": [rois(z["post_nms"], 800, 1333)],
+          "PriorBoxVar": [np.float32([0.1, 0.1, 0.2, 0.2])],
+          "TargetBox": [f(z["post_nms"], 81 * 4, scale=0.3)],
+          "BoxScore": [rng.rand(z["post_nms"], 81).astype(np.float32)]},
+         {"box_clip": 4.135}, False),
+        ("collect_fpn_proposals",
+         {"MultiLevelRois": [rois(z["fpn_rois"], 800, 1333)
+                             for _ in range(5)],
+          "MultiLevelScores": [rng.rand(z["fpn_rois"], 1).astype(np.float32)
+                               for _ in range(5)]},
+         {"post_nms_topN": z["fpn_rois"]}, True),
+        ("retinanet_target_assign",
+         {"Anchor": [np.concatenate(retina_anc)], "GtBoxes": [gt],
+          "GtLabels": [rng.randint(1, 81, (20, 1)).astype(np.int32)],
+          "IsCrowd": [np.zeros(20, np.int32)], "ImInfo": [im_info]},
+         {}, False),
+        ("retinanet_detection_output",
+         {"BBoxes": [f(1, len(a), 4, scale=0.2) for a in retina_anc],
+          "Scores": [f(1, len(a), 80, scale=2.0) - 3.0 for a in retina_anc],
+          "Anchors": retina_anc, "ImInfo": [im_info]},
+         {"score_threshold": 0.05, "nms_top_k": z["post_nms"],
+          "keep_top_k": 100,
+          "nms_threshold": 0.5}, False),
+        ("generate_mask_labels",
+         {"ImInfo": [im_info], "GtClasses": [np.int32([[3], [7], [1], [5]])],
+          "IsCrowd": [np.zeros((4, 1), np.int32)], "GtSegms": [segms],
+          "SegmsLength": [np.full((4, 2), 8, np.int32)],
+          "Rois": [rois(z["quads"], 800, 1333)],
+          "LabelsInt32": [rng.randint(0, 81, (z["quads"], 1)).astype(
+              np.int32)]},
+         {"num_classes": 81, "resolution": 28}, True),
+        ("distribute_fpn_proposals",
+         {"FpnRois": [rois(z["fpn_rois"], 800, 1333)]},
+         {"min_level": 2, "max_level": 5, "refer_level": 4,
+          "refer_scale": 224}, True),
+    ]
+    return rows
+
+
+def det_rng_invariants(label, dev, bank):
+    """The two random ops at their budgets on the card: rpn_target_assign
+    at 256 over the C4 anchors, generate_proposal_labels at 512 with
+    random priorities; counts within budget, every sampled row a
+    candidate the budget-free run (on the CPU) marks, its targets that
+    run's within DET_BANK_REL."""
+    cpu = torch.device("cpu")
+    cases = {n: (ins, attrs) for n, ins, attrs, _ in bank
+             if n in ("rpn_target_assign", "generate_proposal_labels")}
+    ins, attrs = cases["rpn_target_assign"]
+    op = pt.registry.lookup("rpn_target_assign").emitter
+    full = op(pt.registry.EmitContext(cpu), {s: _bank_in(v, cpu)
+                                            for s, v in ins.items()}, attrs)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = op(pt.registry.EmitContext(dev, generator=gen),
+             {s: _bank_in(v, dev) for s, v in ins.items()},
+             dict(attrs, rpn_batch_size_per_im=256))
+    lab, cand = out["TargetLabel"][0].cpu(), full["TargetLabel"][0]
+    fg = lab == 1
+    ok = (int(fg.sum()) <= 128 and int((lab >= 0).sum()) <= 256
+          and bool((cand[fg] == 1).all()) and bool((cand[lab == 0] == 0).all())
+          and bank_error(out["TargetBBox"][0].cpu()[fg],
+                         full["TargetBBox"][0][fg]) <= DET_BANK_REL)
+    log(f"  {label}: rpn_target_assign at 256 on the card: {int(fg.sum())} "
+        f"fg + {int((lab == 0).sum())} bg of {int((cand == 1).sum())} + "
+        f"{int((cand == 0).sum())} candidates")
+    if not ok:
+        raise AssertionError(f"{label}: rpn_target_assign's sample")
+    ins, attrs = cases["generate_proposal_labels"]
+    op = pt.registry.lookup("generate_proposal_labels").emitter
+    out = op(pt.registry.EmitContext(dev, generator=gen),
+             {s: _bank_in(v, dev) for s, v in ins.items()},
+             dict(attrs, use_random=True))
+    labels = out["LabelsInt32"][0].cpu()
+    kind = torch.where(labels > 0, 0, torch.where(labels == 0, 1, 2))
+    ok = (labels.shape == (512,) and int((labels > 0).sum()) <= 128
+          and bool((kind[1:] >= kind[:-1]).all()))
+    log(f"  {label}: generate_proposal_labels at 512 on the card: "
+        f"{int((labels > 0).sum())} fg, {int((labels == 0).sum())} bg rows")
+    if not ok:
+        raise AssertionError(f"{label}: generate_proposal_labels' sample")
+
+
+def det_bank_path(smi):
+    """20(D): every one of the 33 types on the card against the port's
+    own CPU run on the same seeded inputs (det_bank_cases): selection and
+    integer outputs equal, float outputs within DET_BANK_REL of the
+    largest magnitude, the gradful types' generic vjps within
+    DET_BANK_VJP_REL; the two random ops' samples at their budgets
+    (det_rng_invariants); kernels and ms a call of the NMS ops."""
+    label = "20(D) detection op bank"
+    dev = pt.Executor().device
+    timing = {}
+
+    def nms_timing(name, info, args, attrs):
+        if name not in ("multiclass_nms", "generate_proposals"):
+            return ""
+        ctx = pt.registry.EmitContext(dev)
+        call = (lambda: info.emitter(ctx, args, attrs))
+        rows_t, busy = device_rows(call)
+        t = timing[name] = {
+            "kernels": sum(r[2] for r in rows_t), "device_ms": busy,
+            "ms": time_ms(call, iters=2, warmup=1),
+            "eager_ms": time_ms(call, iters=2, warmup=1, graph=False)}
+        return (f"; {t['kernels']} kernels a call, {t['ms']:.3f} ms "
+                f"(graph replay), {t['eager_ms']:.3f} ms eager, "
+                f"{t['device_ms']:.3f} ms of device time")
+
+    bank = det_bank_cases()
+    worst = run_bank(label, [(n, ins, attrs, 0.0 if exact else DET_BANK_REL)
+                             for n, ins, attrs, exact in bank],
+                     DET_BANK_VJP_REL, dev, extra=nms_timing)
+    det_rng_invariants(label, dev, bank)
+    log(f"  {label}: {len(worst)} types [{smi}]")
+    if len(worst) != 33:
+        raise AssertionError(f"{label}: {len(worst)} types, not 33")
+    return {"types": len(worst), "timing": timing,
+            "max_rel": max(e for e, _ in worst.values()),
+            "max_vjp_rel": max(v for _, v in worst.values() if v is not None)}
+
+
+def detection_paths(smi):
+    """Phase 20; returns the flash launches of its paths (the wrappers'
+    calls over each path's runs, which must be (0, 0): no path holds an
+    attention op) and each path's numbers."""
+    out, numbers, secs = {}, {}, {}
+
+    def run(name, fn):
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        r = fn()
+        calls = (fa.launches, fa.bwd_launches)
+        if calls != (0, 0):
+            raise AssertionError(f"20 {name}: flash wrapper calls {calls}")
+        out[name] = calls
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    m, scope, initial, exe, feed, numbers["ssd_train"] = run(
+        "ssd_train", lambda: ssd_train_path(smi))
+    numbers["ssd_eval"] = run(
+        "ssd_eval", lambda: ssd_eval_path(m, scope, initial, exe, feed, smi))
+    del m, scope, initial, exe
+    release()
+    numbers["yolov3"] = run("yolov3", lambda: yolo_path(smi))
+    release()
+    numbers["op_bank"] = run("op_bank", lambda: det_bank_path(smi))
+    release()
+    log("20: " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
+    log("20: " + json.dumps({n: {k: (float(f"{v:.5g}")
                                      if isinstance(v, float) else v)
                                  for k, v in r.items()
                                  if k != "losses"}
@@ -6673,6 +7419,13 @@ def main(argv=None):
                   "served")
             paths.update(control_sequence_ctc_paths(smi)[0])
             release()
+            phase("object detection: MobileNet-SSD training at PaddleCV's "
+                  "VOC widths, its evaluation and detection_map, the "
+                  "detection model served, the YOLOv3 head trained and "
+                  "decoded, the 33 detection types on the card against the "
+                  "CPU")
+            paths.update(detection_paths(smi)[0])
+            release()
 
     def bert_shape(rows, errors, per_step):
         return {"shape": list(BERT_SHAPE), "launches_per_step": per_step,
@@ -6724,6 +7477,7 @@ def main(argv=None):
                    **{f"{str(dt)[6:]}{'_causal' if c else ''}": row
                       for (dt, c), row in bwd_train.items()})}),
     ]
+    log(f"the script's phases took {time.perf_counter() - _START:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.kernels:

@@ -482,7 +482,9 @@ class _Segment:
         self.state_out = state_out  # persistables written, in op order
         self.outputs = outputs      # fetched or read by later segments
         self.needs_rng = needs_rng
-        self.consts: Dict[int, torch.Tensor] = {}
+        # EmitContext.constant's copies, and the forward attrs the generic
+        # vjp keys them by
+        self.consts: Dict[Any, Any] = {}
         self.accum: Optional[_Accumulation] = None
         self.drop_graph()
 

@@ -33,6 +33,8 @@ __all__ = [
     "sequence_enumerate", "sequence_erase", "lod_reset", "row_conv",
     "im2sequence", "add_position_encoding", "warpctc",
     "ctc_greedy_decoder", "edit_distance",
+    "smooth_l1", "sigmoid_cross_entropy_with_logits", "image_resize",
+    "resize_bilinear", "resize_nearest", "image_resize_short",
 ]
 
 
@@ -1028,3 +1030,73 @@ def edit_distance(input, label, normalized=True, ignored_tokens=None,
                      outputs={"Out": out, "SequenceNum": seq_num},
                      attrs={"normalized": normalized})
     return out, seq_num
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": x, "Label": label}, outputs={"Out": out},
+                     attrs={"ignore_index": ignore_index})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    """The row sums [N, 1] of the smooth L1 loss of X - Y."""
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": x, "Y": y}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = inside_weight
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = outside_weight
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": out, "Diff": diff},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", align_corners=True):
+    """Resize an NCHW map to ``out_shape`` (or its size times ``scale``),
+    bilinear or nearest: the ``interpolate`` op."""
+    helper = LayerHelper("interpolate", name=name)
+    if out_shape is None:
+        if scale is None:
+            raise ValueError("out_shape or scale required")
+        out_shape = [int(input.shape[2] * scale),
+                     int(input.shape[3] * scale)]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="interpolate", inputs={"X": input}, outputs={"Out": out},
+        attrs={"out_h": int(out_shape[0]), "out_w": int(out_shape[1]),
+               "interp_method": resample.lower(),
+               "align_corners": align_corners})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    align_corners=True):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        align_corners)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        align_corners)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so the short side is ``out_short_len``, keeping the aspect
+    ratio (from the static shape)."""
+    in_shape = list(input.shape)
+    if len(in_shape) != 4:
+        raise ValueError("image_resize_short expects NCHW input")
+    h, w = in_shape[2], in_shape[3]
+    short = min(h, w)
+    return image_resize(input, out_shape=[int(h * out_short_len // short),
+                                          int(w * out_short_len // short)],
+                        resample=resample)

@@ -1,8 +1,8 @@
 """Streaming metrics on the host (counterpart of ``paddle_tpu/metrics.py``;
 reference python/paddle/fluid/metrics.py): numpy accumulation across
-minibatches. ``DetectionMAP`` evaluates with its own copy of the JAX
-package's host ``detection_map`` arithmetic (the detection ops are
-ROADMAP A11)."""
+minibatches. ``DetectionMAP`` and the host op ``detection_map``
+(``ops/kernels_detection.py``) share one copy of the VOC mAP arithmetic,
+``_detection_map``."""
 
 from __future__ import annotations
 

@@ -16,4 +16,5 @@ from . import kernels_cache  # noqa: F401
 from . import kernels_rnn  # noqa: F401
 from . import kernels_search  # noqa: F401
 from . import kernels_crf  # noqa: F401
+from . import kernels_detection  # noqa: F401
 from . import flash_attention  # noqa: F401

@@ -112,6 +112,14 @@ def amp_cast(ctx, *tensors):
                  for t in tensors)
 
 
+def true_div(a: torch.Tensor, n) -> torch.Tensor:
+    """``a / n`` for a Python number ``n``, a true division on every
+    device: CUDA divides by a Python scalar through its reciprocal, which
+    can move a quotient by an ulp, and a floor, ceil, round or threshold
+    after it by a whole step."""
+    return a / torch.full((), n, dtype=a.dtype, device=a.device)
+
+
 def length_or_full(ins, batch: int, max_len: int, device,
                    slot: str = "Length") -> torch.Tensor:
     """The padded convention's [B] int32 valid lengths from ``slot``, or

@@ -431,6 +431,48 @@ def square_error_cost(ctx, ins, attrs):
     return {"Out": [d * d]}
 
 
+def _smooth_l1_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    dt = in_dtype(block, op, "X")
+    if xs:
+        for n in op.output("Diff"):
+            set_out_var(block, n, xs, dt)
+        for n in op.output("Out"):
+            set_out_var(block, n, [xs[0], 1], dt)
+
+
+@register_op("smooth_l1_loss", intermediate_outputs=("Diff",),
+             infer=_smooth_l1_infer)
+def smooth_l1_loss(ctx, ins, attrs):
+    """smooth_l1_loss_op.h: d = (X - Y) * InsideWeight, 0.5 (sigma d)^2
+    where |d| < 1 / sigma^2, else |d| - 0.5 / sigma^2, times
+    OutsideWeight, summed over each row: Out [N, 1]; Diff is d."""
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    d = ins["X"][0] - ins["Y"][0]
+    inside = opt(ins, "InsideWeight")
+    if inside is not None:
+        d = d * inside
+    a = torch.abs(d)
+    loss = torch.where(a < 1.0 / s2, 0.5 * d * d * s2, a - 0.5 / s2)
+    outside = opt(ins, "OutsideWeight")
+    if outside is not None:
+        loss = loss * outside
+    return {"Out": [loss.reshape(loss.shape[0], -1).sum(dim=1, keepdim=True)],
+            "Diff": [d]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", infer=same_shape_infer())
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)) elementwise, zero where
+    the label equals ``ignore_index``."""
+    logits, label = ins["X"][0], ins["Label"][0]
+    loss = (torch.maximum(logits, ZERO.to(logits.dtype)) - logits * label
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+    return {"Out": [torch.where(label == attrs.get("ignore_index", -100),
+                                0.0, loss)]}
+
+
 # ---------------------------------------------------------------------------
 # dropout
 # ---------------------------------------------------------------------------

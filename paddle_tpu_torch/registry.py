@@ -209,6 +209,23 @@ def resolve_grad_emitter(op_type: str):
     raise KeyError(f"no emitter for grad op {op_type!r}")
 
 
+def _forward_attrs(ctx: EmitContext, attrs):
+    """The grad op's attrs without ``__fwd_type__``: the forward op's. A
+    plan keeps the dict it makes first (while it holds the same values),
+    so the forward's ``EmitContext.constant`` (keyed by the dict) finds
+    its copy again on every run instead of copying from the host under a
+    capture."""
+    fwd = {k: v for k, v in attrs.items() if k != "__fwd_type__"}
+    if ctx.consts is None:
+        return fwd
+    key = ("__fwd_attrs__", id(attrs))
+    kept = ctx.consts.get(key)
+    if kept is None or kept.keys() != fwd.keys() or any(
+            kept[k] is not v for k, v in fwd.items()):
+        kept = ctx.consts[key] = fwd
+    return kept
+
+
 def generic_vjp_grad_emitter(ctx: EmitContext, ins, attrs):
     """Re-run the forward emitter under ``torch.func.vjp`` and apply the
     ``@GRAD`` cotangents (zeros where one is missing, each cast to its
@@ -221,7 +238,7 @@ def generic_vjp_grad_emitter(ctx: EmitContext, ins, attrs):
     op's forward once more."""
     fwd_type = attrs["__fwd_type__"]
     info = lookup(fwd_type)
-    fwd_attrs = {k: v for k, v in attrs.items() if k != "__fwd_type__"}
+    fwd_attrs = _forward_attrs(ctx, attrs)
     fwd_in_slots = [s for s in ins
                     if not s.endswith(GRAD_SUFFIX)
                     and s not in info.intermediate_outputs]

@@ -216,3 +216,282 @@ def conditional_block_program(fl, width=3):
             attrs={"sub_block": sub.idx, "__in_names__": [x.name],
                    "__out_names__": [out.name]})
     return main, out
+
+
+def _mobilenet_ssd_net(fl, image, classes, scale):
+    """MobileNet v1 and the six-map SSD head of PaddleCV's
+    object_detection/mobilenet_ssd.py (``conv_bn``, ``depthwise_separable``,
+    ``extra_block``, ``multi_box_head``)."""
+    L = fl.layers
+
+    def conv_bn(x, filter_size, num_filters, stride, padding, num_groups=1):
+        conv = L.conv2d(
+            x, num_filters=num_filters, filter_size=filter_size,
+            stride=stride, padding=padding, groups=num_groups,
+            use_cudnn=num_groups == 1, bias_attr=False,
+            param_attr=fl.ParamAttr(learning_rate=0.1,
+                                    initializer=fl.initializer.MSRA()))
+        return L.batch_norm(conv, act="relu")
+
+    def depthwise_separable(x, f1, f2, groups, stride):
+        x = conv_bn(x, 3, int(f1 * scale), stride, 1,
+                    num_groups=int(groups * scale))
+        return conv_bn(x, 1, int(f2 * scale), 1, 0)
+
+    def extra_block(x, f1, f2):
+        # the source's num_groups=int(1 * scale) is 0 below scale 1
+        x = conv_bn(x, 1, int(f1 * scale), 1, 0)
+        return conv_bn(x, 3, int(f2 * scale), 2, 1)
+
+    img = L.data(name="image", shape=list(image), dtype="float32")
+    x = conv_bn(img, 3, int(32 * scale), 2, 1)
+    x = depthwise_separable(x, 32, 64, 32, 1)
+    x = depthwise_separable(x, 64, 128, 64, 2)
+    x = depthwise_separable(x, 128, 128, 128, 1)
+    x = depthwise_separable(x, 128, 256, 128, 2)
+    x = depthwise_separable(x, 256, 256, 256, 1)
+    x = depthwise_separable(x, 256, 512, 256, 2)
+    for _ in range(5):
+        x = depthwise_separable(x, 512, 512, 512, 1)
+    module11 = x
+    x = depthwise_separable(x, 512, 1024, 512, 2)
+    module13 = depthwise_separable(x, 1024, 1024, 1024, 1)
+    module14 = extra_block(module13, 256, 512)
+    module15 = extra_block(module14, 128, 256)
+    module16 = extra_block(module15, 128, 256)
+    module17 = extra_block(module16, 64, 128)
+    locs, confs, box, box_var = L.multi_box_head(
+        inputs=[module11, module13, module14, module15, module16, module17],
+        image=img, num_classes=classes, min_ratio=20, max_ratio=90,
+        min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+        max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+        aspect_ratios=[[2.], [2., 3.], [2., 3.], [2., 3.], [2., 3.],
+                       [2., 3.]],
+        base_size=image[2], offset=0.5, flip=True)
+    return img, locs, confs, box, box_var
+
+
+# PaddleCV object_detection/train.py (Pascal VOC): the base rate, batch,
+# training-set size, the piecewise schedule in epochs and the L2 decay;
+# eval.py and detection_output's defaults: the NMS settings
+SSD_LR = 0.001
+SSD_BATCH_SIZE = 64
+SSD_TRAIN_IMAGES = 16551
+SSD_LR_EPOCHS = (40, 60, 80, 100)
+SSD_LR_DECAY = (1, 0.5, 0.25, 0.1, 0.01)
+SSD_L2 = 5e-5
+SSD_NMS_THRESHOLD = 0.45
+SSD_NMS_TOP_K = 400
+SSD_KEEP_TOP_K = 200
+DETECTION_SEED = 2024
+
+
+def mobilenet_ssd(fl, image=(3, 300, 300), classes=21, scale=1.0, gt_pad=50):
+    """PaddleCV's MobileNet-SSD on Pascal VOC (object_detection/
+    mobilenet_ssd.py, train.py, eval.py): a 300x300 image, 21 classes,
+    MobileNet v1 at ``scale``, six prior maps (19, 10, 5, 3, 2, 1 cells at
+    300: 1917 priors). The train program sums ``ssd_loss`` and takes
+    RMSProp with L2Decay and the piecewise rate of train.py (boundaries at
+    ``SSD_LR_EPOCHS`` x ``SSD_TRAIN_IMAGES // SSD_BATCH_SIZE`` steps). The
+    test program decodes with ``detection_output`` and measures
+    ``detection_map`` (11point) against the padded gt; ``detections`` is
+    what an inference model serves. As in train.py, each program is built
+    under its own ``unique_name.guard()``, so both name the parameters
+    alike, and the test program is cloned ``for_test`` (batch_norm on its
+    running statistics).
+
+    Feeds: ``image`` [B, *image] float32, ``gt_box`` [B, gt_pad, 4]
+    float32 (x1, y1, x2, y2 in 0-1; zero rows pad) and ``gt_label``
+    [B, gt_pad] int32 (1..classes-1; -1 pads)."""
+    L = fl.layers
+
+    def gt_feeds():
+        gt_box = L.data(name="gt_box", shape=[gt_pad, 4], dtype="float32")
+        gt_label = L.data(name="gt_label", shape=[gt_pad], dtype="int32")
+        return gt_box, gt_label
+
+    main, startup = fl.Program(), fl.Program()
+    main.random_seed = startup.random_seed = DETECTION_SEED
+    with fl.unique_name.guard(), fl.program_guard(main, startup):
+        _, locs, confs, box, box_var = _mobilenet_ssd_net(fl, image, classes,
+                                                          scale)
+        gt_box, gt_label = gt_feeds()
+        loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label, box,
+                                       box_var))
+        iters = SSD_TRAIN_IMAGES // SSD_BATCH_SIZE
+        rate = L.learning_rate_scheduler.piecewise_decay(
+            [e * iters for e in SSD_LR_EPOCHS],
+            [d * SSD_LR for d in SSD_LR_DECAY])
+        fl.optimizer.RMSProp(
+            learning_rate=rate,
+            regularization=fl.regularizer.L2Decay(SSD_L2)).minimize(loss)
+
+    test, test_startup = fl.Program(), fl.Program()
+    with fl.unique_name.guard(), fl.program_guard(test, test_startup):
+        _, locs, confs, box, box_var = _mobilenet_ssd_net(fl, image, classes,
+                                                          scale)
+        gt_box, gt_label = gt_feeds()
+        nmsed = L.detection_output(locs, confs, box, box_var,
+                                   nms_threshold=SSD_NMS_THRESHOLD,
+                                   nms_top_k=SSD_NMS_TOP_K,
+                                   keep_top_k=SSD_KEEP_TOP_K)
+        label = L.concat([L.cast(L.unsqueeze(gt_label, axes=[2]), "float32"),
+                          gt_box], axis=2)
+        m_ap = L.detection_map(nmsed, label, class_num=classes,
+                               overlap_threshold=0.5, ap_version="11point")
+    test = test.clone(for_test=True)
+    return {"main": main, "startup": startup, "test": test, "loss": loss,
+            "detections": nmsed, "map": m_ap,
+            "feeds": ["image", "gt_box", "gt_label"],
+            "config": {"image": tuple(image), "classes": classes,
+                       "gt_pad": gt_pad}}
+
+
+def detection_batch(batch, image, classes, gt_pad, seed, max_boxes=8):
+    """Seeded detection feeds: uniform images, 1..max_boxes gt boxes an
+    image (corners in 0-1, each side at least 0.05) with labels in
+    1..classes-1, then zero boxes and label -1 to ``gt_pad`` rows."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    gt_box = np.zeros((batch, gt_pad, 4), np.float32)
+    gt_label = np.full((batch, gt_pad), -1, np.int32)
+    for b in range(batch):
+        k = rng.randint(1, min(max_boxes, gt_pad) + 1)
+        lo = rng.uniform(0.0, 0.7, size=(k, 2))
+        size = rng.uniform(0.05, 0.3, size=(k, 2))
+        gt_box[b, :k] = np.concatenate([lo, np.minimum(lo + size, 1.0)], 1)
+        gt_label[b, :k] = rng.randint(1, classes, size=k)
+    return {"image": rng.rand(batch, *image).astype(np.float32),
+            "gt_box": gt_box, "gt_label": gt_label}
+
+
+YOLOV3_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                  156, 198, 373, 326]
+YOLOV3_MASKS = [[6, 7, 8], [3, 4, 5], [0, 1, 2]]
+# PaddleCV yolov3/config.py: the rate, momentum and weight decay, the
+# loss's ignore_thresh, and the decode's valid_thresh and nms_thresh
+YOLOV3_LR = 0.001
+YOLOV3_MOMENTUM = 0.9
+YOLOV3_L2 = 5e-4
+YOLOV3_IGNORE_THRESH = 0.7
+YOLOV3_CONF_THRESH = 0.005
+YOLOV3_NMS_THRESHOLD = 0.45
+
+
+def yolov3_head(fl, image=608, classes=80, channels=(1024, 512, 256),
+                gt_pad=50, nms_top_k=1000, keep_top_k=100):
+    """The three detection scales of PaddleCV's YOLOv3 (yolov3/models/
+    yolov3.py) on backbone features fed in (``c5``, ``c4``, ``c3`` at
+    strides 32, 16, 8: 19, 38 and 76 cells at 608): each scale's
+    ``yolo_detection_block`` (five 1x1/3x3 conv + batch_norm + leaky
+    relu, then the tip), a 1x1 conv to 3 x (5 + classes), the route
+    upsampled x2 by ``resize_nearest`` and concatenated into the next
+    scale; ``yolov3_loss`` at each scale (the 9 COCO anchors, masks
+    [6,7,8], [3,4,5], [0,1,2]) summed and meaned, Momentum with L2Decay.
+    The test program decodes every scale with ``yolo_box`` and keeps
+    ``multiclass_nms``'s rows over all classes.
+
+    Feeds: ``c5``/``c4``/``c3`` float32, ``gt_box`` [B, gt_pad, 4] (x, y,
+    w, h in 0-1; zero rows pad), ``gt_label`` [B, gt_pad] int32 and
+    ``img_size`` [B, 2] int32 (h, w)."""
+    L = fl.layers
+    strides = (32, 16, 8)
+
+    def conv_bn(x, ch, size, stride=1):
+        conv = L.conv2d(
+            x, num_filters=ch, filter_size=size, stride=stride,
+            padding=(size - 1) // 2, bias_attr=False,
+            param_attr=fl.ParamAttr(
+                initializer=fl.initializer.NormalInitializer(0.0, 0.02)))
+        return L.leaky_relu(L.batch_norm(conv), alpha=0.1)
+
+    def detection_block(x, ch):
+        for _ in range(2):
+            x = conv_bn(x, ch, 1)
+            x = conv_bn(x, ch * 2, 3)
+        route = conv_bn(x, ch, 1)
+        return route, conv_bn(route, ch * 2, 3)
+
+    def net():
+        feats = [L.data(name=n, shape=[c, image // s, image // s],
+                        dtype="float32")
+                 for n, c, s in zip(("c5", "c4", "c3"), channels, strides)]
+        outputs, route = [], None
+        for i, x in enumerate(feats):
+            if i > 0:
+                x = L.concat([route, x], axis=1)
+            route, tip = detection_block(x, 512 // (2 ** i))
+            outputs.append(L.conv2d(
+                tip, num_filters=len(YOLOV3_MASKS[i]) * (classes + 5),
+                filter_size=1,
+                param_attr=fl.ParamAttr(
+                    initializer=fl.initializer.NormalInitializer(0.0, 0.02))))
+            if i < len(feats) - 1:
+                route = L.resize_nearest(conv_bn(route, 256 // (2 ** i), 1),
+                                         scale=2)
+        return outputs
+
+    main, startup = fl.Program(), fl.Program()
+    main.random_seed = startup.random_seed = DETECTION_SEED
+    with fl.unique_name.guard(), fl.program_guard(main, startup):
+        outputs = net()
+        gt_box = L.data(name="gt_box", shape=[gt_pad, 4], dtype="float32")
+        gt_label = L.data(name="gt_label", shape=[gt_pad], dtype="int32")
+        losses = [L.reduce_mean(L.yolov3_loss(
+            out, gt_box, gt_label, anchors=YOLOV3_ANCHORS,
+            anchor_mask=YOLOV3_MASKS[i], class_num=classes,
+            ignore_thresh=YOLOV3_IGNORE_THRESH, downsample_ratio=strides[i]))
+            for i, out in enumerate(outputs)]
+        loss = L.elementwise_add(L.elementwise_add(losses[0], losses[1]),
+                                 losses[2])
+        fl.optimizer.Momentum(
+            learning_rate=YOLOV3_LR, momentum=YOLOV3_MOMENTUM,
+            regularization=fl.regularizer.L2Decay(YOLOV3_L2)).minimize(loss)
+
+    test, test_startup = fl.Program(), fl.Program()
+    with fl.unique_name.guard(), fl.program_guard(test, test_startup):
+        outputs = net()
+        img_size = L.data(name="img_size", shape=[2], dtype="int32")
+        boxes, scores = [], []
+        for i, out in enumerate(outputs):
+            anchors = [v for m in YOLOV3_MASKS[i]
+                       for v in YOLOV3_ANCHORS[2 * m:2 * m + 2]]
+            b, s = L.yolo_box(out, img_size, anchors=anchors,
+                              class_num=classes,
+                              conf_thresh=YOLOV3_CONF_THRESH,
+                              downsample_ratio=strides[i])
+            boxes.append(b)
+            scores.append(L.transpose(s, perm=[0, 2, 1]))
+        nmsed = L.multiclass_nms(
+            L.concat(boxes, axis=1), L.concat(scores, axis=2),
+            score_threshold=YOLOV3_CONF_THRESH, nms_top_k=nms_top_k,
+            keep_top_k=keep_top_k,
+            nms_threshold=YOLOV3_NMS_THRESHOLD,
+            background_label=-1)
+    test = test.clone(for_test=True)
+    return {"main": main, "startup": startup, "test": test, "loss": loss,
+            "detections": nmsed,
+            "feeds": ["c5", "c4", "c3", "gt_box", "gt_label"],
+            "config": {"image": image, "classes": classes,
+                       "channels": tuple(channels), "gt_pad": gt_pad}}
+
+
+def yolov3_batch(batch, image, channels, classes, gt_pad, seed,
+                 max_boxes=8):
+    """Seeded YOLOv3-head feeds: normal backbone features, 1..max_boxes gt
+    boxes an image (centre and size in 0-1) with labels in 0..classes-1,
+    zero rows and label 0 after them, and the image size."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    feeds = {n: rng.randn(batch, c, image // s, image // s).astype(np.float32)
+             for n, c, s in zip(("c5", "c4", "c3"), channels, (32, 16, 8))}
+    gt_box = np.zeros((batch, gt_pad, 4), np.float32)
+    gt_label = np.zeros((batch, gt_pad), np.int32)
+    for b in range(batch):
+        k = rng.randint(1, min(max_boxes, gt_pad) + 1)
+        gt_box[b, :k, :2] = rng.uniform(0.1, 0.9, size=(k, 2))
+        gt_box[b, :k, 2:] = rng.uniform(0.02, 0.5, size=(k, 2))
+        gt_label[b, :k] = rng.randint(0, classes, size=k)
+    feeds.update(gt_box=gt_box, gt_label=gt_label,
+                 img_size=np.full((batch, 2), image, np.int32))
+    return feeds

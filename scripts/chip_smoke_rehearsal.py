@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-19) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-20) on the CPU at a tiny
 Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow
 12-layer BERT (d_model 24, T 16, batch 4), phase 13's serving front
 with fewer requests a window, phase 14's generation and phase 15's
@@ -9,8 +9,9 @@ tiny Transformer (its three trainer processes run this script with
 ``--elastic-child``, which sets up the same CPU patches) and the small
 ResNet-50, phase 17 at small widths (ZOO_TINY) and phase 18 at small
 widths (machine translation at MT_TINY, label_semantic_roles at
-SRL_TINY) and phase 19 at small widths (PHASE19_TINY), to find faults in
-the script's Python before a run on the card.
+SRL_TINY), phase 19 at small widths (PHASE19_TINY) and phase 20 at small
+widths (PHASE20_TINY), to find faults in the script's Python before a run
+on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --zoo  # 17 only
@@ -18,6 +19,8 @@ the script's Python before a run on the card.
                                                                   # 18 only
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase19
                                                                   # 19 only
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase20
+                                                                  # 20 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -94,6 +97,32 @@ PHASE19_TINY = dict(
               max_label=6),
     CRNN_BATCH=4, CRNN_STEPS=10, IFELSE=dict(hidden=16, in_dim=20),
     IFELSE_BATCH=16, COND_WIDTH=64, BANK_B=8, BANK_T=16, BANK_D=16)
+
+
+# phase 20 at small widths: MobileNet-SSD at a 128x128 image, scale 0.25,
+# 5 classes, 4 gt rows, batch 8; the YOLOv3 head at a 64 input, 4
+# classes, channels 16/8/8, batch 2; the op bank at a [1, 32, 8, 12] C4
+# map with the phase's attrs and fewer rows
+PHASE20_TINY = dict(
+    SSD=dict(image=(3, 128, 128), classes=5, scale=0.25, gt_pad=4),
+    SSD_BATCH=8, SSD_STEPS=6,
+    YOLO=dict(image=64, classes=4, channels=(16, 8, 8), gt_pad=4,
+              nms_top_k=40, keep_top_k=30),
+    YOLO_BATCH=2,
+    DET_BANK=dict(c4=(32, 8, 12), rois=16, pool_rois=8, ps_rois=8, quads=8,
+                  ssd_batch=4, priors=64, pre_nms=200, post_nms=50,
+                  fpn_rois=64, yolo_batch=2, yolo_cells=16,
+                  retina=(300, 120, 40)))
+
+
+def _phase20():
+    for k, v in PHASE20_TINY.items():
+        setattr(cs, k, v)
+    cs.time_ms = lambda fn, iters=30, warmup=5, graph=True: (fn(), 0.0)[1]
+    t20 = time.perf_counter()
+    out, _ = cs.detection_paths("CPU rehearsal")
+    print(f"phase 20 rehearsed in {time.perf_counter() - t20:.1f} s")
+    return out
 
 
 def _phase19():
@@ -208,6 +237,9 @@ def main():
     if "--phase19" in sys.argv:
         print(f"rehearsal passed: phase 19 {_phase19()}")
         return
+    if "--phase20" in sys.argv:
+        print(f"rehearsal passed: phase 20 {_phase20()}")
+        return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -246,12 +278,14 @@ def main():
     zoo = _zoo()
     rec = _recurrent()
     p19 = _phase19()
+    p20 = _phase20()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
           f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
-          f"{runtime}, phase 17 {zoo}, phase 18 {rec}, phase 19 {p19}")
+          f"{runtime}, phase 17 {zoo}, phase 18 {rec}, phase 19 {p19}, "
+          f"phase 20 {p20}")
 
 
 if __name__ == "__main__":

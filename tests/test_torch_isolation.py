@@ -40,6 +40,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.ir.pattern, paddle_tpu_torch.ir.analyze\n"
         "import paddle_tpu_torch.ops.kernels_fused\n"
         "import paddle_tpu_torch.ops.kernels_image\n"
+        "import paddle_tpu_torch.ops.kernels_detection\n"
+        "import paddle_tpu_torch.layers.detection\n"
         "import paddle_tpu_torch.models.resnet\n"
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.inference.transpiler\n"
