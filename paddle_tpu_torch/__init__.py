@@ -21,11 +21,18 @@ from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .executor import (Executor, FetchHandle, Scope,  # noqa: F401
                        global_scope, scope_guard)
-from .framework import (Parameter, Program, Variable,  # noqa: F401
-                        default_main_program, default_startup_program,
-                        program_guard)
-from .layer_helper import ParamAttr  # noqa: F401
-from .place import CPUPlace, CUDAPlace  # noqa: F401
+from .framework import (Block, Operator, Parameter,  # noqa: F401
+                        Program, Variable, default_main_program,
+                        default_startup_program, name_scope, program_guard)
+from .backward import append_backward, calc_gradient  # noqa: F401
+from .core.types import DataType, OpRole, VarType  # noqa: F401
+from .layer_helper import (LayerHelper, ParamAttr,  # noqa: F401
+                           WeightNormParamAttr)
+from .layers.nn import one_hot  # noqa: F401
+from .place import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401
+                    core_device_count, cpu_places, cuda_pinned_places,
+                    cuda_places)
+from .utils.flags import FLAGS, get_flags, set_flags  # noqa: F401
 from . import inference, models  # noqa: F401
 from . import average, data_feeder, elastic, lod_tensor  # noqa: F401
 from . import metrics, reader  # noqa: F401

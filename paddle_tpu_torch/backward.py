@@ -218,3 +218,18 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None,
 
     return params_and_grads
 
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """The gradient variables of one target with respect to ``inputs``
+    (None where the target does not depend on an input), by
+    ``append_backward`` on the target's program."""
+    if not isinstance(targets, (list, tuple)):
+        targets = [targets]
+    if not isinstance(inputs, (list, tuple)):
+        inputs = [inputs]
+    assert len(targets) == 1, "calc_gradient: single target supported"
+    append_backward(targets[0], no_grad_set=no_grad_set)
+    block = targets[0].block
+    return [block.var(v.name + GRAD_SUFFIX)
+            if block.has_var(v.name + GRAD_SUFFIX) else None
+            for v in inputs]

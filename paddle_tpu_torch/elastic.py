@@ -239,7 +239,15 @@ class ElasticTrainer:
                 if self._due():
                     self.checkpoint()
         except Preempted as e:
-            self._emergency_exit(e)
+            # the checkpoint first, out of the grace window; then a
+            # DataLoader's iteration closes (its producer thread joined)
+            # before the process exits
+            try:
+                self._emergency_exit(e)
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
         if save_on_exit and self._step > self._last_save_step:
             # joined, so "run() returned" means "the run is restorable"
             self.checkpoint(wait=True)

@@ -504,6 +504,14 @@ def switch_startup_program(program: Program) -> Program:
 
 
 @contextlib.contextmanager
+def name_scope(prefix: str):
+    """A cosmetic name scope (the reference's, for debugging and
+    visualization): names and programs are unchanged, as in the JAX
+    package."""
+    yield
+
+
+@contextlib.contextmanager
 def program_guard(main_program: Program,
                   startup_program: Optional[Program] = None):
     old_main = switch_main_program(main_program)

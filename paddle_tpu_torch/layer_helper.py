@@ -38,6 +38,23 @@ class ParamAttr:
         raise TypeError(f"cannot convert {arg!r} to ParamAttr")
 
 
+class WeightNormParamAttr(ParamAttr):
+    """A parameter reparameterized as w = g * v / ||v|| (Salimans and
+    Kingma, arXiv:1602.07868), the norm over every axis but ``dim``
+    (``dim=None``: one norm). v and g are the trainable parameters; the
+    layer reads the recomposed w."""
+
+    def __init__(self, dim=None, name=None, initializer=None,
+                 learning_rate=1.0, regularizer=None, trainable=True,
+                 gradient_clip=None, do_model_average=False):
+        super().__init__(name=name, initializer=initializer,
+                         learning_rate=learning_rate,
+                         regularizer=regularizer, trainable=trainable,
+                         gradient_clip=gradient_clip,
+                         do_model_average=do_model_average)
+        self.dim = dim
+
+
 class LayerHelper:
     def __init__(self, layer_type: str, **kwargs):
         self.kwargs = kwargs
@@ -69,6 +86,9 @@ class LayerHelper:
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
+        if isinstance(attr, WeightNormParamAttr):
+            return self._create_weight_normalized(
+                attr, shape, dtype, default_initializer)
         # reference naming convention: weights `<layer>.w_N`, biases
         # `<layer>.b_N`
         name = attr.name or unique_name.generate(
@@ -85,6 +105,67 @@ class LayerHelper:
         init(sp, startup_block)
         return self.main_program.global_block().create_parameter(
             name=name, shape=shape, dtype=dtype, **kwargs)
+
+    def _create_weight_normalized(self, attr, shape, dtype,
+                                  default_initializer):
+        """The parameters v and g (``<v>@wn.g``, set to ||v|| by the
+        startup program after v's initializer, so the first forward reads
+        the plain initialization) and the ops that recompose w = v g /
+        ||v|| in the main program; returns w."""
+        dim = attr.dim
+        if dim is not None and dim < 0:
+            dim += len(shape)
+        reduce_dims = [i for i in range(len(shape)) if i != dim]
+        g_shape = [1] if dim is None else [int(shape[dim])]
+        bcast_axis = -1 if dim is None else dim
+        v = self.create_parameter(
+            ParamAttr(name=attr.name, initializer=attr.initializer,
+                      learning_rate=attr.learning_rate,
+                      regularizer=attr.regularizer, trainable=attr.trainable,
+                      gradient_clip=attr.gradient_clip,
+                      do_model_average=attr.do_model_average),
+            shape, dtype, default_initializer=default_initializer)
+        # g is trained as v is: the regularizer, clip and averaging apply
+        # to both halves
+        g = self.create_parameter(
+            ParamAttr(name=f"{v.name}@wn.g", learning_rate=attr.learning_rate,
+                      regularizer=attr.regularizer, trainable=attr.trainable,
+                      gradient_clip=attr.gradient_clip,
+                      do_model_average=attr.do_model_average),
+            g_shape, dtype, default_initializer=ConstantInitializer(0.0))
+
+        def norm_ops(block, v_name, out_name):
+            sq = block.create_var(
+                name=unique_name.generate(f"{self.name}.wn_sq"),
+                dtype=dtype, stop_gradient=False)
+            ssum = block.create_var(
+                name=unique_name.generate(f"{self.name}.wn_ssum"),
+                dtype=dtype, stop_gradient=False)
+            block.append_op(type="square", inputs={"X": v_name},
+                            outputs={"Out": sq})
+            block.append_op(type="reduce_sum", inputs={"X": sq},
+                            outputs={"Out": ssum},
+                            attrs={"dim": reduce_dims, "keep_dim": False})
+            block.append_op(type="sqrt", inputs={"X": ssum},
+                            outputs={"Out": out_name})
+
+        norm_ops(self.startup_program.global_block(), v.name, g.name)
+        block = self.block
+        norm = block.create_var(
+            name=unique_name.generate(f"{self.name}.wn_norm"),
+            dtype=dtype, stop_gradient=False)
+        norm_ops(block, v.name, norm.name)
+        ratio = block.create_var(
+            name=unique_name.generate(f"{self.name}.wn_ratio"),
+            dtype=dtype, stop_gradient=False)
+        block.append_op(type="elementwise_div", inputs={"X": g, "Y": norm},
+                        outputs={"Out": ratio}, attrs={"axis": -1})
+        w = block.create_var(
+            name=unique_name.generate(f"{self.name}.wn_w"),
+            dtype=dtype, shape=list(shape), stop_gradient=False)
+        block.append_op(type="elementwise_mul", inputs={"X": v, "Y": ratio},
+                        outputs={"Out": w}, attrs={"axis": bcast_axis})
+        return w
 
     def create_variable_for_type_inference(self, dtype,
                                            stop_gradient=False) -> Variable:

@@ -9,3 +9,4 @@ from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403

@@ -20,7 +20,7 @@ from ..framework import default_main_program, default_startup_program
 from ..layer_helper import LayerHelper
 
 __all__ = ["data", "py_reader", "read_file", "double_buffer",
-           "create_py_reader_by_data", "shuffle", "PyReader"]
+           "create_py_reader_by_data", "shuffle", "load", "PyReader"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -180,3 +180,15 @@ def shuffle(reader, buffer_size):
         raise TypeError("layers.shuffle expects a py_reader handle")
     return reader._add_transform(
         lambda source: decorator.shuffle(source, buffer_size))
+
+
+def load(out, file_path, load_as_fp16=None):
+    """A ``load`` op that reads ``file_path`` into ``out`` (the tensor
+    file format of ``io.save_vars``)."""
+    helper = LayerHelper("load")
+    attrs = {"file_path": file_path}
+    if load_as_fp16 is not None:
+        attrs["load_as_fp16"] = bool(load_as_fp16)
+    helper.append_op(type="load", inputs={}, outputs={"Out": out},
+                     attrs=attrs)
+    return out

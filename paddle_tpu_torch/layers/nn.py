@@ -11,30 +11,38 @@ import numpy as np
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
+# the JAX package's nn.__all__, in its order, less the names not ported yet
+# (tests/test_torch_api_surface.py DEFERRED)
 __all__ = [
-    "fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
-    "reshape", "transpose", "squeeze", "reduce_sum", "reduce_mean",
-    "reduce_max", "reduce_min", "reduce_prod", "scale", "clip",
+    "fc", "embedding", "lod_reset", "sum", "logical_and", "logical_or",
+    "logical_xor", "logical_not", "autoincreased_step_counter", "dice_loss",
+    "image_resize_short", "merge_selected_rows",
+    "get_tensor_from_selected_rows", "conv2d", "pool2d", "batch_norm",
+    "layer_norm", "dropout", "softmax", "cross_entropy",
+    "softmax_with_cross_entropy", "accuracy", "auc", "topk", "matmul", "mul",
+    "concat", "split", "reshape", "transpose", "squeeze", "unsqueeze",
+    "stack", "unstack", "expand", "slice", "one_hot", "mean", "reduce_sum",
+    "reduce_mean", "reduce_max", "reduce_min", "reduce_prod", "scale", "clip",
     "clip_by_norm", "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_max", "elementwise_min",
-    "elementwise_pow", "logical_and", "logical_or", "logical_xor",
-    "logical_not", "sequence_mask", "fused_attention", "matmul", "softmax",
-    "unsqueeze", "slice", "gather", "cast", "conv2d", "pool2d",
-    "batch_norm", "cross_entropy", "accuracy", "topk", "mean", "concat",
-    "dropout", "square_error_cost",
-    "kv_cache_write", "kv_cache_gather_paged", "kv_cache_write_paged",
-    "split", "expand", "sequence_pool", "sequence_softmax", "beam_search",
-    "beam_search_decode", "auc", "cos_sim", "log_loss",
-    "linear_chain_crf", "crf_decoding", "chunk_eval",
-    "sequence_conv", "sequence_first_step", "sequence_last_step",
-    "sequence_expand", "sequence_expand_as", "sequence_pad",
-    "sequence_unpad", "sequence_concat", "sequence_slice",
-    "sequence_reshape", "sequence_reverse", "sequence_scatter",
-    "sequence_enumerate", "sequence_erase", "lod_reset", "row_conv",
-    "im2sequence", "add_position_encoding", "warpctc",
-    "ctc_greedy_decoder", "edit_distance",
-    "smooth_l1", "sigmoid_cross_entropy_with_logits", "image_resize",
-    "resize_bilinear", "resize_nearest", "image_resize_short",
+    "elementwise_pow", "gather", "scatter", "pad", "pad2d", "lookup_table",
+    "cast", "square_error_cost", "sigmoid_cross_entropy_with_logits",
+    "smooth_l1", "relu", "log_softmax", "sequence_pool",
+    "nested_sequence_pool", "sequence_softmax", "sequence_reverse",
+    "im2sequence", "flatten", "arg_max", "arg_min", "argsort", "cumsum",
+    "shape", "l2_normalize", "label_smooth", "sequence_conv",
+    "sequence_first_step", "sequence_last_step", "sequence_expand",
+    "sequence_expand_as", "sequence_pad", "sequence_unpad",
+    "sequence_reshape", "sequence_scatter", "sequence_enumerate",
+    "sequence_mask", "sequence_erase", "row_conv", "kv_cache_write",
+    "kv_cache_gather_paged", "kv_cache_write_paged", "add_position_encoding",
+    "sequence_concat", "sequence_slice", "beam_search", "beam_search_decode",
+    "linear_chain_crf", "crf_decoding", "chunk_eval", "warpctc",
+    "ctc_greedy_decoder", "edit_distance", "cos_sim", "hinge_loss",
+    "log_loss", "rank_loss", "margin_rank_loss", "bpr_loss",
+    "teacher_student_sigmoid_loss", "nce", "hsigmoid", "squared_l2_distance",
+    "squared_l2_norm", "l1_norm", "fused_attention", "image_resize",
+    "resize_bilinear", "resize_nearest", "affine_channel",
 ]
 
 
@@ -1100,3 +1108,384 @@ def image_resize_short(input, out_short_len, resample="BILINEAR"):
     return image_resize(input, out_shape=[int(h * out_short_len // short),
                                           int(w * out_short_len // short)],
                         resample=resample)
+
+
+# ---------------------------------------------------------------------------
+# the general tensor layers
+# ---------------------------------------------------------------------------
+
+lookup_table = embedding
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="relu", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="log_softmax", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", x=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="mul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def sum(x, name=None):
+    """The elementwise sum of a list of variables (one ``sum`` op)."""
+    helper = LayerHelper("sum", name=name)
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op(type="sum", inputs={"X": list(xs)},
+                     outputs={"Out": out})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    """[prod(shape[:axis]), prod(shape[axis:])] through ``reshape``; an
+    unknown batch dim leaves the leading extent -1."""
+    if axis == 0:
+        return reshape(x, [1, -1], name=name)
+    suffix = int(np.prod(x.shape[axis:]))
+    return reshape(x, [-1, suffix], name=name)
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    num = num or x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": x}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": input, "Ids": index, "Updates": updates},
+        outputs={"Out": out}, attrs={"overwrite": overwrite})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"depth": depth})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pad", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pad2d", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / sqrt(sum(x^2 along axis) + epsilon), composed of the
+    elementwise, reduce, scale and sqrt ops."""
+    from . import ops as act_ops
+    ssum = reduce_sum(elementwise_mul(x, x), dim=axis, keep_dim=True)
+    norm = act_ops.sqrt(scale(ssum, bias=epsilon, bias_after_scale=True))
+    return elementwise_div(x, norm)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """(1 - epsilon) label + epsilon / the class count, one ``scale`` op,
+    as the JAX layer emits it (``prior_dist`` is ignored there too; the
+    ``label_smooth`` op type, which reads it, is reached by loaded
+    programs)."""
+    ncls = label.shape[-1]
+    return scale(label, scale=1.0 - epsilon, bias=epsilon / ncls)
+
+
+def arg_max(x, axis=0):
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="arg_max", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def arg_min(x, axis=0):
+    helper = LayerHelper("arg_min")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="arg_min", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def argsort(input, axis=-1, name=None):
+    """(sorted values, int64 indices) along ``axis``, stable."""
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="argsort", inputs={"X": input},
+                     outputs={"Out": out, "Indices": ids},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    helper = LayerHelper("cumsum")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="cumsum", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis, "exclusive": exclusive,
+                            "reverse": reverse})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="shape", inputs={"Input": input},
+                     outputs={"Out": out})
+    return out
+
+
+def nested_sequence_pool(input, outer_length, inner_length, pool_type):
+    """A two-level sequence pool over the dense encoding: ``input``
+    [B, S, W, D] (up to S inner sequences of up to W rows an item),
+    ``outer_length`` [B] and ``inner_length`` [B, S]. Pools each inner
+    sequence, giving [B, S, D] whose remaining length is
+    ``outer_length`` (pool again with ``sequence_pool(out, ...,
+    outer_length)`` for the item level)."""
+    shape = input.shape
+    if shape is None or len(shape) < 3:
+        raise ValueError(
+            f"nested_sequence_pool needs [B, S, W, ...] input, got "
+            f"shape {shape}")
+    s = int(shape[1])
+    inner = [int(d) for d in shape[2:]]
+    flat = reshape(input, shape=[-1] + inner)
+    flat_len = reshape(inner_length, shape=[-1])
+    pooled = sequence_pool(flat, pool_type, length=flat_len)
+    return reshape(pooled, shape=[-1, s] + inner[1:])
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW",
+                   name=None):
+    helper = LayerHelper("affine_channel", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="affine_channel",
+                     inputs={"X": x, "Scale": scale, "Bias": bias},
+                     outputs={"Out": out})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 [1] counter, ``begin`` at the first run and
+    incremented by ``step`` each run."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    counter = helper.block.program.global_block().create_var(
+        name=name, dtype="int64", shape=[1], persistable=True)
+    helper.set_variable_initializer(
+        counter, ConstantInitializer(float(begin - step)))
+    helper.append_op(type="increment", inputs={"X": counter},
+                     outputs={"Out": counter},
+                     attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 - 2 |X and Y| / (|X| + |Y|) over each sample's trailing dims,
+    the mean over the batch (a composition, as in the reference)."""
+    label = one_hot(label, depth=input.shape[-1])
+    reduce_dims = list(range(1, len(input.shape)))
+    inse = reduce_sum(elementwise_mul(input, label), dim=reduce_dims)
+    dice_denominator = reduce_sum(input, dim=reduce_dims) + reduce_sum(
+        label, dim=reduce_dims)
+    dice_score = 1 - elementwise_div(
+        scale(inse, scale=2.0), scale(dice_denominator, bias=epsilon))
+    return reduce_mean(dice_score)
+
+
+def merge_selected_rows(x, name=None):
+    """Gradients are dense in both packages (no SelectedRows), so merging
+    a gradient's duplicate rows is the identity (an ``assign``)."""
+    helper = LayerHelper("merge_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="assign", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """The identity on a dense gradient (see ``merge_selected_rows``)."""
+    helper = LayerHelper("get_tensor_from_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="assign", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# losses, ranking and the sampled-softmax heads
+# ---------------------------------------------------------------------------
+
+def _two_in_loss(op_type, x_slot, y_slot, x, y, attrs=None, out_slot="Loss",
+                 name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type=op_type, inputs={x_slot: x, y_slot: y},
+                     outputs={out_slot: out}, attrs=attrs or {})
+    return out
+
+
+def hinge_loss(input, label, name=None):
+    return _two_in_loss("hinge_loss", "Logits", "Labels", input, label,
+                        name=name)
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet's loss of the pair (left, right) under ``label``."""
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": label, "Left": left, "Right": right},
+                     outputs={"Out": out})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype, True)
+    helper.append_op(type="margin_rank_loss",
+                     inputs={"Label": label, "X1": left, "X2": right},
+                     outputs={"Out": out, "Activated": act},
+                     attrs={"margin": margin})
+    return out
+
+
+def bpr_loss(input, label, name=None):
+    return _two_in_loss("bpr_loss", "X", "Label", input, label,
+                        out_slot="Y", name=name)
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    return _two_in_loss(
+        "teacher_student_sigmoid_loss", "X", "Label", input, label,
+        attrs={"soft_max_up_bound": soft_max_up_bound,
+               "soft_max_lower_bound": soft_max_lower_bound},
+        out_slot="Y")
+
+
+def squared_l2_distance(x, y, name=None):
+    helper = LayerHelper("squared_l2_distance", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    sub = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="squared_l2_distance",
+                     inputs={"X": x, "Y": y},
+                     outputs={"Out": out, "sub_result": sub})
+    return out
+
+
+def squared_l2_norm(x, name=None):
+    helper = LayerHelper("squared_l2_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="squared_l2_norm", inputs={"X": x},
+                     outputs={"Out": out})
+    return out
+
+
+def l1_norm(x, name=None):
+    helper = LayerHelper("l1_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="l1_norm", inputs={"X": x},
+                     outputs={"Out": out})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None,
+        name=None, sampler="uniform", custom_dist=None, seed=0,
+        is_sparse=False):
+    """The NCE head (nce_op.h): Weight [C, D] and Bias [C, 1] and the
+    per-row cost [B, 1] against ``num_neg_samples`` (10 by default)
+    uniformly drawn classes. ``sampler`` and ``seed`` are written to the
+    op and ignored by it; ``custom_dist``, ``sample_weight`` and
+    ``is_sparse`` are ignored, as by the JAX layer."""
+    helper = LayerHelper("nce", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    inputs = {"Input": input, "Label": label, "Weight": w}
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr,
+                                    shape=[num_total_classes, 1],
+                                    dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = b
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sl = helper.create_variable_for_type_inference(input.dtype, True)
+    sll = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": cost, "SampleLogits": sl, "SampleLabels": sll},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples or 10,
+               "sampler": sampler, "seed": seed})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """The hierarchical sigmoid head over the default complete binary
+    tree: W [C - 1, D], Bias [C - 1, 1], the cost [B, 1]."""
+    helper = LayerHelper("hierarchical_sigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    inputs = {"X": input, "Label": label, "W": w}
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr,
+                                    shape=[num_classes - 1, 1],
+                                    dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = b
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": out, "PreOut": pre},
+                     attrs={"num_classes": num_classes})
+    return out

@@ -1,7 +1,7 @@
 """Unary layers (reference python/paddle/fluid/layers/ops.py, which
 generates wrappers from the registered OpProtos): one layer per activation
 op of ``_UNARY_OPS``, made from its name as the JAX package makes it, plus
-``pow``."""
+``pow`` and the random fills ``uniform_random`` and ``gaussian_random``."""
 
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ _UNARY_OPS = [
     "thresholded_relu", "stanh", "gelu",
 ]
 
-__all__ = list(_UNARY_OPS) + ["pow"]
+__all__ = list(_UNARY_OPS) + ["pow", "uniform_random", "gaussian_random"]
 
 
 def _make_layer(op_type):
@@ -43,3 +43,23 @@ def pow(x, factor=1.0, name=None):
                      attrs={"factor": float(factor)})
     return out
 
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="uniform_random", outputs={"Out": out},
+                     attrs={"shape": list(shape), "min": float(min),
+                            "max": float(max), "seed": seed,
+                            "dtype": out.dtype})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gaussian_random", outputs={"Out": out},
+                     attrs={"shape": list(shape), "mean": float(mean),
+                            "std": float(std), "seed": seed,
+                            "dtype": out.dtype})
+    return out

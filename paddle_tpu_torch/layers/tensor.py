@@ -8,9 +8,19 @@ from ..core.types import convert_dtype
 from ..framework import Variable
 from ..layer_helper import LayerHelper, ParamAttr
 
-__all__ = ["cast", "assign", "fill_constant", "fill_constant_batch_size_like",
-           "concat", "sums", "create_parameter", "create_global_var",
-           "tensor_array_to_tensor"]
+# the JAX package's tensor.__all__, less ``reverse`` (ROADMAP A11.9)
+__all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
+           "tensor_array_to_tensor", "has_inf", "has_nan", "isfinite",
+           "concat", "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "ones", "zeros",
+           "zeros_like", "argmax", "argmin", "argsort"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    """A variable of the global block, with no op writing it yet."""
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_global_variable(name=helper.name, dtype=dtype,
+                                         persistable=persistable)
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -117,3 +127,54 @@ def tensor_array_to_tensor(input, axis=1, use_stack=False, name=None):
                      outputs={"Out": out, "OutIndex": out_index},
                      attrs={"axis": axis, "use_stack": use_stack})
     return out, out_index
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like")
+    out = out or helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="fill_zeros_like", inputs={"X": x},
+                     outputs={"Out": out})
+    return out
+
+
+def argmax(x, axis=0):
+    from . import nn
+    return nn.arg_max(x, axis)
+
+
+def argmin(x, axis=0):
+    from . import nn
+    return nn.arg_min(x, axis)
+
+
+def argsort(x, axis=-1, name=None):
+    from . import nn
+    return nn.argsort(x, axis, name)
+
+
+def _overflow_check(op_type, x, name):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type=op_type, inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def has_inf(x, name=None):
+    """Whether any element of ``x`` is infinite (isfinite_op.cc family)."""
+    return _overflow_check("has_inf", x, name)
+
+
+def has_nan(x, name=None):
+    return _overflow_check("has_nan", x, name)
+
+
+def isfinite(x, name=None):
+    return _overflow_check("isfinite", x, name)

@@ -71,6 +71,22 @@ def scalar_infer(out_slot="Out", dtype=None, shape=(1,), in_slot="X"):
     return infer
 
 
+def slots_like_infer(*pairs):
+    """infer rule from (out_slot, in_slot) pairs: each output takes its
+    input's shape and dtype, name for name (the first input's past the
+    last one)."""
+
+    def infer(op: OpDesc, block):
+        for out_slot, in_slot in pairs:
+            n_in = len(op.input(in_slot))
+            for i, name in enumerate(op.output(out_slot)):
+                idx = i if i < n_in else 0
+                set_out_var(block, name, in_shape(block, op, in_slot, idx),
+                            in_dtype(block, op, in_slot, idx))
+
+    return infer
+
+
 def fluid_broadcast(xv: torch.Tensor, yv: torch.Tensor, axis: int):
     """Fluid elementwise broadcast: align Y into X at ``axis``
     (reference elementwise_op_function.h semantics)."""
@@ -100,6 +116,21 @@ _AMP_TYPES = (torch.float32, torch.bfloat16)
 # a 0-d host zero: max(x, ZERO) broadcasts into a tensor on any device and
 # keeps its dtype (the relu of the JAX package, ``jnp.maximum(x, 0)``)
 ZERO = torch.zeros(())
+
+
+def jax_abs(v: torch.Tensor) -> torch.Tensor:
+    """|v| differentiated as ``jnp.abs``: g where v >= 0 and -g elsewhere,
+    so +0 and -0 pass the whole cotangent (``torch.abs`` passes none
+    there); v + 0.0 turns -0 into +0, so the values are torch.abs's bit
+    for bit."""
+    return torch.where(v >= 0, v + 0.0, torch.abs(v))
+
+
+def softplus(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(v, 0), whose gradient is
+    sigmoid(v). The 0 is a 0-d tensor on v's device: ``logaddexp``, unlike
+    ``maximum``, takes no host scalar tensor beside a CUDA one."""
+    return torch.logaddexp(v, v.new_zeros(()))
 
 
 def amp_cast(ctx, *tensors):

@@ -28,8 +28,8 @@ from ..core.desc import OpDesc
 from ..core.types import DataType
 from ..registry import register_op
 from .common import (ZERO, amp_cast, fluid_broadcast, in_dtype, in_shape,
-                     normalize_reduce_dims, same_shape_infer, scalar_infer,
-                     set_out_var, x)
+                     jax_abs, normalize_reduce_dims, same_shape_infer,
+                     scalar_infer, set_out_var, softplus, x)
 
 
 def _make_elementwise(name, fn):
@@ -338,10 +338,7 @@ _make_act("exp", lambda v, a: torch.exp(v))
 _make_act("log", lambda v, a: torch.log(v))
 _make_act("sqrt", lambda v, a: torch.sqrt(v))
 _make_act("rsqrt", lambda v, a: torch.rsqrt(v))
-# abs differentiates as the JAX op does, g where v >= 0 and -g elsewhere,
-# so +0 and -0 pass the whole cotangent (``torch.abs`` passes none there);
-# v + 0.0 turns -0 into +0, so the values are torch.abs's bit for bit
-_make_act("abs", lambda v, a: torch.where(v >= 0, v + 0.0, torch.abs(v)))
+_make_act("abs", lambda v, a: jax_abs(v))
 _make_act("square", lambda v, a: v * v)
 _make_act("reciprocal", lambda v, a: 1.0 / v)
 _make_act("ceil", lambda v, a: torch.ceil(v))
@@ -349,7 +346,7 @@ _make_act("floor", lambda v, a: torch.floor(v))
 _make_act("round", lambda v, a: torch.round(v))
 _make_act("cos", lambda v, a: torch.cos(v))
 _make_act("sin", lambda v, a: torch.sin(v))
-_make_act("softplus", lambda v, a: torch.logaddexp(v, ZERO.to(v.dtype)))
+_make_act("softplus", lambda v, a: softplus(v))
 _make_act("softsign", lambda v, a: v / (1 + torch.abs(v)))
 _make_act("softshrink", lambda v, a: _softshrink(v, a.get("lambda", 0.5)))
 _make_act("tanh_shrink", lambda v, a: v - torch.tanh(v))

@@ -1,5 +1,6 @@
 """Recurrent ops (counterpart of ``paddle_tpu/ops/kernels_rnn.py``): the
-``lstm`` and ``gru`` forwards over a padded [B, T, 4H] or [B, T, 3H] batch.
+``lstm``, ``gru`` and ``lstmp`` forwards over a padded [B, T, 4H] or
+[B, T, 3H] batch, and the one-step cells ``lstm_unit`` and ``gru_unit``.
 
 The input is pre-projected (x·Wx, plus the bias the op adds); the op runs
 the recurrence h_{t-1}·Wh + gates. LSTM gates sit on the 4H axis in the
@@ -12,6 +13,10 @@ its state; ``is_reverse`` runs each row backwards within its length (the
 padding stays where it is). The recurrence is a loop of T steps, T
 static, so the op can be captured in a CUDA graph. Their grads run the
 generic vjp, which re-runs the loop under ``torch.func.vjp``.
+
+``lstm_unit`` takes its gates in the order i, f, o, g (lstm_unit_op.h),
+``lstmp`` in the order i, f, c, o of the JAX op; neither reads peephole
+weights (``lstmp``'s ``use_peepholes`` is ignored, as by the JAX op).
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ import torch
 
 from ..core.desc import OpDesc
 from ..registry import register_op
-from .common import amp_cast, in_dtype, in_shape, opt, set_out_var
+from .common import (amp_cast, in_dtype, in_shape, length_or_full, opt,
+                     set_out_var)
+from .common import slots_like_infer as _like
 
 _ACT = {"sigmoid": torch.sigmoid, "tanh": torch.tanh,
         "relu": torch.relu, "identity": lambda v: v}
@@ -164,3 +171,86 @@ def gru(ctx, ins, attrs):
     z = torch.zeros((0,), dtype=xv.dtype, device=xv.device)
     return {"Hidden": [hidden], "BatchGate": [z],
             "BatchResetHiddenPrev": [z], "BatchHidden": [z]}
+
+
+@register_op("lstm_unit", infer=_like(("H", "C_prev"), ("C", "C_prev")))
+def lstm_unit(ctx, ins, attrs):
+    """lstm_unit_op.h: X [B, 4D] pre-projected gates (i, f, o, g),
+    C_prev [B, D]: C = sigmoid(f + forget_bias) C_prev + sigmoid(i)
+    tanh(g), H = sigmoid(o) tanh(C)."""
+    xv = ins["X"][0]
+    c_prev = ins["C_prev"][0]
+    d = c_prev.shape[-1]
+    i = torch.sigmoid(xv[:, :d])
+    f = torch.sigmoid(xv[:, d:2 * d] + float(attrs.get("forget_bias", 0.0)))
+    o = torch.sigmoid(xv[:, 2 * d:3 * d])
+    c = f * c_prev + i * torch.tanh(xv[:, 3 * d:])
+    return {"C": [c], "H": [o * torch.tanh(c)]}
+
+
+@register_op("gru_unit", intermediate_outputs=("Gate", "ResetHiddenPrev"),
+             infer=_like(("Hidden", "HiddenPrev"),
+                         ("ResetHiddenPrev", "HiddenPrev"),
+                         ("Gate", "Input")))
+def gru_unit(ctx, ins, attrs):
+    """gru_unit_op.h: Input [B, 3D] x-projected gates, HiddenPrev [B, D],
+    Weight [D, 3D] (u | r | c), optional Bias [1, 3D]. ``origin_mode``
+    gives h = c + u (h_prev - c), else h = u c + (1 - u) h_prev. Gate
+    holds (u, r, c) and ResetHiddenPrev r h_prev."""
+    g = ins["Input"][0]
+    h_prev = ins["HiddenPrev"][0]
+    w = ins["Weight"][0]
+    bias = opt(ins, "Bias")
+    d = h_prev.shape[-1]
+    if bias is not None:
+        g = g + bias.reshape(1, 3 * d)
+    g_ur = g[:, :2 * d] + h_prev @ w[:, :2 * d]
+    u = torch.sigmoid(g_ur[:, :d])
+    r = torch.sigmoid(g_ur[:, d:])
+    rhp = r * h_prev
+    c = torch.tanh(g[:, 2 * d:] + rhp @ w[:, 2 * d:])
+    if attrs.get("origin_mode", False):
+        h = c + u * (h_prev - c)
+    else:
+        h = u * c + (1.0 - u) * h_prev
+    return {"Hidden": [h], "Gate": [torch.cat([u, r, c], dim=1)],
+            "ResetHiddenPrev": [rhp]}
+
+
+@register_op("lstmp", intermediate_outputs=("BatchGate", "BatchCellPreAct",
+                                            "BatchHidden"))
+def lstmp(ctx, ins, attrs):
+    """lstmp_op.cc: an LSTM whose recurrent state is the projection
+    r = h ProjWeight [B, P]. Input [B, T, 4D] pre-projected, Weight
+    [P, 4D], ProjWeight [D, P], optional Bias (its first 4D entries) and
+    Length [B]: Projection [B, T, P] and Cell [B, T, D], zero past a
+    row's length, whose state is carried unchanged. A loop of T steps, T
+    static."""
+    xv = ins["Input"][0]
+    w = ins["Weight"][0]
+    wp = ins["ProjWeight"][0]
+    bias = opt(ins, "Bias")
+    b, t, d4 = xv.shape
+    d = d4 // 4
+    length = length_or_full(ins, b, t, xv.device)
+    gate_bias = (bias.reshape(-1)[:4 * d] if bias is not None
+                 else torch.zeros(4 * d, dtype=xv.dtype, device=xv.device))
+    r = torch.zeros((b, wp.shape[1]), dtype=xv.dtype, device=xv.device)
+    c = torch.zeros((b, d), dtype=xv.dtype, device=xv.device)
+    rs, cs = [], []
+    for tt in range(t):
+        g = xv[:, tt] + r @ w + gate_bias
+        i = torch.sigmoid(g[:, :d])
+        f = torch.sigmoid(g[:, d:2 * d])
+        c_new = f * c + i * torch.tanh(g[:, 2 * d:3 * d])
+        r_new = (torch.sigmoid(g[:, 3 * d:]) * torch.tanh(c_new)) @ wp
+        live = (tt < length).reshape(-1, 1)
+        r = torch.where(live, r_new, r)
+        c = torch.where(live, c_new, c)
+        rs.append(torch.where(live, r, 0.0))
+        cs.append(torch.where(live, c, 0.0))
+    zeros = [torch.zeros((b, t, n), dtype=xv.dtype, device=xv.device)
+             for n in (4 * d, d, d)]
+    return {"Projection": [torch.stack(rs, dim=1)],
+            "Cell": [torch.stack(cs, dim=1)], "BatchGate": [zeros[0]],
+            "BatchCellPreAct": [zeros[1]], "BatchHidden": [zeros[2]]}

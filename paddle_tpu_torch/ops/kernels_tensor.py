@@ -7,6 +7,13 @@ vjp (the generic grad op's) is the scatter-add ``index_add_``, as
 the JAX package's threefry stream gives other numbers from the same seed,
 so cross-package tests move parameters over as arrays.
 
+The order ops (``arg_max``, ``arg_min``, ``argsort``) follow ``jnp``'s
+rules exactly on every device: a tie goes to the first index, every NaN
+ranks highest (and wins ``arg_min`` too), -0 ties +0. They compare
+values or an integer key and take the first index themselves, rather
+than rely on a library's tie and NaN rules for floats, which torch does
+not promise alike on every device.
+
 Integer policy: ids and lengths keep the dtype the program declares
 (int64 ids stay ``torch.long`` for indexing); nothing is narrowed to
 int32 as the JAX package does for the TPU.
@@ -14,14 +21,17 @@ int32 as the JAX package does for the TPU.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.desc import OpDesc
 from ..core.types import GRAD_SUFFIX, DataType, dtype_to_torch
 from ..registry import register_op
 from .common import (in_dtype, in_shape, same_shape_infer, set_out_var,
-                     top_k_total_order, x)
+                     slots_like_infer, top_k_total_order, total_order_key, x)
 
 
 def _attr_dtype(attrs, key="dtype"):
@@ -85,6 +95,27 @@ def gaussian_random(ctx, ins, attrs):
     out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
                 generator=ctx.generator)
     return {"Out": [out]}
+
+
+# truncated_gaussian_random's bounds, in standard deviations (the JAX op's
+# ``jax.random.truncated_normal(key, -2, 2, ...)``), and their normal CDFs
+_TRUNC = 2.0
+_TRUNC_CDF = (0.5 * (1.0 + math.erf(-_TRUNC / math.sqrt(2.0))),
+              0.5 * (1.0 + math.erf(_TRUNC / math.sqrt(2.0))))
+
+
+@register_op("truncated_gaussian_random", no_grad=True, needs_rng=True,
+             infer=_shape_attr_infer)
+def truncated_gaussian_random(ctx, ins, attrs):
+    """mean + std * a standard normal truncated to [-2, 2], by the
+    inverse CDF of a uniform draw between the bounds' CDFs (the JAX op's
+    method), drawn from the run's generator."""
+    u = torch.empty(tuple(attrs["shape"]), dtype=torch.float32,
+                    device=ctx.device)
+    u.uniform_(*_TRUNC_CDF, generator=ctx.generator)
+    z = (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp(-_TRUNC, _TRUNC)
+    out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
+    return {"Out": [out.to(_attr_dtype(attrs))]}
 
 
 def _cast_infer(op: OpDesc, block):
@@ -183,6 +214,14 @@ def _reshape_infer(op: OpDesc, block):
         set_out_var(block, n, [0] + (in_shp or []), dt)
 
 
+@register_op("reshape", infer=_reshape_infer)
+def reshape(ctx, ins, attrs):
+    """The v1 reshape: Out alone (no XShape)."""
+    xv = x(ins)
+    return {"Out": [xv.reshape(_resolve_reshape(attrs["shape"],
+                                                list(xv.shape)))]}
+
+
 @register_op("reshape2", intermediate_outputs=("XShape",),
              infer=_reshape_infer)
 def reshape2(ctx, ins, attrs):
@@ -237,6 +276,7 @@ def _squeeze_infer(op: OpDesc, block):
         set_out_var(block, n, [0] + in_shp, dt)
 
 
+@register_op("squeeze", infer=_squeeze_infer)
 @register_op("squeeze2", intermediate_outputs=("XShape",),
              infer=_squeeze_infer)
 def squeeze2(ctx, ins, attrs):
@@ -494,3 +534,295 @@ def top_k(ctx, ins, attrs):
     neither)."""
     vals, idx = top_k_total_order(x(ins), attrs.get("k", 1))
     return {"Out": [vals], "Indices": [idx]}
+
+
+# ---------------------------------------------------------------------------
+# stacking, scatter, one-hot
+# ---------------------------------------------------------------------------
+
+def _stack_infer(op: OpDesc, block):
+    shp = in_shape(block, op, "X")
+    if shp is not None:
+        axis = op.attrs.get("axis", 0)
+        out = list(shp)
+        out.insert(axis if axis >= 0 else axis + len(shp) + 1,
+                   len(op.input("X")))
+        for n in op.output("Y"):
+            set_out_var(block, n, out, in_dtype(block, op, "X"))
+
+
+@register_op("stack", infer=_stack_infer)
+def stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(list(ins["X"]), dim=attrs.get("axis", 0))]}
+
+
+def _unstack_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    if not xs:
+        return
+    axis = int(op.attrs.get("axis", 0) or 0) % len(xs)
+    rest = [s for i, s in enumerate(xs) if i != axis]
+    for n in op.output("Y"):
+        set_out_var(block, n, rest, in_dtype(block, op, "X"))
+
+
+@register_op("unstack", infer=_unstack_infer)
+def unstack(ctx, ins, attrs):
+    """X split into ``num`` parts along ``axis`` (its extent by default),
+    each without that dim."""
+    xv = x(ins)
+    axis = attrs.get("axis", 0)
+    num = attrs.get("num", xv.shape[axis])
+    return {"Y": [p.squeeze(axis)
+                  for p in torch.tensor_split(xv, num, dim=axis)]}
+
+
+@register_op("scatter", infer=slots_like_infer(("Out", "X")))
+def scatter(ctx, ins, attrs):
+    """X with the rows at the flattened Ids replaced by Updates'
+    (``overwrite``; a repeated id keeps one of its rows, in no promised
+    order, as XLA's scatter) or increased by them (``index_add``: under
+    ``torch.use_deterministic_algorithms`` the card sums a repeated id's
+    rows by a sorted, deterministic segment sum)."""
+    xv = ins["X"][0]
+    idx = ins["Ids"][0].reshape(-1).long()
+    upd = ins["Updates"][0].to(xv.dtype)
+    if attrs.get("overwrite", True):
+        return {"Out": [xv.index_copy(0, idx, upd)]}
+    return {"Out": [xv.index_add(0, idx, upd)]}
+
+
+def _one_hot_infer(op: OpDesc, block):
+    ids = in_shape(block, op, "X")
+    if ids is not None:
+        shp = list(ids)
+        if shp and shp[-1] == 1:
+            shp = shp[:-1]
+        for n in op.output("Out"):
+            set_out_var(block, n, shp + [op.attrs["depth"]], DataType.FP32)
+
+
+@register_op("one_hot", no_grad=True, infer=_one_hot_infer)
+def one_hot(ctx, ins, attrs):
+    """float32 rows, 1 at each id (a trailing [,1] dim dropped). The ids
+    are compared with ``arange(depth)``, so an id below 0 or at depth and
+    above gives a row of zeros, as ``jax.nn.one_hot`` does
+    (``F.one_hot`` raises, a device-side assert on the card)."""
+    ids = x(ins)
+    if ids.dim() > 1 and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    depth = torch.arange(attrs["depth"], device=ids.device, dtype=ids.dtype)
+    return {"Out": [(ids.unsqueeze(-1) == depth).to(torch.float32)]}
+
+
+# ---------------------------------------------------------------------------
+# order: arg_max, arg_min, argsort
+# ---------------------------------------------------------------------------
+
+def _argmax_infer(op: OpDesc, block):
+    shp = in_shape(block, op, "X")
+    if shp is not None:
+        axis = op.attrs.get("axis", -1) % len(shp)
+        for n in op.output("Out"):
+            set_out_var(block, n, [s for i, s in enumerate(shp) if i != axis],
+                        DataType.INT64)
+
+
+def _arg_extreme(xv, axis, largest):
+    """The first int64 index along ``axis`` of the largest (smallest)
+    value, or of the first NaN where the slice holds one (``jnp.argmax``
+    and ``jnp.argmin``): the winners compared equal to the extreme, the
+    first taken by a min over their (int32) indices, with no tie rule of
+    a library reduction."""
+    axis = axis % xv.dim()
+    ext = (torch.amax if largest else torch.amin)(xv, dim=axis, keepdim=True)
+    win = xv == ext
+    if xv.is_floating_point():
+        nan = torch.isnan(xv)
+        win = torch.where(nan.any(dim=axis, keepdim=True), nan, win)
+    n = xv.shape[axis]
+    shape = [1] * xv.dim()
+    shape[axis] = n
+    index = torch.arange(n, dtype=torch.int32, device=xv.device).reshape(shape)
+    return torch.where(win, index, n).amin(dim=axis).long()
+
+
+@register_op("arg_max", no_grad=True, infer=_argmax_infer)
+def arg_max(ctx, ins, attrs):
+    return {"Out": [_arg_extreme(x(ins), attrs.get("axis", -1), True)]}
+
+
+@register_op("arg_min", no_grad=True, infer=_argmax_infer)
+def arg_min(ctx, ins, attrs):
+    return {"Out": [_arg_extreme(x(ins), attrs.get("axis", -1), False)]}
+
+
+def _sort_key(xv):
+    """An integer key whose order is ``jnp.sort``'s: -0 and +0 equal,
+    every NaN above +inf and NaNs equal (so a stable sort keeps their
+    input order); integers are their own key."""
+    if not xv.is_floating_point():
+        return xv
+    key = total_order_key(xv.masked_fill(xv == 0, 0.0))
+    return key.masked_fill(torch.isnan(xv), torch.iinfo(key.dtype).max)
+
+
+def _argsort_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    for n in op.output("Out"):
+        set_out_var(block, n, xs, in_dtype(block, op, "X"))
+    for n in op.output("Indices"):
+        set_out_var(block, n, xs, "int64")
+
+
+@register_op("argsort", no_grad=True, infer=_argsort_infer)
+def argsort(ctx, ins, attrs):
+    """X sorted ascending along ``axis`` and the int64 indices that sort
+    it: a stable sort of :func:`_sort_key` (``jnp.argsort`` and
+    ``jnp.sort``)."""
+    xv = x(ins)
+    axis = attrs.get("axis", -1)
+    _, idx = torch.sort(_sort_key(xv), dim=axis, stable=True)
+    return {"Out": [torch.take_along_dim(xv, idx, dim=axis)],
+            "Indices": [idx]}
+
+
+@register_op("cumsum", infer=same_shape_infer())
+def cumsum(ctx, ins, attrs):
+    """The running sum along ``axis``; ``reverse`` flips, sums and flips
+    back; ``exclusive`` is the inclusive sum less X (the JAX op's
+    arithmetic, not a shifted scan, so the roundings are its)."""
+    axis = attrs.get("axis", -1)
+    xv = x(ins)
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(xv, (axis,)), dim=axis),
+                         (axis,))
+    else:
+        out = torch.cumsum(xv, dim=axis)
+    if attrs.get("exclusive", False):
+        out = out - xv
+    return {"Out": [out]}
+
+
+# ---------------------------------------------------------------------------
+# shape, range, padding, flatten
+# ---------------------------------------------------------------------------
+
+def _shape_infer(op: OpDesc, block):
+    shp = in_shape(block, op, "Input")
+    if shp is not None:
+        for n in op.output("Out"):
+            set_out_var(block, n, [len(shp)], DataType.INT32)
+
+
+@register_op("shape", no_grad=True, infer=_shape_infer)
+def shape_op(ctx, ins, attrs):
+    """Input's shape as int32, copied to the device once a plan
+    (``EmitContext.constant``: a plan's shapes are fixed)."""
+    dims = list(ins["Input"][0].shape)
+    return {"Out": [ctx.constant(attrs, lambda: torch.tensor(
+        dims, dtype=torch.int32).to(ctx.device))]}
+
+
+@register_op("range", no_grad=True)
+def range_op(ctx, ins, attrs):
+    """start + step * arange(num): the extent must be the static ``num``
+    attr, as in the JAX op (a graph holds fixed shapes too)."""
+    start = ins["Start"][0].reshape(())
+    step = ins["Step"][0].reshape(())
+    if "num" in attrs:
+        return {"Out": [start + step * torch.arange(
+            attrs["num"], dtype=start.dtype, device=start.device)]}
+    raise NotImplementedError(
+        "dynamic range requires static 'num' attr under XLA")
+
+
+def _pad_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    pads = [int(p) for p in op.attrs.get("paddings", [])]
+    if not xs or len(pads) != 2 * len(xs):
+        return
+    out = [(-1 if s is None or s < 0
+            else s + pads[2 * i] + pads[2 * i + 1])
+           for i, s in enumerate(xs)]
+    for n in op.output("Out"):
+        set_out_var(block, n, out, in_dtype(block, op, "X"))
+
+
+def _torch_pads(pairs):
+    """[(before, after)] per dim, first dim first -> ``F.pad``'s flat
+    list, last dim first."""
+    return [p for pair in reversed(pairs) for p in pair]
+
+
+@register_op("pad", infer=_pad_infer)
+def pad(ctx, ins, attrs):
+    """X padded by ``paddings`` (before, after for each dim) with
+    ``pad_value``."""
+    xv = x(ins)
+    p = attrs["paddings"]
+    pairs = [(p[2 * i], p[2 * i + 1]) for i in range(xv.dim())]
+    return {"Out": [F.pad(xv, _torch_pads(pairs),
+                          value=attrs.get("pad_value", 0.0))]}
+
+
+def _pad2d_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    pads = [int(p) for p in op.attrs.get("paddings", [0, 0, 0, 0])]
+    if not xs or len(xs) != 4 or len(pads) != 4:
+        return
+    h, w = (2, 3) if op.attrs.get("data_format", "NCHW") == "NCHW" else (1, 2)
+    out = list(xs)
+    if out[h] >= 0:
+        out[h] += pads[0] + pads[1]
+    if out[w] >= 0:
+        out[w] += pads[2] + pads[3]
+    for n in op.output("Out"):
+        set_out_var(block, n, out, in_dtype(block, op, "X"))
+
+
+_PAD2D_MODES = {"reflect": "reflect", "edge": "replicate"}
+
+
+@register_op("pad2d", infer=_pad2d_infer)
+def pad2d(ctx, ins, attrs):
+    """dims 2 and 3 of X padded by ``paddings`` [top, bottom, left,
+    right]: ``pad_value`` (constant), mirrored without the edge
+    (reflect) or the edge repeated (edge). The emitter pads dims 2 and 3
+    whatever ``data_format`` says, as the JAX op's does."""
+    xv = x(ins)
+    top, bottom, left, right = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        return {"Out": [F.pad(xv, [left, right, top, bottom],
+                              value=attrs.get("pad_value", 0.0))]}
+    return {"Out": [F.pad(xv, [left, right, top, bottom],
+                          mode=_PAD2D_MODES[mode])]}
+
+
+def _flatten_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    dt = in_dtype(block, op, "X")
+    if xs is None:
+        return
+    ax = op.attrs.get("axis", 1)
+    known = all(d is not None and d >= 0 for d in xs)
+    lead = int(np.prod(xs[:ax])) if known else -1
+    tail = int(np.prod(xs[ax:])) if known else -1
+    for n in op.output("Out"):
+        set_out_var(block, n, [lead, tail], dt)
+    for n in op.output("XShape") or []:
+        set_out_var(block, n, [0, *xs], dt)
+
+
+@register_op("flatten", intermediate_outputs=("XShape",),
+             infer=_flatten_infer)
+@register_op("flatten2", intermediate_outputs=("XShape",),
+             infer=_flatten_infer)
+def flatten(ctx, ins, attrs):
+    """flatten_op.cc: X as [prod(dims before axis), prod(the rest)], with
+    the XShape of the reshape-style grad."""
+    xv = x(ins)
+    ax = attrs.get("axis", 1)
+    lead = int(np.prod(xv.shape[:ax])) if ax > 0 else 1
+    return {"Out": [xv.reshape(lead, -1)], "XShape": [_xshape(xv)]}

@@ -29,6 +29,10 @@ from ..framework import Variable
 from ..place import CUDAPlace, Place
 from ..staging import PinnedStaging
 
+# the longest a closed iteration waits for its producer thread (one that
+# is inside the caller's reader may take longer; it is left then)
+_JOIN_S = 10.0
+
 
 def _device(device) -> torch.device:
     """The loader's device: the card unless the caller names another."""
@@ -205,6 +209,12 @@ class DataLoader:
                 yield feed
         finally:
             stop.set()
+            # the producer gives up at its next put, at most 0.1 s past the
+            # batch it is staging: joined, so no thread of the loader is in
+            # torch's native code when the caller goes on or the process
+            # exits (a daemon thread stopped there at interpreter exit can
+            # abort the process)
+            t.join(timeout=_JOIN_S)
             if completed:
                 self._epoch += 1
                 self._offset = 0

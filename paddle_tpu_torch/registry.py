@@ -35,19 +35,24 @@ class EmitContext:
     """Per-run context handed to emitters: the device every tensor of
     the run lives on, the ``torch.Generator`` random ops draw from (on
     that device), the bf16 autocast flag, and the constants of the
-    executor's plan (``constant``), and the program whose blocks the
-    control-flow ops (``while``) run as their bodies."""
+    executor's plan (``constant``), the program whose blocks the
+    control-flow ops (``while``) run as their bodies, and ``is_test``, the
+    JAX package's trace-wide evaluation flag (``nce`` scores the full
+    softmax under it; the executor leaves it False, as the JAX one
+    does)."""
 
-    __slots__ = ("generator", "device", "amp", "scope", "consts", "program")
+    __slots__ = ("generator", "device", "amp", "scope", "consts", "program",
+                 "is_test")
 
     def __init__(self, device: torch.device, generator=None, amp=False,
-                 scope=None, consts=None, program=None):
+                 scope=None, consts=None, program=None, is_test=False):
         self.device = device
         self.generator = generator
         self.amp = amp
         self.scope = scope
         self.consts = consts
         self.program = program
+        self.is_test = is_test
 
     def constant(self, attrs, make):
         """A copy of the literal ``make()`` builds from an op's ``attrs``,

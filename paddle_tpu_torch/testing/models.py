@@ -495,3 +495,145 @@ def yolov3_batch(batch, image, channels, classes, gt_pad, seed,
     feeds.update(gt_box=gt_box, gt_label=gt_label,
                  img_size=np.full((batch, 2), image, np.int32))
     return feeds
+
+
+# ---------------------------------------------------------------------------
+# the general tensor and loss ops on real models: Transformer-base with
+# PaddleNLP's label smoothing, word2vec with the nce and hsigmoid heads
+# ---------------------------------------------------------------------------
+
+def _transformer_layer(fn, *args, **kwargs):
+    """An encoder or decoder layer of either package: the JAX package's
+    take explicit attention-bias arguments (None here: the masks are key
+    biases), the port's do not."""
+    import inspect
+    params = inspect.signature(fn).parameters
+    for bias in ("attn_bias", "self_attn_bias", "cross_attn_bias"):
+        if bias in params:
+            kwargs[bias] = None
+    return fn(*args, **kwargs)
+
+
+# PaddlePaddle/models fluid/PaddleNLP/neural_machine_translation/
+# transformer config.py: label_smooth_eps
+LABEL_SMOOTH_EPS = 0.1
+
+
+def transformer_label_smooth(fl, src_vocab=10000, tgt_vocab=10000,
+                             max_len=64, n_layer=6, n_head=8, d_model=512,
+                             d_inner_hid=2048, dropout_rate=0.0,
+                             warmup_steps=8000):
+    """The Transformer of PaddlePaddle/models' fluid/PaddleNLP
+    neural_machine_translation/transformer (model.py, with config.py's
+    ``label_smooth_eps``, ``LABEL_SMOOTH_EPS``): the encoder and decoder of
+    ``fl.models.transformer`` (every attention a flash op, length key
+    biases), then its loss: ``label_smooth(one_hot(lbl_word,
+    depth=tgt_vocab))`` against the logits by
+    ``softmax_with_cross_entropy(soft_label=True)``, weighted by the
+    ``trg_len`` token mask and divided by the token count, as
+    ``transformer.build``'s is; Adam (0.9, 0.98, 1e-9) on the noam
+    schedule. The test program adds the token accuracy of
+    ``arg_max(logits)``. Feeds and batches are ``transformer.build``'s
+    (``transformer.make_fake_batch``)."""
+    import importlib
+    tf = importlib.import_module(fl.__name__ + ".models.transformer")
+    L = fl.layers
+    d_key = d_value = d_model // n_head
+    main, startup = fl.Program(), fl.Program()
+    with fl.program_guard(main, startup):
+        src = L.data("src_word", shape=[max_len, 1], dtype="int64")
+        src_pos = L.data("src_pos", shape=[max_len, 1], dtype="int64")
+        trg = L.data("trg_word", shape=[max_len, 1], dtype="int64")
+        trg_pos = L.data("trg_pos", shape=[max_len, 1], dtype="int64")
+        lbl = L.data("lbl_word", shape=[max_len, 1], dtype="int64")
+        src_len = L.data("src_len", shape=[], dtype="int32")
+        trg_len = L.data("trg_len", shape=[], dtype="int32")
+        src_kb, trg_kb = [L.scale(L.cast(L.sequence_mask(
+            n, maxlen=max_len, dtype="int32"), "float32"),
+            scale=1e9, bias=-1e9) for n in (src_len, trg_len)]
+        width = dict(n_head=n_head, d_key=d_key, d_value=d_value,
+                     d_model=d_model, d_inner_hid=d_inner_hid,
+                     dropout_rate=dropout_rate)
+        enc = tf._embed(src, src_vocab, d_model, max_len, src_pos,
+                        dropout_rate, "src")
+        for i in range(n_layer):
+            enc = _transformer_layer(tf.encoder_layer, enc, name=f"enc{i}",
+                                     key_bias=src_kb, **width)
+        enc = tf.pre_post_process_layer(None, enc, "n")
+        dec = tf._embed(trg, tgt_vocab, d_model, max_len, trg_pos,
+                        dropout_rate, "trg")
+        for i in range(n_layer):
+            dec = _transformer_layer(
+                tf.decoder_layer, dec, enc, name=f"dec{i}",
+                src_key_bias=src_kb, trg_key_bias=trg_kb, **width)
+        dec = tf.pre_post_process_layer(None, dec, "n")
+        logits = L.fc(dec, size=tgt_vocab, num_flatten_dims=2,
+                      bias_attr=False, param_attr=fl.ParamAttr(name="proj.w"))
+        smoothed = L.label_smooth(L.one_hot(lbl, depth=tgt_vocab),
+                                  epsilon=LABEL_SMOOTH_EPS)
+        cost = L.softmax_with_cross_entropy(logits, smoothed,
+                                            soft_label=True)
+        tok_mask = L.cast(L.sequence_mask(trg_len, maxlen=max_len,
+                                          dtype="int32"), "float32")
+        sum_cost = L.reduce_sum(L.elementwise_mul(L.squeeze(cost, axes=[2]),
+                                                  tok_mask))
+        token_num = L.reduce_sum(tok_mask)
+        token_num.stop_gradient = True
+        avg_cost = L.elementwise_div(sum_cost, token_num)
+        hits = L.cast(L.equal(L.arg_max(logits, axis=-1),
+                              L.squeeze(lbl, axes=[2])), "float32")
+        accuracy = L.elementwise_div(
+            L.reduce_sum(L.elementwise_mul(hits, tok_mask)), token_num)
+        test = main.clone(for_test=True)
+        fl.optimizer.AdamOptimizer(
+            learning_rate=L.learning_rate_scheduler.noam_decay(
+                d_model, warmup_steps),
+            beta1=0.9, beta2=0.98, epsilon=1e-9).minimize(avg_cost)
+    return {"main": main, "startup": startup, "test": test,
+            "loss": avg_cost, "accuracy": accuracy, "logits": logits,
+            "smoothed": smoothed,
+            "feeds": ["src_word", "src_pos", "trg_word", "trg_pos",
+                      "lbl_word", "src_len", "trg_len"],
+            "config": {"n_layer": n_layer, "n_head": n_head,
+                       "d_model": d_model, "d_inner_hid": d_inner_hid,
+                       "max_len": max_len, "src_vocab": src_vocab,
+                       "tgt_vocab": tgt_vocab,
+                       "label_smooth_eps": LABEL_SMOOTH_EPS}}
+
+
+WORD2VEC_HEADS = ("nce", "hsigmoid")
+WORD2VEC_SEED = 92
+
+
+def word2vec_heads(fl, head="nce", dict_size=2073, embed_size=32,
+                   hidden_size=256, lr=0.001):
+    """The zoo's word2vec (the book's N-gram model, ``models/word2vec.py``:
+    4 context words through one shared embedding table, concatenated, an
+    fc ``hidden_size`` sigmoid) with its softmax head replaced by
+    ``layers.nce`` (the layer's default 10 uniform negatives) or ``layers.hsigmoid`` over the ``dict_size`` words;
+    SGD, as the zoo's. Feeds are the zoo's (``word2vec.make_fake_batch``)."""
+    if head not in WORD2VEC_HEADS:
+        raise ValueError(f"word2vec_heads: head {head!r} not in "
+                         f"{WORD2VEC_HEADS}")
+    L = fl.layers
+    main, startup = fl.Program(), fl.Program()
+    main.random_seed = startup.random_seed = WORD2VEC_SEED
+    with fl.program_guard(main, startup):
+        words = [L.data(n, shape=[1], dtype="int64")
+                 for n in ("firstw", "secondw", "thirdw", "forthw")]
+        next_word = L.data("nextw", shape=[1], dtype="int64")
+        embs = [L.embedding(w, size=[dict_size, embed_size],
+                            param_attr="shared_w") for w in words]
+        hidden = L.fc(L.concat(embs, axis=1), size=hidden_size,
+                      act="sigmoid")
+        if head == "nce":
+            cost = L.nce(hidden, next_word, num_total_classes=dict_size)
+        else:
+            cost = L.hsigmoid(hidden, next_word, num_classes=dict_size)
+        avg_cost = L.mean(cost)
+        test = main.clone(for_test=True)
+        fl.optimizer.SGDOptimizer(learning_rate=lr).minimize(avg_cost)
+    return {"main": main, "startup": startup, "test": test,
+            "loss": avg_cost, "cost": cost,
+            "feeds": ["firstw", "secondw", "thirdw", "forthw", "nextw"],
+            "config": {"dict_size": dict_size, "head": head}}

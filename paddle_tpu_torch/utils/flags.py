@@ -85,3 +85,17 @@ class _Flags:
 
 
 FLAGS = _Flags()
+
+
+def get_flags(names):
+    """{name: value} of the flags in ``names`` (a name or a list; the
+    ``FLAGS_`` prefix optional)."""
+    if isinstance(names, str):
+        names = [names]
+    return {n: getattr(FLAGS, n.replace("FLAGS_", "")) for n in names}
+
+
+def set_flags(flags: Dict[str, Any]):
+    """Set each flag of ``flags`` ({name: value}, ``FLAGS_`` optional)."""
+    for k, v in flags.items():
+        setattr(FLAGS, k.replace("FLAGS_", ""), v)

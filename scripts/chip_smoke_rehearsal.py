@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-20) on the CPU at a tiny
-Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow
-12-layer BERT (d_model 24, T 16, batch 4), phase 13's serving front
-with fewer requests a window, phase 14's generation and phase 15's
+"""Rehearse chip_smoke.py's end-to-end phases (5-21) on the CPU at a tiny
+Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow BERT
+at phase 12's depth (d_model 24, T 16, batch 4), phase 13's serving
+front with fewer requests a window, phase 14's generation and phase 15's
 predictor at a narrow LM (d_model 16, vocab 256) and phase 15's machine
 translation at 40-word dictionaries and width 16, and phase 16 at the
 tiny Transformer (its three trainer processes run this script with
@@ -21,6 +21,8 @@ on the card.
                                                                   # 19 only
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase20
                                                                   # 20 only
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase21
+                                                                  # 21 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -55,8 +57,9 @@ from paddle_tpu_torch.utils.flags import FLAGS  # noqa: E402
 # exceeds 16 * 64 for phase 7's batch of ids that do not repeat
 TINY = dict(src_vocab=2000, tgt_vocab=2000, max_len=64, n_layer=6,
             n_head=2, d_model=16, d_inner_hid=32, dropout_rate=0.0)
-# 12 layers keep phase 12's launch counts
-BERT_TINY = dict(vocab_size=100, max_len=16, max_masked=4, n_layer=12,
+# BERT's layer count keeps phase 12's launch counts
+BERT_TINY = dict(vocab_size=100, max_len=16, max_masked=4,
+                 n_layer=cs.BERT["n_layer"],
                  n_head=12, d_model=24, d_inner_hid=48)
 
 
@@ -122,6 +125,15 @@ def _phase20():
     t20 = time.perf_counter()
     out, _ = cs.detection_paths("CPU rehearsal")
     print(f"phase 20 rehearsed in {time.perf_counter() - t20:.1f} s")
+    return out
+
+
+def _phase21():
+    # the card's CUDA-graph timing has no CPU counterpart
+    cs.time_ms = lambda fn, iters=30, warmup=5, graph=True: (fn(), 0.0)[1]
+    t21 = time.perf_counter()
+    out, _ = cs.tensor_loss_rnn_paths("CPU rehearsal")
+    print(f"phase 21 rehearsed in {time.perf_counter() - t21:.1f} s")
     return out
 
 
@@ -240,6 +252,9 @@ def main():
     if "--phase20" in sys.argv:
         print(f"rehearsal passed: phase 20 {_phase20()}")
         return
+    if "--phase21" in sys.argv:
+        print(f"rehearsal passed: phase 21 {_phase21()}")
+        return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -279,13 +294,14 @@ def main():
     rec = _recurrent()
     p19 = _phase19()
     p20 = _phase20()
+    p21 = _phase21()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
           f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
           f"{runtime}, phase 17 {zoo}, phase 18 {rec}, phase 19 {p19}, "
-          f"phase 20 {p20}")
+          f"phase 20 {p20}, phase 21 {p21}")
 
 
 if __name__ == "__main__":

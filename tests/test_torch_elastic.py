@@ -256,6 +256,28 @@ def test_preemption_keeps_cursor_and_step_consistent_as_jax(tmp_path):
     np.testing.assert_array_equal(resumed, ref[3:])
 
 
+def test_preempted_dataloader_run_leaves_no_loader_thread(tmp_path):
+    """A preempted run over a DataLoader writes its emergency checkpoint,
+    then closes the loader's iteration: it exits resume-me with the step
+    saved and no 'data-loader' producer thread left alive."""
+    import threading
+    ckpt = str(tmp_path / "ckpt")
+    bs = _batches(8)
+    main, exe, loss = _fresh()
+    loader = _loader(main, bs)
+    tr = elastic.ElasticTrainer(exe, ckpt, main_program=main, loader=loader,
+                                install_signal_handler=False)
+    with faults.FaultPlan().fail("preemption", calls=[3],
+                                 exc=elastic.Preempted):
+        with pytest.raises(SystemExit) as ei:
+            tr.run(loader, fetch_list=[loss])
+    assert ei.value.code == elastic.RESUME_EXIT_CODE
+    tr.close()
+    assert pt.io.read_train_state(ckpt)["step"] == 3
+    assert not [t for t in threading.enumerate()
+                if t.name == "data-loader" and t.is_alive()]
+
+
 def _jax_faults():
     from paddle_tpu.testing import faults as jfaults
     return jfaults

@@ -617,7 +617,7 @@ NEW_CONTROL_SEQUENCE_CTC = (
 
 
 def test_registry_counts():
-    """The port's op types: 231 of the JAX package's, plus its 3 grad types
+    """The port's op types: 266 of the JAX package's, plus its 3 grad types
     of its own (``_OPAQUE_GRAD_TYPES``), and every one has an emitter.
     Recurrent training and structured prediction added ``recurrent``'s
     emitter and ``while_grad``, ``linear_chain_crf``, ``crf_decoding`` and
@@ -625,14 +625,17 @@ def test_registry_counts():
     ``lstm`` and the four fused ops of the RNN and sequence passes;
     conditional control flow, the sequence ops and CTC the 36 types of
     ``NEW_CONTROL_SEQUENCE_CTC``; object detection the 33 types of
-    ``NEW_DETECTION``."""
+    ``NEW_DETECTION``; the general tensor, loss and RNN-unit ops the 35
+    types of ``NEW_TENSOR_LOSS_RNN``."""
     from paddle_tpu import registry as jreg
     from test_torch_detection import NEW_DETECTION
+    from test_torch_tensor_ops import NEW_TENSOR_LOSS_RNN
     reg = pt.registry._REGISTRY
     assert len(NEW_CONTROL_SEQUENCE_CTC) == 36
     assert len(NEW_DETECTION) == 33
-    assert len(reg) == 234
-    assert sum(jreg.has_op(t) for t in reg) == 231
+    assert len(NEW_TENSOR_LOSS_RNN) == 35
+    assert len(reg) == 269
+    assert sum(jreg.has_op(t) for t in reg) == 266
     assert sorted(t for t, i in reg.items() if i.emitter is None) == []
     for op_type in ("while", "while_grad", "recurrent", "array_write",
                     "array_read", "beam_search",
@@ -644,7 +647,7 @@ def test_registry_counts():
                     "fusion_lstm", "fusion_gru", "fusion_seqpool_concat",
                     "fused_embedding_fc_lstm", "linear_chain_crf",
                     "crf_decoding", "chunk_eval") + NEW_CONTROL_SEQUENCE_CTC \
-            + NEW_DETECTION:
+            + NEW_DETECTION + NEW_TENSOR_LOSS_RNN:
         assert reg[op_type].emitter is not None, op_type
         assert jreg.has_op(op_type), op_type
 

@@ -83,6 +83,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import paddle_tpu_torch.ops.kernels_sequence\n"
         "import paddle_tpu_torch.layers.nn, paddle_tpu_torch.layers.tensor\n"
         "import paddle_tpu_torch.framework, paddle_tpu_torch.executor\n"
+        "import paddle_tpu_torch.ops.kernels_tensor\n"
+        "import paddle_tpu_torch.layers.io, paddle_tpu_torch.layers.ops\n"
+        "import paddle_tpu_torch.place, paddle_tpu_torch.layer_helper\n"
+        "import paddle_tpu_torch.utils.flags\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
