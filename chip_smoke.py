@@ -10,8 +10,8 @@
                                      # work on a kernel: prints the kernels
                                      # line (launches null) and no contract
                                      # line
-    python3 chip_smoke.py --phase 21 # phases 1-2, then phase 21 alone
-                                     # (any of 12 and 14-21), its seconds
+    python3 chip_smoke.py --phase 22 # phases 1-2, then phase 22 alone
+                                     # (any of 12 and 14-22), its seconds
                                      # and launches; no contract line
 
 Phases, in order; any failure exits non-zero and no phase is skipped:
@@ -384,6 +384,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the gradful ones' vjps, ``scatter``'s add over repeated ids twice
    under the deterministic mode (bitwise equal), and
    ``truncated_gaussian_random``'s bounds and moments.
+22. the image and NN op families, after phase 21: (A) SimpleBaseline
+   human pose (Xiao et al. 2018; PaddleCV's human_pose_estimation,
+   ``testing.models.pose_resnet``: ResNet-50 without its fc, three 4x4
+   stride-2 ``conv2d_transpose`` layers of 256 filters with batch_norm
+   and relu, a 1x1 conv to 16 MPII joints; 256x256 images, 64x64
+   heatmaps, the target-weighted MSE, Adam at 1e-3), batch 32, fp32 and
+   AMP (the head in float32: the op has no AMP cast point) through
+   ``CompiledProgram`` under bench.py's BuildStrategy: REC_RUNS steps
+   captured against eager bitwise, the loss falling below the first over
+   POSE_STEPS steps on one batch, the three deconvolutions' share of each
+   step, and the trained scope
+   served by ``AnalysisPredictor`` and ``NativePredictor`` against the
+   executor; (B) ResNet-50 with ``preprocess=True`` (a raw 252x252x3
+   uint8 feed, ``random_crop`` to 224 per example on the device, cast,
+   transpose, scale, normalize), AMP, batch 128, captured against eager
+   bitwise, then the test program's pipeline on a coded raw batch
+   (every crop an exact slice, the network's input its normalization);
+   (C) the op bank: the 36 types of ``kernels_image`` and
+   ``kernels_nn`` on the card against the CPU at the paths' shapes and
+   C3D's [8, 3, 16, 112, 112] clip for the 3-D family, the gradful
+   ones' vjps, ``unpool``'s and ``grid_sampler``'s scatter-adds twice
+   under the deterministic mode (bitwise equal), and the random types'
+   draws (``random_crop``'s offsets exact, in bounds and uniform;
+   ``sampling_id``'s counts; the ``*_batch_size_like`` moments).
 
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
@@ -393,7 +417,7 @@ captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
 (phases 14-15), the model zoo (17), recurrent training (18), phases
-19 and 20 and 21(B-C) hold the wrappers' counts at 0: no call, so no
+19, 20, 21(B-C) and 22 hold the wrappers' counts at 0: no call, so no
 flash kernel in any graph either. 21(A) counts the kernels of its step's
 graph from the graph's DOT dump, as 16(B) does.
 
@@ -7767,6 +7791,535 @@ def tensor_loss_rnn_paths(smi):
     return out, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the image and NN op families
+# ---------------------------------------------------------------------------
+
+# 22(A): SimpleBaseline human pose (Xiao et al. 2018) as PaddleCV's
+# human_pose_estimation builds it (testing.models.pose_resnet's defaults:
+# ResNet-50, three 256-filter 4x4 stride-2 deconvolutions, 16 MPII joints
+# at 256x256, heatmaps 64x64, Adam at 1e-3), at the paper's 32 images a
+# card, fp32 and AMP
+POSE = {}
+POSE_BATCH = tmodels.POSE_BATCH
+# steps on one batch (REC_RUNS captured against eager, the traced window,
+# then more): Adam's first step moves every weight by about its rate, as
+# large as the head's N(0, 0.001) init, so the loss jumps at step 2
+# (0.0027 -> 0.0121 at MPII widths) and falls below the first over the
+# steps after
+POSE_STEPS = 20
+POSE_SERVE_TOL = 1e-5  # served heatmaps against the executor's, of the
+                       # largest magnitude
+# 22(B): ResNet-50 with resnet_with_preprocess.py's in-graph pipeline at the
+# JAX build's default raw shape (252x252x3 uint8, cropped to 224), batch
+# 128, AMP
+PRE_RESNET = dict(dataset="flowers", depth=50, class_dim=RESNET_CLASSES,
+                  image_shape=list(RESNET_IMAGE), preprocess=True)
+PRE_RESNET_BATCH = RESNET_BATCH
+CROP_CALLS = 16        # random_crop calls at the path's shape, for the
+                       # offsets' frequencies (16 x 128 draws a dim)
+CROP_SIGMAS = 5.0      # an offset's count against its binomial deviation
+# 22(C): the op bank, the 36 types on the card against the CPU, at the
+# paths' shapes and C3D's video clip (Tran et al. 2015: 16 frames of
+# 112x112, batch 8)
+C3D_CLIP = (8, 3, 16, 112, 112)
+VISION_BANK_REL = 1e-5   # float outputs, of each output's largest magnitude
+VISION_MOMENT_TOL = 0.01  # the random types' means and deviations, of the
+                          # scale, over 2^20 draws
+VISION_RAND_SIGMAS = 5.0  # sampling_id's counts against their deviations
+
+
+def pose_deconv_ms(m, state, batch, first_dtype):
+    """The three deconvolutions of the pose head alone at a step's
+    shapes, forward and the generic vjp (conv2d_transpose_grad, which
+    runs the forward again): ms by graph replay, summed."""
+    dev = next(iter(state.values())).device
+    ctx = pt.registry.EmitContext(dev)
+    emit = pt.registry.lookup("conv2d_transpose").emitter
+    block = m["main"].global_block()
+    total, rng = 0.0, np.random.RandomState(SEED + 2201)
+    for i, op in enumerate(op for op in block.ops
+                           if op.type == "conv2d_transpose"):
+        shape = [batch] + list(block.var(op.input("Input")[0]).shape[1:])
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+        if i == 0:
+            x = x.to(first_dtype)
+        ins = {"Input": [x], "Filter": [state[op.input("Filter")[0]]]}
+        out = emit(ctx, ins, op.attrs)["Output"][0]
+        gins = dict(ins, **{"Output@GRAD": [torch.ones_like(out)]})
+        gattrs = dict(op.attrs, __fwd_type__="conv2d_transpose")
+        total += time_ms(lambda: emit(ctx, ins, op.attrs), iters=4, warmup=1)
+        total += time_ms(lambda: pt.registry.generic_vjp_grad_emitter(
+            ctx, gins, gattrs), iters=4, warmup=1)
+    return total
+
+
+def pose_serve(label, exe, m, scope, feed):
+    """The trained scope's test program (image -> heatmaps) saved and
+    served by AnalysisPredictor (its default passes) and NativePredictor
+    on the card: each within POSE_SERVE_TOL of the executor's test-program
+    run, of its largest magnitude."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_pose_", dir=_build.BUILD_DIR)
+    try:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["image"], [m["heatmaps"]], exe,
+                                       main_program=m["test"])
+        req = {"image": feed["image"]}
+        got = {}
+        for name, cfg in (("AnalysisPredictor", AnalysisConfig(d)),
+                          ("NativePredictor", NativeConfig(d))):
+            pred = create_paddle_predictor(cfg)
+            got[name] = [pred.run(req)[0].as_tensor() for _ in range(2)][-1]
+            pred.close()
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    (want,) = run_tensors(exe, m["test"], feed=feed,
+                          fetch_list=[m["heatmaps"]], scope=scope)
+    top = want.abs().max().item()
+    errs = {n: distance(g.float(), want.float()) / max(top, 1e-30)
+            for n, g in got.items()}
+    log(f"  {label}: served heatmaps {tuple(want.shape)} against the "
+        "executor's test program: " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items())
+        + f" of the largest {top:.3e} (bound {POSE_SERVE_TOL})")
+    if not (top > 0 and all(g.shape == want.shape for g in got.values())
+            and max(errs.values()) <= POSE_SERVE_TOL):
+        raise AssertionError(f"{label}: served heatmaps {errs}")
+    return errs
+
+
+def pose_path(smi):
+    """22(A): testing.models.pose_resnet at POSE (MPII widths) through
+    CompiledProgram under bench.py's BuildStrategy, fp32 and AMP: REC_RUNS
+    steps captured against eager bitwise on one batch (zoo_train), the
+    loss falling below the first over POSE_STEPS steps; the
+    deconvolutions' share of each step (pose_deconv_ms); the fp32-trained
+    scope served (pose_serve)."""
+    label = "22(A) SimpleBaseline pose"
+    m, state, exe = built_on_card(lambda: tmodels.pose_resnet(pt, **POSE))
+    cfg = m["config"]
+    feed = tmodels.pose_batch(POSE_BATCH, cfg["image"], cfg["joints"],
+                              SEED + 2200)
+    log(f"  pose_resnet {cfg}: {len(state)} persistables, "
+        f"{sum(t.numel() for t in state.values()) / 1e6:.2f} M values; batch "
+        f"{POSE_BATCH}")
+    numbers, trained = {}, None
+    for arm, program in (("fp32", m["main"]),
+                         ("AMP", mixed_precision.decorate(m["main"].clone()))):
+        lab = f"{label} {arm}"
+        target = pt.CompiledProgram(program,
+                                    build_strategy=bench_build_strategy())
+        scope, steps, res = zoo_train(lab, exe, target, state,
+                                      [m["loss"].name], [feed] * REC_RUNS,
+                                      ("images", POSE_BATCH), smi,
+                                      runs=REC_RUNS)
+        while len(steps) < POSE_STEPS:
+            steps.append((feed, run_tensors(exe, target, feed=feed,
+                                            fetch_list=[m["loss"].name],
+                                            scope=scope)))
+        res["losses"] = falls(lab, steps)
+        head = pose_deconv_ms(m, state, POSE_BATCH, torch.float32
+                              if arm == "fp32" else torch.bfloat16)
+        res["deconv_ms"], res["deconv_share"] = head, head / res["captured_ms"]
+        log(f"  {lab}: the three deconvolutions alone (forward and generic "
+            f"vjp, float32) {head:.3f} ms, {res['deconv_share']:.1%} of the "
+            f"captured step [{smi}]")
+        numbers[arm] = res
+        if arm == "fp32":
+            trained = scope
+        else:
+            del scope
+        del steps, target
+    numbers["serve"] = pose_serve(label, exe, m, trained, feed)
+    exe.close()
+    return numbers
+
+
+def coded_raw(b, h, w):
+    """A raw uint8 batch [b, h, w, 3] whose channels code (row, column,
+    example), so a crop tells its own offsets."""
+    raw = np.zeros((b, h, w, 3), np.uint8)
+    raw[..., 0] = np.arange(h).reshape(1, h, 1)
+    raw[..., 1] = np.arange(w).reshape(1, 1, w)
+    raw[..., 2] = np.arange(b).reshape(b, 1, 1)
+    return raw
+
+
+def crop_offsets(crop, h, w):
+    """(row offsets, column offsets) of a batch of crops of a coded_raw
+    batch [b, h, w, 3], or None unless every crop is the exact slice of
+    its own example inside the bounds."""
+    b, ch, cw, _ = crop.shape
+    dev = crop.device
+    oy, ox = crop[:, 0, 0, 0].long(), crop[:, 0, 0, 1].long()
+    rows = oy.reshape(b, 1, 1) + torch.arange(ch, device=dev).reshape(1, -1, 1)
+    cols = ox.reshape(b, 1, 1) + torch.arange(cw, device=dev).reshape(1, 1, -1)
+    exact = bool((crop[..., 0].long() == rows).all()
+                 and (crop[..., 1].long() == cols).all()
+                 and (crop[..., 2].long()
+                      == torch.arange(b, device=dev).reshape(b, 1, 1)).all())
+    inside = int(oy.max()) <= h - ch and int(ox.max()) <= w - cw
+    return (oy, ox) if exact and inside else None
+
+
+def crop_check(label, dev, raw_shape, crop_shape):
+    """random_crop on the card at the path's shape, CROP_CALLS calls on a
+    coded_raw batch from one generator: every crop the exact slice of
+    its own example inside the bounds (crop_offsets), each offset's count
+    within CROP_SIGMAS binomial deviations of uniform, and the examples
+    of a call at differing offsets. Returns the largest deviation."""
+    b = PRE_RESNET_BATCH
+    h, w, _ = raw_shape
+    raw = torch.from_numpy(coded_raw(b, h, w)).to(dev)
+    ctx = pt.registry.EmitContext(
+        dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    emit = pt.registry.lookup("random_crop").emitter
+    span = (h - crop_shape[0] + 1, w - crop_shape[1] + 1)
+    counts = [np.zeros(s, np.int64) for s in span]
+    exact, spread = True, True
+    for _ in range(CROP_CALLS):
+        offsets = crop_offsets(emit(ctx, {"X": [raw]},
+                                    {"shape": list(crop_shape)})["Out"][0],
+                               h, w)
+        if offsets is None:
+            exact = False
+            break
+        spread &= len(set(zip(*(o.tolist() for o in offsets)))) > 1
+        for c, o in zip(counts, offsets):
+            c += np.bincount(o.cpu().numpy(), minlength=len(c))
+    n = CROP_CALLS * b
+    worst = max(float(np.max(np.abs(c - n / len(c))
+                             / np.sqrt(n * (1 / len(c)) * (1 - 1 / len(c)))))
+                for c in counts)
+    log(f"  {label}: random_crop [{b}, {h}, {w}, 3] -> {list(crop_shape)} on "
+        f"the card, {CROP_CALLS} calls: every crop the exact slice of its "
+        f"own example inside [0, {span[0] - 1}] x [0, {span[1] - 1}] "
+        f"{exact}, examples at differing offsets {spread}; the offsets' "
+        f"counts at most {worst:.2f} deviations from uniform (bound "
+        f"{CROP_SIGMAS})")
+    if not (exact and spread and worst <= CROP_SIGMAS):
+        raise AssertionError(f"{label}: random_crop's draws")
+    return worst
+
+
+def resnet_preprocess_path(smi):
+    """22(B): resnet.build(preprocess=True) (raw_image [252, 252, 3] uint8,
+    the in-graph random_crop -> cast -> transpose -> scale -> normalize)
+    AMP through CompiledProgram under bench.py's BuildStrategy: REC_RUNS
+    steps captured against eager bitwise on one raw batch (each arm draws
+    the same crops from its fresh generator), every loss finite (ResNet-50
+    on one batch at momentum's 0.01 is not held to fall, as in phase 9);
+    then the test program's pipeline (preprocess_check). The crop op's
+    draws are 22(C)'s (crop_check)."""
+    label = "22(B) ResNet-50 with preprocessing"
+    m, state, exe = built_on_card(lambda: resnet.build(**PRE_RESNET))
+    raw_shape = tuple(m["main"].global_block().var("raw_image").shape[1:])
+    rng = np.random.RandomState(SEED + 2210)
+    feed = {"raw_image": rng.randint(0, 256, (PRE_RESNET_BATCH,) + raw_shape)
+            .astype(np.uint8),
+            "label": rng.randint(0, PRE_RESNET["class_dim"],
+                                 (PRE_RESNET_BATCH, 1)).astype(np.int64)}
+    log(f"  resnet.build({PRE_RESNET}): raw {list(raw_shape)} uint8, batch "
+        f"{PRE_RESNET_BATCH}")
+    target = pt.CompiledProgram(mixed_precision.decorate(m["main"].clone()),
+                                build_strategy=bench_build_strategy())
+    scope, steps, res = zoo_train(f"{label} AMP", exe, target, state,
+                                  [m["loss"].name], [feed] * REC_RUNS,
+                                  ("images", PRE_RESNET_BATCH), smi,
+                                  runs=REC_RUNS)
+    res["losses"] = [float(o[0].float().reshape(-1)[0]) for _, o in steps]
+    res["pipeline_err"] = preprocess_check(label, exe, m, scope, raw_shape)
+    del scope, steps, target
+    exe.close()
+    return res
+
+
+def preprocess_check(label, exe, m, scope, raw_shape):
+    """The test program's pipeline on the card, eager, on a coded_raw
+    batch: every crop the exact slice of its own example inside the
+    bounds (crop_offsets), and the network's input the crop / 255
+    normalized by IMAGE_MEAN and IMAGE_STD (computed here in float32 on
+    the card) within 1e-6. Returns the input's largest distance."""
+    b = PRE_RESNET_BATCH
+    h, w, _ = raw_shape
+    ops = m["test"].global_block().ops
+    crop = next(o for o in ops if o.type == "random_crop").output("Out")[0]
+    net_in = next(o for o in ops
+                  if o.type == "elementwise_div").output("Out")[0]
+    with jit_cache(False):
+        got_crop, got_in = run_tensors(
+            exe, m["test"], feed={"raw_image": coded_raw(b, h, w),
+                                  "label": np.zeros((b, 1), np.int64)},
+            fetch_list=[crop, net_in], scope=scope)
+    exact = crop_offsets(got_crop, h, w) is not None
+    dev = got_crop.device
+    mean = torch.tensor(resnet.IMAGE_MEAN, device=dev).reshape(1, 3, 1, 1)
+    std = torch.tensor(resnet.IMAGE_STD, device=dev).reshape(1, 3, 1, 1)
+    want = (got_crop.permute(0, 3, 1, 2).float() * (1.0 / 255.0) - mean) / std
+    err = distance(got_in, want)
+    log(f"  {label}: the test program's pipeline on the card: crops "
+        f"{tuple(got_crop.shape)} the exact slices of their examples inside "
+        f"the bounds {exact}; the network's input from them {err:.3e} "
+        "(bound 1e-6)")
+    if not (exact and err <= 1e-6):
+        raise AssertionError(f"{label}: the preprocessing pipeline")
+    return err
+
+
+def vision_bank_cases():
+    """(op type, numpy inputs, attrs) of 22(C)'s bank: the 30 types
+    run_bank holds (the random ones, unpool and grid_sampler have checks
+    of their own), at the paths' shapes: the pose head's deconvolution
+    and normalizations at batch 2 (the CPU's share of the bank), SegNet's
+    pooling with indices on ResNet's 112x112 stem maps, ShuffleNet's
+    channel shuffle, the 3-D family on C3D_CLIP."""
+    rng = np.random.RandomState(SEED + 2220)
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def relu(*shape):
+        return np.maximum(f(*shape), 0.0)
+
+    clip = f(*C3D_CLIP)
+    heat = [2, 256, 16, 16]
+    rows = [
+        ("conv2d_transpose", {"Input": [relu(2, 2048, 8, 8)],
+                              "Filter": [f(2048, 256, 4, 4, scale=0.01)]},
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 1}),
+        ("depthwise_conv2d_transpose", {"Input": [f(*heat)],
+                                        "Filter": [f(256, 1, 4, 4)]},
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]}),
+        ("conv3d", {"Input": [clip], "Filter": [f(64, 3, 3, 3, 3, scale=0.1)]},
+         {"strides": [1, 1, 1], "paddings": [1, 1, 1],
+          "dilations": [1, 1, 1], "groups": 1}),
+        ("conv3d_transpose", {"Input": [f(8, 64, 4, 14, 14)],
+                              "Filter": [f(64, 32, 2, 2, 2, scale=0.1)]},
+         {"strides": [2, 2, 2], "paddings": [0, 0, 0],
+          "dilations": [1, 1, 1], "groups": 1}),
+        ("pool3d", {"X": [clip]}, {"pooling_type": "max",
+                                   "ksize": [2, 2, 2], "strides": [2, 2, 2],
+                                   "paddings": [1, 1, 1], "ceil_mode": True}),
+        ("max_pool3d_with_index", {"X": [np.maximum(clip, 0.0)]},
+         {"ksize": [1, 2, 2], "strides": [1, 2, 2], "paddings": [0, 0, 0]}),
+        ("group_norm", {"X": [f(*heat)], "Scale": [f(256)],
+                        "Bias": [f(256)]}, {"groups": 32, "epsilon": 1e-5}),
+        ("prelu", {"X": [f(*heat)], "Alpha": [f(1, 256, 1, 1)]},
+         {"mode": "channel"}),
+        ("maxout", {"X": [relu(*heat)]}, {"groups": 2}),
+        ("huber_loss", {"X": [f(POSE_BATCH, 16 * 64 * 64)],
+                        "Y": [f(POSE_BATCH, 16 * 64 * 64)]}, {"delta": 1.0}),
+        ("hash", {"X": [rng.randint(0, 2 ** 31, (4096, 1)).astype(np.int64)]},
+         {"num_hash": 2, "mod_by": 100003}),
+        ("precision_recall",
+         {"Indices": [rng.randint(0, 1000, (PRE_RESNET_BATCH, 1))
+                      .astype(np.int32)],
+          "Labels": [rng.randint(0, 1000, (PRE_RESNET_BATCH, 1))
+                     .astype(np.int32)],
+          "StatesInfo": [np.abs(f(1000, 4)) * 10]}, {"class_number": 1000}),
+        ("lrn", {"X": [f(8, 96, 55, 55)]},
+         {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75}),
+        ("crop", {"X": [f(8, 16, 64, 64)]},
+         {"shape": [8, 16, 56, 56], "offsets": [0, 0, 4, 3]}),
+        ("pad_constant_like", {"X": [f(8, 16, 64, 64)],
+                               "Y": [f(8, 16, 56, 56)]}, {"pad_value": 0.5}),
+        ("shuffle_channel", {"X": [f(8, 240, 28, 28)]}, {"group": 3}),
+        ("space_to_depth", {"X": [f(8, 64, 56, 56)]}, {"blocksize": 2}),
+        ("max_pool2d_with_index", {"X": [relu(8, 64, 112, 112)]},
+         {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]}),
+        ("selu", {"X": [f(PRE_RESNET_BATCH, 4096)]}, {}),
+        ("multiplex", {"X": [f(1024, 512), f(1024, 512), f(1024, 512)],
+                       "Ids": [rng.randint(0, 3, (1024, 1))
+                               .astype(np.int32)]}, {}),
+        ("norm", {"X": [f(8, 512, 38, 38)]}, {"axis": 1, "epsilon": 1e-10}),
+        ("data_norm", {"X": [f(2048, 512)],
+                       "BatchSize": [np.abs(f(512)) * 1e4 + 1],
+                       "BatchSum": [f(512) * 100],
+                       "BatchSquareSum": [np.abs(f(512)) * 1e4 + 1]}, {}),
+        ("bilinear_tensor_product", {"X": [f(1024, 128)], "Y": [f(1024, 128)],
+                                     "Weight": [f(64, 128, 128, scale=0.1)],
+                                     "Bias": [f(1, 64)]}, {}),
+        ("mean_iou", {"Predictions": [rng.randint(0, 21, 8 * 512 * 512)
+                                      .astype(np.int32)],
+                      "Labels": [rng.randint(0, 21, 8 * 512 * 512)
+                                 .astype(np.int32)]}, {"num_classes": 21}),
+        ("conv_shift", {"X": [f(PRE_RESNET_BATCH, 1024)],
+                        "Y": [f(PRE_RESNET_BATCH, 5)]}, {}),
+        ("fill", {}, {"shape": [1000], "value": list(f(1000).astype(float)),
+                      "dtype": pt.DataType.FP32}),
+        ("reverse", {"X": [f(8, 16, 64, 64)]}, {"axis": [3]}),
+        ("affine_grid", {"Theta": [f(32, 2, 3)]},
+         {"output_shape": [32, 3, 224, 224]}),
+        ("spp", {"X": [f(8, 256, 13, 13)]},
+         {"pyramid_height": 3, "pooling_type": "max"}),
+        ("similarity_focus", {"X": [f(8, 4, 32, 32)]},
+         {"axis": 1, "indexes": [0, 3]}),
+    ]
+    return rows
+
+
+def vision_scatter_adds(label, dev):
+    """unpool over a max pooling's indices whose windows overlap (3x3
+    stride 2 on ResNet's 112x112 stem maps: repeated indices) and
+    grid_sampler's vjp (STN's 224x224 images sampled at a 224x224 grid:
+    the X-gradient a scatter-add), each twice on the card under
+    deterministic(): bitwise equal, no op warned, within VISION_BANK_REL
+    (BANK_VJP_REL for the gradients) of the CPU. Returns {type: (error,
+    vjp error)}."""
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(SEED + 2221)
+    src = np.maximum(rng.randn(8, 64, 112, 112).astype(np.float32), 0)
+    pooled = pt.registry.lookup("max_pool2d_with_index").emitter(
+        pt.registry.EmitContext(cpu), {"X": [torch.from_numpy(src)]},
+        {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]})
+    cases = {
+        "unpool": ({"X": [pooled["Out"][0].numpy()],
+                    "Indices": [pooled["Mask"][0].numpy()]},
+                   {"unpooled_height": 112, "unpooled_width": 112}),
+        "grid_sampler": ({"X": [rng.randn(8, 3, 224, 224).astype(np.float32)],
+                          "Grid": [rng.uniform(-1.05, 1.05, (8, 224, 224, 2))
+                                   .astype(np.float32)]}, {}),
+    }
+    worst = {}
+    for name, (ins, attrs) in cases.items():
+        info = pt.registry.lookup(name)
+        with deterministic() as warned:
+            got = [_bank_flat(info.emitter(pt.registry.EmitContext(dev),
+                                           {s: _bank_in(v, dev)
+                                            for s, v in ins.items()}, attrs))
+                   for _ in range(2)]
+            fwd = info.emitter(pt.registry.EmitContext(cpu),
+                               {s: _bank_in(v, cpu) for s, v in ins.items()},
+                               attrs)
+            vjps = [bank_vjp(label, name, ins, attrs, info, dev, fwd)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(*got))
+        err = max(bank_error(g, w) for (_, g), (_, w)
+                  in zip(got[0], _bank_flat(fwd)))
+        log(f"  {label}: {name} twice on the card under the deterministic "
+            f"mode: bitwise equal {same}, warnings {warned or 'none'}; "
+            f"{err:.3e} of the largest from the CPU (bound {VISION_BANK_REL});"
+            f" vjp {vjps[0]:.3e}, {vjps[1]:.3e} (bound {BANK_VJP_REL})")
+        if not (same and not warned and err <= VISION_BANK_REL
+                and max(vjps) <= BANK_VJP_REL and vjps[0] == vjps[1]):
+            raise AssertionError(f"{label}: {name}'s scatter-add")
+        worst[name] = (err, max(vjps))
+    return worst
+
+
+def vision_rng_cases(label, dev):
+    """The random types on the card: sampling_id's 2^16 draws from one
+    probability row per class counts within VISION_RAND_SIGMAS deviations
+    and none on a zero probability; uniform_random_batch_size_like's and
+    gaussian_random_batch_size_like's 2^20 draws of Input's batch with
+    their bounds, means and deviations within VISION_MOMENT_TOL of the
+    scale; random_crop at 22(B)'s shape (crop_check). Returns {type:
+    (0.0, None)}: each is held by its own bounds, logged here."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ctx = pt.registry.EmitContext(dev, generator=gen)
+    worst = {}
+    probs = np.array([0.05, 0.0, 0.3, 0.15, 0.2, 0.1, 0.05, 0.15], np.float32)
+    n = 2 ** 16
+    out = pt.registry.lookup("sampling_id").emitter(
+        ctx, {"X": [torch.from_numpy(np.tile(probs, (n, 1))).to(dev)]},
+        {})["Out"][0]
+    counts = np.bincount(out.cpu().numpy(), minlength=len(probs))
+    sd = np.sqrt(n * probs * (1 - probs))
+    dev_sig = float(np.max(np.abs(counts - n * probs)[probs > 0]
+                           / sd[probs > 0]))
+    ok = (out.dtype == torch.int64 and counts[1] == 0
+          and dev_sig <= VISION_RAND_SIGMAS)
+    log(f"  {label}: sampling_id {n} draws on the card: counts {counts.tolist()}"
+        f" (want {(n * probs).round().astype(int).tolist()}), at most "
+        f"{dev_sig:.2f} deviations (bound {VISION_RAND_SIGMAS})")
+    if not ok:
+        raise AssertionError(f"{label}: sampling_id's draws")
+    worst["sampling_id"] = (0.0, None)
+    ref = torch.zeros((PRE_RESNET_BATCH, 2048), device=dev)
+    for name, attrs, mean, sd, lo, hi in (
+            ("uniform_random_batch_size_like",
+             {"shape": [-1, 8192], "min": -2.0, "max": 4.0}, 1.0,
+             6.0 / math.sqrt(12.0), -2.0, 4.0),
+            ("gaussian_random_batch_size_like",
+             {"shape": [-1, 8192], "mean": 1.5, "std": 2.0,
+              "dtype": pt.DataType.FP32}, 1.5, 2.0, None, None)):
+        draw = pt.registry.lookup(name).emitter(
+            ctx, {"Input": [ref]}, attrs)["Out"][0].double()
+        scale = (hi - lo) if lo is not None else sd
+        err = max(abs(float(draw.mean()) - mean),
+                  abs(float(draw.std()) - sd)) / scale
+        inside = lo is None or bool((draw >= lo).all() and (draw < hi).all())
+        log(f"  {label}: {name} {tuple(draw.shape)} on the card: mean "
+            f"{float(draw.mean()):.5f} (want {mean}), deviation "
+            f"{float(draw.std()):.5f} (want {sd:.5f}), {err:.3e} of the scale "
+            f"(bound {VISION_MOMENT_TOL}); inside the bounds {inside}")
+        if not (draw.shape == (PRE_RESNET_BATCH, 8192) and inside
+                and err <= VISION_MOMENT_TOL):
+            raise AssertionError(f"{label}: {name}")
+        worst[name] = (0.0, None)
+    crop_check(label, dev, (RESNET_IMAGE[1] * 9 // 8,
+                            RESNET_IMAGE[2] * 9 // 8, 3),
+               RESNET_IMAGE[1:] + (3,))
+    worst["random_crop"] = (0.0, None)
+    return worst
+
+
+def vision_bank_path(smi):
+    """22(C): the 36 types on the card against the port's own CPU run on
+    the same seeded inputs (vision_bank_cases through run_bank: integer
+    outputs equal, float outputs within VISION_BANK_REL of the largest
+    magnitude, the gradful types' generic vjps within BANK_VJP_REL), the
+    scatter-adds held under the deterministic mode (vision_scatter_adds)
+    and the random types (vision_rng_cases)."""
+    label = "22(C) image and NN op bank"
+    dev = pt.Executor().device
+    worst = run_bank(label, [(n, ins, attrs, VISION_BANK_REL)
+                             for n, ins, attrs in vision_bank_cases()],
+                     BANK_VJP_REL, dev)
+    worst.update(vision_scatter_adds(label, dev))
+    worst.update(vision_rng_cases(label, dev))
+    log(f"  {label}: {len(worst)} types [{smi}]")
+    if len(worst) != 36:
+        raise AssertionError(f"{label}: {len(worst)} types, not 36")
+    return {"types": len(worst),
+            "max_rel": max(e for e, _ in worst.values()),
+            "max_vjp_rel": max(v for _, v in worst.values() if v is not None)}
+
+
+def vision_paths(smi):
+    """Phase 22; returns the flash launches of its paths (the wrappers'
+    calls over each path's runs, which must be (0, 0): no path holds an
+    attention op) and each path's numbers."""
+    out, numbers, secs = {}, {}, {}
+
+    def run(name, fn):
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        r = fn()
+        calls = (fa.launches, fa.bwd_launches)
+        if calls != (0, 0):
+            raise AssertionError(f"22 {name}: flash wrapper calls {calls}")
+        out[name] = calls
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    numbers["pose"] = run("pose", lambda: pose_path(smi))
+    release()
+    numbers["resnet_preprocess"] = run(
+        "resnet_preprocess", lambda: resnet_preprocess_path(smi))
+    release()
+    numbers["op_bank"] = run("vision_op_bank", lambda: vision_bank_path(smi))
+    release()
+    log("22: " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
+    log("22: " + json.dumps(numbers, default=lambda v: str(v),
+                            sort_keys=True)[:4000])
+    return out, numbers
+
+
 # the phases that need nothing of an earlier one, each run alone by
 # ``--phase N``: N -> its flash launches by path
 ALONE = {
@@ -7779,6 +8332,7 @@ ALONE = {
     19: lambda smi: control_sequence_ctc_paths(smi)[0],
     20: lambda smi: detection_paths(smi)[0],
     21: lambda smi: tensor_loss_rnn_paths(smi)[0],
+    22: lambda smi: vision_paths(smi)[0],
 }
 
 
@@ -8005,6 +8559,12 @@ def main(argv=None):
                   "smoothing, word2vec with the nce and hsigmoid heads, the "
                   "35 types on the card against the CPU")
             paths.update(tensor_loss_rnn_paths(smi)[0])
+            release()
+            phase("the image and NN op families: SimpleBaseline pose "
+                  "(ResNet-50 + conv2d_transpose head) at MPII widths, "
+                  "ResNet-50 with its in-graph random_crop, the 36 types on "
+                  "the card against the CPU")
+            paths.update(vision_paths(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

@@ -1,23 +1,28 @@
 """NN layers (reference python/paddle/fluid/layers/nn.py): the ones the
 Transformer, ResNet, BERT and the model zoo build, the training API
-(clips, schedules) appends, and the sequence and CTC layers over padded
-[B, T, ...] batches with an optional ``length`` [B]. Each builds descs via LayerHelper; no device
+(clips, schedules) appends, the sequence and CTC layers over padded
+[B, T, ...] batches with an optional ``length`` [B], and the image and
+vision layers (the transposed and 3-D convolutions, 3-D and adaptive
+pooling, the crops, normalizations and spatial transformers). Each builds descs via LayerHelper; no device
 work happens here."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..framework import Variable
 from ..initializer import ConstantInitializer, NormalInitializer
-from ..layer_helper import LayerHelper
+from ..layer_helper import LayerHelper, ParamAttr
 
 # the JAX package's nn.__all__, in its order, less the names not ported yet
 # (tests/test_torch_api_surface.py DEFERRED)
 __all__ = [
     "fc", "embedding", "lod_reset", "sum", "logical_and", "logical_or",
-    "logical_xor", "logical_not", "autoincreased_step_counter", "dice_loss",
-    "image_resize_short", "merge_selected_rows",
-    "get_tensor_from_selected_rows", "conv2d", "pool2d", "batch_norm",
+    "logical_xor", "logical_not", "similarity_focus",
+    "autoincreased_step_counter", "dice_loss", "image_resize_short",
+    "adaptive_pool2d", "adaptive_pool3d", "conv3d_transpose",
+    "merge_selected_rows", "get_tensor_from_selected_rows", "conv2d",
+    "conv2d_transpose", "conv3d", "pool3d", "pool2d", "batch_norm",
     "layer_norm", "dropout", "softmax", "cross_entropy",
     "softmax_with_cross_entropy", "accuracy", "auc", "topk", "matmul", "mul",
     "concat", "split", "reshape", "transpose", "squeeze", "unsqueeze",
@@ -27,10 +32,11 @@ __all__ = [
     "elementwise_div", "elementwise_max", "elementwise_min",
     "elementwise_pow", "gather", "scatter", "pad", "pad2d", "lookup_table",
     "cast", "square_error_cost", "sigmoid_cross_entropy_with_logits",
-    "smooth_l1", "relu", "log_softmax", "sequence_pool",
+    "smooth_l1", "huber_loss", "relu", "log_softmax", "sequence_pool",
     "nested_sequence_pool", "sequence_softmax", "sequence_reverse",
     "im2sequence", "flatten", "arg_max", "arg_min", "argsort", "cumsum",
-    "shape", "l2_normalize", "label_smooth", "sequence_conv",
+    "shape", "l2_normalize", "label_smooth", "maxout", "group_norm", "prelu",
+    "hash", "uniform_random_batch_size_like", "sequence_conv",
     "sequence_first_step", "sequence_last_step", "sequence_expand",
     "sequence_expand_as", "sequence_pad", "sequence_unpad",
     "sequence_reshape", "sequence_scatter", "sequence_enumerate",
@@ -42,7 +48,11 @@ __all__ = [
     "log_loss", "rank_loss", "margin_rank_loss", "bpr_loss",
     "teacher_student_sigmoid_loss", "nce", "hsigmoid", "squared_l2_distance",
     "squared_l2_norm", "l1_norm", "fused_attention", "image_resize",
-    "resize_bilinear", "resize_nearest", "affine_channel",
+    "resize_bilinear", "resize_nearest", "lrn", "crop", "pad_constant_like",
+    "random_crop", "affine_channel", "shuffle_channel", "space_to_depth",
+    "unpool", "selu", "multiplex", "sampling_id", "norm", "data_norm",
+    "bilinear_tensor_product", "mean_iou", "grid_sampler", "affine_grid",
+    "conv_shift", "gaussian_random_batch_size_like", "pool2d_with_index",
 ]
 
 
@@ -415,6 +425,22 @@ def _pair(v):
     return [v, v] if isinstance(v, int) else list(v)
 
 
+def _conv_bias(helper, pre_bias):
+    """pre_bias + a [C] bias parameter along dim 1, unless bias_attr is
+    False."""
+    bias_attr = helper.bias_attr
+    if bias_attr is False or bias_attr is None:
+        return pre_bias
+    b = helper.create_parameter(bias_attr, [pre_bias.shape[1]],
+                                pre_bias.dtype, is_bias=True)
+    if b is None:
+        return pre_bias
+    out = helper.create_variable_for_type_inference(pre_bias.dtype)
+    helper.append_op(type="elementwise_add", inputs={"X": pre_bias, "Y": b},
+                     outputs={"Out": out}, attrs={"axis": 1})
+    return out
+
+
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
            act=None, name=None):
@@ -442,16 +468,7 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         outputs={"Output": pre_bias},
         attrs={"strides": _pair(stride), "paddings": _pair(padding),
                "dilations": _pair(dilation), "groups": groups})
-    pre_act = pre_bias
-    if helper.bias_attr is not False and helper.bias_attr is not None:
-        b = helper.create_parameter(helper.bias_attr, [pre_bias.shape[1]],
-                                    dtype, is_bias=True)
-        if b is not None:
-            pre_act = helper.create_variable_for_type_inference(dtype)
-            helper.append_op(type="elementwise_add",
-                             inputs={"X": pre_bias, "Y": b},
-                             outputs={"Out": pre_act}, attrs={"axis": 1})
-    return helper.append_activation(pre_act)
+    return helper.append_activation(_conv_bias(helper, pre_bias))
 
 
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
@@ -1488,4 +1505,461 @@ def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
     helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
                      outputs={"Out": out, "PreOut": pre},
                      attrs={"num_classes": num_classes})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the image and vision layers
+# ---------------------------------------------------------------------------
+
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 3
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """The transposed convolution over an NCHW input with the IOHW filter
+    [C, num_filters / groups, kh, kw] (Xavier by default); without
+    ``filter_size`` the kernel is solved from ``output_size``. The op
+    has no AMP cast point."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    stride, padding, dilation = _pair(stride), _pair(padding), \
+        _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = _pair(output_size)
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1)
+            // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1)
+            // dilation[1] + 1]
+    else:
+        filter_size = _pair(filter_size)
+    w = helper.create_parameter(
+        helper.param_attr,
+        [input.shape[1], num_filters // groups] + list(filter_size), dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose", inputs={"Input": input, "Filter": w},
+        outputs={"Output": pre_bias},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    return helper.append_activation(_conv_bias(helper, pre_bias))
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           use_cudnn=True, act=None, name=None):
+    """conv2d in three dims (NCDHW); the filter [num_filters, C / groups,
+    kd, kh, kw] starts from N(0, sqrt(2 / (kd * kh * kw * C)))."""
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    ks = _triple(filter_size)
+    cin = input.shape[1]
+    std = (2.0 / (ks[0] * ks[1] * ks[2] * cin)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, [num_filters, cin // groups, *ks], input.dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="conv3d", inputs={"Input": input, "Filter": w},
+                     outputs={"Output": out},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": _triple(dilation),
+                            "groups": groups})
+    return helper.append_activation(_conv_bias(helper, out))
+
+
+def conv3d_transpose(input, num_filters, output_size=None,
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups=None, param_attr=None, bias_attr=None,
+                     use_cudnn=True, act=None, name=None):
+    """conv2d_transpose in three dims (NCDHW, IODHW filter)."""
+    helper = LayerHelper("conv3d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    stride, padding, dilation = _triple(stride), _triple(padding), \
+        _triple(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = _triple(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in range(3)]
+    else:
+        filter_size = _triple(filter_size)
+    w = helper.create_parameter(
+        helper.param_attr,
+        [input.shape[1], num_filters // groups] + list(filter_size),
+        input.dtype)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="conv3d_transpose", inputs={"Input": input, "Filter": w},
+        outputs={"Output": pre_bias},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups})
+    return helper.append_activation(_conv_bias(helper, pre_bias))
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pool3d", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _triple(pool_size),
+                            "strides": _triple(pool_stride),
+                            "paddings": _triple(pool_padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode,
+                            "exclusive": exclusive})
+    return out
+
+
+def _adaptive_pool(input, pool_size, pool_type, require_index, nd, name):
+    if require_index:
+        raise ValueError("require_index=True (pool indices) is not "
+                         "supported; the pooling returns values only")
+    if isinstance(pool_size, int):
+        pool_size = [pool_size] * nd
+    op_type = "pool2d" if nd == 2 else "pool3d"
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type=op_type, inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": list(pool_size), "adaptive": True})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """pool2d to an output of ``pool_size``, over variable-size bins."""
+    return _adaptive_pool(input, pool_size, pool_type, require_index, 2,
+                          name)
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    return _adaptive_pool(input, pool_size, pool_type, require_index, 3,
+                          name)
+
+
+def pool2d_with_index(input, pool_size, pool_stride=1, pool_padding=0,
+                      name=None):
+    """max_pool2d_with_index: returns (out, int32 mask)."""
+    helper = LayerHelper("max_pool2d_with_index", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mask = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op(type="max_pool2d_with_index", inputs={"X": input},
+                     outputs={"Out": out, "Mask": mask},
+                     attrs={"ksize": _pair(pool_size),
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding)})
+    return out, mask
+
+
+def unpool(input, indices, unpool_size, name=None):
+    helper = LayerHelper("unpool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="unpool", inputs={"X": input, "Indices": indices},
+                     outputs={"Out": out},
+                     attrs={"unpooled_height": unpool_size[0],
+                            "unpooled_width": unpool_size[1]})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """Scale (1) and bias (0) parameters a channel; float32 Mean and
+    Variance a group."""
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    c = input.shape[1]
+    inputs = {"X": input}
+    inputs["Scale"] = helper.create_parameter(
+        helper.param_attr, [c], dtype,
+        default_initializer=ConstantInitializer(1.0))
+    b = helper.create_parameter(helper.bias_attr, [c], dtype, is_bias=True)
+    if b is not None:
+        inputs["Bias"] = b
+    mean = helper.create_variable_for_type_inference("float32", True)
+    var = helper.create_variable_for_type_inference("float32", True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs={"Y": out, "Mean": mean, "Variance": var},
+                     attrs={"epsilon": epsilon, "groups": groups})
+    return helper.append_activation(out)
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="huber_loss", inputs={"X": input, "Y": label},
+                     outputs={"Out": out, "Residual": residual},
+                     attrs={"delta": delta})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="maxout", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"groups": groups})
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """alpha (0.25) of shape [1] (``all``), [1, C, 1, 1] (``channel``) or
+    [1, *x.shape[1:]] (``element``)."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [1, x.shape[1], 1, 1]
+    else:
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(
+        helper.param_attr, alpha_shape, x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": x, "Alpha": alpha},
+                     outputs={"Out": out}, attrs={"mode": mode})
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="hash", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"num_hash": num_hash, "mod_by": hash_size})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32", min=-1.0,
+                                   max=1.0, name=None):
+    helper = LayerHelper("uniform_random_batch_size_like", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="uniform_random_batch_size_like", inputs={"Input": input},
+        outputs={"Out": out},
+        attrs={"shape": list(shape), "min": float(min), "max": float(max),
+               "dtype": dtype})
+    return out
+
+
+def gaussian_random_batch_size_like(input, shape, mean=0.0, std=1.0,
+                                    dtype="float32", name=None):
+    helper = LayerHelper("gaussian_random_batch_size_like", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="gaussian_random_batch_size_like", inputs={"Input": input},
+        outputs={"Out": out},
+        attrs={"shape": list(shape), "mean": float(mean),
+               "std": float(std), "dtype": dtype})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="lrn", inputs={"X": input},
+                     outputs={"Out": out, "MidOut": mid},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """A static slice of ``x``: ``shape`` a list, or a variable whose
+    shape is taken (the op's Y)."""
+    helper = LayerHelper("crop", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs, attrs = {"X": x}, {}
+    if isinstance(shape, Variable):
+        inputs["Y"] = shape
+    else:
+        attrs["shape"] = list(shape)
+    attrs["offsets"] = list(offsets or [0] * len(x.shape))
+    helper.append_op(type="crop", inputs=inputs, outputs={"Out": out},
+                     attrs=attrs)
+    return out
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper("pad_constant_like", name=name)
+    out = helper.create_variable_for_type_inference(y.dtype)
+    helper.append_op(type="pad_constant_like", inputs={"X": x, "Y": y},
+                     outputs={"Out": out},
+                     attrs={"pad_value": float(pad_value)})
+    return out
+
+
+def random_crop(x, shape=None, seed=None):
+    """A crop of ``shape`` over x's trailing dims at offsets drawn anew for
+    every example and run (the program's random stream; ``seed`` is
+    accepted and not read, as in the JAX layer)."""
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    seed_out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op(type="random_crop", inputs={"X": x},
+                     outputs={"Out": out, "SeedOut": seed_out},
+                     attrs={"shape": list(shape)})
+    return out
+
+
+def shuffle_channel(x, group, name=None):
+    helper = LayerHelper("shuffle_channel", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="shuffle_channel", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"group": group})
+    return out
+
+
+def space_to_depth(x, blocksize, name=None):
+    helper = LayerHelper("space_to_depth", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="space_to_depth", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"blocksize": blocksize})
+    return out
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    helper = LayerHelper("selu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    if alpha is not None:
+        attrs["alpha"] = float(alpha)
+    helper.append_op(type="selu", inputs={"X": x}, outputs={"Out": out},
+                     attrs=attrs)
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(type="multiplex", inputs={"X": inputs, "Ids": index},
+                     outputs={"Out": out})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64"):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="sampling_id", inputs={"X": x},
+                     outputs={"Out": out}, attrs={"seed": seed})
+    return out
+
+
+def norm(x, axis=1, epsilon=1e-10, name=None):
+    helper = LayerHelper("norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    nrm = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="norm", inputs={"X": x},
+                     outputs={"Out": out, "Norm": nrm},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def data_norm(input, param_attr=None, name=None):
+    """Normalize by the accumulated batch statistics of CTR models: the
+    accumulators ``<name>.batch_size`` (1e4), ``.batch_sum`` (0) and
+    ``.batch_square_sum`` (1e4) are persistable, not trained."""
+    helper = LayerHelper("data_norm", param_attr=param_attr, name=name)
+    d = input.shape[-1]
+    prefix = name or helper.name
+
+    def accumulator(suffix, value):
+        return helper.create_parameter(
+            ParamAttr(name=prefix + suffix,
+                      initializer=ConstantInitializer(value),
+                      trainable=False), [d], input.dtype)
+
+    bsize = accumulator(".batch_size", 1e4)
+    bsum = accumulator(".batch_sum", 0.0)
+    bsq = accumulator(".batch_square_sum", 1e4)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    means = helper.create_variable_for_type_inference(input.dtype, True)
+    scales = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="data_norm",
+                     inputs={"X": input, "BatchSize": bsize,
+                             "BatchSum": bsum, "BatchSquareSum": bsq},
+                     outputs={"Y": out, "Means": means, "Scales": scales})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, param_attr=None, bias_attr=None,
+                            act=None, name=None):
+    helper = LayerHelper("bilinear_tensor_product", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    w = helper.create_parameter(helper.param_attr,
+                                [size, x.shape[-1], y.shape[-1]], x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": x, "Y": y, "Weight": w}
+    if helper.bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(
+            helper.bias_attr, [1, size], x.dtype, is_bias=True)
+    helper.append_op(type="bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("int32")
+    correct = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": input, "Labels": label},
+                     outputs={"OutMeanIou": miou, "OutWrong": wrong,
+                              "OutCorrect": correct},
+                     attrs={"num_classes": num_classes})
+    return miou, wrong, correct
+
+
+def grid_sampler(x, grid, name=None):
+    helper = LayerHelper("grid_sampler", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="grid_sampler", inputs={"X": x, "Grid": grid},
+                     outputs={"Output": out})
+    return out
+
+
+def affine_grid(theta, out_shape, name=None):
+    helper = LayerHelper("affine_grid", name=name)
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    helper.append_op(type="affine_grid", inputs={"Theta": theta},
+                     outputs={"Output": out},
+                     attrs={"output_shape": list(out_shape)})
+    return out
+
+
+def conv_shift(x, y, name=None):
+    helper = LayerHelper("conv_shift", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="conv_shift", inputs={"X": x, "Y": y},
+                     outputs={"Out": out})
+    return out
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    helper = LayerHelper("similarity_focus", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="similarity_focus", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"axis": axis, "indexes": list(indexes)})
     return out

@@ -8,9 +8,9 @@ from ..core.types import convert_dtype
 from ..framework import Variable
 from ..layer_helper import LayerHelper, ParamAttr
 
-# the JAX package's tensor.__all__, less ``reverse`` (ROADMAP A11.9)
+# the JAX package's tensor.__all__
 __all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
-           "tensor_array_to_tensor", "has_inf", "has_nan", "isfinite",
+           "reverse", "tensor_array_to_tensor", "has_inf", "has_nan", "isfinite",
            "concat", "sums", "assign", "fill_constant",
            "fill_constant_batch_size_like", "ones", "zeros",
            "zeros_like", "argmax", "argmin", "argsort"]
@@ -178,3 +178,14 @@ def has_nan(x, name=None):
 
 def isfinite(x, name=None):
     return _overflow_check("isfinite", x, name)
+
+
+def reverse(x, axis):
+    """x flipped along ``axis`` (an int or a list)."""
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if isinstance(axis, int):
+        axis = [axis]
+    helper.append_op(type="reverse", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": list(axis)})
+    return out

@@ -84,6 +84,28 @@ def resnet_cifar10(input, class_dim, depth=32, is_train=True):
     return layers.fc(input=pool, size=class_dim, act="softmax")
 
 
+# ImageNet's channel means and deviations (resnet_with_preprocess.py)
+IMAGE_MEAN = (0.485, 0.456, 0.406)
+IMAGE_STD = (0.229, 0.224, 0.225)
+
+
+def _preprocessed(image_shape, raw_shape):
+    """The raw uint8 HWC feed, cropped at random to the image's H x W,
+    cast, transposed to CHW, scaled to [0, 1] and normalized."""
+    import numpy as np
+    h, w = image_shape[1], image_shape[2]
+    raw = layers.data("raw_image", shape=raw_shape or [h + h // 8,
+                                                       w + w // 8, 3],
+                      dtype="uint8")
+    crop = layers.random_crop(raw, shape=[h, w, 3])
+    trans = layers.transpose(layers.cast(crop, "float32"), [0, 3, 1, 2])
+    scaled = layers.scale(trans, scale=1.0 / 255.0)
+    mean = layers.assign(np.array(IMAGE_MEAN, "float32").reshape(3, 1, 1))
+    std = layers.assign(np.array(IMAGE_STD, "float32").reshape(3, 1, 1))
+    return layers.elementwise_div(
+        layers.elementwise_sub(scaled, mean, axis=1), std, axis=1)
+
+
 def build(dataset="flowers", depth=50, class_dim=102, image_shape=None,
           lr=0.01, is_train=True, layout="NCHW", preprocess=False,
           raw_shape=None):
@@ -92,12 +114,14 @@ def build(dataset="flowers", depth=50, class_dim=102, image_shape=None,
 
     layout="NHWC" rewrites the conv/pool/batch_norm spine with
     conv_layout_nhwc_pass before the backward is appended (the feed
-    stays NCHW: one transpose in, one out). preprocess=True (the raw
-    uint8 feed with an in-graph random crop) is not ported."""
-    if preprocess:
-        raise NotImplementedError(
-            "resnet.build(preprocess=True) needs the random_crop op, which "
-            "waits for ROADMAP A11 (the image ops)")
+    stays NCHW: one transpose in, one out).
+
+    preprocess=True is resnet_with_preprocess.py's variant: the feed
+    ``raw_image`` is a raw uint8 HWC image (``raw_shape``, by default an
+    eighth larger than the image on each side), and the program crops it
+    at random per example (``random_crop``), casts it to float32,
+    transposes it to CHW, scales it by 1/255 and normalizes it by the
+    ImageNet channel means and deviations before the network."""
     main, startup = Program(), Program()
     with program_guard(main, startup):
         if dataset == "cifar10":
@@ -107,7 +131,12 @@ def build(dataset="flowers", depth=50, class_dim=102, image_shape=None,
         else:
             image_shape = image_shape or [3, 224, 224]
             model, kwargs = resnet_imagenet, {"depth": depth}
-        input = layers.data("data", shape=image_shape, dtype="float32")
+        if preprocess:
+            input = _preprocessed(image_shape, raw_shape)
+            feed_name = "raw_image"
+        else:
+            input = layers.data("data", shape=image_shape, dtype="float32")
+            feed_name = "data"
         label = layers.data("label", shape=[1], dtype="int64")
         predict = model(input, class_dim, is_train=is_train, **kwargs)
         cost = layers.cross_entropy(input=predict, label=label)
@@ -121,5 +150,5 @@ def build(dataset="flowers", depth=50, class_dim=102, image_shape=None,
         opt = optimizer.MomentumOptimizer(learning_rate=lr, momentum=0.9)
         opt.minimize(avg_cost)
     return {"main": main, "startup": startup, "test": test_program,
-            "feeds": ["data", "label"], "loss": avg_cost, "acc": acc,
+            "feeds": [feed_name, "label"], "loss": avg_cost, "acc": acc,
             "predict": predict}

@@ -143,6 +143,30 @@ def amp_cast(ctx, *tensors):
                  for t in tensors)
 
 
+def batch_size_like_shape(ins, attrs):
+    """A ``*_batch_size_like`` op's shape: the attr ``shape`` with dim
+    ``output_dim_idx`` taken from dim ``input_dim_idx`` of Input."""
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = ins["Input"][0].shape[
+        attrs.get("input_dim_idx", 0)]
+    return tuple(shape)
+
+
+def batch_size_like_infer(op: OpDesc, block):
+    """*_batch_size_like: the shape attr with dim output_dim_idx replaced
+    by Input's dim input_dim_idx."""
+    shape = [int(s) for s in op.attrs.get("shape", [])]
+    ins = in_shape(block, op, "Input")
+    if not shape:
+        return
+    odi = int(op.attrs.get("output_dim_idx", 0) or 0)
+    idi = int(op.attrs.get("input_dim_idx", 0) or 0)
+    if ins and idi < len(ins) and odi < len(shape):
+        shape[odi] = ins[idi]
+    for n in op.output("Out"):
+        set_out_var(block, n, shape, op.attrs.get("dtype", "float32"))
+
+
 def true_div(a: torch.Tensor, n) -> torch.Tensor:
     """``a / n`` for a Python number ``n``, a true division on every
     device: CUDA divides by a Python scalar through its reciprocal, which

@@ -1,11 +1,16 @@
 """NN ops (counterpart of ``paddle_tpu/ops/kernels_nn.py``): conv2d and
-depthwise_conv2d with their grads, pool2d, batch_norm, layer_norm,
+depthwise_conv2d with their grads, conv2d_transpose and its depthwise
+form, conv3d and conv3d_transpose, pool2d, pool3d and
+max_pool3d_with_index, batch_norm, layer_norm, group_norm,
 softmax_with_cross_entropy with its grad, cross_entropy,
-square_error_cost, accuracy, the streaming ``auc``, dropout with its grad,
-and the ``fc`` op that fc_fuse_pass writes.
+square_error_cost, huber_loss, maxout, prelu, hash, accuracy,
+precision_recall, the streaming ``auc``, dropout with its grad,
+uniform_random_batch_size_like, and the ``fc`` op that fc_fuse_pass
+writes.
 
-Convolutions go to ``torch.nn.functional.conv2d`` (cuDNN on the card), as
-the JAX package left them to ``lax.conv_general_dilated``. A tensor the
+Convolutions go to ``torch.nn.functional.conv2d`` and its transposed and
+3-D forms (cuDNN on the card), as the JAX package left them to
+``lax.conv_general_dilated``. A tensor the
 program calls NHWC is handed to the library as ``x.permute(0, 3, 1, 2)``,
 a channels-last view of the same memory, and the result comes back the
 same way; the filter stays OIHW in either layout, so checkpoints do not
@@ -21,8 +26,9 @@ import torch.nn.functional as F
 from ..core.desc import OpDesc
 from ..core.types import GRAD_SUFFIX, DataType
 from ..registry import register_grad_maker, register_op
-from .common import (ZERO, amp_cast, in_dtype, in_shape, opt,
-                     same_shape_infer, set_out_var, x)
+from .common import (ZERO, amp_cast, batch_size_like_infer,
+                     batch_size_like_shape, in_dtype, in_shape, opt,
+                     same_shape_infer, set_out_var, slots_like_infer, x)
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +126,53 @@ register_op("conv2d_grad", no_grad=True)(conv2d_grad)
 register_op("depthwise_conv2d_grad", no_grad=True)(conv2d_grad)
 
 
+def _conv2d_transpose_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "Input")
+    ws = in_shape(block, op, "Filter")
+    if xs is None or ws is None:
+        return
+    s = op.attrs.get("strides", [1, 1])
+    p = op.attrs.get("paddings", [0, 0])
+    d = op.attrs.get("dilations", [1, 1])
+    groups = op.attrs.get("groups", 1) or 1
+    oh = (xs[2] - 1) * s[0] - 2 * p[0] + (ws[2] - 1) * d[0] + 1
+    ow = (xs[3] - 1) * s[1] - 2 * p[1] + (ws[3] - 1) * d[1] + 1
+    for n in op.output("Output"):
+        set_out_var(block, n, [xs[0], ws[1] * groups, oh, ow],
+                    in_dtype(block, op, "Input"))
+
+
+def _transpose_operands(ins):
+    """(input, filter) of a transposed convolution in their common dtype.
+    The JAX op has no AMP cast point, so a bf16 activation meets a float32
+    filter under AMP: ``lax.conv_general_dilated`` refuses operands of two
+    dtypes, and the port promotes both to float32, so the product runs in
+    float32 as the op's missing cast point implies."""
+    xv, wv = ins["Input"][0], ins["Filter"][0]
+    dt = torch.promote_types(xv.dtype, wv.dtype)
+    return xv.to(dt), wv.to(dt)
+
+
+@register_op("conv2d_transpose", infer=_conv2d_transpose_infer)
+def conv2d_transpose(ctx, ins, attrs):
+    """conv_transpose_op.cc: the gradient of a convolution as an op, NCHW
+    with the IOHW filter [C_in, C_out / groups, kh, kw]; H_out = (H - 1) s
+    - 2 p + (kh - 1) d + 1. The JAX op dilates the input by the stride and
+    convolves it with the flipped, I/O-swapped filter padded by d (k - 1)
+    - p; ``F.conv_transpose2d`` is the same product. Its gradient is the
+    generic vjp, which runs the forward once more."""
+    xv, wv = _transpose_operands(ins)
+    s, p, d, groups = _conv_geometry(attrs)
+    return {"Output": [F.conv_transpose2d(xv, wv, None, s, p, 0, groups, d)]}
+
+
+@register_op("depthwise_conv2d_transpose", infer=_conv2d_transpose_infer)
+def depthwise_conv2d_transpose(ctx, ins, attrs):
+    """conv2d_transpose with one group per input channel."""
+    return conv2d_transpose(ctx, ins,
+                            dict(attrs, groups=ins["Input"][0].shape[1]))
+
+
 # ---------------------------------------------------------------------------
 # pooling
 # ---------------------------------------------------------------------------
@@ -153,10 +206,14 @@ def _pool2d_infer(op: OpDesc, block):
 
 
 def _adaptive_pool(xv, out_size, ptype):
-    """Variable-size bins over the last two dims: bin i of a dim of size
-    D spans [floor(i*D/o), ceil((i+1)*D/o))."""
+    """Variable-size bins over the last len(out_size) dims: bin i of a dim
+    of size D spans [floor(i*D/o), ceil((i+1)*D/o)). The max of a bin is
+    ``amax``, which splits the gradient evenly among tied maxima, as
+    ``jnp.max`` does."""
     cur = xv
-    for axis, o in ((2, int(out_size[0])), (3, int(out_size[1]))):
+    lead = xv.dim() - len(out_size)
+    for axis, o in enumerate(out_size, lead):
+        o = int(o)
         size = cur.shape[axis]
         slabs = []
         for i in range(o):
@@ -629,3 +686,341 @@ def fc(ctx, ins, attrs):
     if ins.get("Bias"):
         out = out + ins["Bias"][0]
     return {"Out": [out.reshape(tuple(xv.shape[:ncol]) + tuple(wv.shape[-1:]))]}
+
+
+# ---------------------------------------------------------------------------
+# the losses, activations and norms of the image models
+# ---------------------------------------------------------------------------
+
+@register_op("huber_loss", intermediate_outputs=("Residual",),
+             infer=slots_like_infer(("Out", "X"), ("Residual", "X")))
+def huber_loss(ctx, ins, attrs):
+    """huber_loss_op.h: r = Y - X, 0.5 r^2 where |r| <= delta, else
+    delta (|r| - 0.5 delta); Residual is r."""
+    delta = attrs.get("delta", 1.0)
+    r = ins["Y"][0] - ins["X"][0]
+    a = torch.abs(r)
+    return {"Out": [torch.where(a <= delta, 0.5 * r * r,
+                                delta * (a - 0.5 * delta))],
+            "Residual": [r]}
+
+
+def _maxout_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    g = int(op.attrs.get("groups", 1) or 1)
+    if xs and len(xs) == 4 and g and xs[1] > 0 and xs[1] % g == 0:
+        for n in op.output("Out"):
+            set_out_var(block, n, [xs[0], xs[1] // g, xs[2], xs[3]],
+                        in_dtype(block, op, "X"))
+
+
+@register_op("maxout", infer=_maxout_infer)
+def maxout(ctx, ins, attrs):
+    """maxout_op.cc: NCHW, the channels split into C / groups runs of
+    ``groups`` and the max of each run; ``amax`` splits the gradient
+    evenly among tied maxima, as ``jnp.max`` does."""
+    xv = x(ins)
+    g = attrs["groups"]
+    n, c, h, w = xv.shape
+    return {"Out": [xv.reshape(n, c // g, g, h, w).amax(dim=2)]}
+
+
+@register_op("prelu", infer=slots_like_infer(("Out", "X")))
+def prelu(ctx, ins, attrs):
+    """prelu_op.cc: x where x >= 0, else alpha x; alpha one scalar
+    (``all``), one a channel (``channel``) or one an element
+    (``element``)."""
+    xv, alpha = ins["X"][0], ins["Alpha"][0]
+    mode = attrs.get("mode", "all")
+    if mode == "all":
+        a = alpha.reshape(())
+    elif mode == "element":
+        a = alpha.reshape((1,) + tuple(xv.shape[1:]))
+    else:
+        a = alpha.reshape((1, -1) + (1,) * (xv.dim() - 2))
+    return {"Out": [torch.where(xv >= 0, xv, a * xv)]}
+
+
+_M32 = 0xFFFFFFFF
+_HASH_MUL = 2654435761
+_HASH_STEP = 0x9E3779B9
+
+
+def _mul32(v, c):
+    """(v * c) mod 2^32 for v in [0, 2^32) held in int64 and a constant
+    c < 2^32: the product of v with c's two 16-bit halves, each below
+    2^48, so nothing leaves int64's range."""
+    lo = v * (c & 0xFFFF)
+    hi = ((v * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+@register_op("hash", no_grad=True)
+def hash_op(ctx, ins, attrs):
+    """The JAX op's integer mix hash, in uint32 there: h = x * 2654435761
+    + i * 0x9E3779B9, then h ^ (h >> 16), mod ``mod_by``, for i below
+    ``num_hash`` (stacked on a new last dim when there are several). The
+    32-bit arithmetic runs in int64 with masks, the shift on a value
+    below 2^32 being a logical one."""
+    xv = x(ins).long() & _M32
+    mod = attrs.get("mod_by", 1)
+    num_hash = attrs.get("num_hash", 1)
+    outs = []
+    for i in range(num_hash):
+        h = (_mul32(xv, _HASH_MUL) + ((i * _HASH_STEP) & _M32)) & _M32
+        h = h ^ (h >> 16)
+        outs.append(h % mod)
+    return {"Out": [torch.stack(outs, dim=-1) if num_hash > 1 else outs[0]]}
+
+
+@register_op("uniform_random_batch_size_like", no_grad=True,
+             needs_rng=True, infer=batch_size_like_infer)
+def uniform_random_batch_size_like(ctx, ins, attrs):
+    """float32 uniform in [min, max) of Input's batch, drawn from the run's
+    generator (the JAX op ignores the dtype attr: float32 always)."""
+    out = torch.empty(batch_size_like_shape(ins, attrs), dtype=torch.float32,
+                      device=ctx.device)
+    out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
+                 generator=ctx.generator)
+    return {"Out": [out]}
+
+
+def _group_norm_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    g = int(op.attrs.get("groups", 1) or 1)
+    if not xs:
+        return
+    dt = in_dtype(block, op, "X")
+    for n in op.output("Y"):
+        set_out_var(block, n, xs, dt)
+    for slot in ("Mean", "Variance"):
+        for n in op.output(slot):
+            set_out_var(block, n, [xs[0], g], dt)
+
+
+@register_op("group_norm", intermediate_outputs=("Mean", "Variance"),
+             infer=_group_norm_infer)
+def group_norm(ctx, ins, attrs):
+    """group_norm_op.cc: NCHW, each group of C / groups channels
+    normalized by its own mean and biased variance (of the centred
+    values, in X's dtype, as the JAX op computes them), then Scale and
+    Bias per channel. Mean and Variance are [N, groups]."""
+    xv = ins["X"][0]
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = xv.shape[0], xv.shape[1]
+    xg = xv.reshape((n, g, c // g) + tuple(xv.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = (xg - mean).square().mean(dim=axes, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(xv.shape)
+    ch = (1, c) + (1,) * (xv.dim() - 2)
+    scale, bias = opt(ins, "Scale"), opt(ins, "Bias")
+    if scale is not None:
+        y = y * scale.reshape(ch)
+    if bias is not None:
+        y = y + bias.reshape(ch)
+    return {"Y": [y], "Mean": [mean.reshape(n, g)],
+            "Variance": [var.reshape(n, g)]}
+
+
+@register_op("precision_recall", no_grad=True)
+def precision_recall(ctx, ins, attrs):
+    """metrics/precision_recall_op.cc: per class the TP, FP, TN and FN of
+    the batch, each sample counted once at its weight, added to
+    StatesInfo when given (AccumStatesInfo [C, 4]); macro precision,
+    recall and F1, then micro ones, of the batch and of the accumulated
+    states ([6] each). An id outside the classes counts for none."""
+    cls = int(attrs["class_number"])
+    idx = ins["Indices"][0].reshape(-1).long()
+    lbl = ins["Labels"][0].reshape(-1).long()
+    w = opt(ins, "Weights")
+    w = (w.reshape(-1) if w is not None
+         else torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
+    classes = torch.arange(cls, device=idx.device)
+    pred_1h = (idx.unsqueeze(1) == classes).float()
+    lab_1h = (lbl.unsqueeze(1) == classes).float()
+    tp = (pred_1h * lab_1h * w.unsqueeze(1)).sum(dim=0)
+    fp = (pred_1h * w.unsqueeze(1)).sum(dim=0) - tp
+    fn = (lab_1h * w.unsqueeze(1)).sum(dim=0) - tp
+    tn = w.sum() - tp - fp - fn
+    batch_states = torch.stack([tp, fp, tn, fn], dim=1)
+    states = opt(ins, "StatesInfo")
+    acc_states = (states.float() + batch_states if states is not None
+                  else batch_states)
+
+    def ratio(num, den, empty):
+        return torch.where(den > 0, num / (den + 1e-12),
+                           torch.full_like(num, empty))
+
+    def metrics(st):
+        tp_, fp_, fn_ = st[:, 0], st[:, 1], st[:, 3]
+        p = ratio(tp_, tp_ + fp_, 1.0)
+        r = ratio(tp_, tp_ + fn_, 1.0)
+        f1 = ratio(2 * p * r, p + r, 0.0)
+        stp, sfp, sfn = tp_.sum(), fp_.sum(), fn_.sum()
+        mp = ratio(stp, stp + sfp, 1.0)
+        mr = ratio(stp, stp + sfn, 1.0)
+        mf = ratio(2 * mp * mr, mp + mr, 0.0)
+        return torch.cat([torch.stack([p.mean(), r.mean(), f1.mean()]),
+                          torch.stack([mp, mr, mf])])
+
+    return {"BatchMetrics": [metrics(batch_states)],
+            "AccumMetrics": [metrics(acc_states)],
+            "AccumStatesInfo": [acc_states]}
+
+
+# ---------------------------------------------------------------------------
+# the 3-D convolution and pooling family (NCDHW)
+# ---------------------------------------------------------------------------
+
+def _conv3d_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "Input")
+    ws = in_shape(block, op, "Filter")
+    if xs is None or ws is None:
+        return
+    s = op.attrs.get("strides", [1, 1, 1])
+    p = op.attrs.get("paddings", [0, 0, 0])
+    d = op.attrs.get("dilations", [1, 1, 1])
+    dims = [_conv_out_dim(xs[2 + i], ws[2 + i], p[i], s[i], d[i])
+            for i in range(3)]
+    for n in op.output("Output"):
+        set_out_var(block, n, [xs[0], ws[0], *dims],
+                    in_dtype(block, op, "Input"))
+
+
+def _geometry3d(attrs):
+    return (list(attrs.get("strides", [1, 1, 1])),
+            list(attrs.get("paddings", [0, 0, 0])),
+            list(attrs.get("dilations", [1, 1, 1])),
+            attrs.get("groups", 1) or 1)
+
+
+@register_op("conv3d", infer=_conv3d_infer)
+def conv3d(ctx, ins, attrs):
+    """conv_op.cc Conv3D: NCDHW data, OIDHW filter; under AMP bf16 inputs
+    and a bf16 output (the JAX op's cast point)."""
+    xv, wv = amp_cast(ctx, ins["Input"][0], ins["Filter"][0])
+    s, p, d, groups = _geometry3d(attrs)
+    return {"Output": [F.conv3d(xv, wv, None, s, p, d, groups)]}
+
+
+def _conv3d_transpose_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "Input")
+    ws = in_shape(block, op, "Filter")
+    if xs is None or ws is None:
+        return
+    s = op.attrs.get("strides", [1, 1, 1])
+    p = op.attrs.get("paddings", [0, 0, 0])
+    d = op.attrs.get("dilations", [1, 1, 1])
+    groups = op.attrs.get("groups", 1) or 1
+    dims = [(xs[2 + i] - 1) * s[i] - 2 * p[i] + (ws[2 + i] - 1) * d[i] + 1
+            for i in range(3)]
+    for n in op.output("Output"):
+        set_out_var(block, n, [xs[0], ws[1] * groups, *dims],
+                    in_dtype(block, op, "Input"))
+
+
+@register_op("conv3d_transpose", infer=_conv3d_transpose_infer)
+def conv3d_transpose(ctx, ins, attrs):
+    """conv_transpose_op.cc Conv3DTranspose: conv2d_transpose's product in
+    three dims (IODHW filter); no AMP cast point, the operands promoted to
+    their common dtype as in 2-D."""
+    xv, wv = _transpose_operands(ins)
+    s, p, d, groups = _geometry3d(attrs)
+    return {"Output": [F.conv_transpose3d(xv, wv, None, s, p, 0, groups, d)]}
+
+
+def _pool3d_infer(op: OpDesc, block):
+    xs = in_shape(block, op, "X")
+    if xs is None:
+        return
+    if op.attrs.get("global_pooling", False):
+        dims = [1, 1, 1]
+    elif op.attrs.get("adaptive", False):
+        dims = list(op.attrs.get("ksize", [1, 1, 1]))
+    else:
+        k = op.attrs.get("ksize", [1, 1, 1])
+        s = op.attrs.get("strides", [1, 1, 1])
+        p = op.attrs.get("paddings", [0, 0, 0])
+        ceil = op.attrs.get("ceil_mode", False)
+        dims = [(xs[2 + i] + 2 * p[i] - k[i] + (s[i] - 1 if ceil else 0))
+                // s[i] + 1 for i in range(3)]
+    for n in op.output("Out"):
+        set_out_var(block, n, [xs[0], xs[1], *dims], in_dtype(block, op, "X"))
+    for n in op.output("Mask") or []:
+        set_out_var(block, n, [xs[0], xs[1], *dims], "int32")
+
+
+@register_op("pool3d", infer=_pool3d_infer)
+def pool3d(ctx, ins, attrs):
+    """pool_op.cc Pool3D with the JAX op's reduce_window: pool2d's rules
+    in three dims (max pads with -inf and routes a window's gradient to
+    its first maximum; ``ceil_mode`` adds the high-side padding that
+    keeps every window; exclusive averaging divides by the unpadded
+    count); global and adaptive pooling reduce with ``amax`` and
+    ``mean``."""
+    xv = x(ins)
+    ptype = attrs.get("pooling_type", "max")
+    if attrs.get("global_pooling", False):
+        if ptype == "max":
+            return {"Out": [xv.amax(dim=(2, 3, 4), keepdim=True)]}
+        return {"Out": [xv.mean(dim=(2, 3, 4), keepdim=True)]}
+    k = list(attrs.get("ksize", [1, 1, 1]))
+    if attrs.get("adaptive", False):
+        return {"Out": [_adaptive_pool(xv, k, ptype)]}
+    s = list(attrs.get("strides", [1, 1, 1]))
+    p = list(attrs.get("paddings", [0, 0, 0]))
+    pads = _window_pads(xv.shape[2:], k, s, p, attrs.get("ceil_mode", False))
+    # F.pad's order: the last dim first
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+    if ptype == "max":
+        return {"Out": [F.max_pool3d(F.pad(xv, flat, value=float("-inf")),
+                                     k, s)]}
+    ssum = F.avg_pool3d(F.pad(xv, flat), k, s, divisor_override=1)
+    if attrs.get("exclusive", True):
+        ones = F.pad(xv.new_ones((1, 1) + tuple(xv.shape[2:])), flat)
+        return {"Out": [ssum / F.avg_pool3d(ones, k, s, divisor_override=1)]}
+    return {"Out": [ssum / float(np.prod(k))]}
+
+
+def window_max_with_index(xv, k, s, p):
+    """Max pooling over the trailing len(k) dims with the flat index of
+    each window's maximum in the unpadded input (the JAX ops' patches and
+    argmax): the input padded with the dtype's lowest finite value, every
+    window unfolded, ``amax`` over it (the gradient split evenly among
+    tied maxima, as ``jnp.max`` splits it) and ``argmax`` (the first
+    maximum in window order). Returns (max, int32 index)."""
+    nd = len(k)
+    sizes = xv.shape[-nd:]
+    flat = [v for i in reversed(range(nd)) for v in (p[i], p[i])]
+    xp = F.pad(xv, flat, value=float(torch.finfo(xv.dtype).min))
+    lead = xv.dim() - nd
+    for i in range(nd):
+        xp = xp.unfold(lead + i, k[i], s[i])
+    outs = xp.shape[lead:lead + nd]
+    patches = xp.reshape(tuple(xv.shape[:lead]) + tuple(outs) + (-1,))
+    out = patches.amax(dim=-1)
+    arg = patches.argmax(dim=-1)
+    index = torch.zeros_like(arg)
+    rest = arg
+    for i in range(nd):
+        span = int(np.prod(k[i + 1:]))
+        within = torch.div(rest, span, rounding_mode="floor")
+        rest = rest - within * span
+        start = torch.arange(outs[i], device=xv.device) * s[i] - p[i]
+        pos = within + start.reshape((-1,) + (1,) * (nd - 1 - i))
+        index = index * sizes[i] + pos
+    return out, index.to(torch.int32)
+
+
+@register_op("max_pool3d_with_index", intermediate_outputs=("Mask",),
+             infer=_pool3d_infer)
+def max_pool3d_with_index(ctx, ins, attrs):
+    """pool_with_index_op.cc 3-D: max pooling and Mask, the int32 flat
+    index (d * H + h) * W + w of each window's first maximum."""
+    out, mask = window_max_with_index(
+        x(ins), list(attrs.get("ksize", [1, 1, 1])),
+        list(attrs.get("strides", [1, 1, 1])),
+        list(attrs.get("paddings", [0, 0, 0])))
+    return {"Out": [out], "Mask": [mask]}

@@ -30,8 +30,9 @@ import torch.nn.functional as F
 from ..core.desc import OpDesc
 from ..core.types import GRAD_SUFFIX, DataType, dtype_to_torch
 from ..registry import register_op
-from .common import (in_dtype, in_shape, same_shape_infer, set_out_var,
-                     slots_like_infer, top_k_total_order, total_order_key, x)
+from .common import (batch_size_like_shape, in_dtype, in_shape,
+                     same_shape_infer, set_out_var, slots_like_infer,
+                     top_k_total_order, total_order_key, x)
 
 
 def _attr_dtype(attrs, key="dtype"):
@@ -65,10 +66,8 @@ def _fcbsl_infer(op: OpDesc, block):
 def fill_constant_batch_size_like(ctx, ins, attrs):
     """fill_constant with dim ``output_dim_idx`` of ``shape`` taken from
     dim ``input_dim_idx`` of Input (the batch of a dynamic-batch var)."""
-    shape = list(attrs["shape"])
-    shape[attrs.get("output_dim_idx", 0)] = ins["Input"][0].shape[
-        attrs.get("input_dim_idx", 0)]
-    return {"Out": [torch.full(tuple(shape), attrs.get("value", 0.0),
+    return {"Out": [torch.full(batch_size_like_shape(ins, attrs),
+                               attrs.get("value", 0.0),
                                dtype=_attr_dtype(attrs), device=ctx.device)]}
 
 

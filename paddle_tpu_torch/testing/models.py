@@ -637,3 +637,105 @@ def word2vec_heads(fl, head="nce", dict_size=2073, embed_size=32,
             "loss": avg_cost, "cost": cost,
             "feeds": ["firstw", "secondw", "thirdw", "forthw", "nextw"],
             "config": {"dict_size": dict_size, "head": head}}
+
+
+# SimpleBaseline human pose estimation (Xiao et al. 2018, arXiv:1804.06208)
+# as PaddlePaddle/models builds it (fluid/PaddleCV/human_pose_estimation,
+# lib/pose_resnet.py): ResNet-50 without its fc, three 4x4 stride-2
+# deconvolutions of 256 filters, a 1x1 conv to the joints; MPII's 16
+# joints at 256x256 (heatmaps 64x64), Adam at 1e-3, 32 images a card
+POSE_JOINTS = 16
+POSE_IMAGE = (3, 256, 256)
+POSE_LR = 1e-3
+POSE_BATCH = 32
+POSE_SEED = 2024
+# the weights' init of pose_resnet.py: N(0, 0.001) for every conv and
+# deconvolution
+POSE_INIT_STD = 0.001
+
+
+def pose_resnet(fl, image=POSE_IMAGE, stages=(3, 4, 6, 3),
+                widths=(64, 128, 256, 512), deconv=256):
+    """The SimpleBaseline pose network: the ResNet-50 backbone
+    (``stages`` bottlenecks of ``widths`` x 4 output channels; a 7x7
+    stride-2 stem and a 3x3 max pool), then three ``conv2d_transpose``
+    layers of ``deconv`` filters (4x4, stride 2, padding 1, no bias), each
+    with batch_norm and relu, and a 1x1 conv to POSE_JOINTS heatmaps of a
+    quarter of the image's side. The loss is the target-weighted MSE,
+    ``mean(square_error_cost(heatmaps * w, target * w))`` over the
+    heatmaps flattened to [B, joints, H * W] with ``w`` [B, joints, 1];
+    Adam at POSE_LR. The test program is cloned ``for_test`` before the
+    backward (batch_norm on its running statistics).
+
+    Feeds: ``image`` [B, *image] float32, ``target`` [B, joints, H/4,
+    W/4] float32 and ``target_weight`` [B, joints, 1] float32."""
+    L = fl.layers
+    joints = POSE_JOINTS
+
+    def param():
+        return fl.ParamAttr(initializer=fl.initializer.NormalInitializer(
+            0.0, POSE_INIT_STD))
+
+    def conv_bn(x, ch, size, stride=1, act=None):
+        conv = L.conv2d(x, num_filters=ch, filter_size=size, stride=stride,
+                        padding=(size - 1) // 2, param_attr=param(),
+                        bias_attr=False)
+        return L.batch_norm(conv, act=act)
+
+    def bottleneck(x, ch, stride):
+        short = (conv_bn(x, ch * 4, 1, stride) if x.shape[1] != ch * 4
+                 or stride != 1 else x)
+        y = conv_bn(x, ch, 1, act="relu")
+        y = conv_bn(y, ch, 3, stride, act="relu")
+        y = conv_bn(y, ch * 4, 1)
+        return L.elementwise_add(short, y, act="relu")
+
+    main, startup = fl.Program(), fl.Program()
+    main.random_seed = startup.random_seed = POSE_SEED
+    side = image[1] // 4
+    with fl.unique_name.guard(), fl.program_guard(main, startup):
+        img = L.data(name="image", shape=list(image), dtype="float32")
+        target = L.data(name="target", shape=[joints, side, image[2] // 4],
+                        dtype="float32")
+        weight = L.data(name="target_weight", shape=[joints, 1],
+                        dtype="float32")
+        x = conv_bn(img, widths[0], 7, 2, act="relu")
+        x = L.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1,
+                     pool_type="max")
+        for block, (count, ch) in enumerate(zip(stages, widths)):
+            for i in range(count):
+                x = bottleneck(x, ch, 2 if i == 0 and block else 1)
+        for _ in range(3):
+            x = L.conv2d_transpose(x, num_filters=deconv, filter_size=4,
+                                   padding=1, stride=2, param_attr=param(),
+                                   bias_attr=False)
+            x = L.batch_norm(x, act="relu")
+        heatmaps = L.conv2d(x, num_filters=joints, filter_size=1,
+                            param_attr=param())
+        flat = [joints, side * (image[2] // 4)]
+        pred = L.elementwise_mul(L.reshape(heatmaps, [-1] + flat), weight)
+        want = L.elementwise_mul(L.reshape(target, [-1] + flat), weight)
+        loss = L.mean(L.square_error_cost(pred, want))
+        test = main.clone(for_test=True)
+        fl.optimizer.Adam(learning_rate=POSE_LR).minimize(loss)
+    return {"main": main, "startup": startup, "test": test, "loss": loss,
+            "heatmaps": heatmaps,
+            "feeds": ["image", "target", "target_weight"],
+            "config": {"image": tuple(image), "joints": joints,
+                       "heatmap": (side, image[2] // 4)}}
+
+
+def pose_batch(batch, image, joints, seed):
+    """Seeded pose feeds: uniform images, a Gaussian heatmap (sigma 2, the
+    paper's) at a random point of each joint's map, and joint weights of
+    1 with one joint in eight at 0 (not visible)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    h, w = image[1] // 4, image[2] // 4
+    ys, xs = np.mgrid[0:h, 0:w]
+    cy = rng.uniform(0, h, (batch, joints, 1, 1))
+    cx = rng.uniform(0, w, (batch, joints, 1, 1))
+    target = np.exp(-((ys - cy) ** 2 + (xs - cx) ** 2) / (2 * 2.0 ** 2))
+    weight = (rng.rand(batch, joints, 1) >= 0.125).astype(np.float32)
+    return {"image": rng.rand(batch, *image).astype(np.float32),
+            "target": target.astype(np.float32), "target_weight": weight}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's end-to-end phases (5-21) on the CPU at a tiny
+"""Rehearse chip_smoke.py's end-to-end phases (5-22) on the CPU at a tiny
 Transformer, a small ResNet-50 (64x64 images, batch 4), a narrow BERT
 at phase 12's depth (d_model 24, T 16, batch 4), phase 13's serving
 front with fewer requests a window, phase 14's generation and phase 15's
@@ -9,9 +9,9 @@ tiny Transformer (its three trainer processes run this script with
 ``--elastic-child``, which sets up the same CPU patches) and the small
 ResNet-50, phase 17 at small widths (ZOO_TINY) and phase 18 at small
 widths (machine translation at MT_TINY, label_semantic_roles at
-SRL_TINY), phase 19 at small widths (PHASE19_TINY) and phase 20 at small
-widths (PHASE20_TINY), to find faults in the script's Python before a run
-on the card.
+SRL_TINY), phase 19 at small widths (PHASE19_TINY), phase 20 at small
+widths (PHASE20_TINY) and phase 22 at small widths (PHASE22_TINY), to
+find faults in the script's Python before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --zoo  # 17 only
@@ -23,6 +23,8 @@ on the card.
                                                                   # 20 only
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase21
                                                                   # 21 only
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase22
+                                                                  # 22 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -125,6 +127,29 @@ def _phase20():
     t20 = time.perf_counter()
     out, _ = cs.detection_paths("CPU rehearsal")
     print(f"phase 20 rehearsed in {time.perf_counter() - t20:.1f} s")
+    return out
+
+
+# phase 22 at small widths: the pose net at SMALL of tests/test_torch_pose.py
+# (a 64x64 image, one bottleneck a stage, 32-filter deconvolutions), batch
+# 4; ResNet-50 with preprocessing at a 64x64 crop of 72x72, 10 classes,
+# batch 8; the op bank's 3-D family at a [2, 3, 4, 16, 16] clip
+PHASE22_TINY = dict(
+    POSE=dict(image=(3, 64, 64), stages=(1, 1, 1, 1), widths=(8, 16, 32, 64),
+              deconv=32),
+    POSE_BATCH=4, RESNET_IMAGE=(3, 64, 64),
+    PRE_RESNET=dict(dataset="flowers", depth=50, class_dim=10,
+                    image_shape=[3, 64, 64], preprocess=True),
+    PRE_RESNET_BATCH=8, C3D_CLIP=(2, 3, 4, 16, 16))
+
+
+def _phase22():
+    for k, v in PHASE22_TINY.items():
+        setattr(cs, k, v)
+    cs.time_ms = lambda fn, iters=30, warmup=5, graph=True: (fn(), 0.0)[1]
+    t22 = time.perf_counter()
+    out, _ = cs.vision_paths("CPU rehearsal")
+    print(f"phase 22 rehearsed in {time.perf_counter() - t22:.1f} s")
     return out
 
 
@@ -255,6 +280,9 @@ def main():
     if "--phase21" in sys.argv:
         print(f"rehearsal passed: phase 21 {_phase21()}")
         return
+    if "--phase22" in sys.argv:
+        print(f"rehearsal passed: phase 22 {_phase22()}")
+        return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -295,13 +323,14 @@ def main():
     p19 = _phase19()
     p20 = _phase20()
     p21 = _phase21()
+    p22 = _phase22()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
           f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
           f"{runtime}, phase 17 {zoo}, phase 18 {rec}, phase 19 {p19}, "
-          f"phase 20 {p20}, phase 21 {p21}")
+          f"phase 20 {p20}, phase 21 {p21}, phase 22 {p22}")
 
 
 if __name__ == "__main__":

@@ -30,19 +30,8 @@ from paddle_tpu_torch.utils.flags import FLAGS as PFLAGS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_VISION = "A11.9"   # kernels_image and kernels_nn with their layers
 _A12 = "A12"        # multi-device
 DEFERRED_LAYERS = {
-    **{n: _VISION for n in (
-        "adaptive_pool2d", "adaptive_pool3d", "affine_grid",
-        "bilinear_tensor_product", "conv2d_transpose", "conv3d",
-        "conv3d_transpose", "conv_shift", "crop", "data_norm",
-        "gaussian_random_batch_size_like", "grid_sampler", "group_norm",
-        "hash", "huber_loss", "lrn", "maxout", "mean_iou", "multiplex",
-        "norm", "pad_constant_like", "pool2d_with_index", "pool3d", "prelu",
-        "random_crop", "reverse", "sampling_id", "selu", "shuffle_channel",
-        "similarity_focus", "space_to_depth", "uniform_random_batch_size_like",
-        "unpool")},
     **{n: _A12 for n in ("ring_attention", "ulysses_attention",
                          "usp_attention")},
     "open_files": "A13",
@@ -62,7 +51,7 @@ DEFERRED_TOP = {
     "TPUPlace": "by design", "XLAPlace": "by design",
 }
 DEFERRED = {**DEFERRED_LAYERS, **DEFERRED_TOP}
-ROADMAP_ITEMS = {"A10", "A11", "A11.9", "A12", "A13", "by design"}
+ROADMAP_ITEMS = {"A10", "A11", "A12", "A13", "by design"}
 
 # names the port's layers modules export beyond the JAX package's
 PORT_EXTRAS = {"io": ["PyReader"]}
@@ -300,9 +289,92 @@ def _backward_battery(fl):
     return [g for _, g in params_grads]
 
 
+# the layers of the image and NN op families (ROADMAP A11.9)
+VISION_LAYERS = (
+    "adaptive_pool2d", "adaptive_pool3d", "affine_grid",
+    "bilinear_tensor_product", "conv2d_transpose", "conv3d",
+    "conv3d_transpose", "conv_shift", "crop", "data_norm",
+    "gaussian_random_batch_size_like", "grid_sampler", "group_norm", "hash",
+    "huber_loss", "lrn", "maxout", "mean_iou", "multiplex", "norm",
+    "pad_constant_like", "pool2d_with_index", "pool3d", "prelu",
+    "random_crop", "reverse", "sampling_id", "selu", "shuffle_channel",
+    "similarity_focus", "space_to_depth", "uniform_random_batch_size_like",
+    "unpool")
+
+
+def test_no_vision_layer_is_deferred():
+    assert len(VISION_LAYERS) == 33
+    assert not set(VISION_LAYERS) & set(DEFERRED)
+    for n in VISION_LAYERS:
+        assert hasattr(pt.layers, n), n
+
+
+def _vision_layers(fl):
+    """Every layer of VISION_LAYERS once or more; the float outputs summed
+    into a loss (the integer ones, the draws and the masks, feed no
+    gradient)."""
+    L = fl.layers
+    img = L.data("img", shape=[4, 8, 8], dtype="float32")
+    vol = L.data("vol", shape=[2, 4, 6, 6], dtype="float32")
+    vec = L.data("vec", shape=[6], dtype="float32")
+    kern = L.data("kern", shape=[3], dtype="float32")
+    y = L.data("y", shape=[1], dtype="float32")
+    ids = L.data("ids", shape=[1], dtype="int64")
+    pick = L.data("pick", shape=[1], dtype="int32")
+    pred = L.data("pred", shape=[1], dtype="int32")
+    lab = L.data("lab", shape=[1], dtype="int32")
+    raw = L.data("raw", shape=[10, 10, 3], dtype="uint8")
+    theta = L.data("theta", shape=[2, 3], dtype="float32")
+    c3 = L.conv3d(vol, num_filters=3, filter_size=3, padding=1, act="relu")
+    pooled, mask = L.pool2d_with_index(img, pool_size=2, pool_stride=2)
+    grid = L.affine_grid(theta, [2, 4, 5, 5])
+    floats = [
+        L.conv2d_transpose(img, num_filters=3, filter_size=4, stride=2,
+                           padding=1, act="relu"),
+        L.conv2d_transpose(img, num_filters=2, output_size=10,
+                           bias_attr=False),
+        c3, L.conv3d_transpose(vol, num_filters=2, filter_size=2, stride=2),
+        L.conv3d_transpose(vol, num_filters=2, output_size=[5, 8, 8],
+                           padding=1),
+        L.pool3d(c3, pool_size=2, pool_stride=2, pool_type="avg",
+                 ceil_mode=True),
+        L.pool3d(vol, pool_size=3, pool_stride=1, pool_padding=1),
+        L.adaptive_pool2d(img, 3, pool_type="avg"),
+        L.adaptive_pool3d(vol, [1, 2, 2]),
+        pooled, L.unpool(pooled, mask, [8, 8]),
+        L.group_norm(img, groups=2), L.maxout(img, groups=2),
+        L.prelu(img, mode="channel"), L.prelu(vec, mode="all"),
+        L.prelu(img, mode="element"), L.lrn(img, n=3),
+        L.crop(img, shape=pooled, offsets=[0, 0, 1, 1]),
+        L.pad_constant_like(img, pooled, pad_value=0.5),
+        L.shuffle_channel(img, group=2), L.space_to_depth(img, 2),
+        L.selu(img), L.selu(vec, scale=1.1, alpha=1.5),
+        L.multiplex([vec, L.scale(vec, scale=2.0)], pick),
+        L.norm(img, axis=1), L.data_norm(vec),
+        L.bilinear_tensor_product(vec, kern, size=3),
+        L.grid_sampler(img, grid), grid,
+        L.conv_shift(vec, kern), L.similarity_focus(img, axis=1,
+                                                    indexes=[0, 2]),
+        L.huber_loss(L.fc(vec, size=1), y, delta=1.0),
+        L.reverse(img, axis=[2]), L.reverse(vec, axis=1),
+        L.gaussian_random_batch_size_like(vec, shape=[-1, 5], std=0.5),
+        L.uniform_random_batch_size_like(vec, shape=[-1, 5], min=0.0),
+        L.cast(L.random_crop(raw, shape=[8, 8, 3]), "float32")]
+    miou, wrong, correct = L.mean_iou(pred, lab, num_classes=4)
+    ints = [L.sampling_id(L.softmax(vec)), L.hash(ids, hash_size=1000,
+                                                  num_hash=2),
+            wrong, correct, mask]
+    loss = L.mean(L.sums([L.reduce_sum(v) for v in floats] + [miou]))
+    return loss, ints
+
+
+def _vision_loss(fl):
+    return _vision_layers(fl)[0]
+
+
 BATTERY = {"tensor": _tensor_layers, "loss": _loss_layers,
            "rnn": _rnn_layers, "training": _training_names,
-           "append_backward": _backward_battery}
+           "append_backward": _backward_battery, "vision": _vision_loss}
 
 
 def _build(fl, fn, with_backward):
@@ -317,7 +389,7 @@ def _build(fl, fn, with_backward):
 
 @pytest.mark.parametrize("name", sorted(BATTERY))
 def test_battery_programs_bytes_identical(name):
-    with_backward = name in ("loss", "rnn")
+    with_backward = name in ("loss", "rnn", "vision")
     with junique.guard():
         jm, js = _build(fluid, BATTERY[name], with_backward)
     with punique.guard():
@@ -327,10 +399,20 @@ def test_battery_programs_bytes_identical(name):
 
 
 def test_battery_runs_in_the_port():
-    """The loss and RNN batteries train a step on the CPU to finite
-    values (every op of them has an emitter and a grad)."""
+    """The loss, RNN and vision batteries train a step on the CPU to
+    finite values (every op of them has an emitter and a grad)."""
     rng = np.random.RandomState(0)
     for fn, feed in (
+            (_vision_loss, {"img": rng.randn(2, 4, 8, 8),
+                            "vol": rng.randn(2, 2, 4, 6, 6),
+                            "vec": rng.rand(2, 6) + 0.1,
+                            "kern": rng.randn(2, 3), "y": rng.randn(2, 1),
+                            "ids": rng.randint(0, 50, (2, 1)),
+                            "pick": np.array([[1], [0]], "int32"),
+                            "pred": rng.randint(0, 4, (2, 1)),
+                            "lab": rng.randint(0, 4, (2, 1)),
+                            "raw": rng.randint(0, 256, (2, 10, 10, 3)),
+                            "theta": rng.randn(2, 2, 3) * 0.5}),
             (_loss_layers, {"a": rng.randn(4, 1), "b": rng.randn(4, 1),
                             "y": rng.randint(0, 2, (4, 1)),
                             "ids": rng.randint(0, 7, (4, 1)),

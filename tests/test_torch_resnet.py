@@ -114,8 +114,91 @@ def test_programs_bytes_identical(cfg, layout, program):
 
 
 def test_preprocess_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A11"):
-        presnet.build(preprocess=True)
+    """``preprocess=True`` no longer raises (the test's name dates from
+    when the variant did): it builds the JAX package's three programs,
+    byte for byte, at its default raw shape, and feeds the raw image."""
+    j, p = _build_both(preprocess=True)
+    for program in ("main", "startup", "test"):
+        assert p[program].desc.to_bytes() == j[program].desc.to_bytes()
+    assert p["feeds"] == j["feeds"] == ["raw_image", "label"]
+    raw = p["main"].global_block().var("raw_image")
+    assert raw.shape == (-1, 252, 252, 3)
+
+
+PRE_CIFAR = dict(dataset="cifar10", preprocess=True)
+
+
+@pytest.mark.parametrize("raw_shape", [None, [32, 32, 3]],
+                         ids=["default_raw", "raw_equals_crop"])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_preprocess_programs_bytes_identical(layout, raw_shape):
+    j, p = _build_both(layout=layout, raw_shape=raw_shape, **PRE_CIFAR)
+    for program in ("main", "startup", "test"):
+        assert p[program].desc.to_bytes() == j[program].desc.to_bytes()
+    types = [o.type for o in p["main"].global_block().ops[:8]]
+    assert types[:4] == ["random_crop", "cast", "transpose2", "scale"]
+
+
+def _normalized(raw):
+    """The preprocessing in numpy: uint8 HWC -> CHW in [0, 1] ->
+    (x - mean) / std a channel."""
+    x = raw.astype(np.float32).transpose(0, 3, 1, 2) * np.float32(1 / 255.0)
+    mean = np.array(presnet.IMAGE_MEAN, np.float32).reshape(3, 1, 1)
+    std = np.array(presnet.IMAGE_STD, np.float32).reshape(3, 1, 1)
+    return (x - mean) / std
+
+
+def _input_name(p):
+    return [o for o in p["main"].global_block().ops
+            if o.type == "elementwise_div"][0].output("Out")[0]
+
+
+def test_preprocess_step_matches_jax_when_the_crop_is_whole():
+    """The raw shape equal to the crop: both packages' crops are the
+    identity, so one step from the same state takes the same input (equal
+    to the numpy preprocessing within 1e-6) and the same loss (within
+    1e-5 relative, the cifar10 steps' bound)."""
+    j, p, jscope, jexe, pscope = _init(PRE_CIFAR, raw_shape=[32, 32, 3])
+    rng = np.random.RandomState(0)
+    feed = {"raw_image": rng.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8),
+            "label": rng.randint(0, 10, (2, 1)).astype(np.int64)}
+    name = _input_name(p)
+    with fluid.scope_guard(jscope):
+        jl, jx = jexe.run(j["main"], feed=feed,
+                          fetch_list=[j["loss"], name])
+    pl, px = pt.Executor(pt.CPUPlace()).run(
+        p["main"], feed=feed, fetch_list=[p["loss"], name], scope=pscope)
+    want = _normalized(feed["raw_image"])
+    np.testing.assert_allclose(px, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(jx), want, rtol=0, atol=1e-6)
+    jl = float(np.asarray(jl).reshape(-1)[0])
+    assert abs(float(pl.reshape(-1)[0]) - jl) <= 1e-5 * abs(jl)
+
+
+def test_preprocess_crops_each_example_at_its_own_offset():
+    """At the default raw shape (36x36 for 32x32) each example's network
+    input is the preprocessing of a 32x32 slice of its own raw image at
+    offsets inside [0, 4], drawn anew each run."""
+    _, p = _build_both(**PRE_CIFAR)
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(p["startup"], scope=scope)
+    rng = np.random.RandomState(1)
+    raw = rng.randint(0, 256, (6, 36, 36, 3)).astype(np.uint8)
+    feed = {"raw_image": raw,
+            "label": rng.randint(0, 10, (6, 1)).astype(np.int64)}
+    runs = []
+    for _ in range(2):
+        (x,) = exe.run(p["test"], feed=feed, fetch_list=[_input_name(p)],
+                       scope=scope)
+        offsets = []
+        for b in range(6):
+            hits = [(r, c) for r in range(5) for c in range(5)
+                    if np.allclose(x[b], _normalized(
+                        raw[b:b + 1, r:r + 32, c:c + 32])[0], atol=1e-6)]
+            assert len(hits) >= 1, b
+            offsets.append(hits[0])
+        runs.append(offsets)
+    assert len(set(runs[0] + runs[1])) > 1
 
 
 def _init(cfg, seed=3, amp=False, **kw):
