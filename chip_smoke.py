@@ -10,8 +10,8 @@
                                      # work on a kernel: prints the kernels
                                      # line (launches null) and no contract
                                      # line
-    python3 chip_smoke.py --phase 22 # phases 1-2, then phase 22 alone
-                                     # (any of 12 and 14-22), its seconds
+    python3 chip_smoke.py --phase 23 # phases 1-2, then phase 23 alone
+                                     # (any of 12 and 14-23), its seconds
                                      # and launches; no contract line
 
 Phases, in order; any failure exits non-zero and no phase is skipped:
@@ -408,6 +408,37 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    under the deterministic mode (bitwise equal), and the random types'
    draws (``random_crop``'s offsets exact, in bounds and uniform;
    ``sampling_id``'s counts; the ``*_batch_size_like`` moments).
+23. quantization, model compression, ModelAverage and the single-device
+   rest of the registry, after phase 22: (A) phase 9's ResNet-50
+   (bench_resnet: 224x224, 1000 classes, Momentum, batch 128) in fp32,
+   ``QuantizeTranspiler`` (8 bits, moving-average activation scales)
+   after minimize, so 54 quantized ops (53 convolutions and the fc's mul)
+   behind about 100 fake-quant ops, through ``CompiledProgram`` under
+   bench.py's BuildStrategy: REC_RUNS steps captured against eager
+   bitwise (the moving scales among the persistables), the fake-quant
+   ops' share of the step by graph replay; then its test clone
+   (batch_norm statistics calibrated on the batch) frozen to int8
+   weights behind ``dequantize_weights`` (each the fake quant's value but
+   at rounding ties), saved and served by ``AnalysisPredictor`` and
+   ``NativePredictor``, each within QAT_SERVED_REL of the executor's run of
+   the frozen program, its distance from the float test program measured;
+   (B) the same ResNet-50, AMP,
+   pruned and retrained under ``CompressPass`` (``PruneStrategy`` with a
+   fixed ``RatioPruner`` mask keeping half of every conv and fc weight,
+   built by ``ConfigFactory`` from PRUNE_CONFIG), 2 epochs of 3 batches:
+   the loop captured once and bitwise its eager run, the sparsity within
+   PRUNE_SPARSITY_TOL of 0.5 and the strategy's count the scope's; (C)
+   phase 19's CRNN-CTC with ``ModelAverage(0.15)`` (ocr_recognition's
+   windows): CRNN_MA_RUNS steps captured against eager bitwise, the EMAs
+   among the persistables, then apply, evaluate and restore twice with a
+   train step between, the parameters bitwise their EMAs inside and
+   themselves after, the second cycle capturing nothing; (D) the op bank:
+   the 26 types on the card against the CPU at the paths' shapes (a
+   ResNet-50 activation, TBCNN's trees, a DAM-like attention LSTM over
+   [32, 50, 256], ``average_accumulates`` just before its drain and a
+   window roll), the fake-quant types' straight-through grads, ``py_func``
+   and ``delete_var`` in captured programs, and ``random_data_generator``
+   through a ``Preprocessor`` feeding a captured step.
 
 Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
@@ -417,7 +448,7 @@ captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
 (phases 14-15), the model zoo (17), recurrent training (18), phases
-19, 20, 21(B-C) and 22 hold the wrappers' counts at 0: no call, so no
+19, 20, 21(B-C), 22 and 23 hold the wrappers' counts at 0: no call, so no
 flash kernel in any graph either. 21(A) counts the kernels of its step's
 graph from the graph's DOT dump, as 16(B) does.
 
@@ -8320,6 +8351,788 @@ def vision_paths(smi):
     return out, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 23: quantization, model compression, ModelAverage and the
+# single-device rest of the registry
+# ---------------------------------------------------------------------------
+
+# 23(A): bench_resnet's ResNet-50 (phase 9's build: 224x224, 1000 classes,
+# Momentum at lr 0.1, batch 128) in fp32, transpiled for quantization-aware
+# training after minimize at 8 bits with moving-average activation scales
+# (the JAX fake-quant ops have no AMP cast point, and Fluid 1.2 trained QAT
+# in fp32), then its test clone frozen to int8 weights and served
+QAT_ACT = "moving_average_abs_max"
+QAT_QUANTIZED = 54     # 53 convolutions and the fc's mul
+# the frozen model is held to the QAT model it came from: its int8 weights
+# to the fake quant's (QAT_WEIGHT_FLIPS), the served outputs to the
+# executor's run of the frozen program (QAT_SERVED_REL). Against the float
+# test program it is measured, not gated: a few steps from random weights
+# the quantized ResNet-50 is chaotic (a rounding flipped anywhere flips
+# more downstream; 23 of 23.7 M weights a quantum apart moved a 64x64
+# build's probabilities by 27% on the CPU, and even fit to a fifth of its
+# first loss on its batch the frozen model stayed 0.13-0.33 from float),
+# where tests/test_quantize.py's 0.1 holds for a trained two-layer net
+QAT_WEIGHT_FLIPS = 1e-5  # int8 weights one quantum from the fake quant's
+                         # (float64 against float32 at a rounding tie), of
+                         # all weights
+QAT_SERVED_REL = 1e-5  # served against the executor's frozen program
+QAT_SERVE_RUNS = 4     # requests a predictor (warm-up, capture, replays)
+# 23(B): the same ResNet-50, AMP, batch 128, pruned to half of every conv
+# and fc weight by magnitude under CompressPass and retrained (the recipe
+# of tests/test_slim.py with a fixed mask), 2 epochs of 3 batches, its
+# strategy built from a dict through ConfigFactory (no yaml needed)
+PRUNE_BATCHES = 3
+PRUNE_EPOCHS = 2
+PRUNE_SPARSITY = 0.5
+PRUNE_SPARSITY_TOL = 0.01
+PRUNE_CONFIG = {
+    "version": 1.0,
+    "pruners": {"pruner_1": {"class": "RatioPruner",
+                             "ratios": {"*": PRUNE_SPARSITY}}},
+    "strategies": {"prune_strategy": {
+        "class": "PruneStrategy", "pruner": "pruner_1",
+        "mini_batch_pruning_frequency": 1, "start_epoch": 0,
+        "end_epoch": PRUNE_EPOCHS, "fixed_mask": True,
+        "params": [r"conv2d_\d+\.w_0", r"fc_\d+\.w_0"]}},
+    "compress_pass": {"class": "CompressPass", "epoch": PRUNE_EPOCHS,
+                      "strategies": ["prune_strategy"]},
+}
+# 23(C): phase 19's CRNN-CTC with the ModelAverage of PaddleCV
+# ocr_recognition's train.py (average_window 0.15, windows 10000-12500)
+CRNN_MA_WINDOW = 0.15
+CRNN_MA_RUNS = 6       # captured steps held against eager, EMAs included
+# 23(D): the op bank at the paths' shapes: ResNet-50's layer-1 activation
+# at batch 16 (the CPU's share), TBCNN's trees (Mou et al. 2016: 30-wide
+# node vectors, 600 filters, depth 2), a DAM-like attention LSTM over
+# [32, 50, 256]
+QUANT_BANK_REL = 1e-5
+TBCNN = dict(batch=8, nodes=96, feature=30, filters=600, depth=2)
+DAM = dict(batch=32, steps=50, width=256, hidden=128)
+READER_BATCH = 256     # the random_data_generator step's batch
+READER_RUNS = 4        # steps of each arm (warm-up, capture, replays)
+
+
+def fake_quant_ms(ops, block, scope, batch, dev):
+    """The step's fake-quant ops alone, forward, on seeded inputs of their
+    shapes (activations at ``batch``, the weights the scope's): ms a step
+    by graph replay, and the bytes they move (each input read twice, for
+    its largest magnitude and for its rounding, and written once)."""
+    inputs, cache, nbytes = [], {}, 0
+    for op in ops:
+        name = op.input("X")[0]
+        t = scope.find_var(name)
+        if t is None:
+            shape = tuple(batch if d < 0 else d for d in block.var(name).shape)
+            t = cache.get(shape)
+            if t is None:
+                t = cache[shape] = torch.randn(shape, device=dev)
+        ins = {"X": [t]}
+        if op.input("InScale"):
+            ins["InScale"] = [scope.find_var(op.input("InScale")[0]).clone()]
+        inputs.append((pt.registry.lookup(op.type).emitter, ins, op.attrs))
+        nbytes += 3 * t.numel() * t.element_size()
+    ctx = pt.registry.EmitContext(dev)
+
+    def run():
+        for emit, ins, attrs in inputs:
+            emit(ctx, ins, attrs)
+
+    return time_ms(run, iters=5, warmup=1), nbytes
+
+
+def qat_serve(label, exe, m, t, scope, feed, smi):
+    """The trained scope's test clone (its batch_norm statistics
+    calibrated on the batch) transpiled and frozen: every conv and fc
+    weight int8 behind a dequantize_weights, each the fake quant's value
+    but at rounding ties (QAT_WEIGHT_FLIPS); saved and served by
+    AnalysisPredictor and NativePredictor on the card, each within
+    QAT_SERVED_REL of the executor's run of the frozen program, its rows
+    probabilities; the distance from the float test program's output
+    and the arg-max agreement measured."""
+    req = {"data": feed["data"]}
+    calibrate_batch_norm(exe, m["test"], scope, feed)
+    (ref,) = run_tensors(exe, m["test"], feed=req,
+                         fetch_list=[m["predict"].name], scope=scope)
+    frozen = m["test"].clone()
+    with pt.scope_guard(scope):
+        t.training_transpile(frozen, place=exe.place)
+        t.freeze_program(frozen, scope=scope)
+    ops = frozen.global_block().desc.ops
+    deq = [o for o in ops if o.type == "dequantize_weights"]
+    int8 = [o.input("X")[0] for o in deq]
+    int8_mb = sum(scope.find_var(n).numel() for n in int8) / 1e6
+    fp32_mb = 4 * sum(scope.find_var(n[:-len(".int8")]).numel()
+                      for n in int8) / 1e6
+    if not (len(deq) == QAT_QUANTIZED and all(
+            scope.find_var(n).dtype == torch.int8 for n in int8)):
+        raise AssertionError(f"{label}: {len(deq)} int8 weights")
+    ctx = pt.registry.EmitContext(exe.device)
+    flips, quantum = 0, 0.0
+    for o in deq:
+        w = scope.find_var(o.input("X")[0][:-len(".int8")])
+        fq = pt.registry.lookup("fake_quantize_abs_max").emitter(
+            ctx, {"X": [w]}, {"bit_length": t.weight_bits})["Out"][0]
+        dq = pt.registry.lookup("dequantize_weights").emitter(
+            ctx, {"X": [scope.find_var(o.input("X")[0])],
+                  "Scale": [scope.find_var(o.input("Scale")[0])]},
+            o.attrs)["Out"][0]
+        flips += int(torch.count_nonzero(fq != dq))
+        step = scope.find_var(o.input("Scale")[0]).item() / o.attrs[
+            "max_range"]
+        quantum = max(quantum, (fq - dq).abs().max().item() / step)
+    (got,) = run_tensors(exe, frozen, feed=req,
+                         fetch_list=[m["predict"].name], scope=scope)
+    top = ref.abs().max().item()
+    errs = {"executor": distance(got, ref) / top}
+    d = tempfile.mkdtemp(prefix="chip_smoke_qat_", dir=_build.BUILD_DIR)
+    try:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["data"], [m["predict"]], exe,
+                                       main_program=frozen)
+        saved_mb = _dir_bytes(d) / 1e6
+        served_ms, served = {}, {}
+        for name, cfg in (("AnalysisPredictor", AnalysisConfig(d)),
+                          ("NativePredictor", NativeConfig(d))):
+            pred = create_paddle_predictor(cfg)
+            secs = []
+            for _ in range(QAT_SERVE_RUNS):
+                t0 = time.perf_counter()
+                out = pred.run(req)[0].as_tensor()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            served_ms[name] = float(np.median(secs[2:])) * 1e3
+            errs[name] = distance(out.float(), ref) / top
+            served[name] = distance(out.float(), got) / got.abs().max().item()
+            if name == "AnalysisPredictor":
+                types = [o.type for o in pred._program.global_block().desc.ops]
+            pred.close()
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    total = sum(scope.find_var(n).numel() for n in int8)
+    agree = float((got.argmax(1) == ref.argmax(1)).float().mean())
+    sums = (got.sum(1) - 1).abs().max().item()
+    log(f"  {label}: frozen test program: {len(deq)} weights int8 behind "
+        f"dequantize_weights, {int8_mb:.2f} MB against {fp32_mb:.2f} MB of "
+        f"fp32 (the model directory {saved_mb:.2f} MB); {flips} of {total} "
+        f"dequantized weights differ from the fake quant's, by at most "
+        f"{quantum:.3f} quanta (bound {QAT_WEIGHT_FLIPS} of them, one "
+        f"quantum); served against the executor's frozen program "
+        + ", ".join(f"{n} {e:.3e}" for n, e in served.items())
+        + f" (bound {QAT_SERVED_REL}); the AnalysisPredictor "
+        f"keeps {types.count('batch_norm')} batch_norms (a dequantized "
+        f"filter has no value to fold into) and fuses "
+        f"{types.count('fc')} fc; served against the float test program "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" of the largest probability {top:.3e}, the arg-max the same on "
+        f"{agree:.1%} of the rows (measured, not gated), rows summing to 1 "
+        f"within {sums:.1e}; a request of "
+        f"{len(feed['data'])} images " + ", ".join(
+            f"{n} {v:.3f} ms" for n, v in served_ms.items()) + f" [{smi}]")
+    if not (max(served.values()) <= QAT_SERVED_REL and sums <= 1e-5
+            and flips <= QAT_WEIGHT_FLIPS * total and quantum <= 1.001
+            and torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: served {served}, flips {flips} "
+                             f"({quantum} quanta), row sums {sums}")
+    return {"int8_mb": int8_mb, "fp32_mb": fp32_mb, "saved_mb": saved_mb,
+            "served_ms": served_ms, "float_rel": errs, "served_rel": served,
+            "weight_flips": flips, "argmax_agree": agree}
+
+
+def qat_path(smi):
+    """23(A): ResNet-50 at bench_resnet's widths, fp32, QuantizeTranspiler
+    (8 bits, moving-average activation scales) after minimize: QAT_QUANTIZED
+    quantized ops, REC_RUNS steps captured against eager bitwise (every
+    persistable, the moving scales included) through CompiledProgram under
+    bench.py's BuildStrategy (zoo_train), the fake-quant ops' share of a
+    step by graph replay (fake_quant_ms); then the test clone frozen and
+    served (qat_serve)."""
+    label = "23(A) ResNet-50 QAT"
+    from paddle_tpu_torch.contrib.quantize import QuantizeTranspiler
+    m, state, exe = built_on_card(lambda: resnet.build(
+        dataset="flowers", depth=50, class_dim=RESNET_CLASSES,
+        image_shape=list(RESNET_IMAGE), lr=0.1))
+    t = QuantizeTranspiler(activation_quantize_type=QAT_ACT)
+    scales = pt.Scope()
+    with pt.scope_guard(scales):
+        # the moving scales start at 0 on the card, beside the state
+        t.training_transpile(m["main"], place=exe.place)
+    state.update({n: scales.find_var(n) for n in scales.var_names()})
+    block = m["main"].global_block()
+    ops = block.desc.ops
+    quants = [o for o in ops if o.type.startswith("fake_quantize_")]
+    quantized = [o for o in ops if o.type in ("conv2d", "depthwise_conv2d",
+                                              "mul")
+                 and o.input_arg_names()
+                 and all(n.endswith(".quantized")
+                         for n in o.input_arg_names())]
+    scales = [n for n in state if n.endswith(".quant_scale")]
+    log(f"  {label}: {len(quants)} fake-quant ops ({len(scales)} moving "
+        f"scales) in front of {len(quantized)} quantized ops")
+    if len(quantized) != QAT_QUANTIZED or not scales:
+        raise AssertionError(f"{label}: {len(quantized)} quantized ops")
+    feed = resnet_batch(RESNET_BATCH, SEED + 2300)
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    scope, steps, res = zoo_train(label, exe, target, state,
+                                  [m["loss"].name], [feed] * REC_RUNS,
+                                  ("images", RESNET_BATCH), smi,
+                                  runs=REC_RUNS)
+    moved = sum(bool((scope.find_var(n) > 0).all()) for n in scales)
+    if moved != len(scales):
+        raise AssertionError(f"{label}: {len(scales) - moved} scales at 0")
+    fq_ms, fq_bytes = fake_quant_ms(quants, block, scope, RESNET_BATCH,
+                                    exe.device)
+    res.update(quant_ops=len(quants), fake_quant_ms=fq_ms,
+               fake_quant_gb=fq_bytes / 1e9,
+               fake_quant_share=fq_ms / res["device_ms"])
+    log(f"  {label}: the {len(quants)} fake-quant ops alone {fq_ms:.3f} ms "
+        f"by graph replay ({fq_bytes / 1e9:.2f} GB read twice and written "
+        f"once: {fq_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the data-sheet "
+        f"rate), {res['fake_quant_share']:.1%} of the step's "
+        f"{res['device_ms']:.3f} ms of device time [{smi}]")
+    res["serve"] = qat_serve(label, exe, m, t, scope, feed, smi)
+    del scope, steps, target
+    exe.close()
+    return res
+
+
+def prune_arm(label, exe, target, state, feeds, loss, jit):
+    """The CompressPass loop over ``feeds`` (PRUNE_EPOCHS epochs) from a
+    copy of ``state`` under the deterministic mode, captured (``jit``) or
+    eager: (scope, strategy, context, losses, seconds)."""
+    from paddle_tpu_torch.contrib import slim
+    scope = copy_state(state, exe.device)
+    losses = []
+    comp = slim.core.build_compressor(
+        data_reader=lambda: iter(feeds), scope=scope, metrics={"loss": loss},
+        config=PRUNE_CONFIG, program_exe=exe)
+    comp.on_metrics = lambda ctx, named: losses.append(
+        torch.as_tensor(np.asarray(named["loss"])))
+    with deterministic() as warned, jit_cache(jit):
+        t0 = time.perf_counter()
+        ctx = comp.apply(slim.ImitationGraph(target))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if warned:
+        raise AssertionError(f"{label}: {warned}")
+    return scope, comp.strategies[0], ctx, losses, secs
+
+
+def prune_path(smi):
+    """23(B): ResNet-50 AMP through CompiledProgram under bench.py's
+    BuildStrategy, pruned and retrained by CompressPass with
+    PRUNE_CONFIG's PruneStrategy (built by ConfigFactory from the dict):
+    the loop captured (one capture of the train plan over the whole loop:
+    the masks multiply the weights in place) against the same loop eager,
+    every persistable bitwise; the sparsity of the pruned weights within
+    PRUNE_SPARSITY_TOL of PRUNE_SPARSITY and the strategy's own count the
+    scope's; then the pruned step's replays traced."""
+    label = "23(B) ResNet-50 pruned"
+    m, state, exe = built_on_card(lambda: resnet.build(
+        dataset="flowers", depth=50, class_dim=RESNET_CLASSES,
+        image_shape=list(RESNET_IMAGE), lr=0.1))
+    target = pt.CompiledProgram(mixed_precision.decorate(m["main"].clone()),
+                                build_strategy=bench_build_strategy())
+    feeds = [resnet_batch(RESNET_BATCH, SEED + 2310 + i)
+             for i in range(PRUNE_BATCHES)]
+    arms = {}
+    for arm in ("eager", "captured"):
+        arms[arm] = prune_arm(label, exe, target, state, feeds, m["loss"],
+                              arm == "captured")
+    scope, strategy, ctx, losses, secs = arms["captured"]
+    captures = ctx.exe.exe.capture_stats["captures"]
+    hold(label, f"captured against eager, every persistable after "
+         f"{PRUNE_EPOCHS} x {PRUNE_BATCHES} batches",
+         scope_distance(scope, arms["eager"][0])[0], 0.0)
+    hold(label, "losses captured against eager",
+         max(distance(a, b) for a, b in zip(losses, arms["eager"][3])), 0.0)
+    sparsity = strategy.sparsity(ctx)
+    pruned = list(strategy._selected(ctx.graph))
+    zero = sum(int(torch.count_nonzero(scope.find_var(p.name) == 0))
+               for p in pruned)
+    total = sum(scope.find_var(p.name).numel() for p in pruned)
+    log(f"  {label}: {len(pruned)} conv and fc weights, {total} values: "
+        f"sparsity {sparsity:.6f} (the scope's count {zero / total:.6f}; "
+        f"want {PRUNE_SPARSITY} within {PRUNE_SPARSITY_TOL}); the train plan "
+        f"captured {captures} time(s) over the loop; losses "
+        + ", ".join(f"{float(v):.5f}" for v in losses)
+        + f"; the loop {secs:.2f} s captured, {arms['eager'][4]:.2f} s eager")
+    if not (abs(sparsity - PRUNE_SPARSITY) <= PRUNE_SPARSITY_TOL
+            and sparsity == zero / total and len(pruned) == QAT_QUANTIZED
+            and (captures == 1 or exe.device.type != "cuda")):
+        raise AssertionError(f"{label}: sparsity {sparsity}, captures "
+                             f"{captures}, {len(pruned)} weights")
+    run_exe = ctx.exe.exe
+    rows, busy = traced_window(label, lambda: run_tensors(
+        run_exe, target, feed=feeds[0], fetch_list=[m["loss"].name],
+        scope=scope))
+    secs = []
+    for _ in range(ZOO_TRACED):
+        t0 = time.perf_counter()
+        run_tensors(run_exe, target, feed=feeds[0],
+                    fetch_list=[m["loss"].name], scope=scope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    step_ms = float(np.median(secs)) * 1e3
+    log(f"  {label}: a pruned AMP step {step_ms:.3f} ms captured "
+        f"({RESNET_BATCH / step_ms * 1e3:.1f} images/s), a traced replay "
+        f"{busy:.3f} ms of device time over "
+        f"{sum(r[2] for r in rows) / ZOO_TRACED:.0f} kernels: the card idle "
+        f"{max(0.0, 1 - busy / step_ms):.1%} [{smi}]")
+    res = {"sparsity": sparsity, "captures": captures, "step_ms": step_ms,
+           "device_ms": busy, "idle": max(0.0, 1 - busy / step_ms),
+           "kernels": sum(r[2] for r in rows) / ZOO_TRACED,
+           "losses": [float(v) for v in losses]}
+    del arms, scope, ctx
+    exe.close()
+    return res
+
+
+def model_average_path(smi):
+    """23(C): the CRNN-CTC with ModelAverage(CRNN_MA_WINDOW) built after
+    minimize: CRNN_MA_RUNS steps captured against eager bitwise, the EMAs
+    among the persistables (zoo_train); then twice, with a train step
+    between: ``with model_average.apply(exe)``, every parameter bitwise its
+    EMA and the test program's edit distances evaluated (warm-up and
+    capture in the first cycle), and after it every parameter bitwise what
+    it was; the second cycle captures nothing, in the train plan or the
+    test plan."""
+    label = "23(C) CRNN-CTC with ModelAverage"
+    m, state, exe = built_on_card(lambda: tmodels.crnn_ctc(
+        pt, average_window=CRNN_MA_WINDOW, **CRNN))
+    cfg, ma = m["config"], m["model_average"]
+    feed = tmodels.crnn_batch(CRNN_BATCH, cfg["image"], cfg["classes"],
+                              cfg["max_label"], seed=SEED + 2320)
+    target = pt.CompiledProgram(m["main"],
+                                build_strategy=bench_build_strategy())
+    scope, steps, res = zoo_train(label, exe, target, state,
+                                  [m["loss"].name], [feed] * CRNN_MA_RUNS,
+                                  ("images", CRNN_BATCH), smi,
+                                  runs=CRNN_MA_RUNS)
+    params = sorted(ma._ema)
+    dists, caps = [], []
+    for cycle in (1, 2):
+        before = {n: scope.find_var(n).clone() for n in params}
+        tensors = {n: scope.find_var(n) for n in params}
+        with pt.scope_guard(scope), ma.apply(exe):
+            swapped = all(scope.find_var(n) is tensors[n] and torch.equal(
+                tensors[n], scope.find_var(ma._ema[n].name)) for n in params)
+            outs = [run_tensors(exe, m["test"], feed=feed,
+                                fetch_list=[m["distance"].name],
+                                scope=scope)[0] for _ in range(2)]
+        restored = max(distance(scope.find_var(n), before[n])
+                       for n in params)
+        if not (swapped and restored == 0.0 and all(
+                scope.find_var(n) is tensors[n] for n in params)):
+            raise AssertionError(f"{label}: cycle {cycle}: applied "
+                                 f"{swapped}, restored {restored}")
+        dists.append(float(outs[-1].float().mean()))
+        caps.append(exe.capture_stats["captures"])
+        if cycle == 1:
+            run_tensors(exe, target, feed=feed, fetch_list=[m["loss"].name],
+                        scope=scope)
+    (plain,) = run_tensors(exe, m["test"], feed=feed,
+                           fetch_list=[m["distance"].name], scope=scope)
+    log(f"  {label}: {len(params)} parameters averaged; under apply the "
+        f"mean edit distance {dists[0]:.4f} then {dists[1]:.4f} (the "
+        f"parameters themselves {float(plain.float().mean()):.4f}); restored "
+        f"bitwise and in place both times; captures after the cycles "
+        f"{caps} (the second captures nothing) [{smi}]")
+    if caps[1] != caps[0]:
+        raise AssertionError(f"{label}: the second cycle captured "
+                             f"{caps[1] - caps[0]} graph(s)")
+    res.update(distances=dists, ema_params=len(params))
+    del scope, steps, target
+    exe.close()
+    return res
+
+
+def _tbcnn_batch(rng):
+    """TBCNN's trees: each sample a random tree over 40-96 of the node
+    slots (parent ids before children), its edges 1-indexed and ended by a
+    (0, 0) row."""
+    b, n = TBCNN["batch"], TBCNN["nodes"]
+    edges = np.zeros((b, n, 2), np.int64)
+    for s in range(b):
+        count = rng.randint(40, n + 1)
+        for c in range(2, count + 1):
+            edges[s, c - 2] = (rng.randint(1, c), c)
+    return edges
+
+
+def quant_rest_bank_cases():
+    """(op type, numpy inputs, attrs, bound) of 23(D)'s bank: the types
+    run_bank holds (delete_var and py_func in a program, and the
+    reader's layers, have checks of their own in quant_rest_bank_path)."""
+    rng = np.random.RandomState(SEED + 2330)
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    act = f(16, 64, 56, 56)
+    wq = f(2048, 512)
+    q8 = rng.randint(-127, 128, (512, 512, 3, 3)).astype(np.int8)
+    fc = f(2048, 1000)
+
+    def acc(na, no, nu):
+        return {"Param": [fc], "in_sum_1": [fc * 3], "in_sum_2": [fc * 5],
+                "in_sum_3": [fc], "in_num_accumulates": [np.array([na])],
+                "in_old_num_accumulates": [np.array([no])],
+                "in_num_updates": [np.array([nu])]}
+
+    window = {"average_window": 0.15, "max_average_window": 12500,
+              "min_average_window": 10000}
+    bits = {"bit_length": 8, "moving_rate": 0.9, "is_test": False}
+    d, w, t, h = DAM["batch"], DAM["width"], DAM["steps"], DAM["hidden"]
+    rows = [
+        ("fake_quantize_abs_max", {"X": [act]}, {"bit_length": 8}),
+        ("fake_quantize_range_abs_max",
+         {"X": [act], "InScale": [np.array([3.5], np.float32)]}, bits),
+        ("fake_quantize_moving_average_abs_max",
+         {"X": [wq], "InScale": [np.array([0.0], np.float32)]}, bits),
+        ("fake_dequantize_max_abs", {"X": [np.round(wq * 40)],
+                                     "Scale": [np.array([0.37], np.float32)]},
+         {"max_range": 127.0}),
+        ("dequantize_weights", {"X": [q8], "Scale": [np.array(
+            [0.61], np.float32)]}, {"max_range": 127.0}),
+        ("assign_grad_through", {"Out@GRAD": [act]}, {}),
+        ("quantize", {"Input": [act]}, {"Scale": 31.5}),
+        ("dequantize", {"Input": [q8]}, {"Scale": 31.5}),
+        ("average_accumulates", acc(40, 0, 16383), window),
+        ("average_accumulates", acc(9999, 7, 60000), window),
+        ("feed", {"X": [f(READER_BATCH, 784)]}, {"col": 0}),
+        ("fetch", {"X": [f(READER_BATCH, 10)]}, {"col": 0}),
+        ("get_places", {}, {}),
+        ("tree_conv", {"NodesVector": [f(TBCNN["batch"], TBCNN["nodes"],
+                                         TBCNN["feature"])],
+                       "EdgeSet": [_tbcnn_batch(rng)],
+                       "Filter": [f(TBCNN["feature"], 3, TBCNN["filters"],
+                                    1)]}, {"max_depth": TBCNN["depth"]}),
+        ("py_func", {"X": [f(64, 512), f(64, 512)]},
+         {"func": lambda a, b: (a * b + 1.0, a.sum(axis=1))}),
+        ("fused_embedding_seq_pool", {"W": [f(10000, 128)], "Ids": [
+            rng.randint(0, 10000, (32, 50, 1))]}, {"padding_idx": 0}),
+        ("fusion_seqexpand_concat_fc",
+         {"X": [f(32, 50, 128), f(32, 64)], "FCWeight": [f(192, 256)],
+          "FCBias": [f(256)]}, {"fc_activation": "tanh"}),
+        ("attention_lstm",
+         {"X": [f(d, t, w)], "C0": [f(d, h)], "H0": [f(d, h)],
+          "AttentionWeight": [f(w + h, 1, scale=0.1)],
+          "AttentionBias": [f(1, 1)], "LSTMWeight": [f(h + w, 4 * h,
+                                                        scale=0.1)],
+          "LSTMBias": [f(1, 4 * h)],
+          "Length": [rng.randint(1, t + 1, d).astype(np.int32)]}, {}),
+        ("merge_selected_rows", {"X": [fc]}, {}),
+        ("get_tensor_from_selected_rows", {"X": [fc]}, {}),
+        ("split_selected_rows", {"X": [fc]},
+         {"height_sections": [1024, 512, 512]}),
+        ("split_byref", {"X": [fc]}, {"height_sections": [1000, 1048]}),
+        ("lookup_sparse_table", {"W": [f(100000, 64)], "Ids": [
+            rng.randint(0, 100000, (4096, 1))]}, {}),
+        ("ref_by_trainer_id", {"X": [fc, fc * 2, fc * 3],
+                               "TrainerId": [np.array([1])]}, {}),
+        ("rnn_memory_helper", {"X": [f(32, 512)]}, {}),
+        ("rnn_memory_helper_grad", {"X": [f(32, 512)],
+                                    "Out@GRAD": [f(32, 512)]}, {}),
+    ]
+    return [(n, ins, attrs, QUANT_BANK_REL) for n, ins, attrs in rows]
+
+
+def ste_program(fl, width):
+    """fc -> fake quant (each of the three types, appended through the
+    Block API so the backward reaches it) -> ... -> fc -> squared error,
+    SGD; returns (main, startup, loss, [(quant input, quant output)])."""
+    L = fl.layers
+    main, startup = fl.Program(), fl.Program()
+    main.random_seed = startup.random_seed = SEED
+    pairs = []
+    with fl.program_guard(main, startup):
+        h = L.data("x", shape=[width], dtype="float32")
+        y = L.data("y", shape=[1], dtype="float32")
+        blk = main.global_block()
+        for i, qtype in enumerate(("abs_max", "range_abs_max",
+                                   "moving_average_abs_max")):
+            h = L.fc(h, size=width, act="relu")
+            q = blk.create_var(name=f"ste_q{i}", dtype="float32",
+                               shape=h.shape)
+            ins, outs = {"X": h}, {"Out": q}
+            attrs = {"bit_length": 8}
+            if qtype != "abs_max":
+                s = blk.create_var(name=f"ste_s{i}", dtype="float32",
+                                   shape=[1], persistable=True)
+                ins["InScale"] = s
+                attrs.update(moving_rate=0.9, is_test=False)
+            else:
+                s = blk.create_var(name=f"ste_s{i}", dtype="float32",
+                                   shape=[1])
+            outs["OutScale"] = s
+            blk.append_op(type=f"fake_quantize_{qtype}", inputs=ins,
+                          outputs=outs, attrs=attrs)
+            pairs.append((h.name, q.name))
+            h = q
+        loss = L.mean(L.square_error_cost(L.fc(h, size=1), y))
+        fl.optimizer.SGD(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, pairs
+
+
+def ste_check(label, dev):
+    """The three fake-quant types' straight-through gradients on the card,
+    in a captured program: each quant op's input gradient bitwise its
+    output gradient (assign_grad_through) over READER_RUNS steps, the
+    first fc's weights moved by them, the losses finite. A CPU run of the
+    same steps is measured beside it, not held: the quantizer is
+    discontinuous, so a GEMM's last-bit difference that flips a rounding
+    moves the loss by a quantum's share (the ops themselves are held on
+    identical inputs in the bank)."""
+    with unique_name.guard():
+        main, startup, loss, pairs = ste_program(pt, 1024)
+    types = [o.type for o in main.global_block().desc.ops]
+    if types.count("assign_grad_through") != 3:
+        raise AssertionError(f"{label}: {types.count('assign_grad_through')}"
+                             " straight-through grad ops")
+    rng = np.random.RandomState(SEED + 2331)
+    feed = {"x": rng.randn(READER_BATCH, 1024).astype(np.float32),
+            "y": rng.randn(READER_BATCH, 1).astype(np.float32)}
+    fetch = [loss.name] + [n + "@GRAD" for pair in pairs for n in pair]
+    losses, worst, state, moved = {}, 0.0, None, None
+    for where in ("card", "cpu"):
+        exe = pt.Executor(pt.CPUPlace()) if where == "cpu" else pt.Executor()
+        if state is None:
+            init = pt.Scope()
+            exe.run(startup, scope=init)
+            for i in (1, 2):
+                init.set_var(f"ste_s{i}", torch.zeros(1, device=exe.device))
+            state = {n: init.find_var(n) for n in init.var_names()}
+        scope = copy_state(state, exe.device)
+        losses[where] = []
+        caps = exe.capture_stats["captures"]
+        for _ in range(READER_RUNS):
+            outs = run_tensors(exe, main, feed=feed, fetch_list=fetch,
+                               scope=scope)
+            losses[where].append(float(outs[0].reshape(-1)[0]))
+            for k in range(len(pairs)):
+                worst = max(worst, distance(outs[1 + 2 * k],
+                                            outs[2 + 2 * k]))
+        if where == "card":
+            if (dev.type == "cuda"
+                    and exe.capture_stats["captures"] - caps != 1):
+                raise AssertionError(
+                    f"{label}: the STE program captured "
+                    f"{exe.capture_stats['captures'] - caps}")
+            moved = distance(scope.find_var("fc_0.w_0"), state["fc_0.w_0"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                               losses["cpu"])]
+    log(f"  {label}: the three fake-quant types' straight-through grads in "
+        f"a captured program ({READER_BATCH} x 1024): input gradient against "
+        f"output gradient {worst:.3e} (bitwise), the first fc's weights "
+        f"moved {moved:.3e}; losses " + ", ".join(
+            f"{v:.6f}" for v in losses["card"]) + ", against a CPU run's "
+        + ", ".join(f"{v:.2e}" for v in rel) + " (measured)")
+    if not (worst == 0.0 and moved > 0
+            and np.isfinite(losses["card"]).all()):
+        raise AssertionError(f"{label}: STE {worst}, moved {moved}")
+
+
+def py_func_check(label, dev):
+    """py_func in a program on the card: the block splits into device,
+    host, device segments, the device segments captured (READER_RUNS runs),
+    the fetch within QUANT_BANK_REL of the CPU's run."""
+    def build():
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = SEED
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("x", shape=[512], dtype="float32")
+            h = pt.layers.fc(x, size=512, act="tanh")
+            o = main.global_block().create_var(name="pf_o", dtype="float32",
+                                               shape=[-1, 512])
+            pt.layers.py_func(lambda a: np.tanh(a) * 2.0, h, o)
+            out = pt.layers.reduce_sum(pt.layers.fc(o, size=8))
+        return main, startup, out
+    with unique_name.guard():
+        main, startup, out = build()
+    feed = {"x": np.random.RandomState(SEED + 2332).randn(64, 512).astype(
+        np.float32)}
+    got = {}
+    for where in ("card", "cpu"):
+        exe = pt.Executor(pt.CPUPlace()) if where == "cpu" else pt.Executor()
+        if where == "card":
+            scope = pt.Scope()
+            exe.run(startup, scope=scope)
+        else:
+            scope = copy_state(got["state"], exe.device)
+        caps = exe.capture_stats["captures"]
+        got[where] = [run_tensors(exe, main, feed=feed, fetch_list=[out.name],
+                                  scope=scope)[0] for _ in range(READER_RUNS)]
+        if where == "card":
+            got["state"] = {n: scope.find_var(n) for n in scope.var_names()}
+            got["caps"] = exe.capture_stats["captures"] - caps
+            plan = next(iter(main._exec_cache.values()))
+            got["segments"] = [k for k, _ in plan.segments]
+    top = got["cpu"][0].abs().item()
+    err = max(abs(float(a) - float(got["cpu"][0])) for a in got["card"]) / top
+    log(f"  {label}: py_func in a program: segments {got['segments']}, "
+        f"{got['caps']} graphs captured over {READER_RUNS} runs, the fetch "
+        f"against the CPU's {err:.3e} (bound {QUANT_BANK_REL})")
+    if not (got["segments"] == ["device", "host", "device"]
+            and (got["caps"] == 2 or dev.type != "cuda")
+            and err <= QUANT_BANK_REL):
+        raise AssertionError(f"{label}: py_func program {got['segments']} "
+                             f"{got['caps']} {err}")
+
+
+def delete_var_check(label, dev):
+    """delete_var of a persistable a captured graph reads: the graph's
+    program raises on its next run instead of replaying on a freed
+    tensor."""
+    main, startup = pt.Program(), pt.Program()
+    with unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[256], dtype="float32")
+        w = pt.layers.create_parameter([256, 256], "float32", name="dv_w")
+        out = pt.layers.mul(x, w)
+    drop = pt.Program()
+    drop.global_block().append_op(type="delete_var", inputs={}, outputs={},
+                                  attrs={"var_names": ["dv_w"]})
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.ones((32, 256), np.float32)}
+    for _ in range(3):
+        run_tensors(exe, main, feed=feed, fetch_list=[out.name], scope=scope)
+    caps = exe.capture_stats["captures"]
+    exe.run(drop, scope=scope)
+    try:
+        run_tensors(exe, main, feed=feed, fetch_list=[out.name], scope=scope)
+        raised = False
+    except KeyError:
+        raised = True
+    log(f"  {label}: delete_var of a persistable a captured graph reads "
+        f"({caps} captured): erased {scope.find_var('dv_w') is None}, the "
+        f"next run raised {raised}")
+    if not ((caps == 1 or dev.type != "cuda") and raised
+            and scope.find_var("dv_w") is None):
+        raise AssertionError(f"{label}: delete_var")
+
+
+def reader_check(label, dev):
+    """random_data_generator through a Preprocessor (on the reader's
+    device) feeding a captured SGD step, READER_RUNS steps captured against
+    eager from the same state, losses bitwise; the read batch equal to
+    numpy's RandomState(0) draw, preprocessed, within 1e-6."""
+    def build():
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = SEED
+        with pt.program_guard(main, startup):
+            reader = pt.layers.random_data_generator(
+                low=0.0, high=255.0, shapes=[[READER_BATCH, 784],
+                                             [READER_BATCH, 1]])
+            pre = pt.layers.Preprocessor(reader)
+            with pre.block():
+                img, lbl = pre.inputs()
+                pre.outputs(pt.layers.scale(img, scale=1.0 / 255.0), lbl)
+            x, y = pt.layers.read_file(reader)
+            loss = pt.layers.mean(pt.layers.square_error_cost(
+                pt.layers.fc(pt.layers.fc(x, size=256, act="relu"), size=1),
+                y))
+            pt.optimizer.SGD(learning_rate=1e-3).minimize(loss)
+        return main, startup, reader, x, loss
+    with unique_name.guard():
+        main, startup, reader, x, loss = build()
+    exe, init = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=init)
+    state = {n: init.find_var(n) for n in init.var_names()
+             if isinstance(init.find_var(n), torch.Tensor)}
+    runs, first = {}, None
+    with deterministic() as warned:
+        for arm in ("eager", "captured"):
+            scope = copy_state(state, exe.device)
+            for n in init.var_names():
+                if n not in state:
+                    scope.set_var(n, init.find_var(n))
+            caps = exe.capture_stats["captures"]
+            reader.start()
+            try:
+                with jit_cache(arm == "captured"):
+                    outs = [run_tensors(exe, main, fetch_list=[x.name,
+                                                               loss.name],
+                                        scope=scope)
+                            for _ in range(READER_RUNS)]
+            finally:
+                reader.reset()
+            runs[arm] = (outs, exe.capture_stats["captures"] - caps)
+            first = outs[0][0] if first is None else first
+    raw = np.random.RandomState(0).uniform(0.0, 255.0, [READER_BATCH, 784])
+    err = float(np.abs(first.cpu().numpy()
+                       - raw.astype(np.float32) * np.float32(1 / 255.0)).max())
+    diff = max(distance(a[1], b[1]) for a, b in zip(runs["eager"][0],
+                                                    runs["captured"][0]))
+    log(f"  {label}: random_data_generator through a Preprocessor on the "
+        f"card feeding an SGD step: {READER_RUNS} captured steps against "
+        f"eager {diff:.3e} (bitwise), {runs['captured'][1]} graph(s) "
+        f"captured; the first batch against numpy's {err:.3e} (bound 1e-6)")
+    if (warned or diff != 0.0 or err > 1e-6
+            or (dev.type == "cuda" and runs["captured"][1] < 1)):
+        raise AssertionError(f"{label}: reader {warned} {diff} {err}")
+
+
+def quant_rest_bank_path(smi):
+    """23(D): the 26 types on the card against the CPU on the same seeded
+    inputs (quant_rest_bank_cases through run_bank: integer outputs equal,
+    float outputs within QUANT_BANK_REL of the largest magnitude, the
+    gradful types' generic vjps within BANK_VJP_REL; average_accumulates
+    just before its 16384 drain and just before a window roll); the
+    fake-quant types' straight-through grads (ste_check), py_func
+    (py_func_check) and delete_var (delete_var_check) in captured
+    programs, and random_data_generator with a Preprocessor feeding a
+    captured step (reader_check)."""
+    label = "23(D) quantization and rest-of-registry op bank"
+    dev = pt.Executor().device
+    worst = run_bank(label, quant_rest_bank_cases(), BANK_VJP_REL, dev)
+    ste_check(label, dev)
+    py_func_check(label, dev)
+    delete_var_check(label, dev)
+    worst["delete_var"] = (0.0, None)
+    reader_check(label, dev)
+    log(f"  {label}: {len(worst)} types [{smi}]")
+    if len(worst) != 26:
+        raise AssertionError(f"{label}: {len(worst)} types, not 26")
+    return {"types": len(worst),
+            "max_rel": max(e for e, _ in worst.values()),
+            "max_vjp_rel": max(v for _, v in worst.values() if v is not None)}
+
+
+def quant_rest_paths(smi):
+    """Phase 23; returns the flash launches of its paths (the wrappers'
+    calls over each path's runs, which must be (0, 0): no path holds an
+    attention op) and each path's numbers."""
+    out, numbers, secs = {}, {}, {}
+
+    def run(name, fn):
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        r = fn()
+        calls = (fa.launches, fa.bwd_launches)
+        if calls != (0, 0):
+            raise AssertionError(f"23 {name}: flash wrapper calls {calls}")
+        out[name] = calls
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    numbers["qat"] = run("resnet_qat", lambda: qat_path(smi))
+    release()
+    numbers["prune"] = run("resnet_prune", lambda: prune_path(smi))
+    release()
+    numbers["model_average"] = run("crnn_model_average",
+                                   lambda: model_average_path(smi))
+    release()
+    numbers["op_bank"] = run("quant_rest_op_bank",
+                             lambda: quant_rest_bank_path(smi))
+    release()
+    log("23: " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
+    log("23: " + json.dumps(numbers, default=lambda v: str(v),
+                            sort_keys=True)[:4000])
+    return out, numbers
+
+
 # the phases that need nothing of an earlier one, each run alone by
 # ``--phase N``: N -> its flash launches by path
 ALONE = {
@@ -8333,6 +9146,7 @@ ALONE = {
     20: lambda smi: detection_paths(smi)[0],
     21: lambda smi: tensor_loss_rnn_paths(smi)[0],
     22: lambda smi: vision_paths(smi)[0],
+    23: lambda smi: quant_rest_paths(smi)[0],
 }
 
 
@@ -8565,6 +9379,13 @@ def main(argv=None):
                   "ResNet-50 with its in-graph random_crop, the 36 types on "
                   "the card against the CPU")
             paths.update(vision_paths(smi)[0])
+            release()
+            phase("quantization, model compression and ModelAverage: "
+                  "ResNet-50 trained quantization-aware and served frozen to "
+                  "int8, ResNet-50 pruned and retrained under CompressPass, "
+                  "CRNN-CTC with ModelAverage, the 26 types on the card "
+                  "against the CPU")
+            paths.update(quant_rest_paths(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

@@ -1,1 +1,2 @@
-from . import decoder, mixed_precision  # noqa: F401
+from . import decoder, mixed_precision, quantize, slim  # noqa: F401
+from .quantize import QuantizeTranspiler  # noqa: F401

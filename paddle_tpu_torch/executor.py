@@ -141,6 +141,11 @@ class Scope:
     def set_var(self, name: str, value):
         self._vars[name] = value
 
+    def erase(self, names: Sequence[str]):
+        """Drop ``names`` from the scope (the ``delete_var`` op)."""
+        for n in names:
+            self._vars.pop(n, None)
+
     def var_names(self) -> List[str]:
         return [n for n, v in self._vars.items() if v is not None]
 
@@ -495,10 +500,11 @@ class _Segment:
         self.state_refs: Dict[str, Any] = {}
 
     def state_rebound(self, scope: Scope) -> bool:
-        """Does the scope hold another tensor under a name the graph
-        reads or writes than the one it captured?"""
+        """Does the scope hold another tensor, or none, under a name the
+        graph reads or writes than the one it captured?"""
         for n, ref in self.state_refs.items():
-            if scope.find_var(n) is not ref():
+            t = scope.find_var(n)
+            if t is None or t is not ref():
                 return True
         return False
 

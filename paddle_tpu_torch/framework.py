@@ -264,17 +264,22 @@ class Block:
                 v = self._var_recursive(n) if n else None
                 if v is not None and getattr(v, "_switch_case_local", False):
                     v._switch_case_local = False
-        return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
+        # at the desc's end, as the JAX package's: a rewrite of
+        # ``desc.ops`` alone (the quantize transpiler's) can leave it longer
+        # than ``self.ops``
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs,
+                               desc_index=len(self.desc.ops))
 
     def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
-                   attrs=None) -> Operator:
+                   attrs=None, desc_index=None) -> Operator:
         desc = OpDesc(type, _to_name_map(inputs), _to_name_map(outputs),
                       dict(attrs or {}))
         desc.callstack = _capture_callstack()
         if OP_ROLE_ATTR_NAME not in desc.attrs:
             desc.attrs[OP_ROLE_ATTR_NAME] = int(self.program._current_role)
         op = Operator(self, desc)
-        self.desc.ops.insert(index, desc)
+        self.desc.ops.insert(index if desc_index is None else desc_index,
+                             desc)
         self.ops.insert(index, op)
         self._infer_shape(desc)
         self.program._bump()

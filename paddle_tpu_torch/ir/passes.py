@@ -384,7 +384,10 @@ class ConvBNFusePass(Pass):
     into the conv's weights by value, W' = W gamma / std per output
     channel and b' = (b - mean) gamma / std + beta, computed in numpy as
     the JAX package computes them, from the loaded values the Scope
-    holds; the batch_norm becomes an axis-1 elementwise_add of b'."""
+    holds; the batch_norm becomes an axis-1 elementwise_add of b'. A conv
+    whose filter is computed in the program (a frozen int8 weight's
+    ``dequantize_weights``) has no value to fold into and keeps its
+    batch_norm; the JAX pass raises there (ROADMAP §C)."""
 
     name = "conv_bn_fuse_pass"
 
@@ -449,6 +452,9 @@ class ConvBNFusePass(Pass):
     @staticmethod
     def _match(graph: Graph, conv_idx, protected):
         ops = graph.ops
+        w_desc = graph.desc.vars.get(ops[conv_idx].input("Filter")[0])
+        if w_desc is None or not w_desc.persistable:
+            return None
         out = ops[conv_idx].output("Output")[0]
         j = graph.single_consumer(out)
         if j is None or j <= conv_idx or graph.is_fetched(out, protected):

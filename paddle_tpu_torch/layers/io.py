@@ -6,9 +6,10 @@ double_buffer).
 returns a ``PyReader`` handle; ``read_file`` emits the ``read`` op whose
 outputs feed the program, so a training loop runs ``exe.run(main)`` with
 no feed dict and catches ``core.EOFException`` at the end of an epoch.
-``open_files`` (RecordIO files) waits for ROADMAP A13;
-``random_data_generator``, ``Preprocessor`` and ``load`` are not
-ported.
+``random_data_generator`` is a py_reader over seeded uniform batches;
+a ``Preprocessor`` runs a program of its own on each batch as it leaves
+the reader, on the reader's device. ``open_files`` (RecordIO files)
+waits for ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from ..framework import default_main_program, default_startup_program
 from ..layer_helper import LayerHelper
 
 __all__ = ["data", "py_reader", "read_file", "double_buffer",
-           "create_py_reader_by_data", "shuffle", "load", "PyReader"]
+           "create_py_reader_by_data", "shuffle", "random_data_generator",
+           "Preprocessor", "load", "PyReader"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -180,6 +182,106 @@ def shuffle(reader, buffer_size):
         raise TypeError("layers.shuffle expects a py_reader handle")
     return reader._add_transform(
         lambda source: decorator.shuffle(source, buffer_size))
+
+
+def random_data_generator(low, high, shapes, lod_levels=None,
+                          for_parallel=True):
+    """A reader of uniform float32 batches in [low, high) of ``shapes``,
+    from numpy's RandomState(0), as the JAX package's: a py_reader
+    handle, decorated; pair it with ``read_file``."""
+    rdr = py_reader(capacity=4, shapes=shapes,
+                    dtypes=["float32"] * len(shapes),
+                    name=None, use_double_buffer=False)
+
+    def gen():
+        rng = np.random.RandomState(0)
+        while True:
+            yield tuple(rng.uniform(low, high, [abs(d) for d in s])
+                        .astype(np.float32) for s in shapes)
+
+    rdr.decorate_batch_generator(gen)
+    return rdr
+
+
+class Preprocessor:
+    """A per-batch transform between a py_reader and the program: the
+    ops built in ``block()`` form a program of their own, run on each
+    batch as it leaves the reader, on the reader's device (its outputs
+    stay there). The reference runs the sub-block inside its reader op
+    chain.
+
+        p = Preprocessor(reader)
+        with p.block():
+            img, lbl = p.inputs()
+            p.outputs(img / 255.0, lbl)
+    """
+
+    def __init__(self, reader, name=None):
+        if not isinstance(reader, PyReader):
+            raise TypeError("Preprocessor expects a py_reader handle")
+        self._reader = reader
+        self._program = None
+        self._in_vars = None
+        self._out_vars = None
+
+    def block(self):
+        import contextlib
+
+        from ..framework import Program, program_guard
+
+        @contextlib.contextmanager
+        def guard():
+            self._program = Program()
+            with program_guard(self._program, Program()):
+                yield
+            self._install()
+
+        return guard()
+
+    def inputs(self):
+        self._in_vars = []
+        for i, (shape, dtype) in enumerate(
+                zip(self._reader.shapes, self._reader.dtypes)):
+            self._in_vars.append(data(
+                f"@preprocess_in_{i}", shape=[abs(d) for d in shape][1:],
+                dtype=dtype))
+        return self._in_vars
+
+    def outputs(self, *outs):
+        self._out_vars = list(outs)
+
+    def _install(self):
+        if not self._in_vars or not self._out_vars:
+            raise ValueError("Preprocessor.block must call inputs() "
+                             "and outputs()")
+        from .. import executor as executor_mod
+        from ..place import CPUPlace, CUDAPlace
+        prog = self._program
+        in_names = [v.name for v in self._in_vars]
+        out_names = [v.name for v in self._out_vars]
+        # an output that is an input passes the batch's array through
+        fetch = [n for n in out_names if n not in in_names]
+        reader = self._reader
+
+        def transform(source):
+            def transformed():
+                dev = reader._state().device
+                exe = executor_mod.Executor(
+                    CPUPlace() if dev.type == "cpu"
+                    else CUDAPlace(dev.index or 0))
+                for batch in source():
+                    feed = dict(zip(in_names, batch))
+                    fetched = {}
+                    if fetch:
+                        vals = exe.run(prog, feed=feed, fetch_list=fetch,
+                                       return_numpy=False)
+                        fetched = {n: v.device_value()
+                                   for n, v in zip(fetch, vals)}
+                    yield tuple(fetched[n] if n in fetched
+                                else np.asarray(feed[n]) for n in out_names)
+            return transformed
+
+        reader._add_transform(transform)
 
 
 def load(out, file_path, load_as_fp16=None):

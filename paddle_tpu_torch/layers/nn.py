@@ -19,7 +19,7 @@ from ..layer_helper import LayerHelper, ParamAttr
 __all__ = [
     "fc", "embedding", "lod_reset", "sum", "logical_and", "logical_or",
     "logical_xor", "logical_not", "similarity_focus",
-    "autoincreased_step_counter", "dice_loss", "image_resize_short",
+    "tree_conv", "py_func", "autoincreased_step_counter", "dice_loss", "image_resize_short",
     "adaptive_pool2d", "adaptive_pool3d", "conv3d_transpose",
     "merge_selected_rows", "get_tensor_from_selected_rows", "conv2d",
     "conv2d_transpose", "conv3d", "pool3d", "pool2d", "batch_norm",
@@ -1323,6 +1323,46 @@ def affine_channel(x, scale=None, bias=None, data_layout="NCHW",
     helper.append_op(type="affine_channel",
                      inputs={"X": x, "Scale": scale, "Bias": bias},
                      outputs={"Out": out})
+    return out
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """The tree-based convolution of TBCNN (the ``tree_conv`` op): a
+    Filter [F, 3, output_size, num_filters], then a bias from dim 3 and
+    ``act``."""
+    helper = LayerHelper("tree_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = nodes_vector.dtype
+    feature_size = nodes_vector.shape[-1]
+    w = helper.create_parameter(
+        helper.param_attr, [feature_size, 3, output_size, num_filters],
+        dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="tree_conv",
+                     inputs={"NodesVector": nodes_vector,
+                             "EdgeSet": edge_set, "Filter": w},
+                     outputs={"Out": out},
+                     attrs={"max_depth": max_depth})
+    if bias_attr is not False:
+        out = helper.append_bias_op(out, dim_start=3)
+    return helper.append_activation(out)
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """A host op calling ``func`` on numpy batches (the ``py_func`` op).
+    The ``out`` variables are the caller's, made beforehand, as in the
+    reference. ``backward_func`` is accepted for the reference's
+    signature; the op has no gradient, as in the JAX package. ``func``
+    is an attribute of the op, so its program cannot be serialized."""
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    helper.append_op(type="py_func", inputs={"X": list(xs)},
+                     outputs={"Out": list(outs)},
+                     attrs={"func": func})
     return out
 
 

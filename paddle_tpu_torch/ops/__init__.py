@@ -17,4 +17,6 @@ from . import kernels_rnn  # noqa: F401
 from . import kernels_search  # noqa: F401
 from . import kernels_crf  # noqa: F401
 from . import kernels_detection  # noqa: F401
+from . import kernels_quant  # noqa: F401
+from . import kernels_dist  # noqa: F401
 from . import flash_attention  # noqa: F401

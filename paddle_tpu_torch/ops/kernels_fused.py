@@ -10,7 +10,9 @@
 ``fusion_seqconv_eltadd_relu`` (seqconv_eltadd_relu_fuse_pass),
 ``conv2d_fusion`` (the inference conv passes) and ``fused_conv2d`` (the
 pipeline's conv stages). Each composes the torch ops, or the registered emitters, of the
-ops it replaces.
+ops it replaces. No pass writes ``fused_embedding_seq_pool``,
+``fusion_seqexpand_concat_fc`` or ``attention_lstm``: only loaded
+programs hold them.
 
 ``fused_elemwise_activation`` and ``fused_conv2d`` have no grad emitter of
 their own: their grad ops run the generic vjp, which re-runs the forward
@@ -22,7 +24,7 @@ import torch
 
 from ..core.desc import OpDesc
 from ..registry import lookup, register_op
-from .common import ZERO, fluid_broadcast, in_dtype, in_shape, set_out_var
+from .common import ZERO, fluid_broadcast, in_dtype, in_shape, opt, set_out_var
 
 
 def _fused_elemwise_infer(op: OpDesc, block):
@@ -297,3 +299,116 @@ def fusion_seqconv_eltadd_relu(ctx, ins, attrs):
         ctx, {"X": ins["X"], "Filter": ins["Filter"],
               "Length": ins.get("Length", [None])}, attrs)["Out"][0]
     return {"Out": [torch.maximum(conv + ins["Bias"][0], ZERO)]}
+
+
+@register_op("fused_embedding_seq_pool", no_grad=True,
+             infer=_dtype_only_infer)
+def fused_embedding_seq_pool(ctx, ins, attrs):
+    """fused/fused_embedding_seq_pool_op.cc: a lookup and a sum over the
+    sequence dim of padded ids [B, T] (or [B, T, 1]); rows of
+    ``padding_idx`` count as zeros."""
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    emb = w[ids.long()]                                   # [B, T, D]
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        emb = emb * (ids != pad).unsqueeze(-1).to(emb.dtype)
+    return {"Out": [emb.sum(dim=1)]}
+
+
+_SEQ_ACTS = {"relu": torch.relu, "tanh": torch.tanh}
+
+
+@register_op("fusion_seqexpand_concat_fc", no_grad=True,
+             infer=_dtype_only_infer)
+def fusion_seqexpand_concat_fc(ctx, ins, attrs):
+    """fused/fusion_seqexpand_concat_fc_op.cc: each input after the first
+    (one row per batch entry) broadcast over the first's sequence dim,
+    the features concatenated, one fc and its activation."""
+    xs = ins["X"]
+    ref = xs[0]                                           # [B, T, D0]
+    t = ref.shape[1]
+    feats = [ref] + [v.unsqueeze(1).expand(v.shape[0], t, v.shape[-1])
+                     for v in xs[1:]]
+    out = torch.matmul(torch.cat(feats, dim=-1), ins["FCWeight"][0])
+    bias = opt(ins, "FCBias")
+    if bias is not None:
+        out = out + bias
+    act = _SEQ_ACTS.get(attrs.get("fc_activation", "identity"))
+    return {"Out": [act(out) if act is not None else out]}
+
+
+# the attention LSTM's activations, as the JAX op writes them
+_ATT_ACTS = {
+    "relu": lambda v: torch.maximum(v, ZERO),
+    "sigmoid": lambda v: 1.0 / (1.0 + torch.exp(-v)),
+    "tanh": torch.tanh,
+    "identity": lambda v: v,
+    "": lambda v: v,
+}
+
+
+def _scalar_in(ins, slot, default):
+    v = opt(ins, slot)
+    return v.reshape(()) if v is not None else default
+
+
+@register_op("attention_lstm", no_grad=True)
+def attention_lstm(ctx, ins, attrs):
+    """attention_lstm_op.cc over padded X [B, T, M] with an optional
+    Length: each step an attention fc over the whole sequence,
+    conditioned on the previous cell, weighs the steps into one context
+    row that feeds one LSTM step. The gate layout is the reference's
+    [forget, input, output, candidate] over LSTMWeight [(D + M), 4D],
+    hidden rows first; the attention fc is relu'd, and rescaled by the
+    optional AttentionScalar (attention_lstm_op.cc:215-224, :330-401).
+    Rows past their length keep their state."""
+    xv = ins["X"][0]                                      # [B, T, M]
+    c = ins["C0"][0]                                      # [B, D]
+    h0 = opt(ins, "H0")
+    h = h0 if h0 is not None else torch.zeros_like(c)
+    atten_w = ins["AttentionWeight"][0]                   # [M + D, 1]
+    atten_b = _scalar_in(ins, "AttentionBias", 0.0)
+    scalar = _scalar_in(ins, "AttentionScalar", None)
+    scalar_b = _scalar_in(ins, "AttentionScalarBias", 0.0)
+    lstm_w = ins["LSTMWeight"][0]                         # [D + M, 4D]
+    lstm_b = ins["LSTMBias"][0].reshape(-1)
+    b, t, m = xv.shape
+    d = c.shape[-1]
+    length = opt(ins, "Length")
+    if length is None:
+        length = torch.full((b,), t, dtype=torch.int32, device=xv.device)
+    steps = torch.arange(t, device=xv.device)
+    valid = steps.reshape(1, t) < length.reshape(b, 1)    # [B, T]
+    act_gate = _ATT_ACTS[attrs.get("gate_activation", "sigmoid")]
+    act_cell = _ATT_ACTS[attrs.get("cell_activation", "tanh")]
+    act_cand = _ATT_ACTS[attrs.get("candidate_activation", "tanh")]
+
+    atted_x = torch.matmul(xv, atten_w[:m]).squeeze(-1) + atten_b
+    wh, wx = lstm_w[:d], lstm_w[d:]
+    neg_inf = torch.full((), float("-inf"), dtype=xv.dtype, device=xv.device)
+    hs, cs = [], []
+    for i in range(t):
+        score = torch.maximum(atted_x + torch.matmul(c, atten_w[m:]), ZERO)
+        if scalar is not None:
+            score = torch.maximum(score * scalar + scalar_b, ZERO)
+        p = torch.softmax(torch.where(valid, score, neg_inf), dim=-1)
+        lstm_x = torch.einsum("bt,btm->bm", p, xv)
+        gates = (torch.matmul(lstm_x, wx) + torch.matmul(h, wh)) + lstm_b
+        f = act_gate(gates[:, :d])
+        ig = act_gate(gates[:, d:2 * d])
+        o = act_gate(gates[:, 2 * d:3 * d])
+        cand = act_cand(gates[:, 3 * d:])
+        c_new = f * c + ig * cand
+        h_new = o * act_cell(c_new)
+        keep = (steps[i] < length.reshape(b)).reshape(b, 1)
+        h = torch.where(keep, h_new, h)
+        c = torch.where(keep, c_new, c)
+        hs.append(h)
+        cs.append(c)
+    return {"Hidden": [torch.stack(hs, dim=1)], "Cell": [torch.stack(cs, dim=1)],
+            "AttentionedX": [atted_x.unsqueeze(-1)],
+            "AttentionFCOut": [xv.new_zeros((b, t, 1))],
+            "LSTMX": [xv.new_zeros((b, m))],
+            "LSTMOUT": [xv.new_zeros((b, 4 * d))]}

@@ -1,6 +1,9 @@
 """Host ops: save/load and save_combine/load_combine (checkpointing as
-ops), print, and the two detection ops with data-dependent row counts,
-``generate_mask_labels`` and ``distribute_fpn_proposals``.
+ops), print, ``py_func`` (a call into user Python), the ``feed`` and
+``fetch`` markers, ``get_places``, ``delete_var``, ``tree_conv`` (a
+data-dependent walk of each tree), and the two detection ops with
+data-dependent row counts, ``generate_mask_labels`` and
+``distribute_fpn_proposals``.
 
 Counterpart of ``paddle_tpu/ops/kernels_host.py`` with the same tensor
 file format, so parameter files cross-load between the two packages: a
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..registry import register_op
+from .common import in_dtype, in_shape, set_out_var, slots_like_infer
 
 MAGIC = b"PTPU"
 VERSION = 1
@@ -121,7 +125,147 @@ def print_op(ctx, ins, attrs):
 
 
 def _host(t):
-    return t.detach().cpu().numpy()
+    """A tensor as numpy on the host (bfloat16 as float32)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+@register_op("py_func", no_grad=True, is_host=True)
+def py_func(ctx, ins, attrs):
+    """py_func_op.cc: call ``attrs["func"]`` on the inputs as numpy
+    arrays; its results come back as tensors on the run's device."""
+    fn = attrs["func"]
+    args = [_host(v) if v is not None else None for v in ins.get("X", [])]
+    out = fn(*args)
+    if out is None:
+        return {}
+    if not isinstance(out, (list, tuple)):
+        out = [out]
+    return {"Out": [torch.from_numpy(np.array(o)).to(ctx.device)
+                    for o in out]}
+
+
+@register_op("feed", no_grad=True, is_host=True)
+def feed_op(ctx, ins, attrs):
+    """controlflow/feed_op.cc: the executor binds feeds itself (and drops
+    these markers from the ops it runs); the op forwards a bound value."""
+    val = ins.get("X", [None])[0]
+    return {"Out": [val]} if val is not None else {}
+
+
+@register_op("fetch", no_grad=True, is_host=True,
+             infer=slots_like_infer(("Out", "X")))
+def fetch_op(ctx, ins, attrs):
+    """controlflow/fetch_op.cc: fetches are the executor's
+    ``fetch_list``; the op forwards its input."""
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("get_places", no_grad=True, is_host=True)
+def get_places(ctx, ins, attrs):
+    """controlflow/get_places_op.cc: the device ids as data, [0, n): n is
+    ``device_count``, else the executor's devices (one)."""
+    n = attrs.get("device_count", 0) or 1
+    return {"Out": [torch.arange(n, dtype=torch.int64, device=ctx.device)]}
+
+
+@register_op("delete_var", no_grad=True, is_host=True)
+def delete_var(ctx, ins, attrs):
+    """controlflow/delete_var_op.cc: drop the persistables named by
+    ``var_names`` from the scope. A captured graph that reads one no
+    longer replays: the next run finds the name gone (the executor's
+    ``state_rebound``) and runs eagerly, which raises on the missing
+    name."""
+    if ctx.scope is not None:
+        ctx.scope.erase(list(attrs.get("var_names") or []))
+    return {}
+
+
+def _tree_conv_infer(op, block):
+    ns = in_shape(block, op, "NodesVector")
+    fs = in_shape(block, op, "Filter")
+    if ns is None or fs is None:
+        return
+    for n in op.output("Out"):
+        set_out_var(block, n, [ns[0], ns[1], fs[2], fs[3]],
+                    in_dtype(block, op, "NodesVector"))
+
+
+def _tree_patches(edges, n, max_depth, s):
+    """The patches of one sample's tree (tree2col.cc:24-49): per root, a
+    depth-first walk bounded by ``max_depth`` collecting (node, 1-based
+    child index, siblings, depth). EdgeSet rows are 1-indexed
+    (parent, child); a (0, 0) row ends them."""
+    tr = [[] for _ in range(n + 1)]
+    node_count = 0
+    for u, v in edges:
+        u, v = int(u), int(v)
+        if u == 0 or v == 0:
+            break
+        if not (1 <= u <= n and 1 <= v <= n):
+            raise ValueError(
+                f"tree_conv: EdgeSet sample {s} references node ({u},{v}) "
+                f"outside 1..{n} (NodesVector has {n} node slots)")
+        tr[u].append(v)
+        node_count += 1
+    node_count += 1
+    if node_count > n:
+        raise ValueError(
+            f"tree_conv: EdgeSet sample {s} implies {node_count} nodes but "
+            f"NodesVector holds only {n}")
+    patches = []
+    for root in range(1, node_count + 1):
+        patch = [(root, 1, 1, 0)]
+        stack = [root]
+        depth_of = {root: 0}
+        while stack:
+            u = stack[-1]
+            advanced = False
+            for i, v in enumerate(tr[u]):
+                if v not in depth_of and depth_of[u] + 1 < max_depth:
+                    depth_of[v] = depth_of[u] + 1
+                    stack.append(v)
+                    patch.append((v, i + 1, len(tr[u]), depth_of[v]))
+                    advanced = True
+            if not advanced:
+                stack.pop()
+        patches.append(patch)
+    return patches
+
+
+@register_op("tree_conv", no_grad=True, is_host=True, infer=_tree_conv_infer)
+def tree_conv(ctx, ins, attrs):
+    """tree_conv_op.cc / math/tree2col.cc, the tree-based convolution of
+    TBCNN (arXiv:1409.5718). The patches follow each tree's edges, so the
+    op runs on the host as the JAX one does, in its float32 numpy
+    arithmetic: each node of a root's patch adds its eta_l, eta_r and
+    eta_t weighted features into a [3F] row, and Out = rows @ Filter
+    flattened to [3F, output_size * num_filters]. NodesVector [B, N, F],
+    EdgeSet [B, E, 2], Filter [F, 3, O, M]; Out [B, N, O, M]."""
+    dev = ins["NodesVector"][0].device
+    feats = _host(ins["NodesVector"][0])
+    edges = _host(ins["EdgeSet"][0])
+    filt = _host(ins["Filter"][0])
+    max_depth = int(attrs.get("max_depth", 2))
+    b, n, fdim = feats.shape
+    f2, three, osz, m = filt.shape
+    w = filt.reshape(f2 * three, osz * m)
+    out = np.zeros((b, n, osz, m), feats.dtype)
+    for s in range(b):
+        patches = _tree_patches(edges[s], n, max_depth, s)
+        prow = np.zeros((len(patches), 3 * fdim), feats.dtype)
+        for pi, patch in enumerate(patches):
+            for node, idx, pclen, depth in patch:
+                eta_t = (max_depth - depth) / max_depth
+                temp = 0.5 if pclen == 1 else (idx - 1.0) / (pclen - 1.0)
+                eta_l = (1.0 - eta_t) * temp
+                eta_r = (1.0 - eta_t) * (1.0 - temp)
+                fv = feats[s, node - 1]
+                prow[pi, 0::3] += eta_l * fv
+                prow[pi, 1::3] += eta_r * fv
+                prow[pi, 2::3] += eta_t * fv
+        out[s, :len(patches)] = (prow @ w).reshape(-1, osz, m)
+    return {"Out": [torch.from_numpy(out).to(dev)]}
 
 
 def _rasterize_polys(polys, resolution):

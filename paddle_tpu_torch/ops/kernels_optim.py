@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..registry import register_op
-from .common import same_shape_infer
+from .common import same_shape_infer, slots_like_infer
 
 
 def _lr(ins):
@@ -327,3 +327,49 @@ def fused_adam(ctx, ins, attrs):
             "Moment2Out": _split_group(m2_out, sizes, shapes),
             "Beta1PowOut": [b1p_out[i:i + 1] for i in range(n)],
             "Beta2PowOut": [b2p_out[i:i + 1] for i in range(n)]}
+
+
+_K_MAX_NUM_ACCUMULATES = 16384  # average_accumulates_op.h:28
+
+
+@register_op("average_accumulates", no_grad=True, infer=slots_like_infer(
+    ("out_sum_1", "in_sum_1"), ("out_sum_2", "in_sum_2"),
+    ("out_sum_3", "in_sum_3"),
+    ("out_num_accumulates", "in_num_accumulates"),
+    ("out_old_num_accumulates", "in_old_num_accumulates"),
+    ("out_num_updates", "in_num_updates")))
+def average_accumulates(ctx, ins, attrs):
+    """average_accumulates_op.h (the reference's ModelAverage): sum_1 +=
+    param each step; every kMaxNumAccumulates updates sum_1 drains into
+    sum_2; when the window closes, sum_3 is overwritten with sum_1 +
+    sum_2 and the window starts again. The window is num_updates *
+    average_window in float32, truncated, as the JAX op computes it; the
+    counters stay int64 (the JAX package's are int32)."""
+    p = ins["Param"][0]
+    s1, s2, s3 = (ins["in_sum_1"][0], ins["in_sum_2"][0],
+                  ins["in_sum_3"][0])
+    num_acc = ins["in_num_accumulates"][0]
+    old_num = ins["in_old_num_accumulates"][0]
+    num_upd = ins["in_num_updates"][0]
+    avg_window = attrs.get("average_window", 0.0)
+    max_avg = attrs.get("max_average_window", 10000)
+    min_avg = attrs.get("min_average_window", 10000)
+
+    num_upd = num_upd + 1
+    num_acc = num_acc + 1
+    s1 = s1 + p
+    drain = (num_upd % _K_MAX_NUM_ACCUMULATES) == 0
+    s2 = torch.where(drain, s2 + s1, s2)
+    s1 = torch.where(drain, torch.zeros_like(s1), s1)
+    window = torch.clamp((num_upd.to(torch.float32) * avg_window)
+                         .to(num_upd.dtype), max=max_avg)
+    roll = (num_acc >= min_avg) & (num_acc >= window)
+    s3 = torch.where(roll, s1 + s2, s3)
+    s1 = torch.where(roll, torch.zeros_like(s1), s1)
+    s2 = torch.where(roll, torch.zeros_like(s2), s2)
+    old_num = torch.where(roll, num_acc, old_num)
+    num_acc = torch.where(roll, torch.zeros_like(num_acc), num_acc)
+    return {"out_sum_1": [s1], "out_sum_2": [s2], "out_sum_3": [s3],
+            "out_num_accumulates": [num_acc],
+            "out_old_num_accumulates": [old_num],
+            "out_num_updates": [num_upd]}

@@ -58,13 +58,19 @@ class PyReaderState:
         self._stager = None
 
     def decorate(self, source):
-        """source() yields tuples of ndarrays aligned with shapes."""
+        """source() yields tuples of ndarrays (or tensors) aligned with
+        shapes."""
         self._source = source
 
     def _to_device(self, arrs):
         """The batch as tensors on the device: through pinned buffers on
         the copy stream with double buffering on the card (with the
         event the copies record), else a plain copy."""
+        if any(isinstance(a, torch.Tensor) for a in arrs):
+            # a Preprocessor's outputs, made on the device already
+            return tuple(a.to(self.device) if isinstance(a, torch.Tensor)
+                         else torch.from_numpy(np.array(a)).to(self.device)
+                         for a in arrs), None
         if self.use_double_buffer and self.device.type == "cuda":
             if self._stager is None:
                 self._stager = PinnedStaging(self.device, self.capacity + 2)
@@ -90,7 +96,8 @@ class PyReaderState:
                 for item in self._source():
                     if self._stop.is_set():
                         return
-                    arrs = [np.asarray(a) for a in (
+                    arrs = [a if isinstance(a, torch.Tensor)
+                            else np.asarray(a) for a in (
                         item if isinstance(item, (tuple, list)) else (item,))]
                     self._queue.put(self._to_device(arrs))
             except BaseException as e:  # noqa: BLE001

@@ -2,8 +2,8 @@
 python/paddle/fluid/optimizer.py). ``minimize`` = ``append_backward`` +
 the clip and regularization ops + one update op per parameter, appended
 under ``program._optimized_guard`` so the ops carry the OPTIMIZE role.
-Every optimizer of the JAX package is ported but ``ModelAverage``
-(ROADMAP A9). A parameter's ``optimize_attr["learning_rate"]`` scales the
+Every optimizer of the JAX package is ported, ``ModelAverage`` too. A
+parameter's ``optimize_attr["learning_rate"]`` scales the
 global rate (a ``scale`` op), or replaces it when it is a Variable
 (``append_LARS``). ``fuse_optimizer_update_ops`` is the multi-tensor
 rewrite behind ``BuildStrategy.fuse_all_optimizer_ops``."""
@@ -416,12 +416,60 @@ class FtrlOptimizer(Optimizer):
 
 
 class ModelAverage(Optimizer):
-    """Parameter averaging for evaluation: not ported (ROADMAP A9)."""
+    """Parameter averaging for evaluation, as the JAX package's: one EMA
+    accumulator per parameter of the default main program (built after
+    ``minimize``), ``ema = (1 - rate) * ema + rate * param`` each step
+    (a ``scale``, a ``scale`` and an ``elementwise_add``, OPTIMIZE role),
+    starting from 0. ``apply(executor)`` is a context manager that puts
+    each EMA into its parameter for the body and restores the parameter
+    after it. Both copy in place on the device (``copy_``), where the JAX
+    package rebinds the names: the values are the same, and the scope
+    keeps its tensors, so a captured graph over them is kept."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ModelAverage is not ported to paddle_tpu_torch yet "
-            "(ROADMAP A9)")
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        program = default_main_program()
+        self.helper = LayerHelper("model_average")
+        self._ema = {}
+        for p in program.global_block().all_parameters():
+            ema = self._add_accumulator("ema", p, fill_value=0.0)
+            self._ema[p.name] = ema
+            with program._optimized_guard([p]):
+                decay = 1.0 - self.average_window
+                from .layers import nn
+                block = program.global_block()
+                tmp = nn.scale(ema, scale=decay)
+                tmp2 = nn.scale(p, scale=1.0 - decay)
+                block.append_op(type="elementwise_add",
+                                inputs={"X": tmp, "Y": tmp2},
+                                outputs={"Out": ema})
+
+    def apply(self, executor, need_restore=True):
+        """A context manager: the global scope's parameters hold their
+        EMAs in the body, and their own values again after it unless
+        ``need_restore`` is False."""
+        import contextlib
+
+        from .executor import global_scope
+
+        @contextlib.contextmanager
+        def _guard():
+            scope = global_scope()
+            backup = {}
+            for pname, ema in self._ema.items():
+                param = scope.find_var(pname)
+                backup[pname] = param.clone()
+                param.copy_(scope.find_var(ema.name))
+            try:
+                yield
+            finally:
+                if need_restore:
+                    for pname, val in backup.items():
+                        scope.find_var(pname).copy_(val)
+
+        return _guard()
 
 
 # the update ops fuse_optimizer_update_ops groups, with their slots

@@ -34,9 +34,14 @@ def save_mlp(dirname, in_dim=6, hidden=16, depth=1, classes=5, seed=7):
 # one builder gives the programs that are compared byte for byte.
 # ---------------------------------------------------------------------------
 
+# ocr_recognition train.py's ModelAverage windows
+CRNN_MIN_AVERAGE_WINDOW = 10000
+CRNN_MAX_AVERAGE_WINDOW = 12500
+
+
 def crnn_ctc(fl, image=(1, 48, 512), filters=(16, 32, 64, 128), hidden=200,
              classes=95, max_label=16, lr=1e-3, momentum=0.9, l2=4e-4,
-             seed=90):
+             seed=90, average_window=None):
     """The CRNN-CTC text recognizer of Fluid's ocr_recognition model
     (crnn_ctc_model.py): per filter width a group of two 3x3 conv +
     batch_norm + relu ending in a 2x2 max pool, ``im2sequence`` with a
@@ -47,10 +52,13 @@ def crnn_ctc(fl, image=(1, 48, 512), filters=(16, 32, 64, 128), hidden=200,
     test program greedy-decodes (``ctc_greedy_decoder``) and measures the
     ``edit_distance`` of each decoded row to its label, unnormalised.
     Feeds: ``pixel`` [B, *image] float32, ``label`` [B, max_label] and
-    ``label_length`` [B] int64."""
+    ``label_length`` [B] int64. With ``average_window``, a
+    ``ModelAverage`` of that rate and train.py's windows follows
+    ``minimize`` (``"model_average"``)."""
     L = fl.layers
     main, startup = fl.Program(), fl.Program()
     main.random_seed = startup.random_seed = seed
+    model_average = None
     with fl.program_guard(main, startup):
         pixel = L.data(name="pixel", shape=list(image), dtype="float32")
         label = L.data(name="label", shape=[max_label], dtype="int64")
@@ -82,7 +90,12 @@ def crnn_ctc(fl, image=(1, 48, 512), filters=(16, 32, 64, 128), hidden=200,
         fl.optimizer.Momentum(
             learning_rate=lr, momentum=momentum,
             regularization=fl.regularizer.L2Decay(l2)).minimize(loss)
+        if average_window is not None:
+            model_average = fl.optimizer.ModelAverage(
+                average_window, min_average_window=CRNN_MIN_AVERAGE_WINDOW,
+                max_average_window=CRNN_MAX_AVERAGE_WINDOW)
     return {"main": main, "startup": startup, "test": test, "loss": loss,
+            "model_average": model_average,
             "logits": logits, "decoded": decoded,
             "decoded_length": decoded_len, "distance": dist,
             "feeds": ["pixel", "label", "label_length"],

@@ -10,8 +10,9 @@ tiny Transformer (its three trainer processes run this script with
 ResNet-50, phase 17 at small widths (ZOO_TINY) and phase 18 at small
 widths (machine translation at MT_TINY, label_semantic_roles at
 SRL_TINY), phase 19 at small widths (PHASE19_TINY), phase 20 at small
-widths (PHASE20_TINY) and phase 22 at small widths (PHASE22_TINY), to
-find faults in the script's Python before a run on the card.
+widths (PHASE20_TINY), phase 22 at small widths (PHASE22_TINY) and phase
+23 at small widths (PHASE23_TINY), to find faults in the script's Python
+before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --zoo  # 17 only
@@ -25,6 +26,8 @@ find faults in the script's Python before a run on the card.
                                                                   # 21 only
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase22
                                                                   # 22 only
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase23
+                                                                  # 23 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -150,6 +153,26 @@ def _phase22():
     t22 = time.perf_counter()
     out, _ = cs.vision_paths("CPU rehearsal")
     print(f"phase 22 rehearsed in {time.perf_counter() - t22:.1f} s")
+    return out
+
+
+# phase 23 at small widths: ResNet-50 at 64x64 images, 10 classes, batch
+# 4 (QAT and pruning); phase 19's tiny CRNN; TBCNN's trees, the attention
+# LSTM and the reader's step narrower
+PHASE23_TINY = dict(
+    RESNET_IMAGE=(3, 64, 64), RESNET_CLASSES=10, RESNET_BATCH=4,
+    CRNN=PHASE19_TINY["CRNN"], CRNN_BATCH=4,
+    TBCNN=dict(batch=2, nodes=48, feature=6, filters=8, depth=2),
+    DAM=dict(batch=4, steps=6, width=16, hidden=8), READER_BATCH=16)
+
+
+def _phase23():
+    for k, v in PHASE23_TINY.items():
+        setattr(cs, k, v)
+    cs.time_ms = lambda fn, iters=30, warmup=5, graph=True: (fn(), 0.0)[1]
+    t23 = time.perf_counter()
+    out, _ = cs.quant_rest_paths("CPU rehearsal")
+    print(f"phase 23 rehearsed in {time.perf_counter() - t23:.1f} s")
     return out
 
 
@@ -283,6 +306,9 @@ def main():
     if "--phase22" in sys.argv:
         print(f"rehearsal passed: phase 22 {_phase22()}")
         return
+    if "--phase23" in sys.argv:
+        print(f"rehearsal passed: phase 23 {_phase23()}")
+        return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as r:
@@ -324,13 +350,15 @@ def main():
     p20 = _phase20()
     p21 = _phase21()
     p22 = _phase22()
+    p23 = _phase23()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s: launches "
           f"serving {served['launches']}, training {trained['launches']}, "
           f"compiled training {compiled}, analysis serving {analysis}, "
           f"ResNet-50 {resnet}, phase 11 {capture}, phase 12 {bert}, "
           f"phase 13 {front}, phase 14 {gen}, phase 15 {pred}, phase 16 "
           f"{runtime}, phase 17 {zoo}, phase 18 {rec}, phase 19 {p19}, "
-          f"phase 20 {p20}, phase 21 {p21}, phase 22 {p22}")
+          f"phase 20 {p20}, phase 21 {p21}, phase 22 {p22}, phase 23 "
+          f"{p23}")
 
 
 if __name__ == "__main__":

@@ -35,8 +35,6 @@ DEFERRED_LAYERS = {
     **{n: _A12 for n in ("ring_attention", "ulysses_attention",
                          "usp_attention")},
     "open_files": "A13",
-    **{n: "A11" for n in ("py_func", "tree_conv", "random_data_generator",
-                          "Preprocessor")},
 }
 DEFERRED_TOP = {
     **{n: "A10" for n in ("monitor", "profiler", "debugger")},
@@ -372,9 +370,43 @@ def _vision_loss(fl):
     return _vision_layers(fl)[0]
 
 
+# the layers of the single-device rest (ROADMAP A11.11). py_func's program
+# holds a Python callable as an attribute and cannot be serialized: it is
+# held by its op list in tests/test_torch_host_ops.py
+REST_LAYERS = ("py_func", "tree_conv", "random_data_generator",
+               "Preprocessor")
+
+
+def test_no_rest_layer_is_deferred():
+    assert not set(REST_LAYERS) & set(DEFERRED)
+    for n in REST_LAYERS:
+        assert hasattr(pt.layers, n), n
+
+
+def _rest_layers(fl):
+    """tree_conv with and without a bias; a random_data_generator read by
+    read_file through a Preprocessor (whose own program is built aside)."""
+    L = fl.layers
+    nodes = L.data("nodes", shape=[7, 5], dtype="float32")
+    edges = L.data("edges", shape=[8, 2], dtype="int64")
+    reader = L.random_data_generator(low=0.0, high=2.0,
+                                     shapes=[[3, 5], [3, 1]])
+    pre = L.Preprocessor(reader)
+    with pre.block():
+        a, b = pre.inputs()
+        pre.outputs(L.scale(a, scale=0.5), b)
+    x, y = L.read_file(reader)
+    outs = [L.tree_conv(nodes, edges, output_size=4, num_filters=2),
+            L.tree_conv(nodes, edges, output_size=3, max_depth=3,
+                        act="relu", bias_attr=False),
+            L.fc(x, size=2), y]
+    return L.mean(L.sums([L.reduce_sum(v) for v in outs]))
+
+
 BATTERY = {"tensor": _tensor_layers, "loss": _loss_layers,
            "rnn": _rnn_layers, "training": _training_names,
-           "append_backward": _backward_battery, "vision": _vision_loss}
+           "append_backward": _backward_battery, "vision": _vision_loss,
+           "rest": _rest_layers}
 
 
 def _build(fl, fn, with_backward):
@@ -389,7 +421,7 @@ def _build(fl, fn, with_backward):
 
 @pytest.mark.parametrize("name", sorted(BATTERY))
 def test_battery_programs_bytes_identical(name):
-    with_backward = name in ("loss", "rnn", "vision")
+    with_backward = name in ("loss", "rnn", "vision", "rest")
     with junique.guard():
         jm, js = _build(fluid, BATTERY[name], with_backward)
     with punique.guard():

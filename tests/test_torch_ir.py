@@ -617,7 +617,7 @@ NEW_CONTROL_SEQUENCE_CTC = (
 
 
 def test_registry_counts():
-    """The port's op types: 302 of the JAX package's, plus its 3 grad types
+    """The port's op types: 328 of the JAX package's, plus its 3 grad types
     of its own (``_OPAQUE_GRAD_TYPES``), and every one has an emitter.
     Recurrent training and structured prediction added ``recurrent``'s
     emitter and ``while_grad``, ``linear_chain_crf``, ``crf_decoding`` and
@@ -627,9 +627,12 @@ def test_registry_counts():
     ``NEW_CONTROL_SEQUENCE_CTC``; object detection the 33 types of
     ``NEW_DETECTION``; the general tensor, loss and RNN-unit ops the 35
     types of ``NEW_TENSOR_LOSS_RNN``; the image and NN op families the 36
-    types of ``NEW_IMAGE_NN``."""
+    types of ``NEW_IMAGE_NN``; quantization the 8 of ``NEW_QUANT`` and the
+    single-device rest of the registry the 18 of ``NEW_REST``."""
     from paddle_tpu import registry as jreg
     from test_torch_detection import NEW_DETECTION
+    from test_torch_host_ops import NEW_REST
+    from test_torch_quantize import NEW_QUANT
     from test_torch_tensor_ops import NEW_TENSOR_LOSS_RNN
     from test_torch_vision_ops import NEW_IMAGE_NN
     reg = pt.registry._REGISTRY
@@ -637,8 +640,9 @@ def test_registry_counts():
     assert len(NEW_DETECTION) == 33
     assert len(NEW_TENSOR_LOSS_RNN) == 35
     assert len(NEW_IMAGE_NN) == 36
-    assert len(reg) == 305
-    assert sum(jreg.has_op(t) for t in reg) == 302
+    assert len(NEW_QUANT) == 8 and len(NEW_REST) == 18
+    assert len(reg) == 331
+    assert sum(jreg.has_op(t) for t in reg) == 328
     assert sorted(t for t, i in reg.items() if i.emitter is None) == []
     for op_type in ("while", "while_grad", "recurrent", "array_write",
                     "array_read", "beam_search",
@@ -650,7 +654,8 @@ def test_registry_counts():
                     "fusion_lstm", "fusion_gru", "fusion_seqpool_concat",
                     "fused_embedding_fc_lstm", "linear_chain_crf",
                     "crf_decoding", "chunk_eval") + NEW_CONTROL_SEQUENCE_CTC \
-            + NEW_DETECTION + NEW_TENSOR_LOSS_RNN + NEW_IMAGE_NN:
+            + NEW_DETECTION + NEW_TENSOR_LOSS_RNN + NEW_IMAGE_NN + NEW_QUANT \
+            + NEW_REST:
         assert reg[op_type].emitter is not None, op_type
         assert jreg.has_op(op_type), op_type
 

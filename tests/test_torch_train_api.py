@@ -453,8 +453,26 @@ def test_clip_and_regularizer_ops_carry_the_optimize_role():
 
 
 def test_model_average_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        pt.optimizer.ModelAverage(0.15)
+    """ModelAverage is ported: built after minimize, it writes the JAX
+    package's programs, byte for byte (tests/test_torch_model_average.py
+    holds its arithmetic). The name is older than the check: it held the
+    NotImplementedError, naming ROADMAP A9, that the port raised until
+    ModelAverage was ported."""
+    def build(fl):
+        main, startup = fl.Program(), fl.Program()
+        with fl.program_guard(main, startup):
+            x = fl.layers.data("x", shape=[3], dtype="float32")
+            loss = fl.layers.mean(fl.layers.fc(x, size=2))
+            fl.optimizer.SGD(0.1).minimize(loss)
+            fl.optimizer.ModelAverage(0.15, min_average_window=10,
+                                      max_average_window=20)
+        return main, startup
+    with junique.guard():
+        jm, js = build(fluid)
+    with punique.guard():
+        pm, ps = build(pt)
+    assert pm.desc.to_bytes() == jm.desc.to_bytes()
+    assert ps.desc.to_bytes() == js.desc.to_bytes()
 
 
 # ---------------------------------------------------------------------------
