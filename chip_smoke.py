@@ -10,8 +10,8 @@
                                      # work on a kernel: prints the kernels
                                      # line (launches null) and no contract
                                      # line
-    python3 chip_smoke.py --phase 23 # phases 1-2, then phase 23 alone
-                                     # (any of 12 and 14-23), its seconds
+    python3 chip_smoke.py --phase 24 # phases 1-2, then phase 24 alone
+                                     # (any of 12 and 14-24), its seconds
                                      # and launches; no contract line
 
 Phases, in order; any failure exits non-zero and no phase is skipped:
@@ -439,8 +439,43 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    window roll), the fake-quant types' straight-through grads, ``py_func``
    and ``delete_var`` in captured programs, and ``random_data_generator``
    through a ``Preprocessor`` feeding a captured step.
+24. imperative (dygraph) mode and the pass verifier, after phase 23: (A)
+   ResNet-50 built from ``paddle_tpu_torch.imperative`` layers in the
+   shape of Fluid's dygraph ResNet example (``ConvBNLayer``,
+   bottlenecks, ``Pool2D``, an ``FC`` to flowers' 102 classes), fed
+   batches of 32 from ``dataset.flowers.train()`` through
+   ``reader.batch``, 5 fp32 steps of the imperative SGD; its weights are
+   a declarative ``models/resnet.py`` build's (each Conv2D bias 0), and
+   step 1's loss and every weight's gradient are held against the
+   port's eager ``Executor`` on that program (DY_RESNET_REL of each
+   gradient's largest magnitude); step ms, a traced step's device ms and
+   idle share, peak memory and the ops the tape records a step; (B) a
+   Transformer-base encoder at bench_transformer's widths (6 layers,
+   d_model 512, 8 heads, d_ff 2048, vocab 32000, T 256, batch 16) from
+   ``Embedding``, ``FC`` and ``trace_op`` of ``layer_norm``,
+   ``reshape2``, ``transpose2``, ``flash_attention`` and
+   ``softmax_with_cross_entropy``, dropout 0.1 from the tracer's
+   generator, 5 steps of the imperative Adam, once plain and once with
+   every layer under ``recompute``, under the deterministic mode: every
+   step's gradients bitwise equal between the two, recompute's peak
+   memory below the plain run's, the flash kernels counted by name in a
+   trace (6 forward a step plain, 12 under recompute, 18 backward
+   kernels), and one attention at [16, 8, 256, 64] through the tape
+   against ``plain_attention`` and ``plain_attention_bwd`` within TOL and
+   BWD_TOL; (C) phase 11's Transformer (CUT_LAYERS + CUT_LAYERS layers,
+   AMP) and phase 9's ResNet-50 AMP through ``CompiledProgram`` under
+   bench.py's BuildStrategy with and without ``verify_passes``, VERIFY_RUNS
+   runs each from one state: no error, ``check_pass`` once after every
+   stage, the rewritten op lists byte-identical and the losses bitwise
+   equal; the verification's seconds and the memo's lookup; then the
+   program without the writer of its first temporary raises
+   ``ProgramVerifyError`` with no device work in the run's trace. The
+   whole script runs phase 24 in a process of its own
+   (``--imperative-child``), as ``--phase 24`` does: after phases 5-23
+   the script's own process lost one flash-forward record in every
+   trace of 24(B).
 
-Flash launches (phases 5-8, 11, 12 and 13) are counted by kernel name in a
+Flash launches (phases 5-8, 11, 12, 13, 24(B) and 24(C)) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
 just before: a replay of a captured graph launches the kernels without
 calling the wrappers, whose counts then cover the eager runs and the
@@ -448,7 +483,7 @@ captures, and must not be 0 where the path runs a kernel. The step and
 request times of phases 5-8 are taken under that trace; the turns of
 phases 7, 9 and 11 are not. ResNet-50 (phases 9-10) and generation
 (phases 14-15), the model zoo (17), recurrent training (18), phases
-19, 20, 21(B-C), 22 and 23 hold the wrappers' counts at 0: no call, so no
+19, 20, 21(B-C), 22, 23 and 24(A) hold the wrappers' counts at 0: no call, so no
 flash kernel in any graph either. 21(A) counts the kernels of its step's
 graph from the graph's DOT dump, as 16(B) does.
 
@@ -488,7 +523,8 @@ from paddle_tpu_torch.inference.generation import (DecodeEngine,
                                                    SamplingParams,
                                                    collect_tokens,
                                                    naive_generate)
-from paddle_tpu_torch.dataset import conll05
+from paddle_tpu_torch.dataset import conll05, flowers
+from paddle_tpu_torch.ir import verify as pverify
 from paddle_tpu_torch.models import (bert, deepfm, fit_a_line,
                                      label_semantic_roles,
                                      machine_translation, mnist, recommender,
@@ -9133,6 +9169,679 @@ def quant_rest_paths(smi):
     return out, numbers
 
 
+# --- phase 24: imperative (dygraph) mode, the dataset zoo, the verifier ---
+
+DY_RESNET_BATCH = 32
+DY_RESNET_STEPS = 5
+DY_RESNET_LR = 0.01
+DY_RESNET_REL = 1e-4     # PR 8's per-op bound, fp32: of the largest magnitude
+DY_ENC = dict(vocab=32000, n_layer=6, n_head=8, d_model=512, d_ff=2048,
+              seq=256, dropout=0.1)
+DY_ENC_BATCH = 16
+DY_ENC_STEPS = 5
+DY_ENC_LR = 1e-4
+DY_ENC_TIMED = 3         # 24(B): untraced steps timed after the gated ones
+VERIFY_RUNS = 3          # 24(C): eager, the capture, a replay
+
+
+def dygraph_resnet(I, stages=(3, 4, 6, 3), class_dim=102, base=64):
+    """ResNet in the shape of Fluid's dygraph ResNet example, on an
+    imperative module ``I``: ``ConvBNLayer`` stem, 3x3/2 max pool,
+    ``BottleneckBlock`` stages in the order and with the strides of
+    ``models/resnet.py`` (the stride on the first 1x1, a projection
+    shortcut where the channels change), global average pool and an
+    ``FC`` softmax. ``convbn`` lists the ConvBNLayers in the order
+    their declarative twins' conv2d ops run; ``loss(image, label)`` is
+    the mean cross entropy."""
+
+    class ConvBNLayer(I.Layer):
+        """A ``Conv2D`` (its bias held at 0 where a declarative build's
+        weights are mapped in) and a ``BatchNorm`` with the activation."""
+
+        def __init__(self, num_filters, filter_size, stride=1, act="relu"):
+            super().__init__("ConvBNLayer")
+            self.conv = I.Conv2D(num_filters, filter_size, stride,
+                                 (filter_size - 1) // 2)
+            self.bn = I.BatchNorm(num_filters, act=act)
+
+        def forward(self, x):
+            return self.bn(self.conv(x))
+
+    class ResNet(I.Layer):
+        def __init__(self):
+            super().__init__("ResNet")
+            self.convbn = []
+            self._cb(base, 7, 2)   # the stem, convbn[0]
+            self.pool = I.Pool2D(3, "max", 2, 1)
+            self.blocks = []
+            ch_in = base
+            for i, count in enumerate(stages):
+                ch = base * 2 ** i
+                for j in range(count):
+                    stride = 2 if i and not j else 1
+                    short = (self._cb(ch * 4, 1, stride, None)
+                             if ch_in != ch * 4 else None)
+                    convs = [self._cb(ch, 1, stride), self._cb(ch, 3),
+                             self._cb(ch * 4, 1, 1, None)]
+                    self.blocks.append((short, convs))
+                    ch_in = ch * 4
+            self.gap = I.Pool2D(7, "avg", global_pooling=True)
+            self.fc = I.FC(class_dim, act="softmax")
+
+        def _cb(self, nf, fs, stride=1, act="relu"):
+            layer = ConvBNLayer(nf, fs, stride, act)
+            setattr(self, f"convbn{len(self.convbn)}", layer)
+            self.convbn.append(layer)
+            return layer
+
+        def forward(self, x):
+            x = self.pool(self.convbn[0](x))
+            for short, convs in self.blocks:
+                s = short(x) if short is not None else x
+                y = x
+                for c in convs:
+                    y = c(y)
+                x = I.trace_op("elementwise_add", {"X": [s], "Y": [y]},
+                               {"axis": -1})["Out"][0]
+                x = I.trace_op("relu", {"X": [x]}, {})["Out"][0]
+            return self.fc(self.gap(x))
+
+        def loss(self, image, label):
+            prob = self(image)
+            ce = I.trace_op("cross_entropy", {"X": [prob], "Label": [label]},
+                            {})["Y"][0]
+            return I.trace_op("mean", {"X": [ce]}, {})["Out"][0]
+
+    return ResNet()
+
+
+def dygraph_resnet_weights(model, program, scope_values):
+    """Copy a declarative ``models/resnet.py`` build's parameters and
+    batch-norm statistics (``scope_values``: name -> numpy or tensor)
+    into ``model`` after its parameters exist: the i-th ConvBNLayer takes
+    the i-th conv2d op's filter and the batch_norm op after it, the FC
+    the mul and its bias; every Conv2D bias is set to 0."""
+    ops = program.global_block().ops
+    convs = [o for o in ops if o.type == "conv2d"]
+    bns = [o for o in ops if o.type == "batch_norm"]
+    if len(convs) != len(model.convbn) or len(bns) != len(model.convbn):
+        raise AssertionError(f"{len(model.convbn)} ConvBNLayers against "
+                             f"{len(convs)} conv2d / {len(bns)} batch_norm")
+    names = {}
+    for layer, conv, bn in zip(model.convbn, convs, bns):
+        names[id(layer.conv._w)] = conv.input("Filter")[0]
+        for attr, slot in (("_scale", "Scale"), ("_bias", "Bias"),
+                           ("_mean", "Mean"), ("_var", "Variance")):
+            names[id(getattr(layer.bn, attr))] = bn.input(slot)[0]
+        layer.conv._b.array = np.zeros(layer.conv._b.shape, np.float32)
+    mul = next(o for o in ops if o.type == "mul")
+    add = next(o for o in ops[ops.index(mul):]
+               if o.type == "elementwise_add")
+    names[id(model.fc._w)] = mul.input("Y")[0]
+    names[id(model.fc._b)] = add.input("Y")[0]
+    vars_ = [v for layer in model.convbn
+             for v in (layer.conv._w, layer.bn._scale, layer.bn._bias,
+                       layer.bn._mean, layer.bn._var)] + [model.fc._w,
+                                                           model.fc._b]
+    for v in vars_:
+        v.array = scope_values[names[id(v)]]
+    return {names[id(v)]: v for v in vars_}
+
+
+def dygraph_encoder(I, vocab, n_layer, n_head, d_model, d_ff, seq,
+                    dropout=0.0, use_recompute=False):
+    """A Transformer encoder on an imperative module ``I``: word and
+    position ``Embedding``s, ``n_layer`` post-norm layers (``FC`` q, k,
+    v and output projections, heads split by ``reshape2`` and
+    ``transpose2``, the ``flash_attention`` op, ``layer_norm``,
+    upscale_in_train ``dropout`` drawn from the tracer's generator, a
+    ReLU feed-forward) and an ``FC`` over the vocabulary into
+    ``softmax_with_cross_entropy``. ``use_recompute`` puts each layer
+    under ``recompute``. The parameters are made (drawn from numpy's
+    global ``np.random`` in a fixed order) before the model is returned."""
+    dh = d_model // n_head
+
+    def op(type_, ins, attrs=None, slot="Out"):
+        return I.trace_op(type_, ins, attrs or {})[slot][0]
+
+    class EncoderLayer(I.Layer):
+        def __init__(self, i):
+            super().__init__(f"enc{i}")
+            for n in ("q", "k", "v", "o"):
+                setattr(self, n, I.FC(d_model, num_flatten_dims=2))
+            self.ff1 = I.FC(d_ff, num_flatten_dims=2, act="relu")
+            self.ff2 = I.FC(d_model, num_flatten_dims=2)
+            for j in (1, 2):
+                self.create_parameter(f"ln{j}_scale", [d_model],
+                                      initializer=lambda s: np.ones(
+                                          s, np.float32))
+                self.create_parameter(f"ln{j}_bias", [d_model],
+                                      is_bias=True)
+
+        def _heads(self, x, b):
+            x = op("reshape2", {"X": [x]}, {"shape": [b, seq, n_head, dh]})
+            return op("transpose2", {"X": [x]}, {"axis": [0, 2, 1, 3]})
+
+        def _drop(self, x):
+            if not dropout:
+                return x
+            return op("dropout", {"X": [x]},
+                      {"dropout_prob": dropout,
+                       "dropout_implementation": "upscale_in_train"})
+
+        def _norm(self, x, j):
+            return op("layer_norm",
+                      {"X": [x], "Scale": [self._parameters[f"ln{j}_scale"]],
+                       "Bias": [self._parameters[f"ln{j}_bias"]]},
+                      {"begin_norm_axis": 2, "epsilon": 1e-5}, "Y")
+
+        def forward(self, x):
+            b = x.shape[0]
+            q, k, v = (self._heads(getattr(self, n)(x), b)
+                       for n in ("q", "k", "v"))
+            a = op("flash_attention", {"Q": [q], "K": [k], "V": [v]},
+                   {"causal": False, "scale": dh ** -0.5})
+            a = op("transpose2", {"X": [a]}, {"axis": [0, 2, 1, 3]})
+            a = op("reshape2", {"X": [a]}, {"shape": [b, seq, d_model]})
+            x = self._norm(x + self._drop(self.o(a)), 1)
+            f = self._drop(self.ff2(self.ff1(x)))
+            return self._norm(x + f, 2)
+
+    class Encoder(I.Layer):
+        def __init__(self):
+            super().__init__("Encoder")
+            self.word = I.Embedding([vocab, d_model])
+            self.pos = I.Embedding([seq, d_model])
+            self.layers = []
+            for i in range(n_layer):
+                layer = EncoderLayer(i)
+                setattr(self, f"layer{i}", layer)
+                self.layers.append(layer)
+            self.out = I.FC(vocab, num_flatten_dims=2)
+
+        def loss(self, ids, pos, label):
+            x = self.word(ids) + self.pos(pos)
+            for layer in self.layers:
+                x = I.recompute(layer, x) if use_recompute else layer(x)
+            ce = op("softmax_with_cross_entropy",
+                    {"Logits": [self.out(x)], "Label": [label]}, {}, "Loss")
+            return op("mean", {"X": [ce]})
+
+    model = Encoder()
+    # make every FC's parameters with one row in eval mode (no dropout
+    # draw), so that recompute finds them when the first step runs
+    zeros = np.zeros((1, seq, 1), np.int64)
+    model.eval()
+    model.loss(*(I.to_variable(zeros) for _ in range(3)))
+    model.train()
+    return model
+
+
+def encoder_batch(vocab, seq, batch, seed):
+    """Token ids, positions and next-token labels, [batch, seq, 1] int64."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq, 1)).astype(np.int64)
+    pos = np.tile(np.arange(seq, dtype=np.int64).reshape(1, seq, 1),
+                  (batch, 1, 1))
+    return ids, pos, np.roll(ids, -1, axis=1)
+
+
+def flowers_batches(batch, steps):
+    """``steps`` batches of ``dataset.flowers.train()`` through the
+    port's batch reader: images [batch, 3, 224, 224], int64 labels."""
+    out = []
+    for rows in pt.reader.batch(flowers.train(), batch)():
+        out.append((np.stack([r[0] for r in rows]).reshape(
+            batch, *RESNET_IMAGE), np.array([[r[1]] for r in rows],
+                                            np.int64)))
+        if len(out) == steps:
+            return out
+    raise AssertionError(f"flowers.train() gave {len(out)} batches")
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want| (host arrays)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return float("inf")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def dygraph_resnet_path(smi):
+    """24(A): dygraph ResNet-50 at 102 classes, fed from
+    dataset.flowers, trained DY_RESNET_STEPS steps with the imperative
+    SGD; step 1's loss and every weight's gradient against the port's
+    eager Executor on the declarative models/resnet.py program whose
+    weights it took."""
+    I = pt.imperative
+    label = "24(A) dygraph ResNet-50"
+    batches = flowers_batches(DY_RESNET_BATCH, DY_RESNET_STEPS)
+    with unique_name.guard():
+        r = resnet.build(dataset="flowers", depth=50,
+                         class_dim=flowers.CLASS_COUNT,
+                         image_shape=list(RESNET_IMAGE), lr=DY_RESNET_LR)
+    r["startup"].random_seed = SEED
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(r["startup"], scope=scope)
+    init = {n: scope.find_var(n).clone() for n in scope.var_names()}
+    names = [p.name for p in r["main"].global_block().all_parameters()]
+    image, lbl = batches[0]
+    with jit_cache(False):
+        want = exe.run(r["main"], feed={"data": image, "label": lbl},
+                       fetch_list=[r["loss"]] + [n + "@GRAD" for n in names],
+                       scope=scope)
+    del scope, exe
+    release()
+
+    np.random.seed(SEED)
+    with I.guard(seed=SEED):
+        tracer = I.tracer._active_tracer()
+        model = dygraph_resnet(I, class_dim=flowers.CLASS_COUNT)
+        model.eval()
+        model(I.to_variable(image[:1]))  # makes the Conv2D parameters
+        model.train()
+        mapped = dygraph_resnet_weights(model, r["main"], init)
+        del init
+        params = model.parameters()
+        sgd = I.SGDOptimizer(DY_RESNET_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, recorded = [], [], []
+        for i, (image, lbl) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = model.loss(I.to_variable(image), I.to_variable(lbl))
+            recorded.append(len(tracer._tape))
+            loss.backward()
+            if i == 0:
+                errs = {n: rel_err(mapped[n].gradient(), g)
+                        for n, g in zip(names, want[1:])}
+            sgd.minimize(loss, params)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss.numpy().reshape(())))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = float(np.median(secs[1:])) * 1e3
+        _, busy = device_rows(lambda: sgd.minimize(
+            model.loss(I.to_variable(image), I.to_variable(lbl)), params))
+    loss_err = rel_err(losses[0], np.asarray(want[0]).reshape(()))
+    worst = max(errs, key=errs.get)
+    log(f"  {label}: {len(names)} weights mapped from the declarative "
+        f"build; step 1 against the eager Executor: loss {losses[0]:.6f} "
+        f"(rel. error {loss_err:.2e}), gradients' largest rel. error "
+        f"{errs[worst]:.2e} ({worst}) (bound {DY_RESNET_REL:.0e} of each "
+        f"gradient's largest magnitude)")
+    if not (loss_err <= DY_RESNET_REL and errs[worst] <= DY_RESNET_REL):
+        raise AssertionError(f"{label}: step 1 beyond {DY_RESNET_REL} of the "
+                             "executor's")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    idle = max(0.0, 1 - busy / step_ms)
+    log(f"  {label}: batch {DY_RESNET_BATCH}, losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; steady step {step_ms:.1f} ms ({secs[0] * 1e3:.1f} ms the "
+        f"first), a traced step {busy:.1f} ms of device time (the card idle "
+        f"{idle:.1%} of a steady step); peak {peak:.2f} GiB; "
+        f"{recorded[0]} ops recorded a step [{smi}]")
+    return {"step_ms": step_ms, "device_ms": busy, "idle": idle,
+            "peak_gib": peak, "ops_per_step": recorded[0],
+            "grad_rel_err": errs[worst], "loss_rel_err": loss_err}
+
+
+def dygraph_encoder_arm(I, batches, use_recompute, label, per_step):
+    """One 24(B) arm: DY_ENC_STEPS Adam steps from the same weights and
+    generator seed, their flash kernels counted by name in a trace
+    against ``per_step`` (forward, backward) a step; DY_ENC_TIMED steps
+    timed; one more step traced on the device and one on the host.
+    Returns (each step's gradients on the host, losses, the median timed
+    step ms, peak GiB, the traced launches, the traced step's device rows
+    and ms, its host rows)."""
+    np.random.seed(SEED)
+    with I.guard(seed=SEED):
+        model = dygraph_encoder(I, use_recompute=use_recompute, **DY_ENC)
+        params = list({id(p): p for p in model.parameters()}.values())
+        adam = I.AdamOptimizer(DY_ENC_LR)
+
+        def step(ids, pos, lbl):
+            loss = model.loss(I.to_variable(ids), I.to_variable(pos),
+                              I.to_variable(lbl))
+            loss.backward()
+            return loss
+
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        grads, losses = [], []
+        with traced_launches() as counted:
+            for batch in batches:
+                loss = step(*batch)
+                grads.append([p._grad.cpu() for p in params])
+                adam.minimize(loss, params)
+                losses.append(float(loss.numpy().reshape(())))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        traced = check_launches(label, counted,
+                                tuple(n * len(batches) for n in per_step))
+        steady = []
+        for batch in batches[:DY_ENC_TIMED]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            adam.minimize(step(*batch), params)
+            torch.cuda.synchronize()
+            steady.append(time.perf_counter() - t0)
+        rows, busy = device_rows(lambda: adam.minimize(step(*batches[0]),
+                                                       params))
+        host = host_rows(lambda: adam.minimize(step(*batches[0]), params))
+    return (grads, losses, float(np.median(steady)) * 1e3, peak, traced,
+            rows, busy, host)
+
+
+def host_rows(fn, n=6):
+    """The host's side of one call of fn under torch.profiler (CPU
+    activity): the top ``n`` operators by self CPU ms, and the number of
+    operator calls."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    top = sorted(avg, key=lambda e: -e.self_cpu_time_total)[:n]
+    return {"calls": sum(e.count for e in avg if e.key.startswith("aten::")),
+            "top": [(e.key, e.self_cpu_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def tape_attention_check(I, label, device="cuda"):
+    """One attention at the train step's shape through the tape
+    (``trace_op`` of flash_attention, a weighted sum backward): its
+    output and Q, K, V gradients against plain_attention and
+    plain_attention_bwd on the same values, within TOL and BWD_TOL."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v, do = (torch.randn(TRAIN_SHAPE, generator=gen, device=device)
+                   for _ in range(4))
+    scale = TRAIN_SHAPE[3] ** -0.5
+    with I.guard(seed=SEED):
+        qv, kv, vv = (I.to_variable(t) for t in (q, k, v))
+        out = I.trace_op("flash_attention", {"Q": [qv], "K": [kv], "V": [vv]},
+                         {"causal": False, "scale": scale})["Out"][0]
+        dov = I.to_variable(do)
+        dov.stop_gradient = True
+        s = I.trace_op("reduce_sum", {"X": [out * dov]},
+                       {"reduce_all": True})["Out"][0]
+        s.backward()
+        got = [out.array.detach()] + [x._grad for x in (qv, kv, vv)]
+    ref_out, lse = fa.plain_attention(q, k, v, None, False, scale)
+    ref = [ref_out] + list(fa.plain_attention_bwd(
+        q, k, v, None, ref_out, lse, do, False, scale)[:3])
+    errs = {}
+    for name, g, w in zip(("out", "dQ", "dK", "dV"), got, ref):
+        top = w.abs().max().item()
+        errs[name] = (g - w).abs().max().item() / top
+        tol = (TOL[torch.float32]["out"] if name == "out"
+               else BWD_TOL[torch.float32]["grad"])
+        if not (torch.isfinite(g).all() and errs[name] <= tol):
+            raise AssertionError(f"{label}: the tape's {name} "
+                                 f"{errs[name]:.2e} of its largest, beyond "
+                                 f"{tol:.0e}")
+    log(f"  {label}: one attention {list(TRAIN_SHAPE)} through the tape "
+        "against the plain versions, max|err|/max|ref|: "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    return errs
+
+
+def dygraph_encoder_path(smi):
+    """24(B): the dygraph Transformer-base encoder, DY_ENC_STEPS Adam steps
+    plain and with each layer under ``recompute``, dropout from the
+    tracer's generator: gradients bitwise equal, recompute's peak below
+    the plain run's, the flash kernels counted by name in a trace.
+    Returns ({path: traced launches}, numbers)."""
+    I = pt.imperative
+    label = "24(B) dygraph Transformer encoder"
+    batches = [encoder_batch(DY_ENC["vocab"], DY_ENC["seq"], DY_ENC_BATCH,
+                             SEED + 800 + i) for i in range(DY_ENC_STEPS)]
+    n = DY_ENC["n_layer"]
+    arms, out, numbers = {}, {}, {}
+    with deterministic() as nondeterministic:
+        for path, ck in (("imperative_transformer", False),
+                         ("imperative_recompute", True)):
+            grads, losses, step_ms, peak, out[path], rows, busy, host = \
+                dygraph_encoder_arm(I, batches, ck, f"  {label} {path}",
+                                    ((2 if ck else 1) * n,
+                                     n * fa.BWD_KERNELS))
+            arms[path] = grads
+            kernels = sum(r[2] for r in rows)
+            numbers[path] = {"losses": losses, "peak_gib": peak,
+                             "step_ms": step_ms, "device_ms": busy,
+                             "idle": max(0.0, 1 - busy / step_ms),
+                             "kernels": kernels,
+                             "aten_calls": host["calls"]}
+            log(f"  {label} {path}: losses "
+                + ", ".join(f"{x:.4f}" for x in losses)
+                + f"; steady step {step_ms:.1f} ms (median of "
+                f"{DY_ENC_TIMED} untraced), a traced step {busy:.1f} ms of "
+                f"device time in {kernels} kernels (the card idle "
+                f"{numbers[path]['idle']:.1%}), {host['calls']} aten calls "
+                f"on the host; peak {peak:.2f} GiB [{smi}]")
+            for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+                log(f"    device {us / 1e3:9.3f} ms {us / 10 / busy:5.1f}% "
+                    f"x{count:<5} {key[:90]}")
+            for key, ms, count in host["top"]:
+                log(f"    host self {ms:9.3f} ms x{count:<5} {key[:90]}")
+            del grads
+            release()
+    if nondeterministic:
+        log(f"  {label}: ops without a deterministic implementation: "
+            f"{nondeterministic}")
+    plain, ck = arms["imperative_transformer"], arms["imperative_recompute"]
+    differ = [(s, j) for s, (a, b) in enumerate(zip(plain, ck))
+              for j, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    log(f"  {label}: recompute's gradients against the plain run's over "
+        f"{DY_ENC_STEPS} steps x {len(plain[0])} parameters: "
+        f"{len(differ)} differ (bitwise)")
+    if differ or len(plain) != len(ck):
+        raise AssertionError(f"{label}: recompute's gradients differ "
+                             f"(step, parameter) {differ[:5]}")
+    peaks = (numbers["imperative_transformer"]["peak_gib"],
+             numbers["imperative_recompute"]["peak_gib"])
+    log(f"  {label}: peak memory plain {peaks[0]:.2f} GiB, recompute "
+        f"{peaks[1]:.2f} GiB")
+    if not peaks[1] < peaks[0]:
+        raise AssertionError(f"{label}: recompute's peak {peaks[1]:.2f} GiB "
+                             f"is not below the plain run's {peaks[0]:.2f}")
+    numbers["attention_errs"] = tape_attention_check(I, label)
+    return out, numbers
+
+
+def verify_arm(target, state, loss_name, feeds):
+    """VERIFY_RUNS runs of ``target`` from ``state`` (eager, the capture,
+    replays) on a fresh executor: (losses, the rewritten op list as bytes,
+    the executor)."""
+    exe = pt.Executor()
+    scope = copy_state(state, exe.device)
+    losses = [exe.run(target, feed=f, fetch_list=[loss_name], scope=scope,
+                      return_numpy=False)[0].device_value()
+              for f in feeds[:VERIFY_RUNS]]
+    ops = exe.lowered_ops(target, [loss_name])
+    return losses, repr([(o.type, o.inputs, o.outputs, sorted(
+        o.attrs.items())) for o in ops]).encode(), exe
+
+
+def traced_call(fn):
+    """fn() under torch.profiler: (the device rows of the trace, the
+    exception fn raised or None)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    raised = None
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        try:
+            fn()
+        except Exception as e:  # the caller holds it
+            raised = e
+        torch.cuda.synchronize()
+    return sorted(kernel_rows(prof).items()), raised
+
+
+def verify_program_path(label, program, startup, loss_name, feeds,
+                        per_run):
+    """24(C) on one program: VERIFY_RUNS runs with and without
+    ``verify_passes`` under the bench BuildStrategy from one state (the
+    flash kernels of both arms counted by name, ``per_run`` a run); then
+    the program with the writer of its first temporary dropped. Returns (the traced
+    launches, numbers)."""
+    startup.random_seed = SEED
+    init = pt.Scope()
+    pt.Executor().run(startup, scope=init)
+    state = {n: init.find_var(n) for n in init.var_names()}
+    got = {}
+    with deterministic(), traced_launches() as counted:
+        for on in (False, True):
+            bs = bench_build_strategy()
+            bs.verify_passes = on
+            got[on] = verify_arm(pt.CompiledProgram(program,
+                                                    build_strategy=bs),
+                                 state, loss_name, feeds)
+    traced = check_launches(f"  {label}", counted,
+                            tuple(2 * VERIFY_RUNS * n for n in per_run))
+    memo = program.__dict__.get("_verify_memo", {})
+    report = memo.get(program._version)
+    checks = {k: r.get("checks", 0)
+              for k, r in got[True][2].pipeline_stats["stages"].items()}
+    plain_checks = [r.get("checks", 0)
+                    for r in got[False][2].pipeline_stats["stages"].values()]
+    if report is None or len(memo) != 1:
+        raise AssertionError(f"{label}: verification memo {memo}")
+    t0 = time.perf_counter()
+    hit = pverify.verify_before_run(program) is report
+    hit_us = (time.perf_counter() - t0) * 1e6
+    log(f"  {label}: verified before the first run in "
+        f"{report.wall_ms / 1e3:.4f} s ({report.summary()}); the "
+        f"{VERIFY_RUNS - 1} runs after it hit the memo ({len(memo)} entry; "
+        f"a lookup {hit_us:.1f} us); check_pass after every stage {checks}")
+    if report.errors or not hit:
+        raise AssertionError(f"{label}: {report.format()}")
+    if not checks or any(c != 1 for c in checks.values()) or any(
+            plain_checks):
+        raise AssertionError(f"{label}: stage checks {checks} (without "
+                             f"verification {plain_checks})")
+    if got[True][1] != got[False][1]:
+        raise AssertionError(f"{label}: the rewritten op lists differ")
+    hold(label, f"{VERIFY_RUNS} losses with verification against without "
+         f"(op lists byte-identical, {len(got[True][1])} bytes)",
+         max(map(distance, got[True][0], got[False][0])), 0.0)
+
+    bad = program.clone()
+    blk = bad.global_block()
+    ops = blk.desc.ops
+    # the first op writing a temporary that a later op reads
+    i, dropped = next(
+        (i, n) for i, op in enumerate(ops) for n in op.output_arg_names()
+        if not blk.desc.vars[n].persistable
+        and any(n in later.input_arg_names() for later in ops[i + 1:]))
+    del ops[i]
+    blk.ops.pop(i)
+    bs = bench_build_strategy()
+    bs.verify_passes = True
+    exe = pt.Executor()
+    scope = copy_state(state, exe.device)
+    rows, raised = traced_call(lambda: exe.run(
+        pt.CompiledProgram(bad, build_strategy=bs), feed=feeds[0],
+        fetch_list=[loss_name], scope=scope))
+    if not isinstance(raised, pverify.ProgramVerifyError) or rows:
+        raise AssertionError(f"{label}: the writer of {dropped} dropped: "
+                             f"raised {raised!r}, device work {rows[:5]}")
+    first = raised.diagnostics[0]
+    log(f"  {label}: the writer of {dropped} dropped: ProgramVerifyError "
+        f"({first.code}, {first.op_type} reads {first.var}), no device work "
+        "in the run's trace")
+    return traced, {"verify_s": report.wall_ms / 1e3,
+                    "memo_lookup_us": hit_us, "stage_checks": checks,
+                    "summary": report.summary()}
+
+
+def verify_paths(smi):
+    """24(C): phase 11's compiled Transformer-base (CUT_LAYERS + CUT_LAYERS
+    layers, AMP) and phase 9's ResNet-50 AMP under verify_passes.
+    Returns (the Transformer's traced flash launches, numbers)."""
+    numbers = {}
+    with unique_name.guard():
+        m = transformer.build(attention_impl="unfused", **cut_model())
+    traced, numbers["transformer"] = verify_program_path(
+        "24(C) Transformer compiled AMP",
+        mixed_precision.decorate(m["main"].clone()), m["startup"],
+        m["loss"].name, [train_batch(m["config"], TRAIN_BATCH, SEED + 900 + i)
+                         for i in range(VERIFY_RUNS)],
+        flash_per_step(CUT_LAYERS))
+    del m
+    release()
+    with unique_name.guard():
+        r = resnet.build(dataset="flowers", depth=50, class_dim=RESNET_CLASSES,
+                         image_shape=list(RESNET_IMAGE), lr=0.1)
+    _, numbers["resnet"] = verify_program_path(
+        "24(C) ResNet-50 compiled AMP",
+        mixed_precision.decorate(r["main"].clone()), r["startup"],
+        r["loss"].name, [resnet_batch(RESNET_BATCH, SEED + 900 + i)
+                         for i in range(VERIFY_RUNS)], (0, 0))
+    del r
+    release()
+    log(f"  24(C): [{smi}]")
+    return traced, numbers
+
+
+def imperative_paths(smi):
+    """Phase 24; returns the flash launches of its paths (traced by kernel
+    name: 24(A) none, 24(B) DY_ENC_STEPS steps of each arm, 24(C) those of
+    both programs' runs under verification) and each part's numbers."""
+    out, numbers, secs = {}, {}, {}
+    t0 = time.perf_counter()
+    fa.launches = fa.bwd_launches = 0
+    numbers["resnet"] = dygraph_resnet_path(smi)
+    out["imperative_resnet"] = (fa.launches, fa.bwd_launches)
+    if out["imperative_resnet"] != (0, 0):
+        raise AssertionError(f"24(A): flash wrapper calls "
+                             f"{out['imperative_resnet']}")
+    secs["A"] = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    launches, numbers["encoder"] = dygraph_encoder_path(smi)
+    out.update(launches)
+    secs["B"] = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    out["verify_paths"], numbers["verify"] = verify_paths(smi)
+    secs["C"] = time.perf_counter() - t0
+    log("24: " + ", ".join(f"({k}) {s:.1f} s" for k, s in secs.items()))
+    return out, numbers
+
+
+IMPERATIVE_CHILD_S = 600
+
+
+def imperative_paths_child(smi):
+    """Phase 24 in a process of its own (``--imperative-child OUT``), as
+    ``--phase 24`` runs it. In the whole script's process, after phases
+    5-23, every torch.profiler trace of the dygraph encoder lost one
+    flash-forward record that the wrappers counted (29 of 30 over a
+    window, 5 of 6 in a one-step trace, with or without a warm-up cycle
+    of the profiler: PERF.md §7), while a fresh process's traces count
+    them all. Prints the child's output; returns its launches by path
+    (its wrappers' counts and its traces) and its numbers."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_24_",
+                                     dir=_build.BUILD_DIR) as d:
+        path = os.path.join(d, "phase24.json")
+        r = subprocess.run(ELASTIC_CHILD + ["--imperative-child", path],
+                           capture_output=True, text=True,
+                           timeout=IMPERATIVE_CHILD_S)
+        log(r.stdout.rstrip())
+        if r.returncode != 0:
+            log(r.stderr[-6000:])
+            raise AssertionError(f"phase 24's process exited {r.returncode}")
+        with open(path) as f:
+            got = json.load(f)
+    log(f"  24: [{smi}]")
+    return {k: tuple(v) for k, v in got["launches"].items()}, got["numbers"]
+
+
 # the phases that need nothing of an earlier one, each run alone by
 # ``--phase N``: N -> its flash launches by path
 ALONE = {
@@ -9147,6 +9856,7 @@ ALONE = {
     21: lambda smi: tensor_loss_rnn_paths(smi)[0],
     22: lambda smi: vision_paths(smi)[0],
     23: lambda smi: quant_rest_paths(smi)[0],
+    24: lambda smi: imperative_paths(smi)[0],
 }
 
 
@@ -9163,6 +9873,9 @@ def main(argv=None):
     # one process of phase 16(A), started by the phase itself
     args.add_argument("--elastic-child", nargs=3, help=argparse.SUPPRESS,
                       metavar=("ROLE", "CKPT", "OUT"))
+    # the process of phase 24, started by the whole script
+    args.add_argument("--imperative-child", help=argparse.SUPPRESS,
+                      metavar="OUT")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9175,6 +9888,13 @@ def main(argv=None):
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.imperative_child:
+        _build.build()  # the parent's libraries, found by their hash
+        launches, numbers = imperative_paths(nvidia_smi_line())
+        with open(args.imperative_child, "w") as f:
+            json.dump({"launches": launches, "numbers": numbers}, f,
+                      default=str)
+        return 0
 
     phase("device")
     smi = nvidia_smi_line()
@@ -9386,6 +10106,12 @@ def main(argv=None):
                   "CRNN-CTC with ModelAverage, the 26 types on the card "
                   "against the CPU")
             paths.update(quant_rest_paths(smi)[0])
+            release()
+            phase("imperative (dygraph) mode and the pass verifier: "
+                  "ResNet-50 fed from dataset.flowers, the Transformer-base "
+                  "encoder through the tape with and without recompute, "
+                  "verify_passes on the compiled Transformer and ResNet-50")
+            paths.update(imperative_paths_child(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

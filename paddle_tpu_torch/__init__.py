@@ -35,7 +35,7 @@ from .place import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401
 from .utils.flags import FLAGS, get_flags, set_flags  # noqa: F401
 from . import inference, models  # noqa: F401
 from . import average, data_feeder, elastic, lod_tensor  # noqa: F401
-from . import metrics, reader  # noqa: F401
+from . import dataset, imperative, metrics, reader  # noqa: F401
 from .average import WeightedAverage  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .lod_tensor import (LoDTensor, Tensor, create_lod_tensor,  # noqa: F401

@@ -56,7 +56,7 @@ class BuildStrategy:
         self.memory_optimize = False            # fold + CSE + prune
         self.fuse_conv_ops = False              # conv + bn, conv epilogue
         self.fuse_attention_ops = False         # chain -> flash_attention
-        self.verify_passes = False              # ir/verify.py: ROADMAP A14
+        self.verify_passes = False              # ir/verify.py
         self.auto_parallel = False              # ROADMAP A12
         self.enable_inplace = True
         self.num_trainers = 1
@@ -104,8 +104,7 @@ class CompiledProgram:
         return self._program
 
     def _check_ported(self):
-        """Raise on a knob whose machinery the port does not have
-        (``verify_passes`` is checked by the executor, with its flag)."""
+        """Raise on a knob whose machinery the port does not have."""
         bs = self._build_strategy
         if getattr(bs, "auto_parallel", False):
             raise NotImplementedError(

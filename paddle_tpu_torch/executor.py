@@ -302,6 +302,13 @@ def _live_ops(ops: List[OpDesc], fetch_names, block: Block) -> List[OpDesc]:
     return kept
 
 
+def _verifies(build_strategy) -> bool:
+    """Whether a run verifies its program and its pipeline's stages
+    (``FLAGS.verify_passes`` or ``build_strategy.verify_passes``)."""
+    return bool(FLAGS.verify_passes
+                or getattr(build_strategy, "verify_passes", False))
+
+
 def _split_segments(ops: List[OpDesc]) -> List[Tuple[str, List[OpDesc]]]:
     """Group ops into maximal device runs separated by host ops."""
     segments: List[Tuple[str, List[OpDesc]]] = []
@@ -685,9 +692,11 @@ class Executor:
         ``fetch_list``: the live ops of block 0, rewritten by the pass
         pipeline when ``program`` is a CompiledProgram."""
         program, build_strategy = self._unwrap(program)
+        fetch_names = _fetch_names(fetch_list)
         with self._lock:
-            return self._prepare(program, build_strategy,
-                                 _fetch_names(fetch_list),
+            if _verifies(build_strategy):
+                self._verify(program, fetch_names)
+            return self._prepare(program, build_strategy, fetch_names,
                                  _accum_steps(program, build_strategy))
 
     @staticmethod
@@ -699,12 +708,30 @@ class Executor:
             program._check_ported()
             build_strategy = program._build_strategy
             program = program._program
-        if FLAGS.verify_passes or getattr(build_strategy, "verify_passes",
-                                          False):
-            raise NotImplementedError(
-                "verify_passes (ir/verify.py, the pass verifier) waits for "
-                "ROADMAP A14")
         return program, build_strategy
+
+    @staticmethod
+    def _verify(program, fetch_names, feed=None):
+        """ir/verify.py's check of ``program`` before its version's first
+        preparation (memoized per version). With the run's ``feed``, a
+        non-persistable input that no op writes is an error where a live
+        op reads it and the feed lacks it (a dropped writer fails here,
+        before any kernel launches); the inputs of ops the run prunes
+        need no feed, as a test clone runs without its labels."""
+        from .ir import verify as _verify
+        if program._version in program.__dict__.get("_verify_memo", {}):
+            return
+        feed_names = None
+        if feed is not None:
+            block = program.global_block()
+            read = {n for op in _live_ops(
+                [op for op in block.desc.ops
+                 if op.type not in ("feed", "fetch")], fetch_names, block)
+                for n in op.input_arg_names()}
+            feed_names = set(feed) | {n for b in program.desc.blocks
+                                      for n in b.vars if n not in read}
+        _verify.verify_before_run(program, feed_names=feed_names,
+                                  fetch_names=set(fetch_names))
 
     def _flags(self, build_strategy, accum=1):
         """The pass groups a run takes: none under gradient accumulation
@@ -717,8 +744,14 @@ class Executor:
 
     def _prepare(self, program, build_strategy, fetch_names, accum=1):
         """The op list of a run: block 0's live ops, rewritten by the
-        pipeline (memoized) when the BuildStrategy selects passes."""
+        pipeline (memoized) when the BuildStrategy selects passes.
+
+        Under ``FLAGS.verify_passes`` or ``build_strategy.verify_passes``
+        (the caller has verified the program, ``_verify``) every pipeline
+        stage is checked against its invariants (PassVerifyError names
+        the stage)."""
         block = program.global_block()
+        verify = _verifies(build_strategy)
         ops = _live_ops([op for op in block.desc.ops
                          if op.type not in ("feed", "fetch")],
                         fetch_names, block)
@@ -726,7 +759,7 @@ class Executor:
         if not flags:
             return ops
         memo = program.__dict__.setdefault("_pass_memo", {})
-        key = (program._version, tuple(fetch_names), flags)
+        key = (program._version, tuple(fetch_names), flags, verify)
         optimized = memo.get(key)
         if optimized is not None:
             self.pipeline_stats["memo_hits"] += 1
@@ -738,7 +771,8 @@ class Executor:
             if _is_persistable(block, n)}
         t0 = time.perf_counter()
         optimized = pipeline.run_pipeline(ops, block, needed, flags,
-                                          self.pipeline_stats["stages"])
+                                          self.pipeline_stats["stages"],
+                                          verify=verify)
         self.pipeline_stats["seconds"] += time.perf_counter() - t0
         self.pipeline_stats["runs"] += 1
         memo[key] = optimized
@@ -749,6 +783,10 @@ class Executor:
         """The cached plan of this run's key (made on a miss), or a plan
         for this run alone when ``FLAGS.jit_cache`` is off."""
         block = program.global_block()
+        if _verifies(build_strategy):
+            # before the plan lookup: a plan made before the flag was set
+            # is verified all the same
+            self._verify(program, fetch_names, feed)
         accum = _accum_steps(program, build_strategy)
         flags = self._flags(build_strategy, accum)
         signature = tuple(sorted(

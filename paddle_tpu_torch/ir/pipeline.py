@@ -1246,13 +1246,21 @@ def block_var_dtype(block) -> Callable[[str], Optional[str]]:
 
 def run_pipeline(ops: List[OpDesc], block, needed: Set[str],
                  flags: Sequence[str],
-                 stats: Optional[Dict[str, Dict[str, float]]] = None
-                 ) -> List[OpDesc]:
+                 stats: Optional[Dict[str, Dict[str, float]]] = None,
+                 verify: bool = False) -> List[OpDesc]:
     """Run the enabled pass groups over one op list and return the
     rewritten list (fresh descs where rewritten; the input list and its
     descs are never mutated). Stages run in the JAX package's order.
     With ``stats``, each stage adds its ``ops_removed`` and ``seconds``
-    under its name (for the layout stage, the ops it rewrote)."""
+    under its name (for the layout stage, the ops it rewrote), and under
+    ``verify`` its ``checks``.
+
+    ``verify=True`` (FLAGS.verify_passes / build_strategy.verify_passes)
+    runs ir/verify.py's pass-boundary invariants after every stage
+    (needed outputs kept, no new undefined reads, the random-op sequence
+    unchanged, host ops intact, no new double writers) and raises
+    :class:`~paddle_tpu_torch.ir.verify.PassVerifyError` naming the
+    stage that broke one."""
     var_dtype = block_var_dtype(block)
 
     # order matters: the conv/attention matchers run on the rawest
@@ -1286,9 +1294,15 @@ def run_pipeline(ops: List[OpDesc], block, needed: Set[str],
 
     for name, fn in stages:
         t0 = time.perf_counter()
+        before = ops
         ops, n = fn(ops, needed)
+        if verify:
+            from . import verify as _verify
+            _verify.check_pass(before, ops, name, needed, block)
         if stats is not None:
             row = stats.setdefault(name, {"ops_removed": 0, "seconds": 0.0})
             row["ops_removed"] += int(n)
             row["seconds"] += time.perf_counter() - t0
+            if verify:
+                row["checks"] = row.get("checks", 0) + 1
     return ops

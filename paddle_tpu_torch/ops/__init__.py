@@ -20,3 +20,4 @@ from . import kernels_detection  # noqa: F401
 from . import kernels_quant  # noqa: F401
 from . import kernels_dist  # noqa: F401
 from . import flash_attention  # noqa: F401
+from . import static_rules  # noqa: F401  (after every emitter)

@@ -71,6 +71,32 @@ def scalar_infer(out_slot="Out", dtype=None, shape=(1,), in_slot="X"):
     return infer
 
 
+def opaque_infer(reason: str = ""):
+    """infer rule of an op whose outputs are statically opaque (host side
+    effects, data-dependent extents, LoDTensorArray plumbing, control
+    flow). Declaring it is the contract: the verifier (ir/verify.py)
+    skips the op's shape check instead of evaluating an emitter that
+    cannot run on meta tensors, and the coverage measure counts it."""
+
+    def infer(op: OpDesc, block):
+        return None
+
+    infer._opaque = True
+    infer._reason = reason
+    return infer
+
+
+def dtype_only_infer(out_slot="Out", in_slot="X"):
+    """infer rule: Out carries X's dtype; its shape is known only at run
+    time."""
+
+    def infer(op: OpDesc, block):
+        for name in op.output(out_slot):
+            set_out_var(block, name, None, in_dtype(block, op, in_slot))
+
+    return infer
+
+
 def slots_like_infer(*pairs):
     """infer rule from (out_slot, in_slot) pairs: each output takes its
     input's shape and dtype, name for name (the first input's past the

@@ -327,7 +327,8 @@ def batch_norm(ctx, ins, attrs):
     ch_shape = [1] * xv.dim()
     ch_shape[c_axis] = xv.shape[c_axis]
     xf = xv.float()
-    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+    if (attrs.get("is_test", False) or ctx.is_test
+            or attrs.get("use_global_stats", False)):
         mean, var = rmean.float(), rvar.float()
         mean_out, var_out = rmean, rvar
     else:
@@ -564,7 +565,7 @@ def dropout(ctx, ins, attrs):
     xv = ins["X"][0]
     p = float(attrs.get("dropout_prob", 0.5))
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
-    if attrs.get("is_test", False):
+    if attrs.get("is_test", False) or ctx.is_test:
         y = xv if impl == "upscale_in_train" else xv * (1.0 - p)
         return {"Out": [y], "Mask": [torch.ones_like(xv, dtype=torch.uint8)]}
     keep = torch.rand(xv.shape, generator=ctx.generator, device=xv.device,

@@ -107,13 +107,19 @@ def has_op(op_type: str) -> bool:
 
 
 def register_op(op_type: str, *, infer: Optional[Callable] = None,
+                infer_shape: Optional[Callable] = None,
                 no_grad: bool = False, intermediate_outputs: tuple = (),
                 grad_maker: Optional[Callable] = None,
                 needs_rng: bool = False, is_host: bool = False):
     """Decorator registering ``fn(ctx, ins, attrs) -> outs`` as emitter,
-    with ``infer`` as the op's shape/dtype rule ``(op_desc, block)``. An
-    op that is not ``no_grad`` and names no ``grad_maker`` gets
-    ``default_vjp_grad_maker``."""
+    with ``infer`` (or its long spelling ``infer_shape``) as the op's
+    shape/dtype rule ``(op_desc, block)``, which ``Block.append_op`` and
+    the verifier (ir/verify.py) run. An op that is not ``no_grad`` and
+    names no ``grad_maker`` gets ``default_vjp_grad_maker``."""
+    if infer is not None and infer_shape is not None:
+        raise ValueError(f"register_op({op_type!r}): pass infer= or "
+                         "infer_shape=, not both")
+    infer = infer if infer is not None else infer_shape
 
     def deco(fn):
         info = _get_or_create(op_type)
@@ -131,6 +137,15 @@ def register_op(op_type: str, *, infer: Optional[Callable] = None,
         return fn
 
     return deco
+
+
+def infer_shape_coverage() -> tuple:
+    """(ops with a rule, ops, fraction): how much of the registry the
+    verifier checks by a declared rule rather than by evaluating the
+    emitter on meta tensors."""
+    total = len(_REGISTRY)
+    have = sum(1 for i in _REGISTRY.values() if i.infer_shape is not None)
+    return have, total, (have / total if total else 1.0)
 
 
 def register_grad_maker(op_type: str):

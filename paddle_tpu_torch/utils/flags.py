@@ -28,8 +28,8 @@ _DEFAULTS: Dict[str, Any] = {
     # it in a CUDA graph at its second run (paddle_tpu/utils/flags.py
     # jit_cache); False keeps none, so every run is eager (the oracle)
     "jit_cache": True,
-    # check the pipeline's invariants after every stage (ir/verify.py in
-    # the JAX package); not ported, so a run that asks for it raises
+    # verify a program before its first run and the pipeline's invariants
+    # after every stage (ir/verify.py), memoized per program version
     "verify_passes": False,
     # generation (inference/generation), read once when a DecodeEngine is
     # made: the paged KV cache (pages behind a free-list allocator, the

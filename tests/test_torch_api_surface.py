@@ -44,7 +44,6 @@ DEFERRED_TOP = {
         "release_memory", "pipeline_stage", "parallel", "distributed",
         "AsyncExecutor", "async_executor", "DataFeedDesc")},
     **{n: "A13" for n in ("native", "recordio_writer")},
-    "imperative": "A11",
     # the port runs on CUDA places: no TPU or XLA place, by design
     "TPUPlace": "by design", "XLAPlace": "by design",
 }
@@ -124,6 +123,14 @@ def test_layers_module_all_is_the_jax_modules(name):
     assert [n for n in pall if n in jall] == [n for n in jall if n in pall]
     for n in pall:
         assert hasattr(pt.layers, n), n
+
+
+@pytest.mark.parametrize("name", ["imperative", "dataset"])
+def test_imperative_and_dataset_all_are_the_jax_ones(name):
+    jmod, pmod = getattr(fluid, name), getattr(pt, name)
+    assert pmod.__all__ == jmod.__all__
+    for n in pmod.__all__:
+        assert hasattr(pmod, n), n
 
 
 def test_enums_hold_the_jax_values():

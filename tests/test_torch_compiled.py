@@ -312,30 +312,47 @@ def _tiny_compiled(**bs_attrs):
     return p, pt.CompiledProgram(p["main"], build_strategy=bs)
 
 
+# the ROADMAP items that have ported their knobs
+PORTED_ITEMS = {"A14"}
+
+
 @pytest.mark.parametrize("knob,value,item", [
     ("auto_parallel", True, "A12"),
     ("verify_passes", True, "A14"),
 ])
 def test_unported_build_strategy_knobs_raise(knob, value, item):
+    """A knob raises, naming the ROADMAP item that ports it, until that
+    item is done; ``verify_passes`` (A14) now runs the verifier."""
     p, target = _tiny_compiled(**{knob: value})
-    with pytest.raises(NotImplementedError, match=item):
-        pt.Executor(pt.CPUPlace()).run(target, feed=_batch(p["config"], 0),
-                                       fetch_list=[p["loss"]])
+    exe = pt.Executor(pt.CPUPlace())
+    run = lambda: exe.run(  # noqa: E731
+        target, feed=_batch(p["config"], 0), fetch_list=[p["loss"]])
+    if item in PORTED_ITEMS:
+        with pt.scope_guard(pt.Scope()):
+            exe.run(p["startup"])
+            assert np.isfinite(np.asarray(run()[0])).all()
+        assert p["main"].__dict__["_verify_memo"]
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            run()
 
 
 def test_unported_execution_and_flag_knobs_raise():
     """num_iteration_per_run is ported (tests/test_torch_multi_step.py
     runs it): K steps per run leave the rewritten op list as it is. The
-    verify_passes flag still raises."""
+    verify_passes flag (A14) no longer raises: lowered_ops verifies the
+    program first and leaves its op list as it is."""
     p, target = _tiny_compiled()
     exe = pt.Executor(pt.CPUPlace())
     one = [o.type for o in exe.lowered_ops(target, [p["loss"]])]
     target._exec_strategy.num_iteration_per_run = 2
     assert [o.type for o in exe.lowered_ops(target, [p["loss"]])] == one
+    plain = [o.type for o in exe.lowered_ops(p["main"], [p["loss"]])]
     PFLAGS.verify_passes = True
     try:
-        with pytest.raises(NotImplementedError, match="A14"):
-            pt.Executor(pt.CPUPlace()).lowered_ops(p["main"], [p["loss"]])
+        ops = pt.Executor(pt.CPUPlace()).lowered_ops(p["main"], [p["loss"]])
+        assert [o.type for o in ops] == plain
+        assert p["main"].__dict__["_verify_memo"]
     finally:
         PFLAGS.verify_passes = False
 
