@@ -10,8 +10,8 @@
                                      # work on a kernel: prints the kernels
                                      # line (launches null) and no contract
                                      # line
-    python3 chip_smoke.py --phase 24 # phases 1-2, then phase 24 alone
-                                     # (any of 12 and 14-24), its seconds
+    python3 chip_smoke.py --phase 25 # phases 1-2, then phase 25 alone
+                                     # (any of 12 and 14-25), its seconds
                                      # and launches; no contract line
 
 Phases, in order; any failure exits non-zero and no phase is skipped:
@@ -474,6 +474,34 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (``--imperative-child``), as ``--phase 24`` does: after phases 5-23
    the script's own process lost one flash-forward record in every
    trace of 24(B).
+25. observability, after phase 24, in a process of its own
+   (``--observability-child``), as ``--phase 25`` runs it: (A) bf16
+   Transformer-base (bench_transformer's widths) through
+   ``BucketedPredictor`` and ``BatchingPredictor`` over buckets (4, 8),
+   the monitor off and then on (a second front, so its plans warm up
+   under the monitor and build their kernel tables): each bucket's
+   graph the same kernel nodes either way, OBS_REQUESTS requests from 8
+   threads a pass (requests/s, p50, p99 of the second pass),
+   ``serving_requests_total`` equal to the requests sent, a
+   ``profile_session(steps=OBS_WINDOW)`` over that many requests with
+   18 flash-forward kernels a device call in the ``flash_attention.*``
+   rows, its coverage, lost records and misaligned kernels, and the live
+   plane on an ephemeral port (``/metrics``, ``/healthz``, ``/vars``,
+   ``/trace?id=``, ``/memory``); (B) Transformer-base AMP training, batch
+   16, through ``CompiledProgram`` under bench.py's BuildStrategy,
+   captured (36 + 54 flash nodes in the step's graph), a
+   ``profile_session(steps=OBS_TRAIN_STEPS)`` over replays: the top
+   rows, coverage, lost records, 36 + 54 flash kernels a step in the
+   flash rows, measured MFU against the H100 row; the footprint's
+   predicted peak against the allocator's eager and captured peaks; the
+   pre-flight at half the prediction raising ``MemoryBudgetExceeded``
+   naming the op at peak with no device work; a fault delay of
+   OBS_DELAY_S at two steps warning once (the repeat counted) and the
+   escalation's capture writing one ``slow_step_profile`` flight
+   record; (C) ``GenerationPredictor`` over phase 14's ``build_lm`` with
+   ``FLAGS.memory_budget_bytes`` set at construction so that the dense
+   table's cap downshifts, the (slots, cap) ``max_fitting_config``
+   picks, and every request resolved.
 
 Flash launches (phases 5-8, 11, 12, 13, 24(B) and 24(C)) are counted by kernel name in a
 torch.profiler trace of each path's runs, with the wrappers' counts zeroed
@@ -9842,6 +9870,435 @@ def imperative_paths_child(smi):
     return {k: tuple(v) for k, v in got["launches"].items()}, got["numbers"]
 
 
+# ---------------------------------------------------------------------------
+# phase 25: observability (the monitor, profile sessions, the footprint)
+# ---------------------------------------------------------------------------
+
+OBS_BUCKETS = (4, 8)        # a two-bucket ladder keeps the warm-up short
+OBS_SIZES = (3, 8, 5, 1)    # request rows, cycling: both buckets
+OBS_REQUESTS = 32           # per arm, from FRONT_CLIENTS threads
+OBS_WINDOW = 8              # requests (device calls) in the profile session
+OBS_TRAIN_STEPS = 5         # steps of the training profile session
+OBS_DELAY_S = 0.5           # the injected fault delay of 25(B)
+OBS_SLOTS = 8               # 25(C): the predictor's slots
+OBS_CHILD_S = 600
+
+
+def obs_get(port, route):
+    """(status, body) of a GET on the monitor's live plane."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def flash_rows(rep):
+    """(forward, backward) flash kernels the report attributes to the
+    flash ops' rows, and (forward, backward) anywhere in its rows."""
+    fwd = bwd = all_fwd = all_bwd = 0
+    for r in rep["rows"]:
+        mine = r["op"].split(".", 1)[0] in ("flash_attention",
+                                             "flash_attention_grad")
+        for k, n in r["kernels"].items():
+            f, b = "flash_fwd_kernel" in k, "flash_bwd_" in k
+            all_fwd, all_bwd = all_fwd + f * n, all_bwd + b * n
+            if mine:
+                fwd, bwd = fwd + f * n, bwd + b * n
+    return (fwd, bwd), (all_fwd, all_bwd)
+
+
+def log_report(label, rep, smi, top=10):
+    """The session report's summary and its top rows."""
+    log(f"  {label}: {rep['steps']} steps, device {rep['device_time_s'] * 1e3:.3f}"
+        f" ms, attributed {rep['attributed_s'] * 1e3:.3f} ms, coverage "
+        f"{rep['coverage']:.4f}, replays {rep['replays']} (without a "
+        f"table {rep['replays_without_table']}), misaligned "
+        f"{rep['misaligned']}, lost_records {rep['lost_records']}, window "
+        f"{rep['window_wall_s'] * 1e3:.1f} ms [{smi}]")
+    log(f"    the session's trace: {rep['trace_losses']}")
+    for key, mi in rep["modules"].items():
+        log(f"    plan segment {key}: {mi.get('replays', 0)} replays of "
+            f"{mi.get('replay_kernels')} kernels against a table of "
+            f"{mi.get('table_kernels')} (its trace: "
+            f"{mi.get('table_trace')}); first differences "
+            f"{mi.get('misaligned_sample')}")
+    for r in rep["rows"][:top]:
+        log(f"    {r['op'][:72]:<72} {r['device_s'] * 1e3:9.3f} ms "
+            f"{r['share'] * 100:5.1f}% {r['calls']:6d} kernels ({r['source']})")
+    if rep.get("error"):
+        raise AssertionError(f"{label}: the session failed: {rep['error']}")
+
+
+def obs_front(model_dir, arm):
+    return create_paddle_predictor(
+        AnalysisConfig(model_dir).enable_bf16()
+        .enable_shape_bucketing(batch_buckets=OBS_BUCKETS)
+        .enable_request_coalescing(max_batch_size=OBS_BUCKETS[-1],
+                                   batch_timeout_us=FRONT_TIMEOUT_US))
+
+
+def obs_serving(model_dir, cfg, smi):
+    """25(A): the serving front, the monitor off and then on. Returns the
+    session window's flash (forward, backward) launches and the numbers."""
+    from paddle_tpu_torch import monitor
+    requests = [make_request(cfg, OBS_SIZES[i % len(OBS_SIZES)],
+                             SEED + 2500 + i) for i in range(OBS_REQUESTS)]
+    nodes, numbers, launches = {}, {}, None
+    for arm in ("off", "on"):
+        if arm == "on":
+            monitor.reset()
+            monitor.enable()
+            port = monitor.serve_http(port=0).server_port
+        fa.launches = fa.bwd_launches = 0
+        front = obs_front(model_dir, arm)
+        try:
+            t0 = time.perf_counter()
+            with graphs_kept() as kept:
+                # one cell at a time: each cell's first run builds its
+                # plan's kernel table from a trace of its own
+                front.warmup(compile_workers=1)
+            warm_s = time.perf_counter() - t0
+            nodes[arm] = sorted(graph_flash_nodes(g) for g in kept)
+            # a first pass warms the clients' paths; the second is timed
+            for _ in range(2):
+                outs, lat, wall = run_clients(
+                    front.run, requests,
+                    check=lambda i, out: check_logits(
+                        f"25(A) {arm}", requests[i], out, cfg))
+            if not all(bool(f) for f in outs):
+                raise AssertionError(f"25(A) {arm}: logits not finite")
+            numbers[arm] = {"warmup_s": warm_s,
+                            "requests_per_s": OBS_REQUESTS / wall,
+                            "p50_ms": float(np.percentile(lat, 50)),
+                            "p99_ms": float(np.percentile(lat, 99))}
+            log(f"  25(A) monitor {arm}: warm-up of {len(OBS_BUCKETS)} "
+                f"buckets {warm_s:.2f} s, graphs' (flash fwd, bwd) and "
+                f"kernel nodes {nodes[arm]}; {OBS_REQUESTS} requests from "
+                f"{FRONT_CLIENTS} threads (a second pass) "
+                f"{OBS_REQUESTS / wall:.1f} "
+                f"requests/s, p50 {numbers[arm]['p50_ms']:.2f} ms, p99 "
+                f"{numbers[arm]['p99_ms']:.2f} ms [{smi}]")
+            if fa.launches == 0:
+                raise AssertionError(f"25(A) {arm}: the flash forward's "
+                                     "wrapper never launched")
+            if arm == "off":
+                continue
+            snap = monitor.snapshot()
+            if snap.get("serving_requests_total") != 2 * OBS_REQUESTS:
+                raise AssertionError(
+                    f"25(A): serving_requests_total "
+                    f"{snap.get('serving_requests_total')}, sent "
+                    f"{2 * OBS_REQUESTS}")
+            b0 = snap["serving_batches_total"]
+            sess = monitor.profile_session(steps=OBS_WINDOW)
+            fut = None
+            for i in range(OBS_WINDOW):
+                fut = front.submit(requests[i])
+                fut.result(timeout=60)
+            if not sess.wait(120):
+                raise AssertionError("25(A): the session's window never "
+                                     "closed")
+            rep = sess.result
+            calls = monitor.snapshot()["serving_batches_total"] - b0
+            log_report(f"25(A) session over {OBS_WINDOW} requests "
+                       f"({calls} device calls)", rep, smi)
+            (fwd, bwd), anywhere = flash_rows(rep)
+            log(f"  25(A) flash_attention rows: {fwd} forward kernels "
+                f"({anywhere[0]} anywhere in the trace), want "
+                f"{LAUNCHES_PER_REQUEST} x {calls} device calls")
+            if calls != OBS_WINDOW or fwd != LAUNCHES_PER_REQUEST * calls \
+                    or bwd:
+                raise AssertionError(f"25(A): {fwd} flash forward kernels "
+                                     f"in the flash rows over {calls} calls")
+            launches = (fwd, bwd)
+            numbers["session"] = {k: rep[k] for k in (
+                "coverage", "lost_records", "misaligned", "replays",
+                "device_time_s")}
+            # the live plane
+            for route in ("/metrics", "/healthz", "/vars",
+                          f"/trace?id={fut.trace_id}", "/memory"):
+                code, body = obs_get(port, route)
+                if code != 200:
+                    raise AssertionError(f"25(A): GET {route} -> {code}")
+                if route != "/metrics":
+                    json.loads(body)
+            if f"serving_requests_total {2 * OBS_REQUESTS + OBS_WINDOW}" \
+                    not in obs_get(port, "/metrics")[1]:
+                raise AssertionError("25(A): /metrics lacks the requests")
+            health = json.loads(obs_get(port, "/healthz")[1])
+            trace = json.loads(obs_get(port, f"/trace?id={fut.trace_id}")[1])
+            mem = json.loads(obs_get(port, "/memory")[1])
+            log(f"  25(A) live plane on port {port}: /healthz "
+                f"{health['status']}, {len(health['components'])} "
+                f"components; /trace {fut.trace_id}: "
+                f"{[s['name'] for s in trace['spans']]}; /memory "
+                f"{len(mem['executables'])} plan segments, devices "
+                f"{list(mem['devices'])}")
+            if health["status"] != "ok" or not trace["ok"]:
+                raise AssertionError("25(A): unhealthy or a failed trace")
+        finally:
+            front.shutdown()
+    if nodes["on"] != nodes["off"]:
+        raise AssertionError(f"25(A): kernels per replay differ with the "
+                             f"monitor on {nodes['on']} and off "
+                             f"{nodes['off']}")
+    numbers["graph_nodes"] = nodes["on"]
+    return launches, numbers
+
+
+def obs_training(smi):
+    """25(B): Transformer-base AMP training through CompiledProgram,
+    captured, with a profile session, the footprint and the pre-flight,
+    and an injected fault delay. Returns the window's flash (forward,
+    backward) launches and the numbers."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.profiling import memory as pmem
+    from paddle_tpu_torch.testing import FaultPlan
+    with unique_name.guard():
+        m = transformer.build(**MODEL)
+    m["startup"].random_seed = SEED
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(m["startup"], scope=scope)
+    amp = mixed_precision.decorate(m["main"].clone())
+    target = pt.CompiledProgram(amp, build_strategy=bench_build_strategy())
+    loss = m["loss"].name
+    feeds = [train_batch(m["config"], TRAIN_BATCH, SEED + 2600 + i)
+             for i in range(4)]
+    fa.launches = fa.bwd_launches = 0
+    t0 = time.perf_counter()
+    with graphs_kept() as kept:
+        for i in range(2):  # the warm-up, then the capture
+            exe.run(target, feed=feeds[i], fetch_list=[loss], scope=scope)
+    warm_s = time.perf_counter() - t0
+    want = (FWD_PER_STEP, BWD_PER_STEP)
+    graph_nodes = graph_flash_nodes(kept[-1])
+    log(f"  25(B) warm-up and capture {warm_s:.2f} s; the step's graph: "
+        f"{graph_nodes[0]} flash nodes (want {want}) of {graph_nodes[1]} "
+        f"kernel nodes")
+    if graph_nodes[0] != want or not fa.launches or not fa.bwd_launches:
+        raise AssertionError(f"25(B): graph flash nodes {graph_nodes}, "
+                             f"wrapper calls {fa.launches}, "
+                             f"{fa.bwd_launches}")
+    sess = monitor.profile_session(steps=OBS_TRAIN_STEPS)
+    losses = [float(exe.run(target, feed=feeds[i % len(feeds)],
+                            fetch_list=[loss], scope=scope)[0].item())
+              for i in range(OBS_TRAIN_STEPS)]
+    if not sess.wait(120) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"25(B): window open or losses {losses}")
+    rep = sess.result
+    log_report(f"25(B) session over {OBS_TRAIN_STEPS} captured steps", rep,
+               smi)
+    (fwd, bwd), anywhere = flash_rows(rep)
+    log(f"  25(B) flash rows: {fwd} forward + {bwd} backward kernels "
+        f"({anywhere} anywhere), want {OBS_TRAIN_STEPS} x {want}")
+    if (fwd, bwd) != (OBS_TRAIN_STEPS * want[0], OBS_TRAIN_STEPS * want[1]):
+        raise AssertionError(f"25(B): flash rows {fwd}, {bwd}")
+    (key, mod), = [(k, v) for k, v in rep["modules"].items()
+                   if v.get("cost_flops")]
+    peak, src = monitor.peak_flops()
+    host_mfu = monitor.snapshot().get('executor_mfu{key="%s"}' % key)
+    log(f"  25(B) plan segment {key}: {mod['cost_flops'] / 1e12:.3f} TFLOP "
+        f"a step (FlopCounterMode + the flash kernels by formula), "
+        f"{mod['calls']} runs, device {mod['device_us'] / 1e3:.3f} ms, "
+        f"measured MFU {mod.get('mfu_measured', 0):.4f} of {src}'s "
+        f"{peak / 1e12:.0f} TFLOP/s bf16; executor_mfu (host wall) "
+        f"{host_mfu}")
+    fp = pmem.footprints()[key]
+    gib = 2.0 ** 30
+    log(f"  25(B) footprint: predicted peak {fp['peak_bytes'] / gib:.3f} GiB "
+        f"at op #{fp['peak_op_idx']} [{fp['peak_op_type']}], top var "
+        f"{fp['top_vars'][0]['name']}; measured (allocator peak over the "
+        f"run, plus its inputs) eager {(fp['measured_peak_bytes'] or 0) / gib:.3f}"
+        f" GiB (agreement {fp['agreement']}), captured "
+        f"{(fp['measured_captured_peak_bytes'] or 0) / gib:.3f} GiB "
+        f"(agreement {fp['agreement_captured']}) [{smi}]")
+    numbers = {"session": {k: rep[k] for k in (
+        "coverage", "lost_records", "misaligned", "replays",
+        "device_time_s")}, "mfu": mod.get("mfu_measured"),
+        "flops": mod["cost_flops"], "footprint": {k: fp[k] for k in (
+            "peak_bytes", "peak_op_type", "measured_peak_bytes",
+            "measured_captured_peak_bytes", "agreement",
+            "agreement_captured")}, "warm_s": warm_s}
+
+    # the pre-flight: half the prediction refuses a new plan before any
+    # device work
+    old = FLAGS.memory_budget_bytes
+    FLAGS.memory_budget_bytes = fp["peak_bytes"] // 2
+    other = pt.CompiledProgram(mixed_precision.decorate(amp.clone()),
+                               build_strategy=bench_build_strategy())
+    torch.cuda.synchronize()
+    mem0, calls0 = torch.cuda.memory_allocated(), fa.launches
+    try:
+        exe.run(other, feed=feeds[0], fetch_list=[loss], scope=scope)
+        raise AssertionError("25(B): the pre-flight let the plan run")
+    except pmem.MemoryBudgetExceeded as e:
+        refused = e
+    finally:
+        FLAGS.memory_budget_bytes = old
+    torch.cuda.synchronize()
+    if (torch.cuda.memory_allocated() != mem0 or fa.launches != calls0
+            or refused.report.peak_op_type not in str(refused)):
+        raise AssertionError("25(B): the refused plan did device work or "
+                             "its error names no op at peak")
+    log(f"  25(B) pre-flight at a budget of {refused.budget} bytes: "
+        f"MemoryBudgetExceeded naming op #{refused.report.peak_op_idx} "
+        f"[{refused.report.peak_op_type}] and {refused.report.top_var}, "
+        f"no device work (allocated bytes and flash calls unchanged)")
+
+    # the slow-step detector: an injected delay warns once with its cause
+    # (a repeat of the same step class and cause is counted, not warned)
+    # and the escalation's capture of the next 3 steps writes a flight
+    # record; its cooldown (FLAGS.profile_slow_step_cooldown_s, 600 s)
+    # keeps the repeat from arming a second one
+    def suppressed_total():
+        return sum(v for k, v in monitor.snapshot().items()
+                   if k.startswith("slow_step_suppressed_total"))
+
+    suppressed0 = suppressed_total()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_25_",
+                                     dir=_build.BUILD_DIR) as d:
+        saved = (FLAGS.flight_record_dir, FLAGS.profile_on_slow_step)
+        FLAGS.flight_record_dir, FLAGS.profile_on_slow_step = d, True
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    FaultPlan().delay("executor.run", calls=[0, 4],
+                                      seconds=OBS_DELAY_S):
+                warnings.simplefilter("always")
+                for i in range(5):
+                    exe.run(target, feed=feeds[i % len(feeds)],
+                            fetch_list=[loss], scope=scope)
+        finally:
+            FLAGS.flight_record_dir, FLAGS.profile_on_slow_step = saved
+        slow = [str(w.message) for w in caught
+                if "slow step" in str(w.message)]
+        records = [n for n in os.listdir(d) if "slow_step_profile" in n]
+        suppressed = suppressed_total() - suppressed0
+        log(f"  25(B) fault delay of {OBS_DELAY_S} s at two steps: "
+            f"warnings {slow}; the repeat suppressed: {suppressed}; flight "
+            f"records {records}")
+        if len(slow) != 1 or len(records) != 1 or suppressed != 1:
+            raise AssertionError("25(B): the slow step did not warn once "
+                                 "with one flight record")
+    numbers["slow_step"] = slow[0]
+    return (fwd, bwd), numbers
+
+
+def obs_generation(smi):
+    """25(C): GenerationPredictor over build_lm at phase 14's widths, its
+    dense slot table's cap downshifted by a memory budget."""
+    from paddle_tpu_torch.profiling import memory as pmem
+    with unique_name.guard():
+        spec = transformer.build_lm(**GEN_LM)["spec"]
+    spec.startup.random_seed = SEED
+    eng = gen_engine(spec, paged=False, prefix=False)
+    top = eng.prompt_ladder.top + eng.new_ladder.top
+    budget = eng.state_nbytes(OBS_SLOTS, top - eng.new_ladder.top + 64) + 1
+    old = FLAGS.memory_budget_bytes
+    FLAGS.memory_budget_bytes = budget
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pred = GenerationPredictor(eng, max_slots=OBS_SLOTS,
+                                       decode_chunk=8)
+        picked = eng.max_fitting_config(OBS_SLOTS)
+    finally:
+        # the executor's pre-flight holds every plan to the same budget,
+        # which the LM's weights alone exceed: the cap is read once, here
+        FLAGS.memory_budget_bytes = old
+    try:
+        log(f"  25(C) budget {budget} bytes: (slots, cap) "
+            f"({OBS_SLOTS}, {pred._cap}) from ({OBS_SLOTS}, {top}); "
+            f"max_fitting_config {picked}; "
+            f"{[str(w.message)[:90] for w in caught]}")
+        if picked != (OBS_SLOTS, pred._cap) or pred._cap >= top:
+            raise AssertionError(f"25(C): cap {pred._cap}, "
+                                 f"max_fitting_config {picked}")
+        t0 = time.perf_counter()
+        pred.warmup()
+        prompts = gen_prompts(GEN_LM["vocab"], SEED + 25, n=OBS_SLOTS)
+        futs = [pred.submit(p, max_new_tokens=32) for p in prompts]
+        outs = [f.result(timeout=120) for f in futs]
+        took = time.perf_counter() - t0
+        tokens = sum(len(o) for o in outs)
+        log(f"  25(C) warm-up and {len(prompts)} requests: {took:.2f} s, "
+            f"{tokens} tokens, every request resolved; health "
+            f"{pred.health()['healthy']} [{smi}]")
+        if len(outs) != len(prompts) or not all(len(o) for o in outs):
+            raise AssertionError("25(C): a request did not resolve")
+    finally:
+        pred.shutdown()
+    return {"slots": OBS_SLOTS, "cap": pred._cap, "top_cap": top,
+            "budget": budget, "tokens": tokens}
+
+
+def observability_paths(smi):
+    """Phase 25; returns its flash launches by path (the session windows'
+    kernels by name: 25(A) OBS_WINDOW requests, 25(B) OBS_TRAIN_STEPS
+    steps) and each part's numbers."""
+    from paddle_tpu_torch import monitor
+    out, numbers, secs = {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_25_model_",
+                                         dir=_build.BUILD_DIR) as d:
+            m = transformer.build(**MODEL)
+            m["startup"].random_seed = SEED
+            exe, scope = pt.Executor(), pt.Scope()
+            with pt.scope_guard(scope):
+                exe.run(m["startup"])
+                pt.io.save_inference_model(d, FEEDS, [m["logits"]], exe,
+                                           main_program=m["test"])
+            del exe, scope
+            launches, numbers["serving"] = obs_serving(d, m["config"], smi)
+        out["observability_serving"] = launches
+        secs["A"] = time.perf_counter() - t0
+        release()
+        t0 = time.perf_counter()
+        out["observability_training"], numbers["training"] = \
+            obs_training(smi)
+        secs["B"] = time.perf_counter() - t0
+        release()
+        t0 = time.perf_counter()
+        numbers["generation"] = obs_generation(smi)
+        out["observability_generation"] = (0, 0)
+        secs["C"] = time.perf_counter() - t0
+    finally:
+        monitor.stop_http()
+        monitor.disable()
+    numbers["seconds"] = secs
+    log("25: " + ", ".join(f"({k}) {s:.1f} s" for k, s in secs.items()))
+    return out, numbers
+
+
+def observability_paths_child(smi):
+    """Phase 25 in a process of its own (``--observability-child OUT``),
+    as ``--phase 25`` runs it, away from the record drops of a process
+    that ran phases 5-24 (PERF.md §7). Prints the child's output; returns
+    its launches by path and its numbers."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_25_",
+                                     dir=_build.BUILD_DIR) as d:
+        path = os.path.join(d, "phase25.json")
+        t0 = time.perf_counter()
+        r = subprocess.run(ELASTIC_CHILD + ["--observability-child", path],
+                           capture_output=True, text=True,
+                           timeout=OBS_CHILD_S)
+        log(r.stdout.rstrip())
+        if r.returncode != 0:
+            log(r.stderr[-6000:])
+            raise AssertionError(f"phase 25's process exited {r.returncode}")
+        with open(path) as f:
+            got = json.load(f)
+    log(f"  25: {time.perf_counter() - t0:.1f} s with its process's start "
+        f"[{smi}]")
+    return {k: tuple(v) for k, v in got["launches"].items()}, got["numbers"]
+
+
 # the phases that need nothing of an earlier one, each run alone by
 # ``--phase N``: N -> its flash launches by path
 ALONE = {
@@ -9857,6 +10314,7 @@ ALONE = {
     22: lambda smi: vision_paths(smi)[0],
     23: lambda smi: quant_rest_paths(smi)[0],
     24: lambda smi: imperative_paths(smi)[0],
+    25: lambda smi: observability_paths(smi)[0],
 }
 
 
@@ -9873,8 +10331,10 @@ def main(argv=None):
     # one process of phase 16(A), started by the phase itself
     args.add_argument("--elastic-child", nargs=3, help=argparse.SUPPRESS,
                       metavar=("ROLE", "CKPT", "OUT"))
-    # the process of phase 24, started by the whole script
+    # the processes of phases 24 and 25, started by the whole script
     args.add_argument("--imperative-child", help=argparse.SUPPRESS,
+                      metavar="OUT")
+    args.add_argument("--observability-child", help=argparse.SUPPRESS,
                       metavar="OUT")
     args = args.parse_args(argv)
     if not torch.cuda.is_available():
@@ -9892,6 +10352,13 @@ def main(argv=None):
         _build.build()  # the parent's libraries, found by their hash
         launches, numbers = imperative_paths(nvidia_smi_line())
         with open(args.imperative_child, "w") as f:
+            json.dump({"launches": launches, "numbers": numbers}, f,
+                      default=str)
+        return 0
+    if args.observability_child:
+        _build.build()
+        launches, numbers = observability_paths(nvidia_smi_line())
+        with open(args.observability_child, "w") as f:
             json.dump({"launches": launches, "numbers": numbers}, f,
                       default=str)
         return 0
@@ -10112,6 +10579,12 @@ def main(argv=None):
                   "encoder through the tape with and without recompute, "
                   "verify_passes on the compiled Transformer and ResNet-50")
             paths.update(imperative_paths_child(smi)[0])
+            release()
+            phase("observability: the monitor, profile sessions over "
+                  "captured plans, the memory footprint and budget, on the "
+                  "serving front, a compiled AMP training step and "
+                  "generation")
+            paths.update(observability_paths_child(smi)[0])
             release()
 
     def bert_shape(rows, errors, per_step):

@@ -11,7 +11,10 @@ passes and bf16). ``elastic.ElasticTrainer`` runs a training loop over a
 resume. Programs, parameter files and checkpoints are byte-compatible
 with the JAX package's. Entry points run on the card (``CUDAPlace(0)``)
 unless the caller asks for ``CPUPlace()``; the ``flash_attention`` op and
-its grad run hand-written CUDA kernels on the card.
+its grad run hand-written CUDA kernels on the card. ``monitor`` (metrics,
+step telemetry, the live HTTP plane, flight records), ``profiler`` and
+the lazily imported ``profiling`` package (per-op device time of eager
+and captured runs, the memory footprint and budget) observe it.
 """
 
 from . import core, ops, registry  # noqa: F401  (ops registers emitters)
@@ -36,6 +39,7 @@ from .utils.flags import FLAGS, get_flags, set_flags  # noqa: F401
 from . import inference, models  # noqa: F401
 from . import average, data_feeder, elastic, lod_tensor  # noqa: F401
 from . import dataset, imperative, metrics, reader  # noqa: F401
+from . import debugger, monitor, profiler  # noqa: F401
 from .average import WeightedAverage  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .lod_tensor import (LoDTensor, Tensor, create_lod_tensor,  # noqa: F401

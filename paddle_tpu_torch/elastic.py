@@ -29,10 +29,13 @@ interrupted, or every preemption changes the model.
   thread).
 
 ``main_program`` may be a CompiledProgram: the loop runs it, and the
-checkpoints hold its program's persistables. The JAX package's
-``checkpoint_*`` and ``elastic_*`` monitor counters, ``register_health``
-and the flight records wait for the port's monitor (ROADMAP A10);
-``health()`` is a method of the trainer meanwhile.
+checkpoints hold its program's persistables. With the monitor on the
+trainer counts ``elastic_restores_total``,
+``elastic_checkpoints_total{kind=}`` and ``elastic_preemptions_total``
+and gauges ``elastic_step``, ``elastic_resume_step`` and
+``checkpoint_age_seconds``, as the JAX package's does; ``health()`` is
+registered for ``/healthz`` as ``elastic_trainer``, and a failed
+emergency checkpoint writes a flight record.
 
 A worker::
 
@@ -54,6 +57,7 @@ import warnings
 from typing import Any, Callable, Iterable, Optional, Sequence
 
 from . import io as _io
+from . import monitor as _monitor
 from .framework import default_main_program
 from .testing import faults as _faults
 from .utils.flags import FLAGS
@@ -111,6 +115,7 @@ class ElasticTrainer:
             # checkpoint at the next step boundary, not in the signal frame
             self._prev_sigterm = signal.signal(
                 signal.SIGTERM, self._on_sigterm)
+        _monitor.register_health("elastic_trainer", self.health)
 
     def _on_sigterm(self, signum, frame):
         self._preempted.set()
@@ -146,14 +151,18 @@ class ElasticTrainer:
             self._loader.load_state_dict(state["data_cursor"])
         self._cadence_step = self._last_save_step = self._step
         self._last_save_t = time.monotonic()
+        if _monitor._enabled:
+            _monitor.counter("elastic_restores_total").inc()
+            _monitor.gauge("elastic_resume_step").set(self._step)
+        _monitor.log_event("elastic_restore", step=self._step)
         return self._step
 
-    def checkpoint(self, wait: bool = False):
+    def checkpoint(self, wait: bool = False, path_label: str = "cadence"):
         """A checkpoint of the current step (persistables, generators,
         loader cursor); asynchronous unless the trainer was made with
         ``async_save=False``. ``wait`` joins the writer (an emergency or
         final save must not ride a daemon thread into the process's
-        end)."""
+        end). ``path_label`` is the ``elastic_checkpoints_total`` kind."""
         state = _io.capture_train_state(self._step, scope=self._scope,
                                         loader=self._loader)
         step = self._cadence_step = self._step
@@ -183,6 +192,9 @@ class ElasticTrainer:
                                 max_num_checkpoints=self._max_keep,
                                 train_state=state, scope=self._scope)
             anchor()
+        if _monitor._enabled:
+            _monitor.counter("elastic_checkpoints_total",
+                             {"kind": path_label}).inc()
 
     def _due(self) -> bool:
         if self.save_every_steps > 0 and (
@@ -230,6 +242,10 @@ class ElasticTrainer:
                                     scope=self._scope,
                                     return_numpy=return_numpy)
                 self._step += iterations
+                if _monitor._enabled:
+                    _monitor.gauge("elastic_step").set(self._step)
+                    _monitor.gauge("checkpoint_age_seconds").set(
+                        round(time.monotonic() - self._last_save_t, 3))
                 if on_step is not None:
                     on_step(self._step, out)
                 if self._preempted.is_set():
@@ -250,19 +266,25 @@ class ElasticTrainer:
                     close()
         if save_on_exit and self._step > self._last_save_step:
             # joined, so "run() returned" means "the run is restorable"
-            self.checkpoint(wait=True)
+            self.checkpoint(wait=True, path_label="final")
         return out
 
     def _emergency_exit(self, cause: Preempted):
         warnings.warn(f"elastic: preempted at step {self._step} "
                       f"({cause}); writing an emergency checkpoint and "
                       f"exiting {self._resume_exit_code} (resume-me)")
+        if _monitor._enabled:
+            _monitor.counter("elastic_preemptions_total").inc()
+        _monitor.log_event("elastic_preempted", step=self._step)
         try:
-            self.checkpoint(wait=True)
+            self.checkpoint(wait=True, path_label="emergency")
         except BaseException as e:  # noqa: BLE001 — still exit resumable
             # the previous cadence checkpoint is still complete
             warnings.warn(f"elastic: emergency checkpoint failed ({e!r}); "
                           "resume will use the previous complete one")
+            _monitor.flight_record(
+                "emergency_ckpt_failure",
+                extra={"step": self._step, "error": repr(e)})
         raise SystemExit(self._resume_exit_code)
 
     def health(self) -> dict:
@@ -270,6 +292,8 @@ class ElasticTrainer:
         age budget (a stuck writer or a loop of failed saves shows here
         before a preemption turns it into lost work)."""
         age = time.monotonic() - self._last_save_t
+        if _monitor._enabled:
+            _monitor.gauge("checkpoint_age_seconds").set(round(age, 3))
         return {
             "healthy": self._age_budget <= 0 or age <= self._age_budget,
             "checkpoint_age_seconds": round(age, 3),
@@ -280,12 +304,13 @@ class ElasticTrainer:
         }
 
     def close(self):
-        """Join any save in flight and restore the previous SIGTERM
-        handler."""
+        """Join any save in flight, unregister the health callback and
+        restore the previous SIGTERM handler."""
         try:
             if self._ckpt is not None:
                 self._ckpt.close()
         finally:
+            _monitor.unregister_health("elastic_trainer")
             if self._prev_sigterm is not None:
                 signal.signal(signal.SIGTERM, self._prev_sigterm)
                 self._prev_sigterm = None

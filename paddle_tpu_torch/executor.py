@@ -94,12 +94,33 @@ step for no smaller peak).
 ``Executor()`` with no place runs on ``CUDAPlace(0)`` and raises when
 there is no CUDA device; the host runs only when the caller passes
 ``CPUPlace()``.
+
+Observability (``monitor.py``; every hook is one branch with the monitor
+off). With it on, ``run`` counts plan hits and misses (a miss classified
+as ``note_compile``'s cause), times each segment run, the fetches and the
+step (``monitor.record_step``, host wall: no synchronization is added; a
+replay's device time comes from CUDA events read at a later run), gauges
+``executor_mfu`` from FLOPs counted once per plan segment on its first
+run (``torch.utils.flop_counter.FlopCounterMode``, which does not see the
+hand flash kernels: their FLOPs are added by formula), and runs each op
+of an eager run inside ``record_function("<type>.<first out>")``, each
+eager segment run inside ``record_function("ptseg:<key>")`` and each
+replay inside ``record_function("ptreplay:<key>")``. On the card a plan
+segment's first run is also traced, when no other profiler runs, to build
+its labelled kernel table (profiling/attribution.py), and its allocator
+peak is measured over that run and over its capture. With the monitor on
+or a memory budget set, a plan's segments get the static footprint
+analysis before any device work, and a plan over the budget raises
+``MemoryBudgetExceeded``; a ``torch.cuda.OutOfMemoryError`` dumps an
+``oom`` flight record.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import os
+import re
 import threading
 import time
 import warnings
@@ -109,6 +130,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import monitor as _monitor
+from . import profiler as _prof
 from . import registry
 from .compiler import CompiledProgram
 from .core.desc import OpDesc
@@ -120,7 +143,7 @@ from .place import CUDAPlace, Place
 from .ops.kernels_control import trip_bound
 from .registry import EmitContext
 from .testing import faults as _faults
-from .utils.flags import FLAGS
+from .utils.flags import FLAGS, memory_budget_set
 
 _scope_tokens = itertools.count(1)
 
@@ -208,7 +231,13 @@ class FetchHandle:
     def numpy(self) -> np.ndarray:
         """The value on the host (waits for the device once)."""
         if self._np is None:
+            t0 = time.perf_counter() if _monitor._enabled else 0.0
             self._np = _to_numpy(self._value)
+            if t0:
+                # the deferred device->host wait is fetch-blocking time
+                _monitor.timer("executor_fetch_seconds",
+                               {"path": "deferred"}).observe(
+                    time.perf_counter() - t0)
         return self._np
 
     def __array__(self, dtype=None, copy=None):
@@ -360,9 +389,36 @@ def _emitter(op_type: str):
             "yet") from None
 
 
+def _op_label(op: OpDesc) -> str:
+    """The op's label in a trace, ``<type>.<first output>``: the JAX
+    package's ``named_scope`` name (its ``_op_scope_name``)."""
+    out = next((n for names in op.outputs.values() for n in names if n),
+               "")
+    name = f"{op.type}.{out}" if out else op.type
+    return _LABEL_UNSAFE.sub("_", name)
+
+
+_LABEL_UNSAFE = re.compile(r"[^A-Za-z0-9_.-]")
+
+# the hand flash kernels' FLOPs, which FlopCounterMode cannot see:
+# forward 2 GEMMs (4 B H Tq Tk D); the grad op recomputes the forward
+# and runs 5 GEMMs (10 B H Tq Tk D); causal halves both
+_FLASH_FLOPS = {"flash_attention": 4, "flash_attention_grad": 14}
+_flop_tally = threading.local()
+
+
+def _flash_flops(op: OpDesc, ins) -> float:
+    q, k = ins["Q"][0], ins["K"][0]
+    b, h, tq, d = q.shape
+    f = _FLASH_FLOPS[op.type] * b * h * tq * k.shape[2] * d
+    return f / 2 if op.attrs.get("causal") else f
+
+
 def run_ops(op_list: List[OpDesc], env: Dict[str, Any], ctx: EmitContext):
     """Run ``op_list`` in order; inputs come from ``env`` or the scope,
-    outputs are bound into ``env``."""
+    outputs are bound into ``env``. With the monitor on each op runs
+    inside ``record_function(<its label>)``."""
+    label = _monitor._enabled
     for op in op_list:
         emitter = _emitter(op.type)
         ins = {}
@@ -380,7 +436,14 @@ def run_ops(op_list: List[OpDesc], env: Dict[str, Any], ctx: EmitContext):
                                    "neither fed nor in the scope")
                 vals.append(val)
             ins[slot] = vals
-        outs = emitter(ctx, ins, op.attrs)
+        if label:
+            tally = getattr(_flop_tally, "flops", None)
+            if tally is not None and op.type in _FLASH_FLOPS:
+                tally[0] += _flash_flops(op, ins)
+            with torch.profiler.record_function(_op_label(op)):
+                outs = emitter(ctx, ins, op.attrs)
+        else:
+            outs = emitter(ctx, ins, op.attrs)
         for slot, names in op.outputs.items():
             for n, v in zip(names, (outs or {}).get(slot) or ()):
                 if n and v is not None:
@@ -393,14 +456,17 @@ def _storage(t) -> Optional[int]:
 
 
 def _write_state(scope: Scope, names, env: Dict[str, Any],
-                 capturing: bool = False):
+                 capturing: bool = False,
+                 labels: Optional[Dict[str, str]] = None):
     """Write each of ``names`` from ``env`` into the scope: copied into
     the scope's tensor when it has one of the same shape, dtype and
     device, else bound. A value that shares storage with a tensor being
     written is cloned first, so every copy reads the run's value. Under
     capture every name must already have its tensor (the warm-up bound
     it), since a bound graph-pool tensor would be overwritten by later
-    replays."""
+    replays. With ``labels`` (the monitor on) each copy runs inside
+    ``record_function`` of the op that wrote the name, so a trace counts
+    it to that op."""
     names = [n for n in names if n in env]
     targets = {n: scope.find_var(n) for n in names}
     ptrs = {_storage(t) for t in targets.values() if t is not None}
@@ -416,7 +482,11 @@ def _write_state(scope: Scope, names, env: Dict[str, Any],
         if (isinstance(dst, torch.Tensor) and isinstance(val, torch.Tensor)
                 and dst.shape == val.shape and dst.dtype == val.dtype
                 and dst.device == val.device):
-            dst.copy_(val)
+            if labels and n in labels:
+                with torch.profiler.record_function(labels[n]):
+                    dst.copy_(val)
+            else:
+                dst.copy_(val)
         elif capturing:
             raise RuntimeError(
                 f"captured run: persistable {n!r} has no scope tensor of "
@@ -498,6 +568,12 @@ class _Segment:
         # vjp keys them by
         self.consts: Dict[Any, Any] = {}
         self.accum: Optional[_Accumulation] = None
+        # observability: the segment's label (program version, index, K,
+        # signature), its FLOPs per run (counted on its first run with
+        # the monitor on; None until then) and its footprint report
+        self.key = ""
+        self.flops: Optional[float] = None
+        self.mem_report = None
         self.drop_graph()
 
     def drop_graph(self):
@@ -607,6 +683,8 @@ class _Plan:
         self.segments = segments
         self.scope_ref = weakref.ref(scope)
         self.runs = 0
+        # why the plan cache missed (monitor on): note_compile's cause
+        self.cause: Optional[str] = None
 
     def drop_graphs(self):
         for kind, seg in self.segments:
@@ -666,6 +744,62 @@ def _make_plan(ops: List[OpDesc], feed_names, fetch_names, block: Block,
     return _Plan(segments, scope)
 
 
+def _classify_retrace(keys, key) -> str:
+    """Why this plan lookup missed, from the plans already made for the
+    program (the JAX package's ``_classify_retrace`` over the port's key:
+    version, fetch names, pass flags, feed signature, iterations,
+    accumulation, AMP, device, scope)."""
+    if not keys:
+        return "first compile"
+
+    def same(k, skip):
+        return all(k[i] == key[i] for i in range(len(key)) if i not in skip)
+
+    if any(same(k, {2}) for k in keys):
+        return "new pass pipeline"
+    if any(k[4] != key[4] and same(k, {3, 4}) for k in keys):
+        return "new steps-per-call K"
+    sig_only = [k for k in keys if same(k, {3})]
+    if sig_only:
+        if any(_batch_dim_only_delta(k[3], key[3]) for k in sig_only):
+            return "new batch size"
+        return "new feature shape"
+    if all(k[0] != key[0] for k in keys):
+        return "new program version"
+    return "new signature"
+
+
+def _batch_dim_only_delta(old_sig, new_sig) -> bool:
+    """True when two feed signatures (tuples of (name, shape, dtype))
+    differ ONLY in dim 0 of one or more feeds: the bucketable case."""
+    if len(old_sig) != len(new_sig):
+        return False
+    for (n1, s1, d1), (n2, s2, d2) in zip(old_sig, new_sig):
+        if n1 != n2 or d1 != d2:
+            return False
+        if s1 == s2:
+            continue
+        if len(s1) != len(s2) or not s1 or s1[1:] != s2[1:]:
+            return False
+    return True
+
+
+def _looks_like_oom(exc: BaseException) -> bool:
+    """Is this exception a device OOM? ``torch.cuda.OutOfMemoryError``,
+    or a message saying so (an allocation failing in a library). Lives
+    here so the failure path never imports the profiling package."""
+    oom_type = getattr(torch.cuda, "OutOfMemoryError", None)
+    if oom_type is not None and isinstance(exc, oom_type):
+        return True
+    low = f"{type(exc).__name__}: {exc}".lower()
+    return "out of memory" in low or "resource_exhausted" in low
+
+
+def _nbytes(t) -> int:
+    return (t.numel() * t.element_size()
+            if isinstance(t, torch.Tensor) else 0)
+
+
 class Executor:
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -682,6 +816,9 @@ class Executor:
         self.capture_stats = {"captures": 0, "seconds": 0.0, "replays": 0}
         # run(iterations=K) calls that took K single-step runs
         self.fuse_fallbacks = 0
+        # (start, end, key) CUDA events of monitored replays, read at a
+        # later run once the device has passed them
+        self._replay_events: List[Tuple[Any, Any, str]] = []
         # plan lookup and creation, the pipeline memo, the statistics and
         # each plan's run count, for callers on several threads (a
         # predictor and its clones share one executor)
@@ -801,9 +938,23 @@ class Executor:
         if plan is not None:
             if flags:
                 self.pipeline_stats["memo_hits"] += 1
+            if _monitor._enabled:
+                _monitor.counter("executor_cache_hits_total").inc()
             return plan
         ops = self._prepare(program, build_strategy, fetch_names, accum)
         plan = _make_plan(ops, list(feed), fetch_names, block, scope, accum)
+        sig = f"{abs(hash(key)) % 10 ** 6:06d}"
+        for i, (kind, seg) in enumerate(plan.segments):
+            if kind == "device":
+                seg.key = (f"v{program._version}.seg{i}.K{iterations}"
+                           f".sig{sig}")
+        if _monitor._enabled:
+            plan.cause = _classify_retrace(list(cache), key)
+            _monitor.counter("executor_cache_misses_total").inc()
+        if _monitor._enabled or memory_budget_set():
+            # before any device work: a plan over the budget raises here
+            self._footprint(plan, program, feed, fetch_names, scope,
+                            iterations)
         if FLAGS.jit_cache:
             # plans of scopes that are gone cannot run again: drop them
             for k in [k for k, p in cache.items() if p.scope_ref() is None]:
@@ -811,6 +962,45 @@ class Executor:
             cache[key] = plan
             self._seen_programs.add(program)
         return plan
+
+    def _footprint(self, plan, program, feed, fetch_names, scope,
+                   iterations):
+        """The static footprint of each device segment of a new plan
+        (profiling/memory.py): gauged and registered with the monitor on,
+        and held against the memory budget, which raises
+        ``MemoryBudgetExceeded`` when a segment cannot fit."""
+        from .profiling import memory as _mem
+        feed_shapes = {n: tuple(np.shape(_unwrap_fetch_handle(v)))
+                       for n, v in feed.items()}
+        for kind, seg in plan.segments:
+            if kind != "device":
+                continue
+            state_shapes = {}
+            for n in seg.state_in:
+                v = scope.find_var(n)
+                if isinstance(v, torch.Tensor):
+                    state_shapes[n] = (tuple(v.shape), v.dtype)
+            try:
+                rep = _mem.segment_footprint(
+                    seg.ops, program=program, block_idx=0,
+                    feed_shapes={n: feed_shapes[n] for n in seg.inputs
+                                 if n in feed_shapes},
+                    state_shapes=state_shapes,
+                    fetch_names=[n for n in seg.outputs
+                                 if n in fetch_names],
+                    keep_names=seg.state_out, iterations=iterations)
+            except Exception:  # noqa: BLE001 — prediction is best-effort
+                continue
+            if not rep.peak_bytes:
+                continue
+            seg.mem_report = rep
+            _mem.register_footprint(seg.key, seg.key, rep,
+                                    device=str(self.device))
+            if _monitor._enabled:
+                _monitor.gauge("executor_mem_predicted_peak_bytes",
+                               {"key": seg.key}).set(int(rep.peak_bytes))
+            _mem.preflight(rep, self.device, key=seg.key,
+                           where="executor")
 
     def run(self, program=None,
             feed: Optional[Dict[str, Any]] = None,
@@ -828,6 +1018,10 @@ class Executor:
         ``FLAGS.jit_cache`` decides whether plans are kept. Safe to call
         from several threads at once, on one plan too: each caller gets
         the results of its own feed."""
+        mon = _monitor._enabled
+        # the step's wall is the whole call's: a stall at the fault site
+        # (an injected delay) is part of it
+        run_t0 = time.perf_counter() if mon else 0.0
         _faults.fire("executor.run")
         scope = scope or global_scope()
         target = program or default_main_program()
@@ -840,8 +1034,16 @@ class Executor:
         if iterations > 1:
             _validate_super_batch(feed, iterations)
         with self._lock:
+            if mon:
+                self._read_replay_events()
+                if _monitor._profile_hook is not None:
+                    # an armed step-counted session starts on the thread
+                    # that runs the executor (profiling/session.py)
+                    from .profiling import session as _session
+                    _session.begin_armed()
             plan = self._plan(program, build_strategy, feed, fetch_names,
                               scope, iterations)
+            first_run = plan.runs == 0
             captured = (self.device.type == "cuda" and FLAGS.jit_cache
                         and plan.runs > 0)
             if captured:
@@ -872,14 +1074,22 @@ class Executor:
         env = {n: _coerce_feed(v, n, block, self.device)
                for n, v in feed.items()}
         results: Dict[str, Any] = {}
+        compile_s = execute_s = flops = 0.0
+        cost_key, max_flops = "", 0.0
         # grad ops differentiate with torch.func.vjp, which records its
         # forward under no_grad too
         with torch.no_grad():
-            for kind, seg in plan.segments:
+            for seg_idx, (kind, seg) in enumerate(plan.segments):
                 if kind == "host":
-                    run_ops(seg, env, EmitContext(
-                        self.device, amp=program._amp, scope=scope,
-                        program=program))
+                    if mon:
+                        for op in seg:
+                            _monitor.counter(
+                                "executor_host_op_fallbacks_total",
+                                {"op": op.type}).inc()
+                    with _prof.RecordEvent(f"host_ops:seg{seg_idx}"):
+                        run_ops(seg, env, EmitContext(
+                            self.device, amp=program._amp, scope=scope,
+                            program=program))
                     written = [n for op in seg
                                for n in op.output_arg_names() if n]
                     _write_state(scope, [n for n in written
@@ -893,18 +1103,46 @@ class Executor:
                 ctx = EmitContext(self.device, generator=generator,
                                   amp=program._amp, scope=scope,
                                   consts=seg.consts, program=program)
-                if not captured:
-                    outs = self._run_eager(seg, env, scope, ctx, iterations,
-                                           warm_up=self.device.type == "cuda"
-                                           and FLAGS.jit_cache)
-                else:
-                    outs = self._run_captured(seg, env, scope, ctx,
-                                              iterations)
+                seg_t0 = time.perf_counter() if mon else 0.0
+                capturing = captured and seg.graph is None
+                try:
+                    with _prof.RecordEvent(f"exec:seg{seg_idx}"):
+                        if not captured:
+                            outs = self._run_eager(
+                                seg, env, scope, ctx, iterations,
+                                warm_up=self.device.type == "cuda"
+                                and FLAGS.jit_cache)
+                        else:
+                            outs = self._run_captured(seg, env, scope, ctx,
+                                                      iterations)
+                except Exception as e:
+                    if _looks_like_oom(e):
+                        self._record_oom(program, seg_idx, seg, e)
+                    raise
+                if mon:
+                    dt = time.perf_counter() - seg_t0
+                    _monitor.timer("executor_execute_seconds_by_key",
+                                   {"key": seg.key}).observe(dt)
+                    if first_run or capturing:
+                        # a plan's warm-up and its capture are the
+                        # port's compile: note_compile at the warm-up
+                        compile_s += dt
+                        if first_run:
+                            _monitor.note_compile(plan.cause or "first "
+                                                  "compile", seg.key, dt)
+                    else:
+                        execute_s += dt
+                        _monitor.timer("executor_execute_seconds"
+                                       ).observe(dt)
+                    flops += seg.flops or 0.0
+                    if (seg.flops or 0.0) >= max_flops and seg.flops:
+                        max_flops, cost_key = seg.flops, seg.key
                 env.update(outs)
                 results.update((n, outs[n]) for n in fetch_names
                                if n in outs)
         with self._lock:
             plan.runs += 1
+        fetch_t0 = time.perf_counter() if mon else 0.0
         out = []
         for n in fetch_names:
             if n in results:
@@ -927,7 +1165,79 @@ class Executor:
                                    "run")
                 val = val.clone()  # the scope's tensor changes in place
             out.append(_to_numpy(val) if return_numpy else FetchHandle(val))
+        if mon:
+            self._record_step(program, feed, iterations, run_t0, fetch_t0,
+                              return_numpy and bool(fetch_names),
+                              compile_s, execute_s, flops, cost_key,
+                              plan.cause if first_run else None)
         return out
+
+    def _record_step(self, program, feed, iterations, run_t0, fetch_t0,
+                     blocking, compile_s, execute_s, flops, cost_key,
+                     retrace):
+        """The run's step record (monitor on): host wall from the call to
+        its fetches (no synchronization added: with FetchHandles a
+        captured step's device time surfaces at a later read), and
+        ``executor_mfu`` from the plan's FLOPs over that wall."""
+        now = time.perf_counter()
+        fetch_s = now - fetch_t0
+        if blocking:
+            _monitor.timer("executor_fetch_seconds",
+                           {"path": "blocking"}).observe(fetch_s)
+        examples = 0
+        if feed:
+            shp = np.shape(_unwrap_fetch_handle(next(iter(feed.values()))))
+            if iterations > 1 and len(shp) > 1:
+                examples = int(shp[0]) * int(shp[1])
+            elif shp:
+                examples = int(shp[0])
+        wall = now - run_t0
+        peak = _monitor.peak_flops(self.device)[0] if flops else 0.0
+        if flops and cost_key and wall > 0 and peak and not retrace:
+            _monitor.gauge("executor_mfu", {"key": cost_key}).set(
+                round(flops / (wall * peak), 9))
+        _monitor.record_step(
+            wall=wall, compile_s=compile_s, execute_s=execute_s,
+            examples=examples, iterations=iterations, retrace=retrace,
+            fetch_block_s=fetch_s if blocking else 0.0,
+            key=f"v{program._version}.K{iterations}.b{examples}",
+            flops=flops, peak=peak)
+        _monitor.update_memory_gauges()
+
+    def _read_replay_events(self):
+        """Observe the device time of monitored replays the card has
+        finished (``executor_replay_device_seconds{key=}``); called with
+        the executor's lock held, at the start of a later run, so no
+        step waits for the device to be timed."""
+        left = []
+        for start, end, key in self._replay_events:
+            if end.query():
+                _monitor.timer("executor_replay_device_seconds",
+                               {"key": key}).observe(
+                    start.elapsed_time(end) * 1e-3)
+            else:
+                left.append((start, end, key))
+        self._replay_events = left[-256:]
+
+    def _record_oom(self, program, seg_idx: int, seg, exc):
+        """A device OOM: one ``oom`` flight record carrying the segment's
+        predicted footprint timeline and census (when it has one) and a
+        fresh per-device memory sample. Never raises; the error
+        propagates to the caller untouched."""
+        try:
+            if _monitor._enabled:
+                _monitor.counter("executor_oom_total",
+                                 {"key": seg.key}).inc()
+            extra = {"program_version": program._version,
+                     "segment": seg_idx, "key": seg.key,
+                     "error": repr(exc)[:500],
+                     "memory": _monitor.device_memory_snapshot(
+                         refresh=True)}
+            if seg.mem_report is not None:
+                extra["predicted"] = seg.mem_report.to_dict()
+            _monitor.flight_record("oom", extra=extra)
+        except Exception:  # noqa: BLE001 — never mask the OOM
+            pass
 
     def _steps(self, seg: _Segment, env: Dict[str, Any], scope: Scope,
                ctx: EmitContext, iterations: int, capturing: bool = False):
@@ -944,6 +1254,11 @@ class Executor:
             return {n: v.clone() if _storage(v) in ptrs else v
                     for n, v in outs.items()}
 
+        labels = None
+        if _monitor._enabled:
+            # each persistable's writer op, whose label its copy runs under
+            labels = {n: _op_label(op) for op in seg.ops
+                      for n in op.output_arg_names() if n}
         per_step = []
         for k in range(iterations):
             step = {n: (env[n][k] if iterations > 1 else env[n])
@@ -957,7 +1272,7 @@ class Executor:
             if missing:
                 raise KeyError(f"{missing} not computed by this run")
             outs = detach({n: fetched.get(n, step[n]) for n in seg.outputs})
-            _write_state(scope, seg.state_out, step, capturing)
+            _write_state(scope, seg.state_out, step, capturing, labels)
             per_step.append(detach(outs))
         if iterations == 1:
             return per_step[0]
@@ -967,6 +1282,90 @@ class Executor:
     def _run_eager(self, seg, env, scope, ctx, iterations, warm_up):
         """An eager run; a plan's warm-up on the card runs on the capture
         stream, whose cuBLAS workspace the capture then finds made."""
+        if _monitor._enabled:
+            return self._run_eager_monitored(seg, env, scope, ctx,
+                                             iterations, warm_up)
+        return self._run_eager_plain(seg, env, scope, ctx, iterations,
+                                     warm_up)
+
+    def _run_eager_monitored(self, seg, env, scope, ctx, iterations,
+                             warm_up):
+        """An eager run inside ``record_function("ptseg:<key>")``. The
+        segment's first run also counts its FLOPs and, on the card,
+        measures its allocator peak and (when no other profiler runs)
+        traces itself to build the segment's labelled kernel table."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from .profiling import attribution as _attr
+        from .profiling import session as _session
+        first = seg.flops is None
+        cuda = self.device.type == "cuda"
+        prof = None
+        if first and cuda and warm_up and _session.claim_private():
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+        mem0 = None
+        if first and cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+            mem0 = torch.cuda.memory_allocated(self.device)
+        counter = FlopCounterMode(display=False) if first else None
+        _flop_tally.flops = [0.0] if first else None
+        try:
+            with contextlib.ExitStack() as stack:
+                if prof is not None:
+                    stack.enter_context(prof)
+                if counter is not None:
+                    stack.enter_context(counter)
+                stack.enter_context(torch.profiler.record_function(
+                    _attr.SEG_PREFIX + seg.key))
+                outs = self._run_eager_plain(seg, env, scope, ctx,
+                                             iterations, warm_up)
+            table, losses = (self._plan_table(prof, seg.key)
+                             if prof is not None else (None, None))
+        finally:
+            tally = _flop_tally.flops
+            _flop_tally.flops = None
+            if prof is not None:
+                _session.release_private()
+        if first:
+            seg.flops = float(counter.get_total_flops()) + tally[0]
+            _attr.register_plan(seg.key, seg, seg.flops, table, losses)
+            _monitor.record_cost(seg.key, seg.flops,
+                                 peak=_monitor.peak_flops(self.device)[0],
+                                 peak_bw=_monitor.peak_membw(
+                                     self.device)[0])
+        if mem0 is not None and seg.mem_report is not None:
+            from .profiling import memory as _mem
+            args = (sum(_nbytes(env.get(n)) for n in seg.inputs)
+                    + sum(_nbytes(scope.find_var(n)) for n in seg.state_in))
+            _mem.note_measured(
+                seg.key, torch.cuda.max_memory_allocated(self.device)
+                - mem0 + args, key=seg.key)
+        return outs
+
+    @staticmethod
+    def _plan_table(prof, key: str):
+        """The labelled kernel table of segment ``key`` from the private
+        trace of its first run (exported, read, removed), and what that
+        trace lost."""
+        import shutil
+        import tempfile
+
+        from .profiling import attribution as _attr
+        from .profiling import trace_parse as _tp
+        d = tempfile.mkdtemp(prefix="pt_plan_table_")
+        try:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            td = _tp.parse_trace_dir(path)
+            return _attr.table_from_trace(td, key), _attr.trace_losses(td)
+        except Exception:  # noqa: BLE001 — a table is best-effort
+            return None, None
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+    def _run_eager_plain(self, seg, env, scope, ctx, iterations, warm_up):
         if not warm_up:
             return self._steps(seg, env, scope, ctx, iterations)
         with _device_lock(self.device):
@@ -993,6 +1392,10 @@ class Executor:
         the thread's own, so other threads may allocate meanwhile."""
         dev = self.device
         t0 = time.perf_counter()
+        mon = _monitor._enabled
+        if mon:
+            torch.cuda.reset_peak_memory_stats(dev)
+            mem0 = torch.cuda.memory_allocated(dev)
         seg.static_in = {n: env[n].clone() for n in seg.inputs}
         for n in seg.state_in + seg.state_out:
             if scope.find_var(n) is None:
@@ -1004,16 +1407,34 @@ class Executor:
             graph.register_generator_state(ctx.generator)
         # torch.cuda.graph synchronizes and empties the allocator's cache
         # first, so the graph's pool can take the warm-up's blocks
-        with torch.cuda.graph(graph, pool=_graph_pool(dev),
-                              stream=_capture_stream(dev),
-                              capture_error_mode="thread_local"):
-            seg.static_out = self._steps(seg, dict(seg.static_in), scope,
-                                         ctx, iterations, capturing=True)
+        with contextlib.ExitStack() as stack:
+            if mon:
+                # launches recorded into a graph issue no kernel: a
+                # trace must not count them as lost records
+                stack.enter_context(torch.profiler.record_function(
+                    "ptcapture:" + seg.key))
+            with torch.cuda.graph(graph, pool=_graph_pool(dev),
+                                  stream=_capture_stream(dev),
+                                  capture_error_mode="thread_local"):
+                seg.static_out = self._steps(seg, dict(seg.static_in),
+                                             scope, ctx, iterations,
+                                             capturing=True)
         seg.graph = graph
         outs = self._replay(seg, None)
         torch.cuda.synchronize(dev)
         self.capture_stats["captures"] += 1
-        self.capture_stats["seconds"] += time.perf_counter() - t0
+        took = time.perf_counter() - t0
+        self.capture_stats["seconds"] += took
+        if mon:
+            _monitor.timer("executor_capture_seconds",
+                           {"key": seg.key}).observe(took)
+            if seg.mem_report is not None:
+                from .profiling import memory as _mem
+                # the static inputs were cloned inside the window
+                args = sum(_nbytes(scope.find_var(n)) for n in seg.state_in)
+                _mem.note_measured(
+                    seg.key, torch.cuda.max_memory_allocated(dev) - mem0
+                    + args, key=seg.key, captured=True)
         return outs
 
     def _replay(self, seg, env):
@@ -1025,7 +1446,16 @@ class Executor:
         if env is not None:
             for n, buf in seg.static_in.items():
                 buf.copy_(env[n])
-        seg.graph.replay()
+        if _monitor._enabled:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.profiler.record_function("ptreplay:" + seg.key):
+                start.record()
+                seg.graph.replay()
+                end.record()
+            self._replay_events.append((start, end, seg.key))
+        else:
+            seg.graph.replay()
         self.capture_stats["replays"] += 1
         return {n: t.clone() for n, t in seg.static_out.items()}
 

@@ -360,6 +360,10 @@ class Program:
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
 
+    @property
+    def num_blocks(self) -> int:
+        return len(self.blocks)
+
     def _bump(self):
         self._version += 1
 

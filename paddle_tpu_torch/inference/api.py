@@ -12,9 +12,9 @@ package's) and bf16 autocast; ``create_paddle_predictor`` gives an
 passes and then flags it for bf16. With the serving knobs set
 (``enable_shape_bucketing``, ``enable_request_coalescing``) the predictor
 comes back wrapped in ``serving.BucketedPredictor`` and
-``serving.BatchingPredictor``. The JAX package's
-``create_paddle_predictor`` also starts its monitor's HTTP plane
-(``monitor.maybe_serve_http``), which waits for ROADMAP A10.
+``serving.BatchingPredictor``. ``create_paddle_predictor`` also starts
+the monitor's HTTP plane when ``FLAGS.monitor_port`` is set
+(``monitor.maybe_serve_http``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -274,4 +274,9 @@ def create_paddle_predictor(config: NativeConfig):
     if config.coalesce_config is not None:
         from . import serving
         pred = serving.BatchingPredictor(pred, **config.coalesce_config)
+    # the live plane: with FLAGS.monitor_port set, bringing up a
+    # predictor brings up /metrics, /healthz, /vars, ... (the serving
+    # wrappers registered their health() callbacks above)
+    from .. import monitor as _monitor
+    _monitor.maybe_serve_http()
     return pred

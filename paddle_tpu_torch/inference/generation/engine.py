@@ -36,9 +36,10 @@ On the CPU every chunk runs eagerly (there is no graph). ``FLAGS.jit_cache
 = False`` runs the chunks eagerly on the card too: the oracle the captured
 chunks are held against. A capture that fails raises; nothing falls back.
 
-The JAX engine's monitor calls (counters, gauges, request-trace spans)
-wait for ROADMAP A10; the engine keeps plain counts in ``stats`` instead,
-as the executor keeps ``capture_stats``.
+The engine keeps plain counts in ``stats`` (as the executor keeps
+``capture_stats``) and, with the monitor on, mirrors them into the JAX
+engine's ``generation_*`` counters, with ``generation_decode_seconds``
+and the ``generation_step_seconds`` histogram per decode chunk.
 
 ``naive_generate`` is the baseline: re-prefill the whole sequence for
 every token.
@@ -54,6 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ... import monitor as _monitor
 from ...executor import (Executor, Scope, _capture_stream, _device_lock,
                          _graph_pool, _split_segments, run_ops)
 from ...ops.kernels_cache import (dense_write_, paged_gather_fn,
@@ -73,6 +75,19 @@ __all__ = ["DecodeEngine", "SlotState", "PagedSlotState", "naive_generate",
 # int32 positions, topks and limits as the decode program declares its
 # position feed; the (key, counter) rows are int64 (sampling.py)
 _CARRY_BYTES_PER_SLOT = 4 + 4 + 16 + 1 + 4 + 4 + 4  # + vocab * 4 logits
+
+# engine stats mirrored into the JAX engine's monitor counters
+_MONITOR_COUNTERS = {
+    "decode_builds": "generation_decode_compiles_total",
+    "ingest_builds": "generation_ingest_compiles_total",
+    "prefill_tokens": "generation_prefill_tokens_total",
+    "slot_joins": "generation_slot_joins_total",
+    "prefix_hits": "generation_prefix_hit_total",
+    "prefix_misses": "generation_prefix_miss_total",
+    "page_evictions": "generation_page_evict_total",
+    "decode_steps": "generation_decode_steps_total",
+    "host_fetch_bytes": "generation_host_fetch_bytes_total",
+}
 
 
 class _TracedStep:
@@ -320,6 +335,8 @@ class DecodeEngine:
     def _count(self, name, n=1):
         with self._memo_lock:
             self.stats[name] += n
+        if _monitor._enabled and name in _MONITOR_COUNTERS:
+            _monitor.counter(_MONITOR_COUNTERS[name]).inc(n)
 
     # -- setup ------------------------------------------------------------
     def initialize(self):
@@ -429,12 +446,32 @@ class DecodeEngine:
         return 2 * spec.n_layer * spec.n_head * self.page_size \
             * spec.d_head * item
 
-    def max_fitting_config(self, slots: int, budget: Optional[int] = None):
-        """The JAX engine sizes slot tables against a memory budget read
-        by ``profiling/memory.py``, which waits for ROADMAP A10."""
-        raise NotImplementedError(
-            "max_fitting_config reads profiling/memory (the device memory "
-            "budget), which waits for ROADMAP A10 (observability)")
+    def max_fitting_config(self, slots: int,
+                           budget: Optional[int] = None
+                           ) -> Optional[Tuple[int, int]]:
+        """Capacity helper: the largest ``(slots, cap)`` the budget fits,
+        walking slots down the slot ladder and cap down the prompt ladder
+        (cap = prompt bucket + top new-token bucket), sized by
+        :meth:`state_nbytes`. ``budget=None`` reads the configured flags
+        (profiling/memory.py); returns None when not even (1, smallest
+        cap) fits, or when no budget is set."""
+        from ...profiling import memory as _mem
+
+        if budget is None:
+            budget, _src = _mem.budget_bytes(self.device)
+        if budget <= 0:
+            return None
+        caps = sorted({tp + self.new_ladder.top
+                       for tp in self.prompt_ladder.buckets},
+                      reverse=True)
+        for s in sorted({min(slots, b) for b in
+                         (*self.slot_ladder.buckets, slots)},
+                        reverse=True):
+            got, _b = _mem.fitting_config(
+                caps, lambda c, s=s: self.state_nbytes(s, c), budget)
+            if got is not None:
+                return s, got
+        return None
 
     def _new_carry(self, key) -> _Carry:
         spec, dev = self.spec, self.device
@@ -553,7 +590,7 @@ class DecodeEngine:
         with self._memo_lock:
             if key not in self._ingest_keys:
                 self._ingest_keys.add(key)
-                self.stats["ingest_builds"] += 1
+                self._count("ingest_builds")
 
     def _seat(self, state: SlotState, slot: int, last_logits, position: int,
               sampling: SamplingParams, limit: int):
@@ -864,6 +901,7 @@ class DecodeEngine:
         self._check_live(state)
         plan = self._decode_plan(state, steps)
         params = self._params(plan.step)
+        t0 = time.perf_counter() if _monitor._enabled else 0.0
         if self.device.type != "cuda" or not FLAGS.jit_cache:
             toks, dones = self._decode_steps(state, steps, plan)
             toks, dones = toks.cpu(), dones.cpu()
@@ -884,9 +922,13 @@ class DecodeEngine:
                 # read before another graph of the shared pool replays
                 toks, dones = toks.cpu(), dones.cpu()
         toks, dones = toks.numpy(), dones.numpy()
-        with self._memo_lock:
-            self.stats["decode_steps"] += steps
-            self.stats["host_fetch_bytes"] += toks.nbytes + dones.nbytes
+        self._count("decode_steps", steps)
+        self._count("host_fetch_bytes", toks.nbytes + dones.nbytes)
+        if t0:
+            dt = time.perf_counter() - t0
+            _monitor.timer("generation_decode_seconds").observe(dt)
+            _monitor.histogram("generation_step_seconds").observe(
+                dt / max(1, steps))
         return toks, dones
 
     # -- one-shot API -----------------------------------------------------

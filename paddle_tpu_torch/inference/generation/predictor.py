@@ -32,42 +32,71 @@ sequence age, time since the last decode step) and reads ``healthy:
 false`` when the loop is wedged: live slots and no step inside
 ``FLAGS.generation_stall_budget_s``.
 
-Left out until the port has its monitor (ROADMAP A10): the JAX
-predictor's monitor counters and gauges, request traces and their spans
-(``trace_span_coverage``, ``slot_trace_events``), the ``/generation``
-live plane (``generation_plane``) and the SLO checks. The predictor keeps
-plain counts in ``stats`` instead. The JAX predictor's memory-budget fit
-(``_fit_cap_to_budget``, ``_fit_pages_to_budget``) reads
-``profiling/memory.py``, also A10: with no budget configured, the JAX
-default, both return the cap and the pool unchanged, as here.
+With the monitor on the predictor mirrors ``stats`` into the JAX
+predictor's ``generation_*`` counters, observes the token latencies
+(``generation_ttft_seconds``, ``generation_tpot_seconds``), seals each
+request's trace (admission, enqueue-wait, admit, decode) when its future
+resolves, and registers its ``generation_plane`` for ``GET /generation``.
+With a memory budget set (``FLAGS.memory_budget_frac``/``_bytes``,
+profiling/memory.py) the dense slot table's cap downshifts to the largest
+that fits (``_fit_cap_to_budget``: a prompt whose bucket is over the new
+cap is refused at submit), and the paged pool shrinks to fit
+(``_fit_pages_to_budget``); with no budget both keep the cap and the pool.
 """
 
 from __future__ import annotations
 
-import os
 import time
+import warnings
 from concurrent.futures import TimeoutError as _FutureTimeout
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ... import monitor as _monitor
 from ...testing import faults as _faults
-from ...utils.flags import FLAGS
+from ...utils.flags import FLAGS, memory_budget_set
 from ..serving import (BatchingPredictor, DeadlineExceeded, _Request,
                        _safe_resolve)
 from .engine import DecodeEngine, PagedSlotState
 from .paging import PagesExhausted
 from .sampling import SamplingParams
 
-__all__ = ["GenerationPredictor"]
+__all__ = ["GenerationPredictor", "trace_span_coverage"]
 
-# the JAX package's memory-budget flags (profiling/memory.py)
-_BUDGET_FLAGS = ("FLAGS_memory_budget_frac", "FLAGS_memory_budget_bytes")
+# predictor stats mirrored into the JAX predictor's monitor counters
+_MONITOR_COUNTERS = {"tokens": "generation_tokens_total",
+                     "eos": "generation_eos_total",
+                     "leaves": "generation_slot_leaves_total",
+                     "deferrals": "generation_page_starved_total"}
+
+
+def trace_span_coverage(rec: dict) -> float:
+    """Fraction of a sealed trace's wall time covered by the union of its
+    span intervals (wall = first span start to last span end): a
+    lifecycle trace whose spans cover little of the request's life has
+    an unattributed latency hole."""
+    spans = rec.get("spans") or []
+    if not spans:
+        return 0.0
+    ivs = sorted((float(s["t0"]), float(s["t1"])) for s in spans)
+    lo, hi = ivs[0][0], max(t1 for _, t1 in ivs)
+    if hi <= lo:
+        return 1.0
+    covered, cur0, cur1 = 0.0, ivs[0][0], ivs[0][1]
+    for t0, t1 in ivs[1:]:
+        if t0 > cur1:
+            covered += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    covered += cur1 - cur0
+    return covered / (hi - lo)
 
 
 class _GenRequest(_Request):
     __slots__ = ("tokens", "max_new", "sampling", "emitted", "slot",
-                 "deferrals")
+                 "deferrals", "t_first", "t_seated")
 
     def __init__(self, tokens: np.ndarray, max_new: int,
                  sampling: SamplingParams,
@@ -80,6 +109,8 @@ class _GenRequest(_Request):
         self.emitted: List[int] = []
         self.slot = -1
         self.deferrals = 0
+        self.t_first = 0.0
+        self.t_seated = 0.0
 
 
 class GenerationPredictor(BatchingPredictor):
@@ -130,6 +161,36 @@ class GenerationPredictor(BatchingPredictor):
                       "deferrals": 0}
         super().__init__(engine, max_batch_size=self._max_slots,
                          **resilience)
+        _monitor.register_generation_provider(self._health_name,
+                                              self.generation_plane)
+
+    def _stat(self, name: str, n: int = 1):
+        self.stats[name] += n
+        if _monitor._enabled and name in _MONITOR_COUNTERS:
+            _monitor.counter(_MONITOR_COUNTERS[name]).inc(n)
+
+    def _resolve(self, req: _GenRequest, value=None, exc=None):
+        """Seal the request's trace, then resolve its future."""
+        if req.trace is not None:
+            if exc is None:
+                self._finish_trace(req, True)
+            else:
+                self._finish_trace(req, False, type(exc).__name__)
+        _safe_resolve(req.future, value=value, exc=exc)
+
+    def generation_plane(self) -> Dict[str, Any]:
+        """This predictor's part of ``GET /generation``: the slot table
+        (occupancy, cap, pages) and its counts."""
+        st = self._state
+        plane: Dict[str, Any] = {
+            "slots": self._max_slots, "cap": self._cap,
+            "active_slots": sum(r is not None for r in self._slot_reqs),
+            "decode_chunk": self._chunk, "stats": dict(self.stats),
+            "engine": dict(self._engine.stats)}
+        if isinstance(st, PagedSlotState) and st.alloc is not None:
+            plane["pages_free"] = st.alloc.free_count
+            plane["pages_total"] = st.num_pages
+        return plane
 
     # -- surface ----------------------------------------------------------
     def get_input_names(self) -> List[str]:
@@ -157,34 +218,106 @@ class GenerationPredictor(BatchingPredictor):
             breaker_threshold=self._breaker.threshold,
             breaker_reset_ms=self._breaker.reset_s * 1e3)
 
-    @staticmethod
-    def _budget_configured() -> bool:
-        return any(float(os.environ.get(f, 0) or 0) > 0
-                   for f in _BUDGET_FLAGS)
-
     def _fit_cap_to_budget(self, engine: DecodeEngine, cap: int) -> int:
-        """The slot table's cap under a memory budget: ``cap`` unchanged
-        without one. With a budget the JAX predictor downshifts the cap
-        to the largest that fits (profiling/memory.py), ROADMAP A10."""
-        if not self._budget_configured():
+        """Memory pre-flight for the dense slot table: with a budget set,
+        a ``(max_slots, cap)`` table that cannot fit downshifts to the
+        largest fitting cap on the engine's ladder (prompt bucket + top
+        new-token bucket) instead of allocating a table the first decode
+        runs out of memory on; prompts over the new cap are refused at
+        submit. No budget: ``cap`` unchanged, at no cost."""
+        if not memory_budget_set():
             return cap
-        raise NotImplementedError(
-            "a generation memory budget (FLAGS_memory_budget_frac / "
-            "_bytes) needs profiling/memory.py, which waits for ROADMAP "
-            "A10 (observability)")
+        from ...profiling import memory as _mem
+
+        budget, src = _mem.budget_bytes(engine.device)
+        if budget <= 0 or engine.state_nbytes(self._max_slots,
+                                              cap) <= budget:
+            return cap
+        caps = sorted({tp + engine.new_ladder.top
+                       for tp in engine.prompt_ladder.buckets
+                       if tp + engine.new_ladder.top < cap},
+                      reverse=True)
+        got, nbytes = _mem.fitting_config(
+            caps, lambda c: engine.state_nbytes(self._max_slots, c),
+            budget)
+        if got is None:
+            rep = _mem.FootprintReport()
+            rep.peak_bytes = engine.state_nbytes(
+                self._max_slots, min(caps) if caps else cap)
+            rep.peak_op_type = "alloc_state"
+            rep.top_vars = [{"name": "cache_k/cache_v",
+                             "nbytes": rep.peak_bytes, "kind": "state",
+                             "producer": "alloc_state", "callstack": None}]
+            raise _mem.MemoryBudgetExceeded(
+                f"generation slot table: even the smallest cap ladder "
+                f"config (slots={self._max_slots}) needs "
+                f"{rep.peak_bytes} bytes > budget {budget} ({src}); "
+                f"reduce max_slots or raise the budget",
+                rep, budget, budget_source=src,
+                where="generation.slot_table")
+        warnings.warn(
+            f"generation memory budget: (slots={self._max_slots}, "
+            f"cap={cap}) KV cache needs "
+            f"{engine.state_nbytes(self._max_slots, cap)} bytes > "
+            f"budget {budget} ({src}); downshifting to the largest "
+            f"fitting cap {got} ({nbytes} bytes): prompts longer than "
+            f"{got - engine.new_ladder.top} tokens cannot be admitted "
+            f"under this budget")
+        if _monitor._enabled:
+            _monitor.counter("generation_cap_downshift_total").inc()
+            _monitor.gauge("generation_cap_effective").set(got)
+        return got
 
     def _fit_pages_to_budget(self, engine: DecodeEngine,
                              cap: int) -> Optional[int]:
-        """The page pool under a memory budget: None (the engine's
-        capacity-equivalent pool) without one. With a budget the JAX
-        predictor shrinks the pool to fit (profiling/memory.py), ROADMAP
-        A10."""
-        if not self._budget_configured():
+        """Paged budget fit: size the page pool to the budget instead of
+        downshifting the cap. Any prompt the ladder accepts stays
+        admissible; a pool too small for the moment's mix defers
+        requests at admission (PagesExhausted) rather than refusing
+        them. Returns the pool's page count, or None (the engine's
+        capacity-equivalent pool) without a budget."""
+        if not memory_budget_set():
             return None
-        raise NotImplementedError(
-            "a generation memory budget (FLAGS_memory_budget_frac / "
-            "_bytes) needs profiling/memory.py, which waits for ROADMAP "
-            "A10 (observability)")
+        from ...profiling import memory as _mem
+
+        budget, src = _mem.budget_bytes(engine.device)
+        if budget <= 0:
+            return None
+        default = engine.default_num_pages(self._max_slots, cap)
+        if engine.state_nbytes(self._max_slots, cap, default) <= budget:
+            return default
+        # floor: one slot must be able to fill its whole cap, or the
+        # top-bucket prompt the ladder promises could never decode
+        floor = engine.max_pages_for(cap)
+        got, nbytes = _mem.fitting_pages(
+            lambda n: engine.state_nbytes(self._max_slots, cap, n),
+            budget, hi=default, lo=floor)
+        if got is None:
+            rep = _mem.FootprintReport()
+            rep.peak_bytes = engine.state_nbytes(self._max_slots, cap,
+                                                 floor)
+            rep.peak_op_type = "alloc_state"
+            rep.top_vars = [{"name": "page_pool_k/page_pool_v",
+                             "nbytes": rep.peak_bytes, "kind": "state",
+                             "producer": "alloc_state", "callstack": None}]
+            raise _mem.MemoryBudgetExceeded(
+                f"generation page pool: even the one-slot floor of "
+                f"{floor} pages (slots={self._max_slots}, cap={cap}) "
+                f"needs {rep.peak_bytes} bytes > budget {budget} "
+                f"({src}); reduce the ladder or raise the budget",
+                rep, budget, budget_source=src,
+                where="generation.page_pool")
+        warnings.warn(
+            f"generation memory budget: capacity-equivalent pool of "
+            f"{default} pages needs "
+            f"{engine.state_nbytes(self._max_slots, cap, default)} "
+            f"bytes > budget {budget} ({src}); sizing the pool to "
+            f"{got} pages ({nbytes} bytes): admission defers when the "
+            f"free list runs dry")
+        if _monitor._enabled:
+            _monitor.counter("generation_pool_downsize_total").inc()
+            _monitor.gauge("generation_pages_budget").set(got)
+        return got
 
     def warmup(self) -> Dict[str, float]:
         """Build and capture the whole decode path up front: on a scratch
@@ -253,7 +386,11 @@ class GenerationPredictor(BatchingPredictor):
         if tb is not None and tb > self._cap:
             raise ValueError(
                 f"prompt of {toks.size} tokens pads to prompt bucket "
-                f"{tb}, above the cache capacity {self._cap}")
+                f"{tb}, above the cache capacity {self._cap} (the cap "
+                f"was downshifted to fit the memory budget)"
+                if self._cap < eng.prompt_ladder.top + eng.new_ladder.top
+                else f"prompt of {toks.size} tokens pads to prompt "
+                f"bucket {tb}, above the cache capacity {self._cap}")
         max_new = (self._default_max_new if max_new_tokens is None
                    else int(max_new_tokens))
         if eng.new_ladder.bucket_for(max_new) is None:
@@ -292,6 +429,7 @@ class GenerationPredictor(BatchingPredictor):
         """Stop admitting, drain the queue and the slots, join the
         dispatcher; then hand the slot table's carry back to the engine
         (the next predictor on it reuses the tensors and graphs)."""
+        _monitor.unregister_generation_provider(self._health_name)
         super().shutdown(timeout)
         with self._thread_lock:
             alive = self._thread.is_alive()
@@ -394,14 +532,14 @@ class GenerationPredictor(BatchingPredictor):
             # null page until a re-admission
             self._engine.release_slot(self._state, slot)
         self._slot_reqs[slot] = None
-        self.stats["leaves"] += 1
+        self._stat("leaves")
 
     def _fail_seated(self, exc):
         """Fail every seated request with ``exc`` and free the table."""
         for i, r in enumerate(self._slot_reqs):
             if r is not None:
                 self._leave(i)
-                _safe_resolve(r.future, exc=exc)
+                self._resolve(r, exc=exc)
         self._drop_state()
 
     def _dispatch_loop(self):
@@ -450,6 +588,7 @@ class GenerationPredictor(BatchingPredictor):
                         num_pages=self._num_pages)
                 state = self._state
                 slot = free.pop(0)
+                t_admit0 = time.perf_counter()
                 try:
                     self._admit_with_retry(state, slot, req)
                 except PagesExhausted:
@@ -459,15 +598,19 @@ class GenerationPredictor(BatchingPredictor):
                     free.insert(0, slot)
                     self._deferred = req
                     req.deferrals += 1
-                    self.stats["deferrals"] += 1
+                    self._stat("deferrals")
                     if self._page_starved_since is None:
                         self._page_starved_since = time.perf_counter()
                     break
                 except Exception as e:  # noqa: BLE001 -- fan to caller
                     self._group.remove(req)
                     self._breaker.record(False)
-                    _safe_resolve(req.future, exc=e)
+                    self._resolve(req, exc=e)
                     continue
+                req.t_seated = time.perf_counter()
+                if req.trace is not None:
+                    req.trace.add("admit", t_admit0, req.t_seated,
+                                  slot=slot, prompt=int(req.tokens.size))
                 self._breaker.record(True)
                 self._page_starved_since = None
                 req.slot = slot
@@ -495,11 +638,18 @@ class GenerationPredictor(BatchingPredictor):
                 continue
             self._breaker.record(True)
             self._last_step_t = time.perf_counter()
+            if _monitor._enabled:
+                _monitor.counter("generation_decode_chunks_total").inc()
             self.stats["decode_chunks"] += 1
             self.stats["decode_steps"] += self._chunk
             self.stats["slot_steps"] += len(live)
             now = time.perf_counter()
             for slot, req in live:
+                if not req.t_first:
+                    req.t_first = now
+                    if _monitor._enabled:
+                        _monitor.histogram("generation_ttft_seconds"
+                                           ).observe(now - req.t_enqueue)
                 finished = False
                 for t in range(toks.shape[0]):
                     if len(req.emitted) < req.max_new:
@@ -511,6 +661,7 @@ class GenerationPredictor(BatchingPredictor):
                 if req.future.cancelled():
                     self._cancelled_total += 1
                     self._leave(slot)
+                    self._finish_trace(req, False, "Cancelled")
                     continue
                 # a request leaves its slot before its future resolves,
                 # so a caller's health() after its result sees the slot
@@ -519,14 +670,21 @@ class GenerationPredictor(BatchingPredictor):
                         and now > req.deadline:
                     self._expired_total += 1
                     self._leave(slot)
-                    _safe_resolve(req.future, exc=DeadlineExceeded(
+                    self._resolve(req, exc=DeadlineExceeded(
                         f"deadline elapsed mid-decode after "
                         f"{len(req.emitted)} of {req.max_new} tokens"))
                     continue
                 if finished:
                     if req.emitted and req.emitted[-1] == eng.spec.eos_id:
-                        self.stats["eos"] += 1
-                    self.stats["tokens"] += len(req.emitted)
+                        self._stat("eos")
+                    self._stat("tokens", len(req.emitted))
                     self._leave(slot)
-                    _safe_resolve(req.future, value=np.asarray(
+                    if req.trace is not None:
+                        req.trace.add("decode", req.t_seated, now,
+                                      tokens=len(req.emitted))
+                    if _monitor._enabled and len(req.emitted) > 1:
+                        _monitor.histogram("generation_tpot_seconds"
+                                           ).observe(
+                            (now - req.t_first) / (len(req.emitted) - 1))
+                    self._resolve(req, value=np.asarray(
                         req.emitted, np.int32))

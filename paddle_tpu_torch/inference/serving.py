@@ -60,14 +60,19 @@ and a capture. This module caps that:
   ``paddle_tpu_torch/testing/faults.py`` (sites ``serving.dispatch``,
   ``serving.dispatcher``, ``serving.bucket_dispatch``).
 
-Left out until the port has its monitor (ROADMAP A10): the JAX package's
-monitor counters, gauges and timers; ``register_health`` and
-``register_trace_provider``; request tracing (``_Trace``, ``trace``,
-``trace_events``, ``trace_records``, ``pending_traces``; a future's
-``trace_id`` is None, as in the JAX package with the monitor off); and
-the memory-budget filter of the warm-up ladder (``_budget_filter``, which
-needs ``profiling/memory.py``; with no budget configured the JAX filter
-keeps every cell, as the port does).
+- **Observability** (``monitor.py``), with the JAX package's names: the
+  ``serving_*`` counters, gauges, timers and histograms (requests,
+  batches, bucket hits and misses, padded rows and waste, time in queue,
+  shed, expired, cancelled, retries, breaker state, dispatcher crashes);
+  both layers ``register_health`` for ``/healthz`` and the coalescing
+  front ``register_trace_provider`` for ``/trace``. With the monitor on a
+  request gets a trace id (``future.trace_id``, None with it off) and a
+  span chain (admission, enqueue-wait, coalesce, pad, dispatch,
+  device_execute, fan-out): ``trace``, ``trace_events``,
+  ``trace_records``, ``pending_traces``. The breaker opening and a
+  dispatcher crash write flight records. With a memory budget set
+  (``FLAGS.memory_budget_frac``/``_bytes``) the warm-up drops the ladder
+  cells whose predicted footprint does not fit (``_budget_filter``).
 
 Wire-up: ``NativeConfig.enable_shape_bucketing()`` /
 ``.enable_request_coalescing()`` make ``create_paddle_predictor`` return
@@ -77,10 +82,12 @@ get_input_names, get_output_names, clone).
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
 import warnings
+from collections import deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FutureTimeout
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -89,13 +96,70 @@ import numpy as np
 import torch
 
 from .. import executor as _executor
+from .. import monitor as _monitor
 from ..core.types import dtype_to_numpy
 from ..staging import PinnedStaging
 from ..testing import faults as _faults
+from ..utils.flags import FLAGS, memory_budget_set
 
 __all__ = ["DEFAULT_BATCH_BUCKETS", "BucketLadder", "BucketedPredictor",
            "BatchingPredictor", "ServingError", "DeadlineExceeded",
            "Overloaded", "CircuitOpen"]
+
+
+# ---------------------------------------------------------------------------
+# Request tracing: follow one request through
+# queue -> coalesce -> pad -> dispatch -> device -> fan-out
+# ---------------------------------------------------------------------------
+
+_trace_seq = itertools.count()
+_health_seq = itertools.count()
+
+# batch-level span sink: the dispatcher parks the current micro-batch's
+# span list here so lower layers (BucketedPredictor's pad, the device
+# call) attribute their spans to the in-flight batch without plumbing
+# through the predictor surface
+_trace_tls = threading.local()
+
+
+def _mk_span(name: str, t0: float, t1: float, **args) -> dict:
+    t = threading.current_thread()
+    d = {"name": name, "t0": t0, "t1": t1, "tid": t.ident or 0,
+         "thread": t.name}
+    if args:
+        d.update(args)
+    return d
+
+
+def _batch_sink() -> Optional[list]:
+    return getattr(_trace_tls, "spans", None)
+
+
+class _Trace:
+    """Span chain of one request. Spans record perf_counter t0/t1 and the
+    real recording thread (caller-side admission against dispatcher-side
+    dispatch), so the chrome-trace export can stitch flow arrows across
+    threads. Made only with the monitor on: the disabled hot path stays
+    one branch."""
+
+    __slots__ = ("trace_id", "spans", "ok", "error")
+
+    def __init__(self):
+        self.trace_id = f"t{next(_trace_seq):08d}"
+        self.spans: List[dict] = []
+        self.ok: Optional[bool] = None
+        self.error: Optional[str] = None
+
+    def add(self, name: str, t0: float, t1: float, **args):
+        self.spans.append(_mk_span(name, t0, t1, **args))
+
+    def has(self, name: str) -> bool:
+        return any(s["name"] == name for s in self.spans)
+
+    def record(self) -> dict:
+        return {"trace_id": self.trace_id, "ok": self.ok,
+                "error": self.error,
+                "spans": sorted(self.spans, key=lambda s: s["t0"])}
 
 
 class ServingError(RuntimeError):
@@ -278,6 +342,10 @@ class BucketedPredictor:
         self._compiling: set = set()
         self._lock = threading.Lock()
         self._staging = self._new_staging()
+        # /healthz aggregate (monitor.healthz): WeakMethod registration,
+        # so a dropped predictor unregisters by dying
+        _monitor.register_health(
+            f"bucketed_predictor:{next(_health_seq)}", self.health)
 
     def _new_staging(self) -> Optional[PinnedStaging]:
         device = getattr(self._base, "device", None)
@@ -305,6 +373,8 @@ class BucketedPredictor:
         new._base = self._base.clone()
         new._lock = threading.Lock()
         new._staging = new._new_staging()
+        _monitor.register_health(
+            f"bucketed_predictor:{next(_health_seq)}", new.health)
         return new
 
     @property
@@ -365,9 +435,13 @@ class BucketedPredictor:
         feed = _normalize_feed(inputs, self.get_input_names())
         rows = _request_rows(feed)
         seq_b = self._seq_bucket_of(feed)
+        chunk_rows = self._ladder.chunks(rows)
+        if _monitor._enabled and len(chunk_rows) > 1:
+            _monitor.counter("serving_oversize_chunks_total").inc(
+                len(chunk_rows))
         parts: List[List[torch.Tensor]] = []
         off = 0
-        for c in self._ladder.chunks(rows):
+        for c in chunk_rows:
             chunk = {n: v[off:off + c] for n, v in feed.items()}
             off += c
             parts.append(self._run_chunk(chunk, c, seq_b))
@@ -384,6 +458,9 @@ class BucketedPredictor:
         """Degraded path: serve the TRUE request shape unbucketed (each
         distinct size is a plan of its own, but serves): correctness over
         the plan-count cap for a signature whose bucket is broken."""
+        if _monitor._enabled:
+            _monitor.counter("serving_degraded_dispatches_total",
+                             {"bucket": key}).inc()
         return [t.as_tensor() for t in self._base.run(feed)]
 
     def _pad(self, feed: Dict[str, np.ndarray], key: str, bucket: int,
@@ -431,10 +508,38 @@ class BucketedPredictor:
                     self._compiling.add(key)
         if degraded:
             return self._run_naive(feed, key)
+        mon = _monitor._enabled
+        if mon:
+            _monitor.counter(
+                "serving_bucket_misses_total" if first
+                else "serving_bucket_hits_total", {"bucket": key}).inc()
+            _monitor.counter("serving_request_rows_total").inc(rows)
+            _monitor.counter("serving_padded_rows_total").inc(
+                bucket - rows)
+            _monitor.timer("serving_pad_waste_fraction").observe(
+                (bucket - rows) / bucket)
+        sink = _batch_sink()
+        t0 = time.perf_counter() if (mon and first) else 0.0
 
         def attempt() -> List[torch.Tensor]:
             _faults.fire("serving.bucket_dispatch")
-            outs = self._base.run(self._pad(feed, key, bucket, seq_b))
+            t_pad0 = time.perf_counter() if (mon or sink is not None) \
+                else 0.0
+            padded = self._pad(feed, key, bucket, seq_b)
+            if t_pad0:
+                # the pad's cost and waste bytes: attributed to the
+                # in-flight micro-batch's trace
+                waste = sum(int(np.prod(p.shape)) * feed[n].itemsize
+                            - int(feed[n].nbytes)
+                            for n, p in padded.items())
+                if mon and waste:
+                    _monitor.counter("serving_pad_waste_bytes_total"
+                                     ).inc(waste)
+                if sink is not None:
+                    sink.append(_mk_span("pad", t_pad0,
+                                         time.perf_counter(), bucket=key,
+                                         rows=rows, waste_bytes=waste))
+            outs = self._base.run(padded)
             # slice back to the true rows, on the device: a caller's host
             # copy happens when it reads (a device fault surfaces there)
             return [t.as_tensor()[:rows] for t in outs]
@@ -470,6 +575,10 @@ class BucketedPredictor:
             if first:
                 with self._lock:
                     self._compiling.discard(key)
+        if t0:
+            _monitor.timer("serving_bucket_compile_seconds",
+                           {"bucket": key}).observe(
+                time.perf_counter() - t0)
         return sliced
 
     def _degrade(self, key: str, exc: BaseException):
@@ -481,6 +590,11 @@ class BucketedPredictor:
             f"serving bucket {key!r} failed its first dispatch twice "
             f"({exc!r}); degrading this bucket to the naive unbucketed "
             f"path", stacklevel=3)
+        if _monitor._enabled:
+            _monitor.counter("serving_degraded_buckets_total",
+                             {"bucket": key}).inc()
+            _monitor.log_event("serving_bucket_degraded", bucket=key,
+                               error=repr(exc))
 
     def warmup(self, buckets: Optional[Sequence[int]] = None,
                seq_buckets: Optional[Sequence[int]] = None,
@@ -536,14 +650,17 @@ class BucketedPredictor:
             with self._lock:
                 took[key] = dt
                 self._warm.add(key)
+            if _monitor._enabled:
+                _monitor.timer("serving_warmup_compile_seconds",
+                               {"bucket": key}).observe(dt)
+                _monitor.log_event("serving_warmup", bucket=key,
+                                   seconds=dt)
 
-        # the JAX package filters the cells by a memory budget here
-        # (_budget_filter, profiling/memory.py): ROADMAP A10. With no
-        # budget configured it keeps every cell, as this does
-        cells = [(b, s) for b in bs for s in sqs]
+        cells = self._budget_filter([(b, s) for b in bs for s in sqs])
         workers = (self._warmup_workers if compile_workers is None
                    else max(1, int(compile_workers)))
         workers = min(workers, len(cells)) or 1
+        wall_t0 = time.perf_counter()
         if workers == 1:
             for cell in cells:
                 warm_one(cell)
@@ -553,7 +670,62 @@ class BucketedPredictor:
                 # materialize so a worker's unexpected exception surfaces
                 # here, not silently in a dropped future
                 list(pool.map(warm_one, cells))
+        if _monitor._enabled:
+            _monitor.timer("serving_warmup_wall_seconds").observe(
+                time.perf_counter() - wall_t0)
+            _monitor.gauge("serving_warmup_workers").set(workers)
         return took
+
+    def _budget_filter(self, cells):
+        """Memory pre-flight for the ladder: with a memory budget set,
+        predict each cell's peak footprint (profiling/memory.py's static
+        liveness analysis over the predictor program at the cell's
+        template shapes) and drop the cells that cannot fit, so the
+        ladder downshifts to its largest fitting cells instead of
+        warming plans that run out of memory on first traffic. No
+        budget: ``cells`` unchanged, at no cost. Every cell over the
+        budget: the typed pre-flight error for the smallest one."""
+        if not memory_budget_set():
+            return cells
+        from ..profiling import memory as _mem
+
+        budget, _src = _mem.budget_bytes(getattr(self._base, "device",
+                                                 None))
+        if budget <= 0:
+            return cells
+        keep, dropped = [], []
+        for cell in cells:
+            b, s = cell
+            try:
+                feed = self._template_feed(b, s)
+                rep = _mem.program_footprint(
+                    self._program,
+                    feed_shapes={n: tuple(v.shape)
+                                 for n, v in feed.items()},
+                    fetch_names=self.get_output_names())
+            except Exception:  # noqa: BLE001 — unsizable: warm it anyway
+                keep.append(cell)
+                continue
+            if rep.peak_bytes <= budget:
+                keep.append(cell)
+            else:
+                dropped.append((cell, rep))
+        if dropped and not keep:
+            cell, rep = min(dropped, key=lambda cr: cr[1].peak_bytes)
+            # raises MemoryBudgetExceeded naming the peak op and vars
+            _mem.preflight(rep, getattr(self._base, "device", None),
+                           where=f"serving.warmup bucket {cell}")
+        for cell, rep in dropped:
+            warnings.warn(
+                f"serving memory budget: bucket {cell} predicted peak "
+                f"{rep.peak_bytes} bytes exceeds the budget {budget}; "
+                f"dropping it from the warmup ladder (largest fitting "
+                f"configs keep serving)")
+            if _monitor._enabled:
+                _monitor.counter(
+                    "serving_buckets_dropped_total",
+                    {"reason": "memory_budget"}).inc()
+        return keep
 
     def _template_feed(self, batch: int,
                        seq_b: Optional[int]) -> Dict[str, np.ndarray]:
@@ -603,10 +775,12 @@ def _safe_resolve(fut: Future, value=None, exc: Optional[BaseException]
 
 class _Request:
     __slots__ = ("feed", "rows", "sig", "future", "t_enqueue", "deadline",
-                 "probe")
+                 "probe", "trace")
 
     def __init__(self, feed: Dict[str, np.ndarray], rows: int,
                  deadline_s: Optional[float] = None):
+        # per-request span chain (None with the monitor off)
+        self.trace: Optional[_Trace] = None
         self.feed = feed
         self.rows = rows
         # only same-signature requests can share a device call: same
@@ -637,7 +811,11 @@ class _CircuitBreaker:
 
     ``threshold <= 0`` disables the breaker. State reads on the closed
     fast path are lock-free (one attribute load); every transition
-    happens under the lock."""
+    happens under the lock and mirrors into the monitor (gauge
+    ``serving_breaker_state`` 0=closed/1=half_open/2=open, counter
+    ``serving_breaker_opens_total``)."""
+
+    _STATES = {"closed": 0, "half_open": 1, "open": 2}
 
     def __init__(self, threshold: int, reset_ms: float):
         self.threshold = int(threshold)
@@ -648,6 +826,11 @@ class _CircuitBreaker:
         self._opened_at = 0.0
         self._probing = False
         self._lock = threading.Lock()
+
+    def _mirror(self):
+        if _monitor._enabled:
+            _monitor.gauge("serving_breaker_state").set(
+                self._STATES[self.state])
 
     def admit(self):
         """Gate one submit. Raises CircuitOpen unless admitted; returns
@@ -666,6 +849,10 @@ class _CircuitBreaker:
                         f"{self.reset_s - (now - self._opened_at):.3f}s")
                 self.state = "half_open"
                 self._probing = True
+                self._mirror()
+                if _monitor._enabled:
+                    _monitor.log_event("serving_breaker",
+                                       state="half_open")
                 return True
             # half_open: one probe in flight at a time
             if self._probing:
@@ -686,6 +873,10 @@ class _CircuitBreaker:
             self._probing = False
             self.state = "open"
             self._opened_at = time.perf_counter()
+            self._mirror()
+            if _monitor._enabled:
+                _monitor.log_event("serving_breaker", state="open",
+                                   reason="probe aborted before dispatch")
 
     def record(self, ok: bool):
         """One dispatch outcome (per coalesced device call, after
@@ -694,17 +885,30 @@ class _CircuitBreaker:
             return
         with self._lock:
             if ok:
+                reopen = self.state != "closed"
                 self.state = "closed"
                 self.failures = 0
                 self._probing = False
+                if reopen:
+                    self._mirror()
+                    if _monitor._enabled:
+                        _monitor.log_event("serving_breaker",
+                                           state="closed")
                 return
             self.failures += 1
             if self.state == "half_open" or self.failures >= self.threshold:
                 if self.state != "open":
                     self.opens_total += 1
+                    if _monitor._enabled:
+                        _monitor.counter(
+                            "serving_breaker_opens_total").inc()
+                        _monitor.log_event("serving_breaker",
+                                           state="open",
+                                           failures=self.failures)
                 self.state = "open"
                 self._opened_at = time.perf_counter()
                 self._probing = False
+                self._mirror()
 
 
 class BatchingPredictor:
@@ -778,6 +982,18 @@ class BatchingPredictor:
         # local carry or group would be stranded: a silent hang)
         self._carry: Optional[_Request] = None
         self._group: List[_Request] = []
+        # request tracing: completed span chains in a bounded ring
+        # (trace(trace_id) queries it), in-flight ones by id
+        self._traces: deque = deque(
+            maxlen=max(1, int(FLAGS.trace_ring)))
+        self._active_traces: Dict[str, _Request] = {}
+        self._trace_lock = threading.Lock()
+        self._group_t0 = 0.0  # head-pop time of the current micro-batch
+        self._health_name = f"batching_predictor:{next(_health_seq)}"
+        _monitor.register_health(self._health_name, self.health)
+        # /trace/<id> resolves through this predictor's trace ring,
+        # WeakMethod-held like the health callback
+        _monitor.register_trace_provider(self._health_name, self.trace)
         self._start_dispatcher()
 
     # -- predictor surface ------------------------------------------------
@@ -816,7 +1032,7 @@ class BatchingPredictor:
 
     # -- client side ------------------------------------------------------
     def _admit_locked(self, req: _Request, rows: int, probe: bool,
-                      dropped: List[_Request]) -> bool:
+                      mon: bool, dropped: List[_Request]) -> bool:
         """Admission control under ``_adm_lock``: enqueue ``req`` or shed
         per the policy. Raises Overloaded to shed the newcomer
         (reject-new, or a request that can never fit); returns True when
@@ -833,6 +1049,10 @@ class BatchingPredictor:
                     # the queue for a request rejected anyway would be
                     # pure loss for every queued caller
                     self._shed_total += 1
+                    if mon:
+                        _monitor.counter(
+                            "serving_shed_total",
+                            {"policy": self._shed_policy}).inc()
                     raise Overloaded(
                         f"queue at {self._queued_rows} rows "
                         f"(max_queue_rows={self._max_queue_rows}); "
@@ -847,15 +1067,25 @@ class BatchingPredictor:
                         break  # the dispatcher drained it first
                     self._account_locked(-1, -old.rows)
                     self._shed_total += 1
+                    if mon:
+                        _monitor.counter(
+                            "serving_shed_total",
+                            {"policy": "drop-oldest"}).inc()
                     dropped.append(old)
                 if self._queued_rows + rows > self._max_queue_rows:
                     # even an EMPTY queue can't fit the newcomer (a bound
                     # of 0): the bound is an invariant, so shed it too
                     self._shed_total += 1
+                    if mon:
+                        _monitor.counter(
+                            "serving_shed_total",
+                            {"policy": "drop-oldest"}).inc()
                     shed_new = True
             if not shed_new:
                 self._account_locked(+1, rows)
                 self._queue.put(req)
+                if mon:
+                    _monitor.counter("serving_requests_total").inc()
         return shed_new
 
     def submit(self, inputs,
@@ -867,9 +1097,11 @@ class BatchingPredictor:
         expires, it fails with :class:`DeadlineExceeded` before ever
         touching the device. May raise :class:`Overloaded` (queue at
         ``max_queue_rows`` under reject-new) or :class:`CircuitOpen`
-        (breaker open) immediately, in the caller. ``future.trace_id`` is
-        None: request tracing waits for the port's monitor (ROADMAP
-        A10)."""
+        (breaker open) immediately, in the caller. With the monitor
+        enabled the request gets a trace id (``future.trace_id``); its
+        span chain (admission, enqueue-wait, coalesce, pad, dispatch,
+        device execute, fan-out) is queryable afterwards via
+        :meth:`trace`."""
         if self._stop.is_set():
             raise RuntimeError("BatchingPredictor is shut down")
         feed = _normalize_feed(inputs, self.get_input_names())
@@ -888,10 +1120,32 @@ class BatchingPredictor:
         enqueued future: the circuit-breaker gate, bounded-queue
         shedding, and the shutdown race."""
         rows = req.rows
+        mon = _monitor._enabled
+        t_admit0 = time.perf_counter()
         req.future.trace_id = None
-        req.probe = self._breaker.admit()  # may raise CircuitOpen
+        if mon:
+            req.trace = _Trace()
+            req.future.trace_id = req.trace.trace_id
+            with self._trace_lock:
+                self._active_traces[req.trace.trace_id] = req
+        try:
+            req.probe = self._breaker.admit()  # may raise CircuitOpen
+        except CircuitOpen:
+            if req.trace is not None:
+                req.trace.add("admission", t_admit0, time.perf_counter(),
+                              outcome="circuit_open", rows=rows)
+                self._finish_trace(req, False, "CircuitOpen")
+            raise
         dropped: List[_Request] = []
-        shed_new = self._admit_locked(req, rows, req.probe, dropped)
+        try:
+            shed_new = self._admit_locked(req, rows, req.probe, mon,
+                                          dropped)
+        except Overloaded:
+            if req.trace is not None:
+                req.trace.add("admission", t_admit0, time.perf_counter(),
+                              outcome="shed", rows=rows)
+                self._finish_trace(req, False, "Overloaded")
+            raise
         # futures resolve OUTSIDE the admission lock: set_exception runs
         # done-callbacks inline, and a callback that re-enters the
         # predictor (submit, health) would deadlock on _adm_lock
@@ -901,10 +1155,18 @@ class BatchingPredictor:
                 f"displaced this one at max_queue_rows="
                 f"{self._max_queue_rows}"))
         if shed_new:
+            if req.trace is not None:
+                req.trace.add("admission", t_admit0, time.perf_counter(),
+                              outcome="shed", rows=rows)
+                self._finish_trace(req, False, "Overloaded")
             raise Overloaded(
                 f"request of {rows} rows cannot fit "
                 f"max_queue_rows={self._max_queue_rows} even with the "
                 f"queue emptied (drop-oldest)")
+        if req.trace is not None:
+            # the admission span closes at the successful enqueue
+            req.trace.add("admission", t_admit0, time.perf_counter(),
+                          outcome="enqueued", rows=rows)
         if self._stop.is_set():
             # raced a shutdown: the put may have landed after the
             # dispatcher exited and the shutdown drain finished; fail
@@ -961,15 +1223,76 @@ class BatchingPredictor:
         return h
 
     def _account_locked(self, ddepth: int, drows: int):
-        """Adjust queue depth and rows together; the caller holds
-        ``_adm_lock``."""
+        """Adjust queue depth and rows, and their monitor gauges,
+        together; the caller holds ``_adm_lock``."""
         self._depth += ddepth
         self._queued_rows += drows
+        if _monitor._enabled:
+            _monitor.gauge("serving_queue_depth").set(self._depth)
+            _monitor.gauge("serving_queued_rows").set(self._queued_rows)
+
+    def _finish_trace(self, req: _Request, ok: bool,
+                      error: Optional[str] = None,
+                      batch_spans: Optional[List[dict]] = None):
+        """Seal one request's span chain: append the shared micro-batch
+        spans, push the record into the bounded ring, drop the in-flight
+        entry, and log ONE compact "trace" event (the chrome-trace
+        exporters and the flight recorder read it there). Idempotent: a
+        second seal of a sealed trace pushes nothing."""
+        tr = req.trace
+        if tr is None or tr.ok is not None:
+            return
+        if batch_spans:
+            tr.spans.extend(batch_spans)
+        tr.ok = ok
+        tr.error = error
+        rec = tr.record()
+        with self._trace_lock:
+            self._traces.append(rec)
+            self._active_traces.pop(tr.trace_id, None)
+        _monitor.log_event("trace", trace_id=tr.trace_id, ok=ok,
+                           error=error, spans=rec["spans"])
+
+    def trace(self, trace_id: str) -> Optional[dict]:
+        """The span chain of one request by its trace id (from
+        ``submit(...).trace_id``): the completed record from the bounded
+        ring, a partial record marked ``pending`` for an in-flight
+        request, or None when unknown or evicted."""
+        with self._trace_lock:
+            for rec in reversed(self._traces):
+                if rec["trace_id"] == trace_id:
+                    return rec
+            req = self._active_traces.get(trace_id)
+            if req is not None and req.trace is not None:
+                return dict(req.trace.record(), pending=True)
+        return None
+
+    def trace_events(self, epoch: float = 0.0) -> List[dict]:
+        """Completed traces as chrome-trace events (X spans on their real
+        tids, flow arrows stitching caller to dispatcher)."""
+        with self._trace_lock:
+            recs = list(self._traces)
+        return _monitor._trace_records_to_chrome(recs, epoch)
+
+    def trace_records(self) -> List[dict]:
+        """Every sealed trace record still in the ring, oldest first."""
+        with self._trace_lock:
+            return list(self._traces)
+
+    def pending_traces(self) -> List[str]:
+        """Trace ids registered and not yet sealed: empty when every
+        submitted request has left through some ``_finish_trace``
+        path."""
+        with self._trace_lock:
+            return list(self._active_traces)
 
     def _fail_one(self, req: _Request, make_exc):
         if req.probe:
             self._breaker.probe_aborted()
-        _safe_resolve(req.future, exc=make_exc())
+        exc = make_exc()
+        if req.trace is not None:
+            self._finish_trace(req, False, type(exc).__name__)
+        _safe_resolve(req.future, exc=exc)
 
     def _fail_pending(self, make_exc, inflight: bool = True):
         """Fail every request still queued, plus, when ``inflight`` (the
@@ -1005,6 +1328,9 @@ class BatchingPredictor:
         """Stop admitting requests, drain everything already queued, join
         the dispatcher. Idempotent."""
         self._stop.set()
+        # a shut-down predictor must not read "degraded" on /healthz
+        _monitor.unregister_health(self._health_name)
+        _monitor.unregister_trace_provider(self._health_name)
         with self._thread_lock:
             thread = self._thread
         thread.join(timeout=timeout)
@@ -1039,6 +1365,20 @@ class BatchingPredictor:
             self._dispatch_loop()
         except BaseException as e:  # noqa: BLE001 -- supervise, never hang
             self._crashes += 1
+            if _monitor._enabled:
+                _monitor.counter("serving_dispatcher_crashes_total").inc()
+                _monitor.log_event("serving_dispatcher_crash",
+                                   error=repr(e), restarts=self._crashes)
+            # black box BEFORE the pending futures are failed: the dump
+            # carries the in-flight request's trace
+            inflight = (([self._carry] if self._carry else [])
+                        + list(self._group))
+            tr = next((r.trace for r in inflight
+                       if r.trace is not None), None)
+            _monitor.flight_record(
+                "dispatcher_crash",
+                trace=(tr.record() if tr is not None else None),
+                extra={"error": repr(e), "restarts": self._crashes})
             warnings.warn(
                 f"serving dispatcher crashed ({e!r}); failing pending "
                 f"requests and restarting the dispatcher")
@@ -1073,13 +1413,27 @@ class BatchingPredictor:
         cancelled one (run(timeout=) fired) is dropped; neither counts
         rows against the coalescing budget."""
         now = time.perf_counter()
+        if req.trace is not None and not req.trace.has("enqueue_wait"):
+            # a carried request is re-checked when it opens the next
+            # micro-batch; only its first pop records the queue wait
+            req.trace.add("enqueue_wait", req.t_enqueue, now)
         if req.future.cancelled():
             self._cancelled_total += 1
+            if _monitor._enabled:
+                _monitor.counter("serving_cancelled_total").inc()
             if req.probe:
                 self._breaker.probe_aborted()
+            self._finish_trace(req, False, "Cancelled")
             return False
         if req.deadline is not None and now > req.deadline:
             self._expired_total += 1
+            if _monitor._enabled:
+                _monitor.counter("serving_expired_total").inc()
+            if req.trace is not None:
+                req.trace.add("deadline_check", now, time.perf_counter(),
+                              outcome="expired",
+                              queued_s=round(now - req.t_enqueue, 6))
+                self._finish_trace(req, False, "DeadlineExceeded")
             _safe_resolve(req.future, exc=DeadlineExceeded(
                 f"deadline elapsed {now - req.deadline:.3f}s before "
                 f"dispatch (queued {now - req.t_enqueue:.3f}s); the "
@@ -1103,6 +1457,7 @@ class BatchingPredictor:
             # popped requests live in self._group/_carry from the moment
             # they leave the queue: a crash anywhere in this loop leaves
             # them visible to the supervisor's _fail_pending
+            self._group_t0 = time.perf_counter()  # coalesce span start
             self._group = [head]
             if not self._dispatchable(head):
                 self._group = []
@@ -1136,9 +1491,24 @@ class BatchingPredictor:
 
     def _dispatch_once(self, feed: Dict[str, np.ndarray]
                        ) -> List[torch.Tensor]:
-        """ONE device call attempt; its outputs stay on the device."""
+        """ONE device call attempt; its outputs stay on the device. Each
+        attempt records a device_execute span (the call's host time) on
+        the batch sink; retries show as several spans."""
         _faults.fire("serving.dispatch")
-        return [t.as_tensor() for t in self._pred.run(feed)]
+        sink = _batch_sink()
+        t0 = time.perf_counter() if sink is not None else 0.0
+        try:
+            outs = [t.as_tensor() for t in self._pred.run(feed)]
+        except BaseException as e:
+            if sink is not None:
+                sink.append(_mk_span("device_execute", t0,
+                                     time.perf_counter(),
+                                     error=type(e).__name__))
+            raise
+        if sink is not None:
+            sink.append(_mk_span("device_execute", t0,
+                                 time.perf_counter()))
+        return outs
 
     def _retry_call(self, fn, no_retry: tuple = ()):
         """Capped-exponential-backoff retry around one dispatch callable.
@@ -1156,6 +1526,8 @@ class BatchingPredictor:
                               self._backoff_s * (2 ** attempt))
                 attempt += 1
                 self._retries_total += 1
+                if _monitor._enabled:
+                    _monitor.counter("serving_retries_total").inc()
                 if backoff:
                     time.sleep(backoff)
 
@@ -1165,22 +1537,73 @@ class BatchingPredictor:
 
     def _run_group(self, group: List[_Request]):
         from .api import PaddleTensor
+        mon = _monitor._enabled
         by_sig: Dict[tuple, List[_Request]] = {}
         for r in group:
             by_sig.setdefault(r.sig, []).append(r)
         for rs in by_sig.values():
+            now = time.perf_counter()
+            rows_total = sum(r.rows for r in rs)
+            if mon:
+                for r in rs:
+                    _monitor.histogram("serving_time_in_queue_seconds"
+                                       ).observe(now - r.t_enqueue)
+                _monitor.counter("serving_batches_total").inc()
+                _monitor.timer("serving_coalesced_rows").observe(
+                    rows_total)
+            # shared micro-batch spans (coalesce/pad/dispatch/device),
+            # recorded once and appended to every coalesced request's
+            # chain at finish; the sink parks on a thread-local so the
+            # bucket layer's pad and the device call attribute to this
+            # batch without plumbing
+            traced = any(r.trace is not None for r in rs)
+            batch_spans: Optional[List[dict]] = [] if traced else None
+            if batch_spans is not None:
+                batch_spans.append(_mk_span(
+                    "coalesce", self._group_t0, now,
+                    requests=len(rs), rows=rows_total))
+            t_d0 = now
             try:
                 if len(rs) == 1:
                     feed = rs[0].feed
                 else:
                     feed = {n: np.concatenate([r.feed[n] for r in rs])
                             for n in rs[0].feed}
-                outs = self._dispatch_with_retry(feed)
+                t_d0 = time.perf_counter()
+                _trace_tls.spans = batch_spans
+                try:
+                    outs = self._dispatch_with_retry(feed)
+                finally:
+                    _trace_tls.spans = None
+                if batch_spans is not None:
+                    batch_spans.append(_mk_span(
+                        "dispatch", t_d0, time.perf_counter(),
+                        rows=rows_total))
             except BaseException as e:  # noqa: BLE001 -- fan the error out
                 # error isolation: ONLY this signature group's futures see
                 # the failure (original traceback intact); co-batched
                 # groups and the dispatcher itself keep going
+                if batch_spans is not None:
+                    batch_spans.append(_mk_span(
+                        "dispatch", t_d0, time.perf_counter(),
+                        rows=rows_total, error=type(e).__name__))
+                was_open = self._breaker.state == "open"
                 self._breaker.record(False)
+                for r in rs:
+                    self._finish_trace(r, False, type(e).__name__,
+                                       batch_spans)
+                if self._breaker.state == "open" and not was_open:
+                    # the dispatch failure that OPENED the breaker dumps
+                    # the flight record, naming the failing request's
+                    # trace id, before its callers see the failure
+                    tr = next((r.trace for r in rs
+                               if r.trace is not None), None)
+                    _monitor.flight_record(
+                        "circuit_open",
+                        trace=(tr.record() if tr is not None else None),
+                        extra={"error": repr(e),
+                               "consecutive_failures":
+                                   self._breaker.failures})
                 for r in rs:
                     _safe_resolve(r.future, exc=e)
                 continue
@@ -1188,6 +1611,7 @@ class BatchingPredictor:
             fetch_names = self.get_output_names()
             off = 0
             for r in rs:
+                t_f0 = time.perf_counter()
                 mine = [PaddleTensor(o[off:off + r.rows], n)
                         for n, o in zip(fetch_names, outs)]
                 off += r.rows
@@ -1195,3 +1619,7 @@ class BatchingPredictor:
                 # or a competing shutdown-drain resolution discards these
                 # rows without killing the dispatcher
                 _safe_resolve(r.future, value=mine)
+                if r.trace is not None:
+                    r.trace.add("fanout", t_f0, time.perf_counter(),
+                                rows=r.rows)
+                    self._finish_trace(r, True, None, batch_spans)

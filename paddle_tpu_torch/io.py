@@ -27,9 +27,13 @@ streams differ, ROADMAP C "RNG"), which it logs once. A restore copies
 into the scope's tensors in place and sets the scope's generators'
 states, so a plan captured on that scope keeps its graphs.
 
-The JAX package's ``checkpoint_*`` monitor counters and flight records
-wait for the port's monitor (ROADMAP A10); ``AsyncCheckpointer.stats``
-holds the last save's times and bytes meanwhile.
+With the monitor on a save reports the JAX package's ``checkpoint_*``
+family (``checkpoint_save_seconds{path=sync|async}``,
+``checkpoint_saves_total``, ``checkpoint_bytes``, ``checkpoint_stall_seconds``,
+``checkpoint_join_seconds``, ``checkpoint_failures_total``,
+``checkpoint_unmarked_total``), and a failed asynchronous save writes a
+``ckpt_save_failure`` flight record; ``AsyncCheckpointer.stats`` holds
+the last save's times and bytes either way.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import monitor as _monitor
 from .core import binary
 from .core.desc import OpDesc, ProgramDesc
 from .core.types import DataType, VarType, dtype_to_numpy, dtype_to_torch
@@ -363,6 +368,9 @@ def _mark_and_retain(checkpoint_dir, final, step, trainer_id,
     while not all(os.path.isdir(os.path.join(final, str(r)))
                   for r in range(num_trainers)):
         if time.time() >= deadline:
+            if _monitor._enabled:
+                # seen even when a supervisor's retry swallows the raise
+                _monitor.counter("checkpoint_unmarked_total").inc()
             raise RuntimeError(
                 f"checkpoint step {step}: not all {num_trainers} rank dirs "
                 f"appeared within {wait_s:g}s (FLAGS.ckpt_rank_wait_s); "
@@ -392,6 +400,29 @@ def _mark_and_retain(checkpoint_dir, final, step, trainer_id,
                               ignore_errors=True)
 
 
+def _note_saved(path_label, wall_s, nbytes, step):
+    if not _monitor._enabled:
+        return
+    _monitor.timer("checkpoint_save_seconds",
+                   {"path": path_label}).observe(wall_s)
+    _monitor.gauge("checkpoint_bytes").set(int(nbytes))
+    _monitor.counter("checkpoint_bytes_total").inc(int(nbytes))
+    _monitor.gauge("checkpoint_last_step").set(int(step))
+    _monitor.counter("checkpoint_saves_total",
+                     {"path": path_label}).inc()
+
+
+def _dir_bytes(d) -> int:
+    total = 0
+    for root, _dirs, files in os.walk(d):
+        for f in files:
+            try:
+                total += os.path.getsize(os.path.join(root, f))
+            except OSError:
+                continue
+    return total
+
+
 def save_checkpoint(executor, checkpoint_dir, step, main_program=None,
                     trainer_id=0, num_trainers=1, max_num_checkpoints=3,
                     train_state=None, rank_wait_s=None, scope=None):
@@ -400,6 +431,7 @@ def save_checkpoint(executor, checkpoint_dir, step, main_program=None,
     host), staged and published as the module docstring says.
     ``train_state`` defaults to ``capture_train_state(step, scope)``.
     Returns the checkpoint's directory."""
+    t0 = time.perf_counter()
     final, tmp, rank_tmp = _stage_paths(checkpoint_dir, step, trainer_id)
     os.makedirs(rank_tmp, exist_ok=True)
     save_persistables(executor, rank_tmp, main_program, scope=scope)
@@ -413,6 +445,9 @@ def save_checkpoint(executor, checkpoint_dir, step, main_program=None,
     _publish_rank_dir(final, tmp, rank_tmp, trainer_id)
     _mark_and_retain(checkpoint_dir, final, step, trainer_id, num_trainers,
                      max_num_checkpoints, rank_wait_s)
+    if _monitor._enabled:
+        _note_saved("sync", time.perf_counter() - t0,
+                    _dir_bytes(os.path.join(final, str(trainer_id))), step)
     return final
 
 
@@ -508,6 +543,9 @@ class AsyncCheckpointer:
         j0 = time.perf_counter()
         self.wait()
         t0 = time.perf_counter()
+        if _monitor._enabled and t0 - j0 > 1e-4:
+            # a real join of the previous save (a stall of its own)
+            _monitor.timer("checkpoint_join_seconds").observe(t0 - j0)
         scope = scope or global_scope()
         snap = {}
         for v in _checkpoint_vars(main_program):
@@ -545,10 +583,17 @@ class AsyncCheckpointer:
                                  rank_wait_s)
                 stats["write_s"] = time.perf_counter() - w0
                 stats["bytes"] = nbytes
+                _note_saved("async", stats["write_s"], nbytes, step)
                 if on_success is not None:
                     on_success()
             except BaseException as e:  # raised at the next save or wait
                 self._error = e
+                if _monitor._enabled:
+                    _monitor.counter("checkpoint_failures_total").inc()
+                _monitor.flight_record(
+                    "ckpt_save_failure",
+                    extra={"step": int(step), "dir": checkpoint_dir,
+                           "error": repr(e)})
 
         self._thread = threading.Thread(target=write, daemon=True,
                                         name=f"async-ckpt-{step}")
@@ -556,6 +601,10 @@ class AsyncCheckpointer:
         stats["saves"] += 1
         stats["join_s"] = t0 - j0
         stats["stall_s"] = time.perf_counter() - t0
+        if _monitor._enabled:
+            # what the step loop paid: the snapshot and the enqueue
+            _monitor.timer("checkpoint_stall_seconds").observe(
+                stats["stall_s"])
         return final
 
     def wait(self):

@@ -56,3 +56,28 @@ class Graph:
     def replace_ops(self, ops: List[OpDesc]):
         self.desc.ops = ops
         self.rebuild()
+
+    def to_dot(self, name: str = "program") -> str:
+        """graphviz dump (graph_viz_pass.cc analog)."""
+        lines = [f"digraph {name} {{", "  rankdir=TB;",
+                 '  node [shape=box, fontsize=10];']
+        seen_vars = set()
+        for i, op in enumerate(self.desc.ops):
+            lines.append(f'  op{i} [label="{op.type}", '
+                         'style=filled, fillcolor=lightsteelblue];')
+            for n in op.input_arg_names():
+                v = f'var_{n}'.replace(".", "_").replace("@", "_")
+                if n not in seen_vars:
+                    lines.append(f'  {v} [label="{n}", shape=ellipse, '
+                                 'fontsize=9];')
+                    seen_vars.add(n)
+                lines.append(f"  {v} -> op{i};")
+            for n in op.output_arg_names():
+                v = f'var_{n}'.replace(".", "_").replace("@", "_")
+                if n not in seen_vars:
+                    lines.append(f'  {v} [label="{n}", shape=ellipse, '
+                                 'fontsize=9];')
+                    seen_vars.add(n)
+                lines.append(f"  op{i} -> {v};")
+        lines.append("}")
+        return "\n".join(lines)

@@ -16,15 +16,13 @@ stages (cse, constant_fold, dead_op_elimination, fuse_optimizer_ops,
 fuse_attention, fuse_conv_epilogue). Each rewrites a program to the op
 list the JAX package's pass gives.
 
-Not ported: graph_viz (ROADMAP A10). It is registered under its name
-with a guard that raises ``NotImplementedError`` naming the ROADMAP item
-that ports it (the guard class takes the op types a pattern needs and
-leaves a graph without them unchanged).
+graph_viz writes the block's graphviz dump (``Graph.to_dot``) to its
+``graph_viz_path`` attr, as the JAX package's does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple, Type
+from typing import Dict, List, Tuple, Type
 
 import numpy as np
 import torch
@@ -1366,38 +1364,13 @@ class SeqConvEltAddReluFusePass(Pass):
         _splice(graph, fused_at, drop)
 
 
-# ---------------------------------------------------------------------------
-# passes not ported yet: registered under their names behind a guard
-# ---------------------------------------------------------------------------
+@register_pass
+class GraphVizPass(Pass):
+    """graph_viz_pass.cc analog: write a .dot dump of the block."""
 
-_A10 = "ROADMAP A10 (observability)"
-
-
-class _NotPortedPass(Pass):
-    """A pass of the JAX package that the port does not have yet.
-
-    ``needs`` is what its pattern needs, one tuple of alternative op types
-    per pattern node it cannot match without. A graph that holds at least
-    one op type of every tuple could match: the pass raises
-    ``NotImplementedError`` naming ``roadmap``. Any other graph is left
-    unchanged, which is what the JAX pass does with it."""
-
-    needs: Tuple[Tuple[str, ...], ...] = ()
-    roadmap = ""
+    name = "graph_viz_pass"
 
     def apply(self, graph: Graph):
-        present = {op.type for op in graph.ops}
-        if all(present & set(alts) for alts in self.needs):
-            raise NotImplementedError(
-                f"{self.name} is not ported yet: it waits for "
-                f"{self.roadmap}")
-
-
-def _not_ported(name: str, needs: Sequence[Tuple[str, ...]], roadmap: str):
-    register_pass(type(f"NotPorted_{name}", (_NotPortedPass,),
-                       {"name": name, "needs": tuple(needs),
-                        "roadmap": roadmap}))
-
-
-# writes a .dot file of any graph: nothing to match, always raises
-_not_ported("graph_viz_pass", (), _A10)
+        path = self.attrs.get("graph_viz_path", "program.dot")
+        with open(path, "w") as f:
+            f.write(graph.to_dot())

@@ -792,9 +792,12 @@ def verify_before_run(program, feed_names=None, fetch_names=None):
     """Executor hook (``FLAGS.verify_passes`` /
     ``build_strategy.verify_passes``): verify the program before its
     first preparation, memoized per program version so later runs pay a
-    dict lookup. Raises ProgramVerifyError on error-severity findings.
-    (The JAX package also reports the seconds and findings to its
-    monitor, which the port takes with ROADMAP A10.)"""
+    dict lookup. Raises ProgramVerifyError on error-severity findings;
+    the report lands in the monitor (``verify_seconds``,
+    ``verify_findings{severity=}``, ``verify_ops_checked_total``) either
+    way."""
+    from .. import monitor as _monitor
+
     memo = program.__dict__.setdefault("_verify_memo", {})
     version = getattr(program, "_version", 0)
     cached = memo.get(version)
@@ -802,6 +805,15 @@ def verify_before_run(program, feed_names=None, fetch_names=None):
         return cached
     report = verify_program(program, feed_names=feed_names,
                             fetch_names=fetch_names)
+    if _monitor.enabled():
+        _monitor.timer("verify_seconds").observe(report.wall_ms / 1e3)
+        c = report.counts()
+        _monitor.gauge("verify_findings", {"severity": ERROR}).set(
+            c[ERROR])
+        _monitor.gauge("verify_findings", {"severity": WARNING}).set(
+            c[WARNING])
+        _monitor.counter("verify_ops_checked_total").inc(
+            report.ops_checked)
     report.raise_on_errors(context=f"program v{version}")
     memo[version] = report
     return report

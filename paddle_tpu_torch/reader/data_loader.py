@@ -19,11 +19,13 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..core.types import dtype_to_numpy
 from ..framework import Variable
 from ..place import CUDAPlace, Place
@@ -183,17 +185,23 @@ class DataLoader:
                     if not put((len(pending),
                                 self._to_device(stack_steps(pending)))):
                         return
+                if to_skip > 0 and _monitor._enabled:
+                    _monitor.counter(
+                        "dataloader_cursor_overrun_total").inc(to_skip)
             except BaseException as e:  # raised on the caller's thread
                 put(("error", e))
             else:
                 put(end)
 
+        if skip and _monitor._enabled:
+            _monitor.counter("dataloader_skipped_batches_total").inc(skip)
         t = threading.Thread(target=produce, daemon=True,
                              name="data-loader")
         t.start()
         completed = False
         try:
             while True:
+                t0 = time.perf_counter() if _monitor._enabled else 0.0
                 item = q.get()
                 if item is end:
                     completed = True
@@ -201,6 +209,15 @@ class DataLoader:
                 if item[0] == "error":
                     raise item[1]
                 nsteps, (feed, done) = item
+                if t0:
+                    # time blocked in q.get is prefetch starvation (the
+                    # producer fell behind the loop); depth is sampled
+                    # after the take, so 0 means running dry
+                    _monitor.timer("dataloader_starvation_seconds"
+                                   ).observe(time.perf_counter() - t0)
+                    _monitor.gauge("dataloader_queue_depth").set(
+                        q.qsize())
+                    _monitor.counter("dataloader_batches_total").inc()
                 if done is not None:
                     self._stager.hand_off(feed.values(), done)
                 # the cursor counts batches the caller took, not the ones

@@ -35,13 +35,14 @@ Sites in this package (grep ``faults.fire`` for ground truth):
 - ``preemption``              ElasticTrainer step boundary (pass
                               ``exc=elastic.Preempted``)
 
-The JAX package's ``cluster.rank_delay`` waits for ROADMAP A10 and A12.
+The JAX package's ``cluster.rank_delay`` waits for the cross-rank plane
+of ROADMAP A12.
 ``executor.compile`` has no counterpart: the port builds no executable
 that could fail apart from the run that uses it.
 
 Injected failures raise :class:`FaultInjected` by default (pass ``exc=``
-for a custom type). The JAX package also counts every firing in its
-monitor; the port's monitor is ROADMAP A10.
+for a custom type). With the monitor on every firing also counts as
+``fault_injections_total{site=,kind=}`` (kind ``delay`` or ``fail``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ import time
 from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
+
+from .. import monitor as _monitor
 
 __all__ = ["FaultInjected", "FaultPlan", "fire", "active_plan"]
 
@@ -200,6 +203,13 @@ class FaultPlan:
                     rule.fired += 1
                     self._injected[site] = self._injected.get(site, 0) + 1
                     raise_rule = rule
+        if _monitor._enabled and (sleep_s or raise_rule is not None):
+            if sleep_s:
+                _monitor.counter("fault_injections_total",
+                                 {"site": site, "kind": "delay"}).inc()
+            if raise_rule is not None:
+                _monitor.counter("fault_injections_total",
+                                 {"site": site, "kind": "fail"}).inc()
         # act outside the lock: a sleeping or raising rule must not stall
         # other sites (or other threads hitting this site)
         if sleep_s:

@@ -48,6 +48,44 @@ _DEFAULTS: Dict[str, Any] = {
     # ElasticTrainer.health(): unhealthy when the newest complete
     # checkpoint is older than this many seconds (0 disables)
     "ckpt_age_budget_s": 0.0,
+    # observability (monitor.py), the JAX package's defaults:
+    # FLAGS_monitor=1 enables the stats registry and step telemetry at
+    # import; the disabled path costs one branch per hook
+    "monitor": False,
+    # slow-step detector: warn when a step exceeds this factor x the
+    # trailing median of the last slow_step_window like steps
+    "slow_step_factor": 3.0,
+    "slow_step_window": 32,
+    # step-telemetry ring buffer capacity (monitor.step_records)
+    "monitor_ring": 1024,
+    # live plane (monitor.serve_http): a nonzero port starts /metrics,
+    # /healthz, /vars, ... on 127.0.0.1 when the monitor is enabled or a
+    # predictor is created
+    "monitor_port": 0,
+    # flight recorder: directory of black-box JSONL dumps on typed
+    # failures ("" disables) and its rotation caps (0 disables a cap)
+    "flight_record_dir": "",
+    "flight_record_max_files": 64,
+    "flight_record_max_mb": 256.0,
+    # measured profiling (profiling/): a nonzero value profiles the
+    # process's first N monitored executor steps; the report goes to
+    # monitor.last_profile() and, with profile_dir, device_profile.json
+    "profile_steps": 0,
+    "profile_dir": "",
+    # slow-step escalation: arm a rate-limited capture of the next steps
+    # and attach its report as a slow_step_profile flight record
+    "profile_on_slow_step": False,
+    "profile_slow_step_cooldown_s": 600.0,
+    # per-predictor completed-request trace ring (BatchingPredictor.trace)
+    "trace_ring": 256,
+    # memory pre-flight (profiling/memory.py): refuse a plan whose
+    # predicted peak exceeds the card's memory x memory_budget_frac (0
+    # disables), or memory_budget_bytes when that is > 0
+    "memory_budget_frac": 0.0,
+    "memory_budget_bytes": 0,
+    # generation SLO budgets in ms read by the /generation plane (0: none)
+    "generation_slo_ttft_ms": 0.0,
+    "generation_slo_itl_ms": 0.0,
 }
 
 
@@ -85,6 +123,14 @@ class _Flags:
 
 
 FLAGS = _Flags()
+
+
+def memory_budget_set() -> bool:
+    """Is a memory budget set (``memory_budget_frac`` or
+    ``memory_budget_bytes``)? The memory pre-flight's switch, read
+    without importing ``profiling``."""
+    return (float(FLAGS.memory_budget_frac) > 0
+            or int(FLAGS.memory_budget_bytes) > 0)
 
 
 def get_flags(names):

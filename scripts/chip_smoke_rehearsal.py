@@ -11,7 +11,8 @@ ResNet-50, phase 17 at small widths (ZOO_TINY) and phase 18 at small
 widths (machine translation at MT_TINY, label_semantic_roles at
 SRL_TINY), phase 19 at small widths (PHASE19_TINY), phase 20 at small
 widths (PHASE20_TINY), phase 22 at small widths (PHASE22_TINY) and phase
-23 at small widths (PHASE23_TINY), to find faults in the script's Python
+23 at small widths (PHASE23_TINY) and phase 25 (``--phase25``) at the
+tiny Transformer and the narrow LM, to find faults in the script's Python
 before a run on the card.
 
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py
@@ -28,6 +29,8 @@ before a run on the card.
                                                                   # 22 only
     JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase23
                                                                   # 23 only
+    JAX_PLATFORMS=cpu python scripts/chip_smoke_rehearsal.py --phase25
+                                                                  # 25 only
 
 The executor and predictor defaults are pointed at the CPU, the CUDA
 synchronise and memory-statistics calls are stubbed, and the flash
@@ -213,6 +216,43 @@ def _zoo():
     return zoo
 
 
+def _phase25():
+    """Phase 25 at the tiny Transformer and the narrow LM. On the CPU
+    every run is eager and no graph is kept: the graphs' flash nodes are
+    the phase's wants, and a session's flash kernels are the wrappers'
+    calls in its window (the CPU trace holds aten ops, not kernels)."""
+    from paddle_tpu_torch.profiling import session
+
+    @contextlib.contextmanager
+    def kept():
+        yield [None]
+
+    cs.graphs_kept = kept
+    cs.graph_flash_nodes = lambda g: ((cs.FWD_PER_STEP, cs.BWD_PER_STEP),
+                                      0)
+    begin, ingest = session.ProfileSession._begin, \
+        session.ProfileSession._ingest
+
+    def _begin(self):
+        self._fa0 = (fa.launches, fa.bwd_launches)
+        return begin(self)
+
+    def _ingest(self, wall, path):
+        rep = ingest(self, wall, path)
+        rep["_flash"] = (fa.launches - self._fa0[0],
+                         fa.bwd_launches - self._fa0[1])
+        return rep
+
+    session.ProfileSession._begin = _begin
+    session.ProfileSession._ingest = _ingest
+    cs.flash_rows = lambda rep: (rep["_flash"], rep["_flash"])
+    cs.GEN_LM = GEN_TINY
+    # a traced CPU step of the tiny model takes some 0.4 s: the delay
+    # must pass 3x the trailing median
+    cs.OBS_DELAY_S = 4.0
+    return cs.observability_paths("CPU rehearsal")[0]
+
+
 def _d2h_copies(fn):
     """chip_smoke.d2h_copies without a trace: the host arrays fn returns
     (a decode chunk's tokens and done flags, a decode call's fetches)."""
@@ -308,6 +348,9 @@ def main():
         return
     if "--phase23" in sys.argv:
         print(f"rehearsal passed: phase 23 {_phase23()}")
+        return
+    if "--phase25" in sys.argv:
+        print(f"rehearsal passed: phase 25 {_phase25()}")
         return
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as d, \

@@ -37,7 +37,6 @@ DEFERRED_LAYERS = {
     "open_files": "A13",
 }
 DEFERRED_TOP = {
-    **{n: "A10" for n in ("monitor", "profiler", "debugger")},
     **{n: _A12 for n in (
         "ParallelExecutor", "parallel_executor", "DistributeTranspiler",
         "DistributeTranspilerConfig", "transpiler", "memory_optimize",

@@ -14,7 +14,8 @@ a second process, bitwise: the card's phase 16 at a tiny size.
 
 Held against the JAX package: the public surface (``RESUME_EXIT_CODE``,
 the trainer's ``health()`` keys, the cursor and step a preemption
-records), on the same reader.
+records), on the same reader, and the monitor's ``elastic_*``,
+``checkpoint_*`` and ``dataloader_*`` record of one run.
 """
 
 import os
@@ -581,3 +582,66 @@ def test_sigkill_and_resume_across_processes(tmp_path):
     assert sorted(resumed) == list(range(start + 1, end + 1))
     assert all(resumed[s] == ref[s] for s in resumed)
     assert res_end["params"] == ref_end["params"]
+
+
+def test_monitor_counts_as_the_jax_trainer(tmp_path):
+    """The same run through both packages' ElasticTrainer over a
+    DataLoader, with cadence checkpoints and an injected preemption: the
+    two monitors hold the same ``elastic_*``, ``checkpoint_*`` and
+    ``dataloader_*`` names, and the same values but for the saves' (the
+    port's cadence counts from the last save started, the JAX
+    package's from the last one completed, so it saves more often
+    behind an asynchronous writer); the port's save counts are its
+    writer's. The trainer's health is on ``/healthz`` until
+    ``close()``."""
+    from paddle_tpu import monitor as jmon
+    from paddle_tpu.testing import faults as jfaults
+    from paddle_tpu_torch import monitor as pmon
+    bs = _batches(6)
+    got = {}
+    for name, mod, mon, flt, el in (
+            ("jax", fluid, jmon, jfaults, jelastic),
+            ("port", pt, pmon, faults, elastic)):
+        mon.reset()
+        mon.enable()
+        try:
+            main, exe, loss = _fresh(mod)
+            tr = el.ElasticTrainer(exe, str(tmp_path / name),
+                                   main_program=main, save_every_steps=2,
+                                   install_signal_handler=False)
+            assert tr.restore() == 0
+            with flt.FaultPlan().fail("preemption", calls=[5],
+                                      exc=el.Preempted):
+                with pytest.raises(SystemExit):
+                    tr.run(_loader(main, bs, mod), fetch_list=[loss])
+            assert "elastic_trainer" in mon.healthz()["components"]
+            saves = tr._ckpt.stats["saves"] if name == "port" else None
+            tr.close()
+            assert "elastic_trainer" not in mon.healthz()["components"]
+            snap = mon.snapshot()
+            got[name] = {
+                k: (v["count"] if isinstance(v, dict) else v)
+                for k, v in snap.items()
+                if k.split("{")[0].startswith(("elastic_", "checkpoint_",
+                                               "dataloader_"))
+                and k.split("{")[0] not in ("checkpoint_age_seconds",
+                                            "checkpoint_bytes",
+                                            "dataloader_queue_depth")}
+        finally:
+            mon.disable()
+            mon.reset()
+    # a join of the previous save shows only behind a save in flight
+    joins = {"checkpoint_join_seconds"}
+    assert set(got["port"]) - joins == set(got["jax"]) - joins
+    cadence = ("checkpoint_saves_total", "checkpoint_bytes_total",
+               "checkpoint_save_seconds", "checkpoint_stall_seconds",
+               "checkpoint_join_seconds", "elastic_checkpoints_total")
+    for k, v in got["port"].items():
+        if not k.startswith(cadence):
+            assert v == got["jax"][k], k
+    p = got["port"]
+    assert p['checkpoint_saves_total{path="async"}'] == saves == \
+        p['elastic_checkpoints_total{kind="cadence"}'] + 1
+    assert p['elastic_checkpoints_total{kind="emergency"}'] == 1
+    assert got["port"]["elastic_preemptions_total"] == 1
+    assert got["port"]["dataloader_batches_total"] == 5

@@ -565,8 +565,14 @@ def test_paged_state_shapes_and_residency():
 
 def test_paged_capacity_math():
     """tests/test_generation_paging.py's closed forms: the pool scales
-    with num_pages, a page costs 2 x layers x heads x page x d_head x 4."""
-    pe = _port_engine(True)
+    with num_pages, a page costs 2 x layers x heads x page x d_head x 4;
+    and ``max_fitting_config`` picks the JAX engine's (slots, cap) at the
+    same spec and budget (None with no budget, as there). The port's
+    carry holds 12 more bytes a slot than the JAX one (a slot's random
+    stream is two int64 words where the JAX key is two uint32, and an
+    int32 more), so each budget sits 16 bytes a slot above the JAX size,
+    clear of that difference."""
+    je, pe = _engines(paged=True)
     assert pe.paged and pe.page_size == 8
     assert pe.max_pages_for(24) == 3 and pe.default_num_pages(2, 24) == 6
     full, small = pe.state_nbytes(2, 24), pe.state_nbytes(2, 24, 3)
@@ -576,8 +582,16 @@ def test_paged_capacity_math():
         pe.alloc_state(2, 24, num_pages=2)
     with pytest.raises(ValueError, match="max_positions"):
         pe.alloc_state(1, 65)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pe.max_fitting_config(2)
+    assert pe.state_nbytes(2, 24) - je.state_nbytes(2, 24) == 2 * (
+        pengine._CARRY_BYTES_PER_SLOT - (4 + 8 + 1 + 4 + 4 + 4)) == 2 * 12
+    assert pe.max_fitting_config(2) is None
+    assert je.max_fitting_config(2) is None
+    for s, c in ((2, 24), (2, 16), (1, 24), (1, 16)):
+        budget = je.state_nbytes(s, c) + 16 * s
+        got = pe.max_fitting_config(2, budget)
+        assert got == je.max_fitting_config(2, budget) == (s, c)
+    assert pe.max_fitting_config(2, 8) is None
+    assert je.max_fitting_config(2, 8) is None
 
 
 def test_carries_are_reused_and_graph_bindings_checked(pair):

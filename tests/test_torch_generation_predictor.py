@@ -19,7 +19,10 @@ A ``build_lm`` of 2 layers, d_model 64 and vocab 256 behind the port's
   in the queue, and a shed at admission, resolve as their typed errors;
   a sampled request gets the same tokens alone and among other requests;
   a chaos run of injected ``serving.dispatch`` faults resolves every
-  future (tokens or ``FaultInjected``).
+  future (tokens or ``FaultInjected``);
+- with the monitor on, each request's trace seals with its spans, the
+  ``generation_*`` counters follow the predictor's stats, and
+  ``/generation`` carries the predictor's plane.
 
 Every wait on a future has a timeout and every predictor is shut down in
 a ``finally``.
@@ -394,3 +397,44 @@ def test_clone_and_shutdown_hand_the_carry_back(engine):
     assert engine.stats["carries"] == carries
     with pytest.raises(RuntimeError, match="shut down"):
         pred.submit(_prompts([5])[0])
+
+
+def test_monitor_traces_counts_and_the_generation_plane(engine):
+    """With the monitor on: every request's trace seals (admission,
+    enqueue wait, admit, decode) and covers its life, none is left
+    pending, the generation counters equal the predictor's stats, the
+    token latencies are observed, and ``/generation`` carries the
+    predictor's plane until its shutdown."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference.generation import trace_span_coverage
+    monitor.reset()
+    monitor.enable()
+    pred = _predictor(engine)
+    try:
+        pred.warmup()
+        futs = [pred.submit(p) for p in _prompts([5, 12, 7], seed=9)]
+        outs = _results(futs)
+        recs = [pred.trace(f.trace_id) for f in futs]
+        for rec in recs:
+            names = {s["name"] for s in rec["spans"]}
+            assert rec["ok"] is True
+            assert {"admission", "enqueue_wait", "admit", "decode"} <= names
+            assert trace_span_coverage(rec) > 0.9
+        assert pred.pending_traces() == []
+        snap = monitor.snapshot()
+        assert snap["generation_tokens_total"] == sum(map(len, outs)) \
+            == pred.stats["tokens"]
+        assert snap["generation_slot_leaves_total"] == 3
+        assert snap["generation_ttft_seconds"]["count"] == 3
+        plane = monitor.generation_plane()
+        mine = plane["predictors"][pred._health_name]
+        assert mine["stats"]["tokens"] == pred.stats["tokens"]
+        assert plane["latency"]["ttft"]["count"] == 3
+        assert monitor.bench_summary()["generation"]["tokens"] == \
+            pred.stats["tokens"]
+    finally:
+        pred.shutdown()
+        name = pred._health_name
+        monitor.disable()
+        monitor.reset()
+    assert name not in monitor.generation_plane()["predictors"]

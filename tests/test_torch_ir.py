@@ -15,11 +15,11 @@ the passes that fold values from the Scope (conv_bn_fuse,
 conv_affine_channel_fuse) also leave the JAX package's folded tensors,
 bit for bit.
 
-The guarded pass (graph_viz) is checked for its claim: the port's raises
-on any graph. The passes guarded once and ported since
-(seqconv_eltadd_relu and the RNN and sequence fusions) leave the
-Transformer inference program unchanged, as the JAX package's do, and do
-with the guard's anchor-op graph what the JAX package's do.
+The passes guarded once and ported since (seqconv_eltadd_relu, the RNN
+and sequence fusions, and graph_viz) leave the Transformer inference
+program unchanged, as the JAX package's do, and do with the guard's
+anchor-op graph what the JAX package's do (graph_viz writes the same
+.dot file, byte for byte).
 """
 
 import enum
@@ -938,8 +938,9 @@ def test_analysis_default_passes_on_the_inference_program(transformers,
 # the guarded passes, and the RNN and sequence fusions ported since
 # ---------------------------------------------------------------------------
 
+# every pass of the JAX package is ported: none is guarded any more
 GUARDED = sorted(n for n, cls in pir.PASS_REGISTRY.items()
-                 if issubclass(cls, pir.passes._NotPortedPass))
+                 if cls.__name__.startswith("NotPorted"))
 # the passes guarded before the RNN and sequence fusions were ported;
 # each keeps its checks: a guard raises on its anchor ops, a ported pass
 # does what the JAX package's does on that graph
@@ -959,10 +960,10 @@ def test_every_jax_pass_is_registered_in_the_port():
     assert set(AnalysisConfig.DEFAULT_PASSES) <= set(pir.PASS_REGISTRY)
     # squared_mat_sub_fuse_pass (ROADMAP C1),
     # transpose_flatten_concat_fuse_pass (with concat), the RNN and
-    # sequence fusions and seqconv_eltadd_relu (with sequence_conv) are
-    # ported; graph_viz is guarded
+    # sequence fusions, seqconv_eltadd_relu (with sequence_conv) and
+    # graph_viz are ported
     assert len(pir.PASS_REGISTRY) == 27
-    assert GUARDED == ["graph_viz_pass"]
+    assert GUARDED == []
     assert set(GUARDED) <= set(ONCE_GUARDED)
     for name in ("squared_mat_sub_fuse_pass",
                  "transpose_flatten_concat_fuse_pass",
@@ -1009,7 +1010,7 @@ def test_guarded_pass_leaves_the_transformer_unchanged(inference_program,
 
 
 @pytest.mark.parametrize("name", sorted(ONCE_GUARDED))
-def test_guarded_pass_raises_on_its_anchor_ops(name):
+def test_guarded_pass_raises_on_its_anchor_ops(name, tmp_path, monkeypatch):
     """A guarded pass: a graph holding one op type of each of the
     pattern's needs raises and names the ROADMAP item; the same graph
     short of one need is left alone. A pass ported since does with that
@@ -1019,10 +1020,25 @@ def test_guarded_pass_raises_on_its_anchor_ops(name):
     if name not in GUARDED:
         jprog = fluid.Program()
         jprog.global_block().desc.ops = [JOpDesc(alts[0]) for alts in needs]
+        if name == "graph_viz_pass":
+            # a graph with ops, so the dump has edges to compare
+            jprog = fluid.Program()
+            with fluid.program_guard(jprog, fluid.Program()):
+                _conv_train()()
         pprog = to_port(jprog)
+        # graph_viz writes program.dot into the working directory
+        for side in ("j", "p"):
+            (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / "j")
         jir.apply_passes(jprog, [name], scope=fluid.Scope())
+        monkeypatch.chdir(tmp_path / "p")
         pir.apply_passes(pprog, [name], scope=pt.Scope())
         assert_same_ops(_ops(jprog), _ops(pprog))
+        if name == "graph_viz_pass":
+            dot = (tmp_path / "p" / "program.dot").read_bytes()
+            assert dot == (tmp_path / "j" / "program.dot").read_bytes()
+            assert dot.startswith(b"digraph program {") and b"->" in dot
+            return
         assert [o.type for o in _ops(pprog)] == [alts[0] for alts in needs]
         return
     cls = pir.PASS_REGISTRY[name]

@@ -20,12 +20,15 @@ The executor under threads (ROADMAP C3): several threads on one plan and
 on a predictor's ``clone()`` each get their own request's rows, equal to
 the serial run's.
 
-Waiting for the port's monitor (ROADMAP A10), so not carried over:
-tests/test_serving.py's ``test_request_trace_complete_chain`` and
-``test_trace_records_deadline_expiry`` (request tracing) and
-``test_retrace_classifier_batch_vs_feature_shape`` (the monitor's retrace
-classifier). ``test_trace_disabled_when_monitor_off`` is carried over as
-``trace_id`` being None.
+With the monitor on (the last section): tests/test_serving.py's
+``test_request_trace_complete_chain``,
+``test_trace_records_deadline_expiry``,
+``test_retrace_classifier_batch_vs_feature_shape``, the hit, miss, pad
+and oversize counters of ``test_bucketed_parity_and_hit_miss_counters``
+and ``test_oversize_batch_chunks_correctly``, the same requests through
+both packages giving equal ``serving_*`` counters, and the front's health
+on ``/healthz``. ``test_trace_disabled_when_monitor_off`` is carried over
+as ``trace_id`` being None and nothing traced.
 """
 
 import inspect
@@ -449,7 +452,8 @@ def test_trace_id_is_none_without_the_monitor(model_dir):
         fut = pred.submit({"x": _x(2)})
         fut.result(timeout=30)
         assert fut.trace_id is None
-        assert not hasattr(pred, "trace")  # request tracing: ROADMAP A10
+        # with the monitor off nothing is traced
+        assert pred.trace_records() == [] and pred.pending_traces() == []
     finally:
         pred.shutdown()
 
@@ -559,3 +563,160 @@ def test_executor_run_fires_its_fault_site(model_dir):
         assert _out(pred, _x(1)).shape == (1, 5)
         assert plan.calls("executor.run") == 2
     assert _plans(pred) and _runs(pred) == 1  # the faulted run ran nothing
+
+
+# ---------------------------------------------------------------------------
+# the monitor: counters, request traces, health, the retrace classifier
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def monitors():
+    from paddle_tpu import monitor as jmon
+    from paddle_tpu_torch import monitor as pmon
+    for m in (jmon, pmon):
+        m.reset()
+        m.enable()
+    yield jmon, pmon
+    for m in (jmon, pmon):
+        m.disable()
+        m.reset()
+
+
+_SERVING_KEYS = (
+    "serving_requests_total", "serving_batches_total",
+    "serving_request_rows_total", "serving_padded_rows_total",
+    "serving_oversize_chunks_total", 'serving_bucket_misses_total{bucket="b2"}',
+    'serving_bucket_misses_total{bucket="b4"}',
+    'serving_bucket_hits_total{bucket="b4"}',
+    'serving_bucket_hits_total{bucket="b2"}')
+
+
+def test_serving_counters_match_jax(model_dir, monitors):
+    """The same requests, one at a time (so each is one device call),
+    through both packages' bucketed and coalescing fronts: the serving
+    counters and the pad-waste summary are equal."""
+    jmon, pmon = monitors
+    preds = [pkg.create_paddle_predictor(
+        c.enable_shape_bucketing(batch_buckets=(2, 4))
+        .enable_request_coalescing(max_batch_size=4, batch_timeout_us=100))
+        for pkg, c in ((jinference, jinference.AnalysisConfig(model_dir)),
+                       (pinference, _cfg(model_dir)))]
+    try:
+        for rows in (3, 4, 1, 10, 2):
+            for pred in preds:
+                pred.run({"x": _x(rows)}, timeout=60)
+    finally:
+        for pred in preds:
+            pred.shutdown()
+    js, ps = jmon.snapshot(), pmon.snapshot()
+    for k in _SERVING_KEYS:
+        assert ps.get(k) == js.get(k), k
+    assert ps["serving_requests_total"] == 5
+    assert ps["serving_oversize_chunks_total"] == 3
+    for k in ("count", "sum", "max"):
+        assert ps["serving_pad_waste_fraction"][k] == pytest.approx(
+            js["serving_pad_waste_fraction"][k])
+    assert ps["serving_time_in_queue_seconds"]["count"] == 5
+    assert ps["serving_coalesced_rows"]["sum"] == js[
+        "serving_coalesced_rows"]["sum"]
+
+
+def test_request_trace_complete_chain(model_dir, monitors):
+    """Every submitted request gets a trace id whose span chain covers
+    admission -> enqueue_wait -> coalesce -> pad -> dispatch ->
+    device_execute -> fanout, with pad waste bytes attributed, across
+    the caller's and the dispatcher's threads."""
+    _jmon, pmon = monitors
+    pred = pinference.create_paddle_predictor(
+        _cfg(model_dir).enable_shape_bucketing(batch_buckets=(2, 4))
+        .enable_request_coalescing(max_batch_size=4, batch_timeout_us=500))
+    try:
+        pred.warmup()
+        fut = pred.submit({"x": _x(3)})
+        fut.result(timeout=30)
+        tid = fut.trace_id
+        assert tid
+        rec = pred.trace(tid)
+        assert rec is not None and rec["ok"] is True, rec
+        names = [s["name"] for s in rec["spans"]]
+        for n in ("admission", "enqueue_wait", "coalesce", "pad",
+                  "dispatch", "device_execute", "fanout"):
+            assert n in names, (n, names)
+        pad = next(s for s in rec["spans"] if s["name"] == "pad")
+        # 3 rows pad up to bucket 4: one waste row of 6 float32s
+        assert pad["bucket"] == "b4" and pad["waste_bytes"] == 1 * 6 * 4
+        t0s = [s["t0"] for s in rec["spans"]]
+        assert t0s == sorted(t0s)
+        assert len({s["tid"] for s in rec["spans"]}) >= 2
+        evs = pred.trace_events(0.0)
+        assert any(e["ph"] == "s" for e in evs)
+        assert any(e["ph"] == "f" for e in evs)
+        assert pred.trace("t99999999") is None
+        assert pmon.lookup_trace(tid) == rec
+        assert pred.pending_traces() == []
+        assert any(e.get("ev") == "trace" and e["trace_id"] == tid
+                   for e in pmon.events())
+    finally:
+        pred.shutdown()
+
+
+def test_trace_records_deadline_expiry(model_dir, monitors):
+    pred = pinference.create_paddle_predictor(
+        _cfg(model_dir).enable_request_coalescing(max_batch_size=4,
+                                                  batch_timeout_us=500))
+    try:
+        pred.run({"x": _x(2)})  # warm, so the dispatch itself is fast
+        fut = pred.submit({"x": _x(2)}, deadline_ms=0.001)
+        with pytest.raises(pserving.DeadlineExceeded):
+            fut.result(timeout=30)
+        rec = pred.trace(fut.trace_id)
+        assert rec is not None and rec["ok"] is False
+        assert rec["error"] == "DeadlineExceeded"
+        dl = next(s for s in rec["spans"] if s["name"] == "deadline_check")
+        assert dl["outcome"] == "expired"
+        assert monitors[1].snapshot()["serving_expired_total"] == 1
+    finally:
+        pred.shutdown()
+
+
+def test_front_health_registered_for_healthz(model_dir, monitors):
+    _jmon, pmon = monitors
+    pred = pinference.create_paddle_predictor(
+        _cfg(model_dir).enable_shape_bucketing(batch_buckets=(2,))
+        .enable_request_coalescing(max_batch_size=2, batch_timeout_us=100))
+    try:
+        pred.warmup()
+        comps = pmon.healthz()["components"]
+        mine = [h for n, h in comps.items()
+                if n.startswith("batching_predictor:")
+                and h.get("warm_buckets") == ["b2"]]
+        assert mine and mine[-1]["breaker"] == "closed"
+        assert pmon.healthz()["status"] == "ok"
+    finally:
+        pred.shutdown()
+    names = set(pmon.healthz()["components"])
+    assert not any(n == pred._health_name for n in names)
+
+
+def test_retrace_classifier_batch_vs_feature_shape(monitors):
+    _jmon, pmon = monitors
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[4], dtype="float32")
+        out = pt.layers.reduce_sum(x)
+    exe = pt.Executor(pt.CPUPlace())
+    exe.run(startup)
+    pmon.reset()
+    exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
+            fetch_list=[out])
+    # dim 0 moved, trailing dims intact: the bucketable kind
+    exe.run(main, feed={"x": np.ones((5, 4), np.float32)},
+            fetch_list=[out])
+    # a non-batch dim moved: a new specialization
+    exe.run(main, feed={"x": np.ones((2, 6), np.float32)},
+            fetch_list=[out])
+    snap = pmon.snapshot()
+    assert snap['executor_compiles_total{cause="first compile"}'] == 1
+    assert snap['executor_compiles_total{cause="new batch size"}'] == 1
+    assert snap['executor_compiles_total{cause="new feature shape"}'] == 1
+

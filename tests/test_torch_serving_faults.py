@@ -18,8 +18,12 @@ batched product are the unbatched rows, bit for bit, on this CPU).
 
 What the JAX tests read from the monitor is read from ``health()`` and
 from the wrapped predictor's plans: a device call is one run of a plan.
-The monitor's own counters (``serving_*_total``, ``bench_summary``)
-wait for ROADMAP A10. ``test_warmup_degrades_broken_bucket_and_continues``
+The monitor's own record is held in the last section: the breaker's
+opening and a dispatcher crash write flight records (the failing
+request's trace in the first), the ``serving_*`` resilience counters and
+``bench_summary()``'s serving digest follow the story, and every fault
+firing counts as ``fault_injections_total{site=,kind=}`` as in the JAX
+harness. ``test_warmup_degrades_broken_bucket_and_continues``
 warms with ``compile_workers=1``: with two cells on two threads the
 faulting call indices 0 and 1 can land one on each cell, and then
 neither cell fails twice.
@@ -673,3 +677,131 @@ def test_chaos_200_requests_resolve_typed_with_parity(model_dir):
         assert elapsed < 90, f"chaos load took {elapsed:.1f}s"
     finally:
         pred.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the monitor's record of the faults
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def monitored(tmp_path):
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.utils.flags import FLAGS
+    old = FLAGS.flight_record_dir
+    FLAGS.flight_record_dir = str(tmp_path / "flight")
+    monitor.reset()
+    monitor._flight_last.clear()
+    monitor.enable()
+    yield monitor, tmp_path / "flight"
+    monitor.disable()
+    monitor.reset()
+    FLAGS.flight_record_dir = old
+
+
+def _records(d, reason):
+    import json
+    import os
+    out = []
+    for name in sorted(os.listdir(d)) if d.exists() else ():
+        if reason in name:
+            out.append([json.loads(ln) for ln in open(d / name)])
+    return out
+
+
+def test_breaker_open_writes_a_flight_record_and_counts(model_dir,
+                                                        monitored):
+    monitor, d = monitored
+    pred = _coalescing(model_dir, dispatch_retries=1, retry_backoff_ms=0,
+                       breaker_threshold=2, breaker_reset_ms=60000)
+    pred.warmup()
+    try:
+        with FaultPlan().fail("serving.dispatch", calls=[0, 1, 2, 3]):
+            futs = []
+            for i in range(2):
+                fut = pred.submit({"x": _x(1, seed=i)})
+                futs.append(fut)
+                with pytest.raises(FaultInjected):
+                    fut.result(timeout=30)
+            with pytest.raises(CircuitOpen):
+                pred.submit({"x": _x(1)})
+        assert pred.health()["breaker"] == "open"
+        snap = monitor.snapshot()
+        assert snap["serving_breaker_opens_total"] == 1
+        assert snap["serving_breaker_state"] == 2
+        assert snap["serving_retries_total"] == 2
+        assert snap['fault_injections_total{kind="fail",'
+                    'site="serving.dispatch"}'] == 4
+        assert snap['flight_records_total{reason="circuit_open"}'] == 1
+        (rec,) = _records(d, "circuit_open")
+        meta = rec[0]
+        assert meta["ev"] == "flight_meta" and meta["reason"] == \
+            "circuit_open"
+        assert meta["consecutive_failures"] == 2
+        # the record names the request whose failure opened the breaker
+        assert meta["trace_id"] == futs[1].trace_id
+        # the log's sealed traces come first, the failing request's last
+        trace = [r for r in rec if r["ev"] == "trace"][-1]
+        assert trace["trace_id"] == futs[1].trace_id
+        assert trace["ok"] is False and trace["error"] == "FaultInjected"
+        assert any(r["ev"] == "health" for r in rec)
+        srv = monitor.bench_summary()["serving"]
+        assert srv["breaker_opens"] == 1 and srv["retries"] == 2
+        assert srv["fault_injections"] == 4
+        assert pred.pending_traces() == []
+    finally:
+        pred.shutdown()
+
+
+def test_dispatcher_crash_writes_a_flight_record(model_dir, monitored):
+    monitor, d = monitored
+    pred = _coalescing(model_dir)
+    pred.warmup()
+    try:
+        old = pred._thread
+        with FaultPlan().fail("serving.dispatcher", calls=[0]):
+            # the supervisor starts a new dispatcher thread last
+            old.join(timeout=30)
+            assert pred._thread is not old and pred._thread.is_alive()
+        out = pred.run({"x": _x(2, seed=2)}, timeout=30)
+        assert out[0].as_ndarray().shape[0] == 2
+        assert monitor.snapshot()["serving_dispatcher_crashes_total"] == 1
+        (rec,) = _records(d, "dispatcher_crash")
+        assert rec[0]["restarts"] == 1 and "FaultInjected" in \
+            rec[0]["error"]
+    finally:
+        pred.shutdown()
+
+
+def test_fault_injection_counts_match_the_jax_harness(monitored):
+    """The same plan fired the same number of times through both
+    harnesses: equal ``fault_injections_total`` per site and kind."""
+    from paddle_tpu import monitor as jmon
+    from paddle_tpu.testing import faults as jfaults
+    pmon, _d = monitored
+    jmon.reset()
+    jmon.enable()
+    try:
+        for F, fire, FI, mod in ((JFaultPlan, jfaults.fire,
+                                  JFaultInjected, jmon),
+                                 (FaultPlan, faults.fire, FaultInjected,
+                                  pmon)):
+            plan = (F(seed=3).fail("serving.dispatch", calls=[1, 4])
+                    .fail("ckpt_write", rate=0.5, times=3)
+                    .delay("serving.dispatcher", calls=[2], seconds=0.0))
+            with plan:
+                for _ in range(8):
+                    for site in ("serving.dispatch", "ckpt_write",
+                                 "serving.dispatcher"):
+                        try:
+                            fire(site)
+                        except FI:
+                            pass
+        keys = {k for m in (jmon, pmon) for k in m.snapshot()
+                if k.startswith("fault_injections_total")}
+        assert keys
+        for k in keys:
+            assert pmon.snapshot().get(k) == jmon.snapshot().get(k), k
+    finally:
+        jmon.disable()
+        jmon.reset()
+

@@ -9,9 +9,11 @@ assertions are then made on the port's report. Beyond tests/test_verify.py:
 ``check_pass`` is clean on every stage of the port's pipeline for the tiny
 Transformer and ResNet (the bench BuildStrategy), ``verify_passes`` is
 memoized per program version and leaves the op lists and the losses
-unchanged, and the registry's infer coverage is at least 90%.
-tests/test_verify.py's ``test_draw_program_annotates_offenders`` needs
-``debugger``, which waits for ROADMAP A10.
+unchanged, and the registry's infer coverage is at least 90%, and the
+report reaches the monitor as the JAX package's does (``verify_seconds``,
+``verify_findings{severity=}``, ``verify_ops_checked_total``).
+tests/test_verify.py's ``test_draw_program_annotates_offenders`` is
+carried over in tests/test_torch_debugger.py.
 """
 
 import numpy as np
@@ -598,3 +600,34 @@ def test_meta_fallback_infers_an_op_without_a_rule():
     shadow = verify._ShadowBlock(main.desc, 0)
     drop = next(o for o in blk.desc.ops if o.type == "dropout")
     assert verify._abstract_eval(drop, shadow) is None
+
+
+def test_verify_reports_to_the_monitor():
+    """verify_before_run's report lands in both monitors alike: the same
+    findings gauges and ops-checked counter (seconds differ)."""
+    from paddle_tpu import monitor as jmon
+    from paddle_tpu_torch import monitor as pmon
+
+    def mutate(fl, opdesc, dtypes, main):
+        _swap_dtype(fl, opdesc, dtypes, main)
+
+    snaps = {}
+    for name, (fl, ver, opdesc, dtypes) in PKGS.items():
+        mon = jmon if name == "jax" else pmon
+        mon.reset()
+        mon.enable()
+        try:
+            main = tiny_train(fl)[0]
+            mutate(fl, opdesc, dtypes, main)
+            with pytest.raises(ver.ProgramVerifyError):
+                ver.verify_before_run(main, feed_names={"x", "y"})
+            snaps[name] = {k: v for k, v in mon.snapshot().items()
+                           if not k.startswith("verify_seconds")}
+            assert mon.snapshot()["verify_seconds"]["count"] == 1
+        finally:
+            mon.disable()
+            mon.reset()
+    assert snaps["port"] == snaps["jax"]
+    assert snaps["port"]['verify_findings{severity="error"}'] >= 1
+    assert snaps["port"]["verify_ops_checked_total"] > 0
+
